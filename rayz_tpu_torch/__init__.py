@@ -1,0 +1,33 @@
+"""rayz_tpu_torch — the PyTorch + CUDA port of ``rayz_tpu``.
+
+A second package beside the JAX reference, laid out the same way
+(``models/``, ``ops/``, ``io/``). Plain tensor code is PyTorch; the render
+kernel is hand-written CUDA for Hopper (``csrc/``), built at first use. This
+package imports torch and numpy, never JAX.
+"""
+
+from .io import read_ppm, to_u8, write_png, write_ppm
+from .models import (Camera, Scene, SceneBuilder, camera_from_numpy,
+                     make_camera, scene_from_numpy)
+from .models import scenes
+from .ops import RenderConfig, pick_engine, render_fast, render_megakernel
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "Scene",
+    "SceneBuilder",
+    "make_camera",
+    "camera_from_numpy",
+    "scene_from_numpy",
+    "scenes",
+    "RenderConfig",
+    "render_fast",
+    "render_megakernel",
+    "pick_engine",
+    "to_u8",
+    "write_ppm",
+    "write_png",
+    "read_ppm",
+]

@@ -1,0 +1,329 @@
+// Per-ray device code shared by the port's kernels: the counter-based
+// random numbers, the nearest-hit sweeps over the shared-memory scene
+// tables, and the material scatter. Kernels include this header instead of
+// copying the bodies (the JAX package copies them across four modules).
+//
+// Numerics: the functions compute exactly what the plain torch version in
+// rayz_tpu_torch/ops/megakernel.py computes, operation for operation and in
+// the same association, and the build passes -fmad=false so that no
+// multiply-add is contracted. Square roots and divisions are IEEE (no
+// fast-math): the poisoned padding columns (|c|^2 - r^2 = 3e38) reject
+// themselves because their discriminant is -inf, and sqrt(-inf) = NaN
+// compares false.
+#pragma once
+
+#include <cstdint>
+
+namespace rz {
+
+constexpr float kBig = 3.0e38f;  // stand-in for +inf (t on miss)
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr int kCamWords = 20;  // camera vector (18 used) at the head of smem
+
+// Sphere table rows (one f32 row per attribute, columns = spheres).
+constexpr int kCX = 0, kCY = 1, kCZ = 2, kCCMR2 = 3;
+constexpr int kVX = 4, kVY = 5, kVZ = 6, kCV2 = 7, kVV = 8;
+constexpr int kPKF = 9;  // then ior-or-scale, even rgb, odd rgb
+constexpr int kSRows = 17;
+
+// Triangle table rows (columns = triangles).
+constexpr int kTNX = 0, kTNY = 1, kTNZ = 2, kTNV0 = 3;
+constexpr int kTG1X = 4, kTG1Y = 5, kTG1Z = 6, kTG1V = 7;
+constexpr int kTG2X = 8, kTG2Y = 9, kTG2Z = 10, kTG2V = 11;
+constexpr int kTPKF = 12;  // then ior-or-scale, even rgb, odd rgb
+constexpr int kTRows = 20;
+
+constexpr float kDielectric = 2.0f;
+constexpr float kMetallic = 1.0f;
+
+// ---- counter-based random numbers (twin: ops/rng.py) ----
+
+__host__ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x21F0AAADu;
+  x ^= x >> 15;
+  x *= 0x735A2D97u;
+  x ^= x >> 15;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t slot_key(uint32_t seed, int pix) {
+  return hash32(hash32(seed) ^ static_cast<uint32_t>(pix));
+}
+
+__device__ __forceinline__ uint32_t step_key(uint32_t key0, int sample,
+                                             int bounce) {
+  return hash32(hash32(key0 ^ static_cast<uint32_t>(sample)) ^
+                static_cast<uint32_t>(bounce));
+}
+
+__device__ __forceinline__ uint32_t draw_bits(uint32_t key, uint32_t n) {
+  return hash32(key + n * 0x9E3779B9u);
+}
+
+// 23 random bits -> [0, 1), exactly representable in f32.
+__device__ __forceinline__ float uniform(uint32_t bits) {
+  return static_cast<float>(bits & 0x7FFFFFu) * 1.1920928955078125e-07f;
+}
+
+// NaN-propagating clamps (torch.clamp_min / clamp_max semantics).
+__device__ __forceinline__ float clamp_min(float x, float c) {
+  return x < c ? c : x;
+}
+__device__ __forceinline__ float clamp_max(float x, float c) {
+  return x > c ? c : x;
+}
+
+// Uniform unit vector by the cylinder map: z ~ U[-1, 1], phi ~ U[0, 2pi).
+__device__ __forceinline__ void unit3(float u_z, float u_phi, float& x,
+                                      float& y, float& z) {
+  z = 2.0f * u_z - 1.0f;
+  const float phi = kTwoPi * u_phi;
+  const float r = sqrtf(clamp_min(1.0f - z * z, 1e-24f));
+  x = r * cosf(phi);
+  y = r * sinf(phi);
+}
+
+// ---- ray state ----
+
+struct Ray {
+  float ox, oy, oz;  // origin
+  float dx, dy, dz;  // direction (not unit)
+  float tau;         // motion-blur time in [0, 1)
+};
+
+// Per-ray terms of the root tests, which run in q = t * |d|^2 space.
+struct RayTerms {
+  float a;        // |d|^2
+  float d_dot_o;  // d . o
+  float o2;       // |o|^2
+  float tmin_a;   // t_min * |d|^2
+  float tau2;     // tau^2
+};
+
+__device__ __forceinline__ RayTerms ray_terms(const Ray& r, float t_min) {
+  RayTerms t;
+  t.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  t.d_dot_o = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
+  t.o2 = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  t.tmin_a = t_min * t.a;
+  t.tau2 = r.tau * r.tau;
+  return t;
+}
+
+// Sphere j's center at the ray's time (and |c|^2 - r^2 with it).
+template <bool kMotion>
+__device__ __forceinline__ void sphere_at(const float* __restrict__ tab,
+                                          int n, int j, const Ray& r,
+                                          const RayTerms& t, float& cx,
+                                          float& cy, float& cz,
+                                          float& ccmr2) {
+  cx = tab[kCX * n + j];
+  cy = tab[kCY * n + j];
+  cz = tab[kCZ * n + j];
+  ccmr2 = tab[kCCMR2 * n + j];
+  if (kMotion) {
+    cx = cx + r.tau * tab[kVX * n + j];
+    cy = cy + r.tau * tab[kVY * n + j];
+    cz = cz + r.tau * tab[kVZ * n + j];
+    ccmr2 = ccmr2 + tab[kCV2 * n + j] * r.tau + tab[kVV * n + j] * t.tau2;
+  }
+}
+
+// Nearest-hit sweep over the sphere table: a sequential scan with a
+// shrinking q_best, carrying only the winner's column in registers. Every
+// thread of a warp reads column j at the same moment, so each shared-memory
+// read is a broadcast. Ties keep the earlier column.
+template <bool kMotion>
+__device__ __forceinline__ void sweep_spheres(const float* __restrict__ tab,
+                                              int n, const Ray& r,
+                                              const RayTerms& t, float& qb,
+                                              int& best) {
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    float cx, cy, cz, ccmr2;
+    sphere_at<kMotion>(tab, n, j, r, t, cx, cy, cz, ccmr2);
+    const float half_b = r.dx * cx + r.dy * cy + r.dz * cz - t.d_dot_o;
+    const float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
+    const float c_term = ccmr2 - 2.0f * o_dot_c + t.o2;
+    const float disc = half_b * half_b - t.a * c_term;
+    if (disc >= 0.0f) {  // no real root otherwise (NaN compares false too)
+      const float rt = sqrtf(disc);
+      const float q1 = half_b - rt;
+      const float q2 = half_b + rt;
+      // nearest root in [t_min, t_best): the second root only when the
+      // first is out of range
+      const float qv = (q1 >= t.tmin_a) ? q1 : q2;
+      if (qv >= t.tmin_a && qv < qb) {
+        qb = qv;
+        best = j;
+      }
+    }
+  }
+}
+
+// Triangle sweep after the spheres, sharing q_best: plane test, then
+// dual-basis barycentrics on the hit point. Double-sided; a parallel ray
+// (n.d = 0) and the poisoned padding columns (g1.v0 = +BIG) reject
+// themselves.
+__device__ __forceinline__ void sweep_triangles(const float* __restrict__ tab,
+                                                int m, const Ray& r,
+                                                const RayTerms& t, float& qb,
+                                                int& best, bool& is_tri) {
+#pragma unroll 8
+  for (int j = 0; j < m; ++j) {
+    const float tnx = tab[kTNX * m + j];
+    const float tny = tab[kTNY * m + j];
+    const float tnz = tab[kTNZ * m + j];
+    const float ndd = r.dx * tnx + r.dy * tny + r.dz * tnz;
+    const float ndo = r.ox * tnx + r.oy * tny + r.oz * tnz;
+    const float rcp = 1.0f / ndd;
+    const float tt = (tab[kTNV0 * m + j] - ndo) * rcp;
+    const float qv = tt * t.a;
+    if (qv >= t.tmin_a && qv < qb) {
+      const float hx = r.ox + tt * r.dx;
+      const float hy = r.oy + tt * r.dy;
+      const float hz = r.oz + tt * r.dz;
+      const float u = tab[kTG1X * m + j] * hx + tab[kTG1Y * m + j] * hy +
+                      tab[kTG1Z * m + j] * hz - tab[kTG1V * m + j];
+      const float v = tab[kTG2X * m + j] * hx + tab[kTG2Y * m + j] * hy +
+                      tab[kTG2Z * m + j] * hz - tab[kTG2V * m + j];
+      if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f) {
+        qb = qv;
+        best = j;
+        is_tri = true;
+      }
+    }
+  }
+}
+
+// What one bounce does at a hit: the new direction and the attenuation, or
+// absorption (ok = false).
+struct Scatter {
+  float dx, dy, dz;
+  float ar, ag, ab;
+  bool ok;
+};
+
+// Material scatter at hit point p with unit normal n (already flipped to
+// oppose the ray). `mat` points at the winner's packed-kind row in its
+// table (row stride `stride`): packed kind/method/fuzz, ior-or-scale, even
+// rgb, odd rgb. `key` is the slot's step key; draws 5-8.
+__device__ __forceinline__ Scatter scatter(const float* __restrict__ mat,
+                                           int stride, const Ray& r,
+                                           float dinv, float px, float py,
+                                           float pz, float nx, float ny,
+                                           float nz, bool front,
+                                           uint32_t key) {
+  const float bpk = mat[0];
+  const float bios = mat[stride];
+  const float bkm = floorf(bpk * 0.25f);
+  const float bfz = (bpk - 4.0f * bkm) * 0.5f;
+  const float kind = floorf(bkm * 0.25f);
+  const float method = bkm - 4.0f * kind;
+
+  Scatter s;
+  if (kind == kDielectric) {
+    const float eta = front ? 1.0f / bios : bios;
+    const float udx = r.dx * dinv;
+    const float udy = r.dy * dinv;
+    const float udz = r.dz * dinv;
+    const float cos_t = -(udx * nx + udy * ny + udz * nz);
+    const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
+    const bool cannot = eta * sin_t > 1.0f;
+    float r0 = (1.0f - eta) / (1.0f + eta);
+    r0 = r0 * r0;
+    const float om = 1.0f - cos_t;
+    const float om2 = om * om;
+    const float refl_p = r0 + (1.0f - r0) * om2 * om2 * om;
+    if (cannot || refl_p > uniform(draw_bits(key, 8))) {
+      // reflect uses the NON-unit incoming direction (reference quirk)
+      const float two_ndd = 2.0f * (r.dx * nx + r.dy * ny + r.dz * nz);
+      s.dx = r.dx - two_ndd * nx;
+      s.dy = r.dy - two_ndd * ny;
+      s.dz = r.dz - two_ndd * nz;
+    } else {
+      const float ppx = (udx + cos_t * nx) * eta;
+      const float ppy = (udy + cos_t * ny) * eta;
+      const float ppz = (udz + cos_t * nz) * eta;
+      const float parm =
+          -sqrtf(clamp_min(1.0f - (ppx * ppx + ppy * ppy + ppz * ppz), 0.0f));
+      s.dx = ppx + parm * nx;
+      s.dy = ppy + parm * ny;
+      s.dz = ppz + parm * nz;
+    }
+    s.ar = 1.0f;
+    s.ag = 1.0f;
+    s.ab = 1.0f;
+    s.ok = s.dx * s.dx + s.dy * s.dy + s.dz * s.dz > 1e-20f;
+    return s;
+  }
+
+  float ux, uy, uz;
+  unit3(uniform(draw_bits(key, 5)), uniform(draw_bits(key, 6)), ux, uy, uz);
+
+  // checker albedo: floor-parity of p / scale picks even or odd (a solid
+  // texture has even == odd and scale 1)
+  const float isc = 1.0f / bios;
+  const float par = floorf(px * isc) + floorf(py * isc) + floorf(pz * isc);
+  const bool even_par = par - 2.0f * floorf(par * 0.5f) < 0.5f;
+  const int c = even_par ? 2 : 5;
+  s.ar = mat[c * stride];
+  s.ag = mat[(c + 1) * stride];
+  s.ab = mat[(c + 2) * stride];
+
+  if (kind == kMetallic) {
+    const float two_ndd = 2.0f * (r.dx * nx + r.dy * ny + r.dz * nz);
+    const float rfx = r.dx - two_ndd * nx;
+    const float rfy = r.dy - two_ndd * ny;
+    const float rfz = r.dz - two_ndd * nz;
+    const float rinv =
+        1.0f / sqrtf(clamp_min(rfx * rfx + rfy * rfy + rfz * rfz, 1e-24f));
+    const float fz = clamp_max(bfz, 1.0f);
+    s.dx = rfx * rinv + fz * ux;
+    s.dy = rfy * rinv + fz * uy;
+    s.dz = rfz * rinv + fz * uz;
+    const bool metal_ok = s.dx * nx + s.dy * ny + s.dz * nz > 0.0f;
+    s.ok = metal_ok && s.dx * s.dx + s.dy * s.dy + s.dz * s.dz > 1e-20f;
+    return s;
+  }
+
+  // diffuse: u^(1/3) via exp/log puts the sample inside the unit ball
+  const float cb =
+      expf(logf(clamp_min(uniform(draw_bits(key, 7)), 1e-24f)) * (1.0f / 3.0f));
+  const float sx = ux * cb;
+  const float sy = uy * cb;
+  const float sz = uz * cb;
+  float offx, offy, offz;
+  if (method == 0.0f) {  // UNIT_SPHERE
+    offx = nx + sx;
+    offy = ny + sy;
+    offz = nz + sz;
+  } else if (method == 1.0f) {  // UNIT_SPHERE_SURFACE
+    offx = nx + ux;
+    offy = ny + uy;
+    offz = nz + uz;
+  } else {  // HEMISPHERE
+    const float flip = (sx * nx + sy * ny + sz * nz > 0.0f) ? 1.0f : -1.0f;
+    offx = sx * flip;
+    offy = sy * flip;
+    offz = sz * flip;
+  }
+  // reference quirk: the near-zero check is on the target POINT; a
+  // near-origin target snaps to the bare normal
+  float tgx = px + offx;
+  float tgy = py + offy;
+  float tgz = pz + offz;
+  if (fabsf(tgx) <= 1e-8f && fabsf(tgy) <= 1e-8f && fabsf(tgz) <= 1e-8f) {
+    tgx = nx;
+    tgy = ny;
+    tgz = nz;
+  }
+  s.dx = tgx - px;
+  s.dy = tgy - py;
+  s.dz = tgz - pz;
+  s.ok = s.dx * s.dx + s.dy * s.dy + s.dz * s.dz > 1e-20f;
+  return s;
+}
+
+}  // namespace rz

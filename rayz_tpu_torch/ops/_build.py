@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes), under
+``build/kernels/<hash>/`` at the repository root. The hash covers the
+sources, the headers and the flags, so an edit rebuilds and an unchanged
+tree reuses the library. A missing ``nvcc`` or a failed build raises: there
+is no fallback.
+
+Flags: ``sm_90a`` (Hopper); no fast-math, so square roots and divisions are
+IEEE and the poisoned padding columns keep rejecting themselves through
+NaN compares; ``-fmad=false``, so the kernels round as the plain torch
+versions do (no contracted multiply-adds); ``-Xptxas -v``, whose register
+and spill report is kept beside the library (``ptxas.log``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+__all__ = ["load", "check", "build_dir", "BuildInfo"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("megakernel.cu",)
+_HEADERS = ("common.cuh",)
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+_LIB = "librayz_kernels.so"
+
+
+class BuildInfo(NamedTuple):
+    """What :func:`load` did: the library path, whether it compiled (False
+    = reused), the seconds it took and the ptxas report."""
+
+    path: Path
+    compiled: bool
+    seconds: float
+    log: str
+
+
+def build_dir() -> Path:
+    """``build/kernels`` beside the package (the repository root)."""
+    return _CSRC.parent.parent / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels are built from source at first use and need the CUDA "
+        "toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES + _HEADERS:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    lib.rayz_megakernel.argtypes = [p, p, i, p, i, p, i, p, p, p, i, i, i,
+                                    f, i, i, u, i, p]
+    lib.rayz_megakernel.restype = i
+    lib.rayz_rng_bits.argtypes = [u, p, p, p, p, i, p, p]
+    lib.rayz_rng_bits.restype = i
+    lib.rayz_error_string.argtypes = [i]
+    lib.rayz_error_string.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=1)
+def load():
+    """Compile (if needed) and load the kernel library; returns
+    ``(ctypes.CDLL, BuildInfo)``. Cached for the life of the process."""
+    out_dir = build_dir() / _digest()
+    lib_path = out_dir / _LIB
+    log_path = out_dir / "ptxas.log"
+    t0 = time.perf_counter()
+    compiled = False
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"{_LIB}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               *(str(_CSRC / s) for s in _SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)
+        compiled = True
+    lib = ctypes.CDLL(str(lib_path))
+    _declare(lib)
+    log = log_path.read_text() if log_path.exists() else ""
+    return lib, BuildInfo(lib_path, compiled, time.perf_counter() - t0, log)
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.rayz_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

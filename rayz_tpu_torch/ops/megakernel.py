@@ -1,0 +1,564 @@
+"""Persistent path-tracing megakernel: host side, wrapper and plain version.
+
+PyTorch counterpart of :mod:`rayz_tpu.ops.megakernel` for its main path:
+the SMEM-resident (here: shared-memory-resident), culling-off, full-table
+mode of ``_kernel`` as launched by ``_trace_shard`` and, at spp >= 16,
+by the straggler-compacted ``_trace_shard_compact``. The kernel itself is
+``csrc/megakernel.cu`` (hand-written CUDA for sm_90a); the per-ray device
+code is in ``csrc/common.cuh``.
+
+* :func:`_trace_slots_reference` is the plain torch version of the kernel:
+  the same algorithm in eager torch, vectorized over slots, with a lockstep
+  loop like the TPU tile. It runs for CPU tensors and is what the kernel is
+  held against.
+* :func:`_trace_slots` is the kernel wrapper. For a CUDA tensor it launches
+  the kernel (counting the launch in :data:`LAUNCHES`) or raises; only CPU
+  tensors take the plain version.
+* :func:`_trace_shard` (one launch) and :func:`_trace_shard_compact`
+  (budgeted passes with a stable partition of unfinished slots in between,
+  then the slot -> pixel scatter-back) are the two launch schedules, and
+  :func:`render_megakernel` picks between them as ``render_pallas`` does.
+
+Random draws are keyed by (seed, pixel, sample, bounce, draw number)
+(:mod:`rayz_tpu_torch.ops.rng`), so compaction reproduces the single launch
+bit for bit even on stochastic configs.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..models.camera import Camera
+from ..models.scene import Scene, _round_up
+from . import _build, rng
+from .integrator import RenderConfig
+from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
+                     _TG1Y, _TG1Z, _TG2V, _TG2X, _TG2Y, _TG2Z, _TNV0, _TNX,
+                     _TNY, _TNZ, _TPKF, _VV, _VX, _VY, _VZ, SHARED_LIMIT,
+                     _camera_vector, _resolve_tiling, _smem_scene_inputs,
+                     fits_shared, shared_bytes, supports_scene)
+
+__all__ = ["render_megakernel", "LAUNCHES", "STATE_PLANES", "BLOCK"]
+
+#: Kernel launches made by :func:`_trace_slots` in this process (never by
+#: the plain version). A run that resets it and reads it back shows which
+#: path it took.
+LAUNCHES = 0
+
+#: Saved per-slot state: origin xyz, direction xyz, time, throughput rgb,
+#: radiance rgb, depth left, samples left, active (integers as f32).
+STATE_PLANES = 16
+
+#: Threads per block of the kernel; slot capacity rounds up to whole blocks.
+BLOCK = 128
+
+_TWO_PI = 6.283185307179586
+# Bound on the [slots, primitives] temporaries of the plain sweep.
+_SWEEP_ELEMS = 1 << 25
+
+Bits = Callable[[torch.Tensor, int], torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# plain torch version
+# --------------------------------------------------------------------------
+
+def _sphere_at(stab, cols, tau, tau2, has_motion):
+    """Sphere centers (and |c|^2 - r^2) at the rays' times. ``cols`` is a
+    slice (all columns, broadcast against [S, 1] ray terms) or a [S] index
+    tensor (one column per ray)."""
+    cx, cy, cz = stab[_CX, cols], stab[_CY, cols], stab[_CZ, cols]
+    ccmr2 = stab[_CCMR2, cols]
+    if has_motion:
+        cx = cx + tau * stab[_VX, cols]
+        cy = cy + tau * stab[_VY, cols]
+        cz = cz + tau * stab[_VZ, cols]
+        ccmr2 = ccmr2 + stab[_CV2, cols] * tau + stab[_VV, cols] * tau2
+    return cx, cy, cz, ccmr2
+
+
+def _first_min(qv):
+    """Smallest candidate per row and its first column (-1 if none)."""
+    q, j = qv.min(dim=1)
+    return q, torch.where(q < _BIG, j, torch.full_like(j, -1))
+
+
+def _sweep(stab, ttab, o, d, tau, a, d_dot_o, o2, tmin_a, tau2, has_motion):
+    """Nearest hit for a batch of rays: the kernel's sequential scans with a
+    shrinking q_best, as [rays, primitives] candidates reduced by a
+    first-minimum (identical winners: strictly-better updates keep the
+    earliest of equal candidates). Returns (q_best, column, is_triangle)."""
+    ox, oy, oz = (x[:, None] for x in o)
+    dx, dy, dz = (x[:, None] for x in d)
+    tau, a, d_dot_o, o2, tmin_a, tau2 = (
+        x[:, None] for x in (tau, a, d_dot_o, o2, tmin_a, tau2))
+    big = torch.tensor(_BIG, dtype=torch.float32, device=ox.device)
+    qb = torch.full_like(ox[:, 0], _BIG)
+    best = torch.full(qb.shape, -1, dtype=torch.int64, device=qb.device)
+    if stab.shape[1]:
+        cx, cy, cz, ccmr2 = _sphere_at(stab, slice(None), tau, tau2,
+                                       has_motion)
+        half_b = dx * cx + dy * cy + dz * cz - d_dot_o
+        o_dot_c = ox * cx + oy * cy + oz * cz
+        c_term = ccmr2 - 2.0 * o_dot_c + o2
+        disc = half_b * half_b - a * c_term
+        rt = torch.sqrt(disc)  # NaN on a miss: every compare below is false
+        q1 = half_b - rt
+        q2 = half_b + rt
+        qv = torch.where(q1 >= tmin_a, q1, q2)
+        qv = torch.where((qv >= tmin_a) & (qv < big), qv, big)
+        qb, best = _first_min(qv)
+    is_tri = torch.zeros_like(qb, dtype=torch.bool)
+    if ttab.shape[1]:
+        tnx, tny, tnz = ttab[_TNX], ttab[_TNY], ttab[_TNZ]
+        ndd = dx * tnx + dy * tny + dz * tnz
+        ndo = ox * tnx + oy * tny + oz * tnz
+        rcp = 1.0 / ndd
+        tt = (ttab[_TNV0] - ndo) * rcp
+        qv = tt * a
+        hx = ox + tt * dx
+        hy = oy + tt * dy
+        hz = oz + tt * dz
+        u = ttab[_TG1X] * hx + ttab[_TG1Y] * hy + ttab[_TG1Z] * hz - ttab[_TG1V]
+        v = ttab[_TG2X] * hx + ttab[_TG2Y] * hy + ttab[_TG2Z] * hz - ttab[_TG2V]
+        ok = ((qv >= tmin_a) & (qv < big) & (u >= 0.0) & (v >= 0.0)
+              & (u + v <= 1.0))
+        qt, bt = _first_min(torch.where(ok, qv, big))
+        is_tri = qt < qb
+        qb = torch.where(is_tri, qt, qb)
+        best = torch.where(is_tri, bt, best)
+    return qb, best, is_tri
+
+
+def _scatter(mat, d, dinv, p, n, front, key, bits: Bits):
+    """Material scatter, every material evaluated and the winner's selected
+    (the kernel evaluates only the winner's; same values). ``mat`` holds the
+    winner's 8 material rows [8, S]. Returns (new direction, attenuation,
+    scattered)."""
+    dx, dy, dz = d
+    px, py, pz = p
+    nx, ny, nz = n
+
+    def uniform(k):
+        return rng.uniform(bits(key, k))
+
+    bpk, bios = mat[0], mat[1]
+    bkm = torch.floor(bpk * 0.25)
+    bfz = (bpk - 4.0 * bkm) * 0.5
+    kind = torch.floor(bkm * 0.25)
+    method = bkm - 4.0 * kind
+    is_d = kind == 2.0
+    is_m = kind == 1.0
+
+    # dielectric: Schlick coin, total internal reflection
+    eta = torch.where(front, 1.0 / bios, bios)
+    udx, udy, udz = dx * dinv, dy * dinv, dz * dinv
+    cos_t = -(udx * nx + udy * ny + udz * nz)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    cannot = eta * sin_t > 1.0
+    r0 = (1.0 - eta) / (1.0 + eta)
+    r0 = r0 * r0
+    om = 1.0 - cos_t
+    om2 = om * om
+    refl_p = r0 + (1.0 - r0) * om2 * om2 * om
+    do_refl = cannot | (refl_p > uniform(8))
+    two_ndd = 2.0 * (dx * nx + dy * ny + dz * nz)
+    rfx = dx - two_ndd * nx
+    rfy = dy - two_ndd * ny
+    rfz = dz - two_ndd * nz
+    ppx = (udx + cos_t * nx) * eta
+    ppy = (udy + cos_t * ny) * eta
+    ppz = (udz + cos_t * nz) * eta
+    parm = -torch.sqrt(torch.clamp_min(
+        1.0 - (ppx * ppx + ppy * ppy + ppz * ppz), 0.0))
+    dl = [torch.where(do_refl, rf, pp + parm * nn)
+          for rf, pp, nn in ((rfx, ppx, nx), (rfy, ppy, ny), (rfz, ppz, nz))]
+
+    ux, uy, uz = rng.unit3(uniform(5), uniform(6))
+
+    # checker albedo (solid textures have even == odd and scale 1)
+    isc = 1.0 / bios
+    par = (torch.floor(px * isc) + torch.floor(py * isc)
+           + torch.floor(pz * isc))
+    even_par = par - 2.0 * torch.floor(par * 0.5) < 0.5
+    al = [torch.where(even_par, mat[2 + c], mat[5 + c]) for c in range(3)]
+
+    # metal: fuzz reuses the unit sample; absorbed below the horizon
+    rinv = 1.0 / torch.sqrt(torch.clamp_min(
+        rfx * rfx + rfy * rfy + rfz * rfz, 1e-24))
+    fz = torch.clamp_max(bfz, 1.0)
+    me = [rf * rinv + fz * uu for rf, uu in ((rfx, ux), (rfy, uy), (rfz, uz))]
+    metal_ok = me[0] * nx + me[1] * ny + me[2] * nz > 0.0
+
+    # diffuse: three methods; u^(1/3) via exp/log
+    cb = torch.exp(torch.log(torch.clamp_min(uniform(7), 1e-24)) * (1.0 / 3.0))
+    sx, sy, sz = ux * cb, uy * cb, uz * cb
+    flip = torch.where(sx * nx + sy * ny + sz * nz > 0.0, 1.0, -1.0)
+    m0 = method == 0.0  # UNIT_SPHERE
+    m1 = method == 1.0  # UNIT_SPHERE_SURFACE
+    off = [torch.where(m0, nn + ss, torch.where(m1, nn + uu, ss * flip))
+           for nn, ss, uu in ((nx, sx, ux), (ny, sy, uy), (nz, sz, uz))]
+    # reference quirk: near-zero check on the target POINT
+    tg = [pp + oo for pp, oo in zip(p, off)]
+    nz_tgt = ((torch.abs(tg[0]) <= 1e-8) & (torch.abs(tg[1]) <= 1e-8)
+              & (torch.abs(tg[2]) <= 1e-8))
+    dif = [torch.where(nz_tgt, nn, t) - pp for nn, t, pp in zip(n, tg, p)]
+
+    ndir = [torch.where(is_d, a, torch.where(is_m, b, c))
+            for a, b, c in zip(dl, me, dif)]
+    att = [torch.where(is_d, 1.0, c) for c in al]
+    nd2 = ndir[0] * ndir[0] + ndir[1] * ndir[1] + ndir[2] * ndir[2]
+    scattered = ((~is_m) | metal_ok) & (nd2 > 1e-20)
+    return ndir, att, scattered
+
+
+def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
+                           ttab: torch.Tensor, pix: torch.Tensor, *,
+                           width: int, spp: int, max_depth: int, t_min: float,
+                           jitter: bool, has_motion: bool, seed: int,
+                           budget: int = 0,
+                           resume: Optional[torch.Tensor] = None,
+                           save_state: bool = False,
+                           bits: Optional[Bits] = None):
+    """Plain torch version of the kernel (same arguments as
+    :func:`_trace_slots`). Each slot runs its ``spp`` samples with
+    persistent respawn; the loop runs in lockstep over all slots until none
+    is alive or ``budget`` trips are done (0 = no cap).
+
+    ``bits(key, n)`` supplies the random bits of draw ``n`` under the
+    per-step keys (default :func:`rng.draw_bits`); a function returning
+    zeros reproduces what the JAX Pallas interpreter draws.
+
+    Returns (rgb radiance sums [3, cap], saved state [16, cap] or None)."""
+    bits = rng.draw_bits if bits is None else bits
+    f32, i32 = torch.float32, torch.int32
+    cap = pix.shape[0]
+    pp = torch.clamp_min(pix, 0)
+    pxf = (pp % width).to(f32)
+    pyf = (pp // width).to(f32)
+    (lfx, lfy, lfz, dux, duy, duz, dvx, dvy, dvz,
+     pox, poy, poz, deux, deuy, deuz, devx, devy, devz) = cam.unbind()
+
+    if resume is not None:
+        st = [resume[i].clone() for i in range(13)]
+        depth, samples = resume[13].to(i32), resume[14].to(i32)
+        active = resume[15].to(i32) > 0
+    else:
+        zf = torch.zeros(cap, dtype=f32, device=pix.device)
+        st = [zf.clone() for _ in range(13)]
+        st[5] = torch.ones_like(zf)  # direction placeholder, non-zero
+        depth = torch.zeros(cap, dtype=i32, device=pix.device)
+        samples = torch.where(pix >= 0, spp, 0).to(i32)
+        active = torch.zeros(cap, dtype=torch.bool, device=pix.device)
+    ox, oy, oz, dx, dy, dz, tau, thx, thy, thz, ar, ag, ab = st
+    key0 = rng.slot_key(seed, pix)
+
+    trips = 0
+    while True:
+        alive = active | (samples > 0)
+        if (budget and trips >= budget) or not bool(alive.any()):
+            break
+        trips += 1
+
+        # ---- respawn dead slots with the next camera sample ----
+        spawn = alive & ~active
+        samples = samples - spawn.to(i32)
+        depth = torch.where(spawn, max_depth, depth)
+        key = rng.step_key(key0, spp - samples, max_depth - depth)
+        if jitter:
+            x = pxf + rng.uniform(bits(key, 0)) - 0.5
+            y = pyf + rng.uniform(bits(key, 1)) - 0.5
+            rr = torch.sqrt(rng.uniform(bits(key, 2)))
+            th = _TWO_PI * rng.uniform(bits(key, 3))
+            ca, sa = torch.cos(th), torch.sin(th)
+            nox = lfx + rr * (ca * deux + sa * devx)
+            noy = lfy + rr * (ca * deuy + sa * devy)
+            noz = lfz + rr * (ca * deuz + sa * devz)
+            ntau = rng.uniform(bits(key, 4))
+        else:
+            x, y = pxf, pyf
+            nox, noy, noz = (v.expand(cap) for v in (lfx, lfy, lfz))
+            ntau = torch.zeros_like(pxf)
+        ndx = x * dux + y * dvx + pox - nox
+        ndy = x * duy + y * dvy + poy - noy
+        ndz = x * duz + y * dvz + poz - noz
+        ox = torch.where(spawn, nox, ox)
+        oy = torch.where(spawn, noy, oy)
+        oz = torch.where(spawn, noz, oz)
+        dx = torch.where(spawn, ndx, dx)
+        dy = torch.where(spawn, ndy, dy)
+        dz = torch.where(spawn, ndz, dz)
+        tau = torch.where(spawn, ntau, tau)
+        thx = torch.where(spawn, 1.0, thx)
+        thy = torch.where(spawn, 1.0, thy)
+        thz = torch.where(spawn, 1.0, thz)
+        active = active | spawn
+
+        # ---- nearest hit: spheres, then triangles ----
+        a = dx * dx + dy * dy + dz * dz
+        d_dot_o = dx * ox + dy * oy + dz * oz
+        o2 = ox * ox + oy * oy + oz * oz
+        tmin_a = t_min * a
+        tau2 = tau * tau
+        n_cols = max(stab.shape[1], ttab.shape[1], 1)
+        chunk = max(1, _SWEEP_ELEMS // n_cols)
+        parts = [_sweep(stab, ttab, (ox[s], oy[s], oz[s]),
+                        (dx[s], dy[s], dz[s]), tau[s], a[s], d_dot_o[s],
+                        o2[s], tmin_a[s], tau2[s], has_motion)
+                 for s in (slice(i, i + chunk) for i in range(0, cap, chunk))]
+        qb, best, is_tri = (torch.cat(t) for t in zip(*parts))
+        hit = qb < _BIG
+
+        # ---- miss -> sky weighted by throughput ----
+        dinv = 1.0 / torch.sqrt(torch.clamp_min(a, 1e-24))
+        sky_t = 0.5 * (dy * dinv + 1.0)
+        miss = active & ~hit
+        ar = torch.where(miss, ar + thx * ((1.0 - sky_t + 0.5) * sky_t), ar)
+        ag = torch.where(miss, ag + thy * ((1.0 - sky_t + 0.7) * sky_t), ag)
+        ab = torch.where(miss, ab + thz * ((1.0 - sky_t + 1.0) * sky_t), ab)
+
+        # ---- decode the winner: hit point, facing normal, material ----
+        ts = qb * (1.0 / a)
+        px = ox + ts * dx
+        py = oy + ts * dy
+        pz = oz + ts * dz
+        col = torch.clamp_min(best, 0)
+        if stab.shape[1]:
+            cx, cy, cz, _ = _sphere_at(stab, col, tau, tau2, has_motion)
+            nx, ny, nz = px - cx, py - cy, pz - cz
+            mat = stab[_PKF:_PKF + 8, col]
+        if ttab.shape[1]:
+            tmat = ttab[_TPKF:_TPKF + 8, col]
+            tn = ttab[_TNX:_TNZ + 1, col]
+            if stab.shape[1]:
+                nx = torch.where(is_tri, tn[0], nx)
+                ny = torch.where(is_tri, tn[1], ny)
+                nz = torch.where(is_tri, tn[2], nz)
+                mat = torch.where(is_tri, tmat, mat)
+            else:
+                (nx, ny, nz), mat = tn.unbind(), tmat
+        ninv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz,
+                                                1e-24))
+        nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+        front = nx * dx + ny * dy + nz * dz < 0.0
+        sgn = torch.where(front, 1.0, -1.0)
+        nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+
+        ndir, att, scattered = _scatter(mat, (dx, dy, dz), dinv,
+                                        (px, py, pz), (nx, ny, nz), front,
+                                        key, bits)
+
+        # ---- continue or die ----
+        cont = active & hit & scattered
+        thx = torch.where(cont, thx * att[0], thx)
+        thy = torch.where(cont, thy * att[1], thy)
+        thz = torch.where(cont, thz * att[2], thz)
+        ox = torch.where(cont, px, ox)
+        oy = torch.where(cont, py, oy)
+        oz = torch.where(cont, pz, oz)
+        dx = torch.where(cont, ndir[0], dx)
+        dy = torch.where(cont, ndir[1], dy)
+        dz = torch.where(cont, ndir[2], dz)
+        depth = depth - cont.to(i32)
+        active = cont & (depth > 0)  # depth exhausted -> black
+
+    rgb = torch.stack([ar, ag, ab])
+    if not save_state:
+        return rgb, None
+    state = torch.stack([ox, oy, oz, dx, dy, dz, tau, thx, thy, thz,
+                         ar, ag, ab, depth.to(f32), samples.to(f32),
+                         active.to(f32)])
+    return rgb, state
+
+
+# --------------------------------------------------------------------------
+# kernel wrapper
+# --------------------------------------------------------------------------
+
+def _check_inputs(cam, stab, ttab, pix, resume):
+    dev = pix.device
+    for name, t, dtype in (("cam", cam, torch.float32),
+                           ("stab", stab, torch.float32),
+                           ("ttab", ttab, torch.float32),
+                           ("pix", pix, torch.int32)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, pix on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cam.shape != (18,):
+        raise ValueError(f"cam must be [18], got {tuple(cam.shape)}")
+    if stab.dim() != 2 or stab.shape[0] != 17 or stab.shape[1] % 8:
+        raise ValueError(f"stab must be [17, 8k], got {tuple(stab.shape)}")
+    if ttab.dim() != 2 or ttab.shape[0] != 20 or ttab.shape[1] % 8:
+        raise ValueError(f"ttab must be [20, 8k], got {tuple(ttab.shape)}")
+    if pix.dim() != 1 or pix.shape[0] == 0:
+        raise ValueError(f"pix must be a non-empty [cap], got {tuple(pix.shape)}")
+    if resume is not None:
+        if (resume.device != dev or resume.dtype != torch.float32
+                or not resume.is_contiguous()
+                or resume.shape != (STATE_PLANES, pix.shape[0])):
+            raise ValueError("resume must be a contiguous f32 [16, cap] "
+                             "tensor on pix's device")
+    smem = shared_bytes(stab.shape[1], ttab.shape[1])
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"scene tables need {smem} bytes of shared memory "
+                         f"(> {SHARED_LIMIT} per block on an H100)")
+
+
+def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
+                 pix: torch.Tensor, *, width: int, spp: int, max_depth: int,
+                 t_min: float, jitter: bool, has_motion: bool, seed: int,
+                 budget: int = 0, resume: Optional[torch.Tensor] = None,
+                 save_state: bool = False):
+    """Trace the slots ``pix`` (flat pixel ids, -1 = retired) through the
+    megakernel: camera vector ``cam`` [18], sphere table ``stab`` [17, N]
+    and triangle table ``ttab`` [20, M] (N, M multiples of 8, 0 for an
+    absent class). ``budget`` caps each slot's loop trips (0 = no cap),
+    ``resume`` [16, cap] continues from a saved state, ``save_state`` also
+    returns the state after this launch.
+
+    CUDA tensors launch the kernel on the current stream (or raise); CPU
+    tensors run the plain version. Returns (rgb [3, cap], state or None)."""
+    global LAUNCHES
+    _check_inputs(cam, stab, ttab, pix, resume)
+    kw = dict(width=width, spp=spp, max_depth=max_depth, t_min=t_min,
+              jitter=jitter, has_motion=has_motion, seed=seed, budget=budget,
+              resume=resume, save_state=save_state)
+    if pix.device.type == "cpu":
+        return _trace_slots_reference(cam, stab, ttab, pix, **kw)
+    if pix.device.type != "cuda":
+        raise ValueError(f"no megakernel for device {pix.device}")
+    lib, _ = _build.load()
+    cap = pix.shape[0]
+    rgb = torch.empty((3, cap), dtype=torch.float32, device=pix.device)
+    save = (torch.empty((STATE_PLANES, cap), dtype=torch.float32,
+                        device=pix.device) if save_state else None)
+    with torch.cuda.device(pix.device):
+        err = lib.rayz_megakernel(
+            cam.data_ptr(), stab.data_ptr(), stab.shape[1], ttab.data_ptr(),
+            ttab.shape[1], pix.data_ptr(), cap,
+            None if resume is None else resume.data_ptr(),
+            None if save is None else save.data_ptr(), rgb.data_ptr(),
+            width, spp, max_depth, t_min, int(jitter), int(has_motion),
+            seed & rng.MASK, budget,
+            torch.cuda.current_stream(pix.device).cuda_stream)
+    _build.check(lib, err, "megakernel")
+    LAUNCHES += 1
+    return rgb, save
+
+
+# --------------------------------------------------------------------------
+# launch schedules
+# --------------------------------------------------------------------------
+
+def _slot_table(n_local: int, device) -> torch.Tensor:
+    """Pass-0 slot -> pixel table: flat pixel order, capacity rounded up to
+    whole blocks, -1 past the image."""
+    cap = _round_up(n_local, BLOCK)
+    pix = torch.arange(cap, dtype=torch.int32, device=device)
+    return torch.where(pix < n_local, pix, -1)
+
+
+def _launch_args(scene: Scene, camera: Camera, seed: int, *, spp: int,
+                 max_depth: int, t_min: float, jitter: bool, unroll: int):
+    stab, ttab, _, _ = _smem_scene_inputs(scene, unroll)
+    cam = _camera_vector(camera).contiguous()
+    kw = dict(width=camera.width, spp=spp, max_depth=max_depth, t_min=t_min,
+              jitter=jitter, has_motion=scene.has_motion, seed=int(seed))
+    return (cam, stab, ttab), kw
+
+
+def _trace_shard(scene: Scene, camera: Camera, seed: int, n_local: int, *,
+                 spp: int, max_depth: int, t_min: float, jitter: bool,
+                 unroll: int) -> torch.Tensor:
+    """Trace pixels [0, n_local) in one launch; returns flat [n_local, 3]
+    radiance sums (divide by spp for the image)."""
+    args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
+                            t_min=t_min, jitter=jitter, unroll=unroll)
+    pix = _slot_table(n_local, scene.device)
+    rgb, _ = _trace_slots(*args, pix, **kw)
+    return rgb[:, :n_local].T
+
+
+def _trace_shard_compact(scene: Scene, camera: Camera, seed: int,
+                         n_local: int, *, spp: int, max_depth: int,
+                         t_min: float, jitter: bool, unroll: int,
+                         budget: int = 32, passes: int = 26) -> torch.Tensor:
+    """Straggler-compacted respawn: the budgeted multi-pass variant of
+    :func:`_trace_shard`. A single launch runs each block until its last
+    slot finishes all spp samples, and per-pixel path cost varies widely
+    (glass interiors against sky). Here every pass but the last caps each
+    slot at ``budget`` trips and saves its state; between passes the slots
+    are stable-partitioned so unfinished ones pack densely at the front;
+    the last pass runs unbounded, so every sample is traced to the end.
+    Draws depend only on each slot's own state, so the result is the single
+    launch's, bit for bit."""
+    args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
+                            t_min=t_min, jitter=jitter, unroll=unroll)
+    pix = _slot_table(n_local, scene.device)
+    st = None
+    for p in range(passes):
+        last = p == passes - 1
+        rgb, out = _trace_slots(*args, pix, budget=0 if last else budget,
+                                resume=st, save_state=not last, **kw)
+        if last:
+            break
+        # stable partition: unfinished slots (mid-path or samples left) to
+        # the front, so whole blocks at the back find nothing to do
+        unfinished = (out[15] > 0.0) | (out[14] > 0.0)
+        order = torch.argsort((~unfinished).to(torch.int8), stable=True)
+        st = out[:, order].contiguous()
+        pix = pix[order].contiguous()
+    # slots are a permutation of the pixels: scatter back to pixel order.
+    # Retired (-1) slots go to a spare row past the end: a -1 index would
+    # wrap onto the last pixel.
+    tgt = torch.where(pix >= 0, pix, n_local).long()
+    flat = torch.zeros((n_local + 1, 3), dtype=torch.float32,
+                       device=pix.device)
+    flat[tgt] = rgb.T
+    return flat[:n_local]
+
+
+def render_megakernel(scene: Scene, camera: Camera, seed: int,
+                      config: RenderConfig = RenderConfig(), *,
+                      budget: Optional[int] = None,
+                      passes: Optional[int] = None) -> torch.Tensor:
+    """Render [H, W, 3] through the megakernel on the scene's device (the
+    CUDA kernel on a GPU; the plain version on the CPU).
+
+    ``budget``/``passes``: the straggler-compacted schedule. Defaults as
+    ``render_pallas``: 10 passes of ``budget=spp`` trips at spp >= 16, a
+    single launch below; ``passes=0`` forces the single launch. Any schedule
+    renders the same bits."""
+    if not supports_scene(scene):
+        if scene.deep_checker:
+            raise ValueError(
+                "megakernel resolves only ONE level of checker nesting; this "
+                "scene nests checkers inside checkers (the dense integrator, "
+                "ROADMAP queue 1 item 4, will render it)")
+        raise ValueError("megakernel needs a non-empty scene (spheres and/or "
+                         "triangles)")
+    if not fits_shared(scene):
+        raise ValueError(
+            f"scene tables exceed one block's {SHARED_LIMIT} bytes of shared "
+            "memory; streamed tables are ROADMAP queue 1 item 8")
+    if camera.device != scene.device:
+        raise ValueError(f"camera is on {camera.device}, scene on "
+                         f"{scene.device}")
+    if passes is None:
+        passes = 10 if config.spp >= 16 else 0
+    if budget is None:
+        budget = config.spp
+    h, w = camera.height, camera.width
+    kw = dict(spp=config.spp, max_depth=config.max_depth, t_min=config.t_min,
+              jitter=config.jitter, unroll=_resolve_tiling(scene))
+    if passes > 1:
+        flat = _trace_shard_compact(scene, camera, seed, h * w,
+                                    budget=budget, passes=passes, **kw)
+    else:
+        flat = _trace_shard(scene, camera, seed, h * w, **kw)
+    return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)
