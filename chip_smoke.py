@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout (nvcc, sm_90a), checks each
-against its plain torch version on the card, drives the main path (the
-flagship ``random_bouncing`` scene at 512x512, 64 spp, depth 32, through
-``render_fast(engine="auto")``) and shows through the launch counter that it
-went through the kernel, then times it. One line per phase; the line before
+against its plain torch version on the card, and drives the port's two main
+paths on the flagship ``random_bouncing`` scene at 512x512, depth 32: the
+forward render (64 spp through ``render_fast(engine="auto")``) and the
+``recorded-pp`` train step (bench.py's ``fwdbwd`` shape: two value-and-
+gradient micro-batches of 32 spp, then two ``make_train_step`` steps). For
+each path it resets the launch counters, runs it, and shows that it went
+through its kernels; then it times it. One line per phase; the line before
 the last is a JSON summary of the kernels, the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
@@ -29,7 +32,7 @@ import torch
 
 import rayz_tpu_torch as rtt
 from rayz_tpu_torch.io.image import read_ppm, write_ppm
-from rayz_tpu_torch.ops import _build, megakernel as mk, rng
+from rayz_tpu_torch.ops import _build, megakernel as mk, pathrec as pr, rng
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden_deterministic.ppm")
@@ -41,9 +44,16 @@ STOCHASTIC_ATOL = 1e-4      # per channel, real random draws ...
 STOCHASTIC_MAX_FRAC = 0.01  # ... on all but this share of channels
 BLOCK_MEAN_ATOL = 0.01      # 8x8 block means, real random draws
 
+RECORD_AUX_ATOL = 1e-6      # recorder kernel vs plain, real random draws
+MATCH_FRAC = 0.999          # share of active lane-iterations with equal idx
+GATHER_BWD_RTOL = 1e-4      # of the sum of |g| over each table row's rays
+GRAD_RTOL = 1e-4            # pixel_loss and its gradients, kernels vs plain
+
 FLAGSHIP = dict(width=512, height=512, spp=64, depth=32)
 PLAIN_SPP = 4  # the plain version's spp cut at the flagship size
 RUNS = 5
+MICRO_SPP = 32   # the train step's micro-batch (bench.py MICRO)
+TRAIN_RUNS = 3
 
 
 def phase(name: str, msg: str) -> None:
@@ -62,12 +72,331 @@ def plain_version():
         mk._trace_slots = kernel
 
 
+@contextlib.contextmanager
+def plain_pathrec():
+    """Route the recorder's and the gathers' launches to their plain torch
+    versions (on the same CUDA tensors) for a comparison run."""
+    kernels = pr._record_slots, pr._gather_fwd, pr._gather_bwd
+    pr._record_slots = pr._record_slots_reference
+    pr._gather_fwd = pr._gather_fwd_reference
+    pr._gather_bwd = pr._gather_bwd_reference
+    try:
+        yield
+    finally:
+        pr._record_slots, pr._gather_fwd, pr._gather_bwd = kernels
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def event_ms(fn, n: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``n`` calls after a warm-up
+    call, by CUDA events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def slot_pix(n: int, r_pad: int, dev) -> torch.Tensor:
+    """Flat pixel ids of n pixels in r_pad slots, -1 past the image."""
+    pix = torch.arange(r_pad, dtype=torch.int32, device=dev)
+    return torch.where(pix < n, pix, -1)
+
+
+def record_both(scene, cam, seed, pix, **kw):
+    """The recorder through its kernel and through its plain version."""
+    k = pr.record_pp(scene, cam, seed, pix, **kw)
+    with plain_pathrec():
+        p = pr.record_pp(scene, cam, seed, pix, **kw)
+    torch.cuda.synchronize()
+    return k, p
+
+
+def active_match(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Share of lane-iterations active in either recording (idx >= -1)
+    whose winner index agrees."""
+    act = (a >= -1) | (b >= -1)
+    return float((a == b)[act].double().mean())
+
+
+def train_params(scene) -> dict:
+    return {k: v.detach().clone().requires_grad_(True)
+            for k, v in rtt.extract_params(scene).items()}
+
+
+def loss_and_grads(scene, cam, seed, target, cfg):
+    """pixel_loss(engine="recorded-pp") and its gradients over the default
+    trainable fields (None where a field does not reach the loss)."""
+    params = train_params(scene)
+    loss, left = rtt.pixel_loss(params, scene, cam, seed, target, cfg,
+                                "recorded-pp", return_leftover=True)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return loss.detach(), int(left), dict(zip(params, grads))
+
+
+def record_phase(dev) -> float:
+    """Recorder kernel vs plain version with real draws; returns the
+    largest aux difference."""
+    scene, cam = rtt.scenes.random_bouncing(width=64, height=36, device=dev)
+    n = cam.width * cam.height
+    pix = slot_pix(n, 4096, dev)
+    kw = dict(spp=8, max_depth=8, t_min=1e-3, jitter=True)
+    k, p = record_both(scene, cam, 5, pix, iters=32, want_state=True, **kw)
+    if not torch.equal(k[0], p[0]):
+        raise AssertionError(f"record idx: {int((k[0] != p[0]).sum())} "
+                             "lane-iterations differ from the plain version")
+    err = float((k[1] - p[1]).abs().max())
+    if err > RECORD_AUX_ATOL or not torch.equal(k[1][:, pr._AUX_FLG],
+                                                p[1][:, pr._AUX_FLG]):
+        raise AssertionError(f"record aux: max abs {err}, flags equal "
+                             f"{torch.equal(k[1][:, 12], p[1][:, 12])}")
+    if not (torch.equal(k[2], p[2]) and torch.equal(k[3][0], p[3][0])
+            and torch.equal(k[3][1], p[3][1])):
+        raise AssertionError("record leftover or saved state differs")
+    # one resumed pass: 8 iterations, then 24 more from the saved state,
+    # equal to the 32-iteration recording (draws are keyed by counters)
+    a = pr.record_pp(scene, cam, 5, pix, iters=8, want_state=True, **kw)
+    rk, rp = record_both(scene, cam, 5, pix, iters=24, init_state=a[3],
+                         **kw)
+    if not (torch.equal(rk[0], rp[0]) and torch.equal(rk[2], rp[2])):
+        raise AssertionError("resumed record differs from the plain version")
+    err = max(err, float((rk[1] - rp[1]).abs().max()))
+    if not torch.equal(torch.cat([a[0], rk[0]]), k[0]):
+        raise AssertionError("8 + 24 resumed iterations != 32 in one pass")
+    phase("record", f"random_bouncing 64x36 8spp d8, 32 iterations: idx "
+                    f"bit-identical to plain, aux max abs {err:.3g}, "
+                    f"leftover {int(k[2].sum())} and state equal; resumed "
+                    "8+24 == 32 in one pass")
+
+    scene, cam = rtt.scenes.cornell_box(width=48, device=dev)
+    pix = slot_pix(cam.width * cam.height, 4096, dev)
+    k, p = record_both(scene, cam, 6, pix, iters=32, spp=4, max_depth=8,
+                       t_min=1e-3, jitter=True)
+    frac = active_match(k[0], p[0])
+    n_sph = int(scene.sphere_radius.shape[0])
+    tri_hits = int((k[0] >= n_sph).sum())
+    if frac < MATCH_FRAC or tri_hits == 0:
+        raise AssertionError(f"cornell record: idx agree on {frac:.5f} of "
+                             f"active lane-iterations, {tri_hits} triangle "
+                             "winners")
+    phase("record", f"cornell_box 48x48 4spp d8 ({n_sph} sphere rows, "
+                    f"{tri_hits} triangle winners): idx agree on "
+                    f"{frac:.5%} of active lane-iterations")
+    return err
+
+
+def gather_phase(dev):
+    """Gather kernels vs plain versions at a flagship replay step's shape;
+    returns {name: (max_abs_err, kernel ms, plain ms)}."""
+    r, p, c = 262144, 512, 20
+    g = np.random.default_rng(0)
+    u = g.random(r)
+    idx = np.where(u < 0.4, 0, np.where(u < 0.55, g.integers(1, 4, r),
+                                        g.integers(4, p, r)))
+    idx[g.integers(0, r, 512)] = -1   # no row: zero rows, no cotangent
+    idx[g.integers(0, r, 64)] = p + 3
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    tab = torch.from_numpy(g.standard_normal((p, c)).astype(np.float32))
+    tab = tab.to(dev)
+    for transposed in (False, True):
+        out = pr._gather_fwd(tab, idx, transposed)
+        if not torch.equal(out, pr._gather_fwd_reference(tab, idx,
+                                                          transposed)):
+            raise AssertionError(f"gather forward (transposed={transposed}) "
+                                 "differs from plain")
+    res = {"gather_fwd": (0.0, event_ms(
+        lambda: pr._gather_fwd(tab, idx, False), 20), event_ms(
+        lambda: pr._gather_fwd_reference(tab, idx, False), 20))}
+    ok = ((idx >= 0) & (idx < p)).long()
+    tgt = torch.where(ok > 0, idx.long(), p)
+    worst = 0.0
+    for transposed in (False, True):
+        grc = torch.from_numpy(g.standard_normal((r, c)).astype(np.float32)
+                               ).to(dev)
+        gin = grc.T.contiguous() if transposed else grc
+        d1 = pr._gather_bwd(gin, idx, p, transposed)
+        d2 = pr._gather_bwd(gin, idx, p, transposed)
+        if not torch.equal(d1, d2):
+            raise AssertionError("gather backward is not deterministic")
+        ref = torch.zeros((p + 1, c), dtype=torch.float64, device=dev)
+        ref.index_add_(0, tgt, grc.double())
+        mag = torch.zeros_like(ref).index_add_(0, tgt, grc.double().abs())
+        rel = float(((d1.double() - ref[:p]).abs()
+                     / mag[:p].clamp_min(1e-30)).max())
+        if rel > GATHER_BWD_RTOL:
+            raise AssertionError(f"gather backward off the f64 sum by {rel} "
+                                 "of the row's sum of |g|")
+        worst = max(worst, rel)
+    err = float((d1.double() - ref[:p]).abs().max())
+    res["gather_bwd"] = (err, event_ms(
+        lambda: pr._gather_bwd(gin, idx, p, True), 20), event_ms(
+        lambda: pr._gather_bwd_reference(gin, idx, p, True), 20))
+    phase("gather", f"R={r} P={p} ({int((idx == 0).sum())} rays on row 0): "
+                    "forward bit-identical to plain in both layouts; "
+                    f"backward within {worst:.3g} of each row's sum of |g| "
+                    "(f64 plain sum), bit-identical across launches; fwd "
+                    f"{res['gather_fwd'][1]:.4f} ms vs plain "
+                    f"{res['gather_fwd'][2]:.4f}, bwd "
+                    f"{res['gather_bwd'][1]:.4f} ms vs plain "
+                    f"{res['gather_bwd'][2]:.4f}")
+    return res
+
+
+def grad_phase(dev) -> float:
+    """pixel_loss and its gradients through the kernels vs through the
+    plain versions; returns the largest relative difference."""
+    scene, cam = rtt.scenes.random_bouncing(width=64, height=36, device=dev)
+    cfg = rtt.RenderConfig(spp=4, max_depth=8)
+    target = rtt.render_fast(scene, cam, 11, cfg)
+    lk, leftk, gk = loss_and_grads(scene, cam, 3, target, cfg)
+    with plain_pathrec():
+        lp, leftp, gp = loss_and_grads(scene, cam, 3, target, cfg)
+    worst = abs(float(lk - lp)) / abs(float(lp))
+    for name, b in gp.items():
+        a = gk[name]
+        if (a is None) != (b is None):
+            raise AssertionError(f"grad {name}: reached the loss in only one "
+                                 "of the two runs")
+        if b is not None:
+            scale = max(float(b.abs().max()), 1e-12)
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    if worst > GRAD_RTOL or leftk or leftp:
+        raise AssertionError(f"grad: kernels vs plain {worst} > {GRAD_RTOL} "
+                             f"(leftover {leftk}, {leftp})")
+    phase("grad", f"random_bouncing 64x36 4spp d8 pixel_loss(recorded-pp) "
+                  f"{float(lk):.6g}: loss and gradients, kernels vs plain, "
+                  f"within {worst:.3g} relative; leftover 0")
+    return worst
+
+
+def record_flagship(scene, cam, dev):
+    """The recorder at the train step's first pass (262,144 slots, spp 32,
+    112 iterations): kernel ms, plain ms, idx agreement, aux error."""
+    n = cam.width * cam.height
+    pix = slot_pix(n, -(-n // 2048) * 2048, dev)
+    kw = dict(spp=MICRO_SPP, max_depth=FLAGSHIP["depth"], t_min=1e-3,
+              jitter=True, iters=pr.default_k1(MICRO_SPP))
+    k_ms = event_ms(lambda: pr.record_pp(scene, cam, 1, pix, **kw), 3)
+    k = pr.record_pp(scene, cam, 1, pix, **kw)
+    with plain_pathrec():
+        p, p_s = timed(lambda: pr.record_pp(scene, cam, 1, pix, **kw))
+    frac = active_match(k[0], p[0])
+    same = k[0] == p[0]
+    err = float((k[1] - p[1]).abs().amax(dim=1)[same].max())
+    if frac < MATCH_FRAC:
+        raise AssertionError(f"flagship record: idx agree on {frac}")
+    phase("record", f"flagship pass 1 (262144 slots, 112 iterations): "
+                    f"kernel {k_ms:.3f} ms, plain {p_s * 1e3:.2f} ms; idx "
+                    f"agree on {frac:.6%} of active lane-iterations"
+                    f"{' (bit-identical)' if bool(same.all()) else ''}, aux "
+                    f"max abs {err:.3g} where they agree")
+    return err, k_ms, p_s * 1e3
+
+
+def train_phase(scene, cam, target, smi: str) -> dict:
+    """The slice's main path: bench.py's fwdbwd (two value-and-gradient
+    micro-batches of spp 32, gradients summed), counted, checked and
+    timed; then two make_train_step steps."""
+    f = FLAGSHIP
+    cfg = rtt.RenderConfig(spp=MICRO_SPP, max_depth=f["depth"])
+    params = train_params(scene)
+    micro = f["spp"] // MICRO_SPP
+
+    def fwdbwd(seed):
+        total, lefts, loss = None, [], None
+        for i in range(micro):
+            loss, left = rtt.pixel_loss(params, scene, cam, seed * micro + i,
+                                        target, cfg, "recorded-pp",
+                                        return_leftover=True)
+            g = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+            total = g if total is None else [
+                a if b is None else a + b for a, b in zip(total, g)]
+            lefts.append(left)
+        return loss.detach(), [int(x) for x in lefts], dict(zip(params,
+                                                                total))
+
+    for k in pr.LAUNCHES:
+        pr.LAUNCHES[k] = 0
+    steps0 = pr.REPLAY_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    (loss, lefts, grads), first_s = timed(lambda: fwdbwd(0))
+    launches = dict(pr.LAUNCHES)
+    steps = pr.REPLAY_STEPS - steps0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if lefts != [0] * micro:
+        raise AssertionError(f"train: leftover {lefts}, expected 0")
+    n = f["width"] * f["height"]
+    passes = len(pr.default_schedule(MICRO_SPP, f["depth"],
+                                     -(-n // 2048) * 2048, 2048))
+    if launches["record_pp"] != passes * micro:
+        raise AssertionError(f"train: {launches['record_pp']} recorder "
+                             f"launches, expected {passes * micro}")
+    # every replay step gathers; every step's rows get a cotangent except
+    # where nothing reaches the loss: the last step of each micro-batch's
+    # last pass adds only the sky, which no row value enters
+    if not steps or launches["gather_fwd"] != steps or not (
+            steps - micro <= launches["gather_bwd"] <= steps):
+        raise AssertionError(f"train: {steps} replay steps but gather "
+                             f"launches {launches}")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"train: loss {float(loss)}")
+    for name, g in grads.items():
+        if g is not None and not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"train: gradient {name} not finite")
+    for name in ("sphere_center", "tex_color"):
+        if grads[name] is None or not bool((grads[name] != 0).any()):
+            raise AssertionError(f"train: gradient {name} is zero")
+    rays = f["width"] * f["height"] * f["spp"]
+    phase("train", f"fwdbwd 512x512 2x{MICRO_SPP}spp d{f['depth']}: loss "
+                   f"{float(loss):.6g}, leftover {lefts}, launches "
+                   f"{launches} over {steps} replay steps; gradients finite "
+                   f"(|d sphere_center| sum "
+                   f"{float(grads['sphere_center'].abs().sum()):.4g}, "
+                   f"|d tex_color| sum "
+                   f"{float(grads['tex_color'].abs().sum()):.4g}); first run {first_s:.2f} s, peak "
+                   f"{peak_gb:.3f} GB allocated")
+
+    secs = [timed(lambda s=s: fwdbwd(s))[1] for s in range(1, TRAIN_RUNS + 1)]
+    mrays = [rays / s / 1e6 for s in secs]
+    phase("train", f"forward+backward Mrays/s median "
+                   f"{statistics.median(mrays):.4f} (runs "
+                   + ", ".join(f"{m:.4f}" for m in mrays)
+                   + f"; {TRAIN_RUNS} after 1 warm-up; seconds "
+                   + ", ".join(f"{s:.3f}" for s in secs)
+                   + f") | peak {peak_gb:.3f} GB | {smi}")
+
+    before = {k: v.detach().clone() for k, v in params.items()}
+    step = rtt.make_train_step(torch.optim.Adam(list(params.values()),
+                                                lr=1e-3), cfg,
+                               engine="recorded-pp", with_leftover=True)
+    losses = []
+    for s in range(2):
+        _, tl, tleft = step(params, scene, cam, 100 + s, target)
+        if int(tleft) or not bool(torch.isfinite(tl)):
+            raise AssertionError(f"train step {s}: loss {float(tl)}, "
+                                 f"leftover {int(tleft)}")
+        losses.append(float(tl))
+    moved = max(float((params[k].detach() - before[k]).abs().max())
+                for k in params if params[k].numel())
+    if not moved > 0.0:
+        raise AssertionError("train steps left the parameters unchanged")
+    phase("train", f"make_train_step x2 (Adam, lr 1e-3, spp {MICRO_SPP}): "
+                   f"losses {losses}, parameters moved by up to {moved:.3g}")
+    return dict(launches=launches, mrays=statistics.median(mrays),
+                peak_gb=peak_gb)
 
 
 def golden_check(img) -> tuple:
@@ -130,11 +459,11 @@ def main() -> int:
 
     # ---- 2. build ----
     lib, info = _build.load()
-    regs = [ln.strip() for ln in info.log.splitlines()
-            if "registers" in ln or "spill" in ln]
+    regs = [ln.split(":", 1)[-1].strip() for ln in info.log.splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     phase("build", f"{'compiled' if info.compiled else 'reused'} "
-                   f"{info.path.name} in {info.seconds:.2f} s; "
-                   + " | ".join(regs))
+                   f"{', '.join(_build._SOURCES)} into {info.path.name} in "
+                   f"{info.seconds:.2f} s; " + " | ".join(regs))
 
     # ---- 3. RNG: CUDA hash against ops/rng.py on 2^20 counters ----
     r = np.random.default_rng(0)
@@ -275,17 +604,36 @@ def main() -> int:
     phase("shared", f"flagship tables in shared memory: "
                     f"{tables.shared_bytes(n_pad, m_pad)} bytes per block")
 
+    # ---- 7-9. recorder, gathers, small gradient: kernels vs plain ----
+    rec_err = record_phase(dev)
+    gather = gather_phase(dev)
+    grad_phase(dev)
+
+    # ---- 10. the gradient main path: the flagship recorded-pp step ----
+    scene, cam = rtt.scenes.random_bouncing(width=f["width"],
+                                            height=f["height"], device=dev)
+    flag_err, rec_ms, rec_plain_ms = record_flagship(scene, cam, dev)
+    target = rtt.render_fast(scene, cam, 0, cfg)
+    train = train_phase(scene, cam, target, smi)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"rayz_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    tl = train["launches"]
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "megakernel",
-        "route": "cuda",
-        "source": "rayz_tpu_torch/csrc/megakernel.cu",
-        "replaces": "rayz_tpu/ops/megakernel.py:459",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_s * 1e3,
-        "plain_ms": p_s * 1e3,
-    }]}))
+    print(json.dumps({"kernels": [
+        entry("megakernel", "megakernel.cu", "rayz_tpu/ops/megakernel.py:459",
+              launches, max_err, k_s * 1e3, p_s * 1e3),
+        entry("record_pp", "record_pp.cu", "rayz_tpu/ops/pathrec.py:186",
+              tl["record_pp"], max(rec_err, flag_err), rec_ms, rec_plain_ms),
+        entry("gather_fwd", "gather.cu", "rayz_tpu/ops/pathrec.py:1095",
+              tl["gather_fwd"], *gather["gather_fwd"]),
+        entry("gather_bwd", "gather.cu", "rayz_tpu/ops/pathrec.py:1120",
+              tl["gather_bwd"], *gather["gather_bwd"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,20 @@
 """rayz_tpu_torch — the PyTorch + CUDA port of ``rayz_tpu``.
 
 A second package beside the JAX reference, laid out the same way
-(``models/``, ``ops/``, ``io/``). Plain tensor code is PyTorch; the render
-kernel is hand-written CUDA for Hopper (``csrc/``), built at first use. This
-package imports torch and numpy, never JAX.
+(``models/``, ``ops/``, ``diff/``, ``io/``). Plain tensor code is PyTorch;
+the render, record and gather kernels are hand-written CUDA for Hopper
+(``csrc/``), built at first use. This package imports torch and numpy,
+never JAX.
 """
 
 from .io import read_ppm, to_u8, write_png, write_ppm
 from .models import (Camera, Scene, SceneBuilder, camera_from_numpy,
                      make_camera, scene_from_numpy)
 from .models import scenes
-from .ops import RenderConfig, pick_engine, render_fast, render_megakernel
+from .ops import (RenderConfig, pick_engine, render_diff_pp, render_fast,
+                  render_megakernel)
+from .diff import (DEFAULT_TRAINABLE, extract_params, fit, inject_params,
+                   make_train_step, params_from_numpy, pixel_loss)
 
 __version__ = "0.1.0"
 
@@ -25,7 +29,15 @@ __all__ = [
     "RenderConfig",
     "render_fast",
     "render_megakernel",
+    "render_diff_pp",
     "pick_engine",
+    "DEFAULT_TRAINABLE",
+    "extract_params",
+    "inject_params",
+    "params_from_numpy",
+    "pixel_loss",
+    "make_train_step",
+    "fit",
     "to_u8",
     "write_ppm",
     "write_png",

@@ -1,6 +1,8 @@
 from .engine import pick_engine, render_fast
 from .integrator import RenderConfig
 from .megakernel import render_megakernel
+from .pathrec import (gather_rows, gather_rows_T, record_pp, render_diff_pp,
+                      render_diff_pp_flat, replay_pp, supports_pp)
 from .tables import fits_shared, scene_tables, supports_scene, tri_tables
 
 __all__ = [
@@ -8,6 +10,13 @@ __all__ = [
     "render_fast",
     "render_megakernel",
     "pick_engine",
+    "render_diff_pp",
+    "render_diff_pp_flat",
+    "record_pp",
+    "replay_pp",
+    "gather_rows",
+    "gather_rows_T",
+    "supports_pp",
     "fits_shared",
     "scene_tables",
     "tri_tables",

@@ -2,10 +2,11 @@
 
 ``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes), under
-``build/kernels/<hash>/`` at the repository root. The hash covers the
-sources, the headers and the flags, so an edit rebuilds and an unchanged
-tree reuses the library. A missing ``nvcc`` or a failed build raises: there
-is no fallback.
+``build/kernels/<hash>/`` at the repository root: one ``nvcc -c`` per
+source, all started together, then one link. The hash covers the sources,
+the headers and the flags, so an edit rebuilds and an unchanged tree reuses
+the library. A missing ``nvcc`` or a failed build raises: there is no
+fallback.
 
 Flags: ``sm_90a`` (Hopper); no fast-math, so square roots and divisions are
 IEEE and the poisoned padding columns keep rejecting themselves through
@@ -29,10 +30,10 @@ from typing import NamedTuple
 __all__ = ["load", "check", "build_dir", "BuildInfo"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("megakernel.cu",)
+_SOURCES = ("megakernel.cu", "record_pp.cu", "gather.cu")
 _HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 _LIB = "librayz_kernels.so"
 
 
@@ -81,6 +82,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rayz_megakernel.restype = i
     lib.rayz_rng_bits.argtypes = [u, p, p, p, p, i, p, p]
     lib.rayz_rng_bits.restype = i
+    lib.rayz_record_pp.argtypes = [p, p, i, p, i, p, i, p, p, p, p, p, p, p,
+                                   i, i, i, i, f, i, i, u, p]
+    lib.rayz_record_pp.restype = i
+    lib.rayz_gather_fwd.argtypes = [p, i, i, p, i, i, p, p]
+    lib.rayz_gather_fwd.restype = i
+    ll = ctypes.c_longlong
+    lib.rayz_gather_bwd.argtypes = [p, ll, ll, p, p, i, i, p, p]
+    lib.rayz_gather_bwd.restype = i
     lib.rayz_error_string.argtypes = [i]
     lib.rayz_error_string.restype = ctypes.c_char_p
 
@@ -96,16 +105,29 @@ def load():
     compiled = False
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{_LIB}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               *(str(_CSRC / s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc, tag = _nvcc(), os.getpid()
+        objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in _SOURCES]
+        jobs = [[nvcc, *FLAGS, "-I", str(_CSRC), "-c", "-o", str(o),
+                 str(_CSRC / s)] for s, o in zip(_SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in jobs]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = out_dir / f"{_LIB}.{tag}.tmp"
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        for cmd, proc, log in zip(jobs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
+                f"nvcc link failed (exit {proc.returncode}):\n"
+                f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
+        log_path.write_text("".join(logs))
         os.replace(tmp, lib_path)
+        for o in objs:
+            o.unlink()
         compiled = True
     lib = ctypes.CDLL(str(lib_path))
     _declare(lib)

@@ -214,6 +214,91 @@ def _scatter(mat, d, dinv, p, n, front, key, bits: Bits):
     return ndir, att, scattered
 
 
+def _spawn(cam, pxf, pyf, key, jitter: bool, bits: Bits):
+    """Camera ray of each slot's next sample (draws 0-4 under ``key``):
+    +-0.5 px jitter, polar defocus-disk origin, time in [0, 1). Returns
+    (origin xyz, direction xyz, time)."""
+    (lfx, lfy, lfz, dux, duy, duz, dvx, dvy, dvz,
+     pox, poy, poz, deux, deuy, deuz, devx, devy, devz) = cam.unbind()
+    if jitter:
+        x = pxf + rng.uniform(bits(key, 0)) - 0.5
+        y = pyf + rng.uniform(bits(key, 1)) - 0.5
+        rr = torch.sqrt(rng.uniform(bits(key, 2)))
+        th = _TWO_PI * rng.uniform(bits(key, 3))
+        ca, sa = torch.cos(th), torch.sin(th)
+        nox = lfx + rr * (ca * deux + sa * devx)
+        noy = lfy + rr * (ca * deuy + sa * devy)
+        noz = lfz + rr * (ca * deuz + sa * devz)
+        ntau = rng.uniform(bits(key, 4))
+    else:
+        x, y = pxf, pyf
+        nox, noy, noz = (v.expand(pxf.shape[0]) for v in (lfx, lfy, lfz))
+        ntau = torch.zeros_like(pxf)
+    ndx = x * dux + y * dvx + pox - nox
+    ndy = x * duy + y * dvy + poy - noy
+    ndz = x * duz + y * dvz + poz - noz
+    return (nox, noy, noz), (ndx, ndy, ndz), ntau
+
+
+def _nearest(stab, ttab, o, d, tau, t_min: float, has_motion: bool):
+    """Nearest hit of every slot's ray, swept in slot chunks that bound the
+    [slots, primitives] temporaries. Returns (q_best, column, is_triangle,
+    |d|^2, tau^2)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    a = dx * dx + dy * dy + dz * dz
+    d_dot_o = dx * ox + dy * oy + dz * oz
+    o2 = ox * ox + oy * oy + oz * oz
+    tmin_a = t_min * a
+    tau2 = tau * tau
+    cap = ox.shape[0]
+    n_cols = max(stab.shape[1], ttab.shape[1], 1)
+    chunk = max(1, _SWEEP_ELEMS // n_cols)
+    parts = [_sweep(stab, ttab, (ox[s], oy[s], oz[s]),
+                    (dx[s], dy[s], dz[s]), tau[s], a[s], d_dot_o[s],
+                    o2[s], tmin_a[s], tau2[s], has_motion)
+             for s in (slice(i, i + chunk) for i in range(0, cap, chunk))]
+    qb, best, is_tri = (torch.cat(t) for t in zip(*parts))
+    return qb, best, is_tri, a, tau2
+
+
+def _hit_frame(stab, ttab, o, d, tau, tau2, a, qb, best, is_tri,
+               has_motion: bool):
+    """Decode the winner: hit point, unit normal turned against the ray,
+    the front-face flag and the winner's 8 material rows [8, S]."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    ts = qb * (1.0 / a)
+    px = ox + ts * dx
+    py = oy + ts * dy
+    pz = oz + ts * dz
+    # one column per slot, read from both tables and selected after: clamp
+    # it into each table (the two differ in width)
+    col = torch.clamp_min(best, 0)
+    if stab.shape[1]:
+        scol = torch.clamp_max(col, stab.shape[1] - 1)
+        cx, cy, cz, _ = _sphere_at(stab, scol, tau, tau2, has_motion)
+        nx, ny, nz = px - cx, py - cy, pz - cz
+        mat = stab[_PKF:_PKF + 8, scol]
+    if ttab.shape[1]:
+        tcol = torch.clamp_max(col, ttab.shape[1] - 1)
+        tmat = ttab[_TPKF:_TPKF + 8, tcol]
+        tn = ttab[_TNX:_TNZ + 1, tcol]
+        if stab.shape[1]:
+            nx = torch.where(is_tri, tn[0], nx)
+            ny = torch.where(is_tri, tn[1], ny)
+            nz = torch.where(is_tri, tn[2], nz)
+            mat = torch.where(is_tri, tmat, mat)
+        else:
+            (nx, ny, nz), mat = tn.unbind(), tmat
+    ninv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz,
+                                            1e-24))
+    nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+    front = nx * dx + ny * dy + nz * dz < 0.0
+    sgn = torch.where(front, 1.0, -1.0)
+    return (px, py, pz), (nx * sgn, ny * sgn, nz * sgn), front, mat
+
+
 def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
                            ttab: torch.Tensor, pix: torch.Tensor, *,
                            width: int, spp: int, max_depth: int, t_min: float,
@@ -238,8 +323,6 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
     pp = torch.clamp_min(pix, 0)
     pxf = (pp % width).to(f32)
     pyf = (pp // width).to(f32)
-    (lfx, lfy, lfz, dux, duy, duz, dvx, dvy, dvz,
-     pox, poy, poz, deux, deuy, deuz, devx, devy, devz) = cam.unbind()
 
     if resume is not None:
         st = [resume[i].clone() for i in range(13)]
@@ -267,23 +350,8 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
         samples = samples - spawn.to(i32)
         depth = torch.where(spawn, max_depth, depth)
         key = rng.step_key(key0, spp - samples, max_depth - depth)
-        if jitter:
-            x = pxf + rng.uniform(bits(key, 0)) - 0.5
-            y = pyf + rng.uniform(bits(key, 1)) - 0.5
-            rr = torch.sqrt(rng.uniform(bits(key, 2)))
-            th = _TWO_PI * rng.uniform(bits(key, 3))
-            ca, sa = torch.cos(th), torch.sin(th)
-            nox = lfx + rr * (ca * deux + sa * devx)
-            noy = lfy + rr * (ca * deuy + sa * devy)
-            noz = lfz + rr * (ca * deuz + sa * devz)
-            ntau = rng.uniform(bits(key, 4))
-        else:
-            x, y = pxf, pyf
-            nox, noy, noz = (v.expand(cap) for v in (lfx, lfy, lfz))
-            ntau = torch.zeros_like(pxf)
-        ndx = x * dux + y * dvx + pox - nox
-        ndy = x * duy + y * dvy + poy - noy
-        ndz = x * duz + y * dvz + poz - noz
+        (nox, noy, noz), (ndx, ndy, ndz), ntau = _spawn(cam, pxf, pyf, key,
+                                                        jitter, bits)
         ox = torch.where(spawn, nox, ox)
         oy = torch.where(spawn, noy, oy)
         oz = torch.where(spawn, noz, oz)
@@ -297,18 +365,9 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
         active = active | spawn
 
         # ---- nearest hit: spheres, then triangles ----
-        a = dx * dx + dy * dy + dz * dz
-        d_dot_o = dx * ox + dy * oy + dz * oz
-        o2 = ox * ox + oy * oy + oz * oz
-        tmin_a = t_min * a
-        tau2 = tau * tau
-        n_cols = max(stab.shape[1], ttab.shape[1], 1)
-        chunk = max(1, _SWEEP_ELEMS // n_cols)
-        parts = [_sweep(stab, ttab, (ox[s], oy[s], oz[s]),
-                        (dx[s], dy[s], dz[s]), tau[s], a[s], d_dot_o[s],
-                        o2[s], tmin_a[s], tau2[s], has_motion)
-                 for s in (slice(i, i + chunk) for i in range(0, cap, chunk))]
-        qb, best, is_tri = (torch.cat(t) for t in zip(*parts))
+        o, d = (ox, oy, oz), (dx, dy, dz)
+        qb, best, is_tri, a, tau2 = _nearest(stab, ttab, o, d, tau, t_min,
+                                             has_motion)
         hit = qb < _BIG
 
         # ---- miss -> sky weighted by throughput ----
@@ -320,35 +379,10 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
         ab = torch.where(miss, ab + thz * ((1.0 - sky_t + 1.0) * sky_t), ab)
 
         # ---- decode the winner: hit point, facing normal, material ----
-        ts = qb * (1.0 / a)
-        px = ox + ts * dx
-        py = oy + ts * dy
-        pz = oz + ts * dz
-        col = torch.clamp_min(best, 0)
-        if stab.shape[1]:
-            cx, cy, cz, _ = _sphere_at(stab, col, tau, tau2, has_motion)
-            nx, ny, nz = px - cx, py - cy, pz - cz
-            mat = stab[_PKF:_PKF + 8, col]
-        if ttab.shape[1]:
-            tmat = ttab[_TPKF:_TPKF + 8, col]
-            tn = ttab[_TNX:_TNZ + 1, col]
-            if stab.shape[1]:
-                nx = torch.where(is_tri, tn[0], nx)
-                ny = torch.where(is_tri, tn[1], ny)
-                nz = torch.where(is_tri, tn[2], nz)
-                mat = torch.where(is_tri, tmat, mat)
-            else:
-                (nx, ny, nz), mat = tn.unbind(), tmat
-        ninv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz,
-                                                1e-24))
-        nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
-        front = nx * dx + ny * dy + nz * dz < 0.0
-        sgn = torch.where(front, 1.0, -1.0)
-        nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
-
-        ndir, att, scattered = _scatter(mat, (dx, dy, dz), dinv,
-                                        (px, py, pz), (nx, ny, nz), front,
-                                        key, bits)
+        (px, py, pz), nrm, front, mat = _hit_frame(
+            stab, ttab, o, d, tau, tau2, a, qb, best, is_tri, has_motion)
+        ndir, att, scattered = _scatter(mat, d, dinv, (px, py, pz), nrm,
+                                        front, key, bits)
 
         # ---- continue or die ----
         cont = active & hit & scattered
