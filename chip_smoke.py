@@ -7,9 +7,11 @@ against its plain torch version on the card, and drives the port's two main
 paths on the flagship ``random_bouncing`` scene at 512x512, depth 32: the
 forward render (64 spp through ``render_fast(engine="auto")``) and the
 ``recorded-pp`` train step (bench.py's ``fwdbwd`` shape: two value-and-
-gradient micro-batches of 32 spp, then two ``make_train_step`` steps). For
-each path it resets the launch counters, runs it, and shows that it went
-through its kernels; then it times it. One line per phase; the line before
+gradient micro-batches of 32 spp through the recorder, the gathers and the
+fused replay kernels, then two ``make_train_step`` steps). For each path it
+resets the launch counters, runs it, and shows that it went through its
+kernels; then it times it (the train step also once through the eager
+replay, for comparison). One line per phase; the line before
 the last is a JSON summary of the kernels, the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
@@ -47,7 +49,36 @@ BLOCK_MEAN_ATOL = 0.01      # 8x8 block means, real random draws
 RECORD_AUX_ATOL = 1e-6      # recorder kernel vs plain, real random draws
 MATCH_FRAC = 0.999          # share of active lane-iterations with equal idx
 GATHER_BWD_RTOL = 1e-4      # of the sum of |g| over each table row's rays
-GRAD_RTOL = 1e-4            # pixel_loss and its gradients, kernels vs plain
+# pixel_loss and its gradients through the fused replay, kernels vs plain
+# versions, relative to each field's largest entry: the hand-derived
+# adjoint sums its terms in another order than autograd
+GRAD_RTOL = 5e-4
+# The fused replay vs the eager replay (the other formulation of the same
+# step, as tests/test_pathrec.py's fused-vs-scan check, whose bound this
+# is): loss and each gradient field within EAGER_TOL * max(1, largest
+# |eager|), the images within STOCHASTIC_ATOL on all but
+# STOCHASTIC_MAX_FRAC of the channels. The two formulations round
+# differently on the card (the eager step reduces its dot products with
+# torch.sum), and a ray that re-hits the radius-1000 ground it left picks
+# its root at the rounding level, so such a pixel may differ by ~0.2.
+EAGER_TOL = 5e-4
+# Fused replay kernels vs plain versions, real draws, slot by slot: the
+# radiance, final and entry carries within REPLAY_RTOL * max(1, |plain|)
+# (each operation rounds as torch's does; carries reach |x| ~ 1000 on the
+# ground spheres), the row and initial-carry cotangents within
+# REPLAY_GRAD_RTOL of the largest entry of their group (geometry rows 0-8,
+# material rows 9-19; origin, direction, time, throughput; the bound of
+# tests/test_pathrec.py's fused-vs-scan check). At most REPLAY_MAX_FRAC of
+# the slots with a pixel may fall outside: a ray that re-hits the surface
+# it left (a self-hit on a ground sphere of radius 1000, which the
+# recording kept) chooses its root at the rounding level, and a long chain
+# of bounces amplifies the adjoint's other summation order; both packages
+# see such slots against float64 (0.2% of the slots at the first pass's
+# config in a CPU emulation of the kernels, which on the other slots were
+# as close to float64 as the plain version).
+REPLAY_RTOL = 1e-4
+REPLAY_GRAD_RTOL = 5e-4
+REPLAY_MAX_FRAC = 5e-3
 
 FLAGSHIP = dict(width=512, height=512, spp=64, depth=32)
 PLAIN_SPP = 4  # the plain version's spp cut at the flagship size
@@ -74,16 +105,32 @@ def plain_version():
 
 @contextlib.contextmanager
 def plain_pathrec():
-    """Route the recorder's and the gathers' launches to their plain torch
-    versions (on the same CUDA tensors) for a comparison run."""
-    kernels = pr._record_slots, pr._gather_fwd, pr._gather_bwd
-    pr._record_slots = pr._record_slots_reference
-    pr._gather_fwd = pr._gather_fwd_reference
-    pr._gather_bwd = pr._gather_bwd_reference
+    """Route the recorder's, the gathers' and the fused replay's launches to
+    their plain torch versions (on the same CUDA tensors) for a comparison
+    run."""
+    names = ("_record_slots", "_gather_fwd", "_gather_bwd", "_fused_fwd",
+             "_fused_bwd")
+    kernels = [getattr(pr, n) for n in names]
+    for n in names:
+        setattr(pr, n, getattr(pr, n + "_reference"))
     try:
         yield
     finally:
-        pr._record_slots, pr._gather_fwd, pr._gather_bwd = kernels
+        for n, k in zip(names, kernels):
+            setattr(pr, n, k)
+
+
+@contextlib.contextmanager
+def eager_replay():
+    """Route the f32 default of render_diff_pp_flat (the fused replay) to
+    the eager replay, which takes the same arguments, for one timing of the
+    unfused train step."""
+    fused = pr.replay_pp_fused
+    pr.replay_pp_fused = pr.replay_pp
+    try:
+        yield
+    finally:
+        pr.replay_pp_fused = fused
 
 
 def timed(fn):
@@ -254,30 +301,253 @@ def gather_phase(dev):
     return res
 
 
+ROW_GROUPS = ((0, 9), (9, 20))                   # geometry, material
+CARRY_GROUPS = ((0, 3), (3, 6), (6, 7), (7, 10))  # o, d, tau, throughput
+
+
+def mixed_scene(dev):
+    """Spheres and triangles in one table (the replay's sphere-or-triangle
+    select), a moving fuzz-1.0 metal, glass, and a fuzzy metal quad."""
+    b = rtt.SceneBuilder()
+    b.add_sphere((0, -100.5, -2), 100.0,
+                 b.add_diffuse(color=(0.5, 0.5, 0.5)))
+    b.add_sphere((-0.7, 0, -2), 0.45,
+                 b.add_metallic(color=(0.9, 0.8, 0.7), fuzz=1.0),
+                 velocity=(0.1, 0.05, 0.0))
+    b.add_sphere((0.7, 0, -2), 0.45, b.add_dielectric(1.5))
+    b.add_triangle((-0.4, 0.8, -2.5), (0.4, 0.8, -2.5), (0, 1.5, -2.5),
+                   b.add_diffuse(color=(0.8, 0.2, 0.2)))
+    b.add_quad((-1.5, -0.5, -3), (3, 0, 0), (0, 2.5, 0),
+               b.add_metallic(color=(0.7, 0.8, 0.9), fuzz=0.3))
+    cam = rtt.make_camera(width=64, height=36, vfov=60.0, focus_dist=1.0,
+                          look_from=(0, 0, 0), look_at=(0, 0, -1), device=dev)
+    return b.build(device=dev), cam
+
+
+def replay_rows(scene, idx):
+    with torch.no_grad():
+        return pr.gather_rows_T(pr._diff_tables(scene).float(),
+                                idx.reshape(-1))
+
+
+def replay_compare(idx, k, p, dk, dp):
+    """Kernel (k = forward outputs, dk = backward) vs plain (p, dp) results
+    of the fused replay pair. Returns (share of the slots with a pixel that
+    are apart, value error, cotangent error, max abs error of the values,
+    of the cotangents), the last four over the slots that agree; raises
+    past the tolerances."""
+    k_it, r = idx.shape
+    live = idx >= -1
+    ste_k = torch.where(live, k[2], 0.0)  # the kernel skips idle lanes
+    ste_p = torch.where(live, p[2], 0.0)
+    drk, drp = (d.reshape(20, k_it, r) for d in (dk[0], dp[0]))
+    if not all(bool(torch.isfinite(a).all())
+               for a in (k[0], k[1], ste_k, dk[0], dk[1])):
+        raise AssertionError("replay kernels: non-finite output")
+    pairs = ((k[0], p[0]), (k[1], p[1]), (ste_k, ste_p))
+    val = torch.stack([((a - b).abs() / b.abs().clamp_min(1.0))
+                       .reshape(-1, r).amax(dim=0) for a, b in pairs])
+    val = val.amax(dim=0)
+    same = val <= REPLAY_RTOL
+    grad = torch.zeros(r, dtype=torch.float32, device=idx.device)
+    for a, b, groups in ((drk, drp, ROW_GROUPS),
+                         (dk[1], dp[1], CARRY_GROUPS)):
+        for lo, hi in groups:
+            scale = max(float(b[lo:hi, ..., same].abs().max()), 1e-30)
+            d = (a[lo:hi] - b[lo:hi]).abs().reshape(-1, r).amax(dim=0)
+            grad = torch.maximum(grad, d / scale)
+    ok = same & (grad <= REPLAY_GRAD_RTOL)
+    frac = float((~ok)[live.any(dim=0)].double().mean())
+    if frac > REPLAY_MAX_FRAC:
+        raise AssertionError(
+            f"replay kernels vs plain: {frac:.3%} of the slots apart "
+            f"(> {REPLAY_MAX_FRAC}): values up to {float(val.max()):.3g} "
+            f"relative, cotangents {float(grad.max()):.3g} of the group's "
+            "largest")
+    err_val, err_grad = (max(float((a - b).abs()[..., ok].max())
+                             for a, b in x)
+                         for x in (pairs, ((drk, drp), (dk[1], dp[1]))))
+    return (frac, float(val[ok].max()), float(grad[ok].max()), err_val,
+            err_grad)
+
+
+def replay_pair(scene, idx, aux, st0, seed: int):
+    """Both fused replay kernels against their plain versions on one
+    recording, with seeded numpy cotangents (replay_compare). Returns its
+    result, the plain final carry and the share of slots with a nonzero
+    initial-carry cotangent."""
+    cfg = pr._replay_cfg(scene, 1e-3)
+    rows = replay_rows(scene, idx)
+    k = pr._fused_fwd(rows, aux, idx, st0, cfg)
+    p = pr._fused_fwd_reference(rows, aux, idx, st0, cfg)
+    r = idx.shape[1]
+    g = np.random.default_rng(seed)
+    g_out, g_fin = (torch.from_numpy(g.standard_normal((n, r)).astype(
+        np.float32)).to(idx.device) for n in (3, 10))
+    dk = pr._fused_bwd(rows, aux, idx, k[2], g_out, g_fin, cfg)
+    dp = pr._fused_bwd_reference(rows, aux, idx, p[2], g_out, g_fin, cfg)
+    torch.cuda.synchronize()
+    resumed = float((dp[1] != 0).any(dim=0).double().mean())
+    return replay_compare(idx, k, p, dk, dp), p[1], resumed
+
+
+def replay_phase(dev) -> list:
+    """The fused replay kernels against their plain versions, real draws,
+    on four scenes: a fresh 16-iteration pass and its resumed remainder
+    (from the plain final carry, so the initial-carry cotangent is live).
+    Returns the largest absolute differences [values, cotangents]."""
+    three = rtt.scenes.three_sphere(width=64, height=36, device=dev)
+    cases = (
+        ("random_bouncing 64x36 8spp d8",
+         rtt.scenes.random_bouncing(width=64, height=36, device=dev), 8),
+        ("cornell_box 48x48 4spp d8 (triangles)",
+         rtt.scenes.cornell_box(width=48, device=dev), 4),
+        ("three_sphere 64x36 8spp d8 (fuzz-1.0 metal, glass bubble)",
+         three, 8),
+        ("mixed spheres+triangles 64x36 8spp d8 (motion)",
+         mixed_scene(dev), 8))
+    worst = [0.0, 0.0]
+    for label, (scene, cam), spp in cases:
+        pix = slot_pix(cam.width * cam.height, 4096, dev)
+        kw = dict(spp=spp, max_depth=8, t_min=1e-3, jitter=True)
+        first = pr.record_pp(scene, cam, 21, pix, iters=16, want_state=True,
+                             **kw)
+        rest = pr.record_pp(scene, cam, 21, pix, iters=spp * 8 - 16,
+                            init_state=first[3], **kw)
+        cfg = pr._replay_cfg(scene, 1e-3)
+        tri = (int((first[0] >= cfg.n_sph_pad).sum())
+               + int((rest[0] >= cfg.n_sph_pad).sum())) if cfg.with_tri else 0
+        c1, fin, _ = replay_pair(scene, first[0], first[1],
+                                 pr._default_carry(4096, device=dev), 1)
+        c2, _, resumed = replay_pair(scene, rest[0], rest[1], fin, 2)
+        if not resumed > 0:
+            raise AssertionError(f"replay {label}: no slot resumed mid-path")
+        frac, val, grad, err_val, err_grad = (max(a, b)
+                                              for a, b in zip(c1, c2))
+        worst = [max(worst[0], err_val), max(worst[1], err_grad)]
+        phase("replay", f"{label}, passes of 16 + {spp * 8 - 16} "
+                        f"iterations: {frac:.3%} of the slots apart; on the "
+                        f"rest values within {val:.3g} relative, cotangents "
+                        f"within {grad:.3g} of their group's largest, max "
+                        f"abs {err_val:.3g} / {err_grad:.3g}; {tri} "
+                        "triangle winners, "
+                        f"{resumed:.2%} of slots carry a nonzero "
+                        "initial-carry cotangent")
+    return worst
+
+
+def replay_flagship(scene, cam, dev) -> dict:
+    """Both replay kernels and their plain versions at the train step's
+    first pass (262,144 slots, 112 iterations, spp 32): CUDA-event ms of
+    the kernels, host-clock ms of one plain run, the differences; and the
+    gathers at that pass's K*R rows. Returns {name: (err, ms, plain ms)}."""
+    n = cam.width * cam.height
+    pix = slot_pix(n, -(-n // 2048) * 2048, dev)
+    idx, aux, _ = pr.record_pp(scene, cam, 1, pix, spp=MICRO_SPP,
+                               max_depth=FLAGSHIP["depth"], t_min=1e-3,
+                               jitter=True, iters=pr.default_k1(MICRO_SPP))
+    cfg = pr._replay_cfg(scene, 1e-3)
+    tab = pr._diff_tables(scene).detach().float()
+    flat = idx.reshape(-1)
+    rows = pr._gather_fwd(tab, flat, True)
+    gf_ms = event_ms(lambda: pr._gather_fwd(tab, flat, True), 3)
+    st0 = pr._default_carry(idx.shape[1], device=dev)
+    f_ms = event_ms(lambda: pr._fused_fwd(rows, aux, idx, st0, cfg), 3)
+    k = pr._fused_fwd(rows, aux, idx, st0, cfg)
+    p, pf_s = timed(lambda: pr._fused_fwd_reference(rows, aux, idx, st0,
+                                                     cfg))
+    g = np.random.default_rng(3)
+    g_out, g_fin = (torch.from_numpy(g.standard_normal((m, idx.shape[1]))
+                                     .astype(np.float32)).to(dev)
+                    for m in (3, 10))
+    b_ms = event_ms(lambda: pr._fused_bwd(rows, aux, idx, k[2], g_out,
+                                          g_fin, cfg), 3)
+    dk = pr._fused_bwd(rows, aux, idx, k[2], g_out, g_fin, cfg)
+    dp, pb_s = timed(lambda: pr._fused_bwd_reference(rows, aux, idx, p[2],
+                                                      g_out, g_fin, cfg))
+    frac, val, grad, err_val, err_grad = replay_compare(idx, k, p, dk, dp)
+    gb_ms = event_ms(lambda: pr._gather_bwd(dk[0], flat, tab.shape[0], True),
+                     3)
+    live = float((idx >= -1).double().mean())
+    phase("replay", f"flagship pass 1 ({idx.shape[1]} slots, {idx.shape[0]} "
+                    f"iterations, {live:.2%} of lane-iterations live): "
+                    f"forward {f_ms:.3f} ms vs plain {pf_s * 1e3:.2f} ms, "
+                    f"backward {b_ms:.3f} ms vs plain {pb_s * 1e3:.2f} ms; "
+                    f"{frac:.3%} of the slots apart, on the rest values "
+                    f"within {val:.3g} relative, cotangents within "
+                    f"{grad:.3g} of their group's largest, max abs "
+                    f"{err_val:.3g} / {err_grad:.3g}; gathers at K*R = "
+                    f"{flat.shape[0]}: forward {gf_ms:.3f} ms, backward "
+                    f"{gb_ms:.3f} ms")
+    return {"replay_fwd": (err_val, f_ms, pf_s * 1e3),
+            "replay_bwd": (err_grad, b_ms, pb_s * 1e3)}
+
+
+def grad_diff(la, ga, lb, gb, what: str, floor: float = 1e-12) -> float:
+    """Largest difference of two (loss, gradients) results, relative to
+    the larger of ``floor`` and the loss or each field's largest entry."""
+    worst = abs(float(la - lb)) / max(abs(float(lb)), floor)
+    for name, b in gb.items():
+        a = ga[name]
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what} {name}: reached the loss in only "
+                                 "one of the two runs")
+        if b is not None:
+            scale = max(float(b.abs().max()), floor)
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
 def grad_phase(dev) -> float:
-    """pixel_loss and its gradients through the kernels vs through the
-    plain versions; returns the largest relative difference."""
+    """pixel_loss and its gradients (the fused replay, the f32 default)
+    through the kernels vs through the plain versions, and the fused
+    kernels vs the eager replay with its per-step gathers; returns the
+    largest relative difference."""
     scene, cam = rtt.scenes.random_bouncing(width=64, height=36, device=dev)
     cfg = rtt.RenderConfig(spp=4, max_depth=8)
     target = rtt.render_fast(scene, cam, 11, cfg)
+    before = dict(pr.LAUNCHES)
     lk, leftk, gk = loss_and_grads(scene, cam, 3, target, cfg)
+    if not all(pr.LAUNCHES[k] > before[k] for k in pr.LAUNCHES):
+        raise AssertionError(f"grad: pixel_loss launched {pr.LAUNCHES} "
+                             f"(before {before})")
     with plain_pathrec():
         lp, leftp, gp = loss_and_grads(scene, cam, 3, target, cfg)
-    worst = abs(float(lk - lp)) / abs(float(lp))
-    for name, b in gp.items():
-        a = gk[name]
-        if (a is None) != (b is None):
-            raise AssertionError(f"grad {name}: reached the loss in only one "
-                                 "of the two runs")
-        if b is not None:
-            scale = max(float(b.abs().max()), 1e-12)
-            worst = max(worst, float((a - b).abs().max()) / scale)
+    worst = grad_diff(lk, gk, lp, gp, "grad")
     if worst > GRAD_RTOL or leftk or leftp:
         raise AssertionError(f"grad: kernels vs plain {worst} > {GRAD_RTOL} "
                              f"(leftover {leftk}, {leftp})")
+    px, py = pr._pixel_grid(cam)
+
+    def flat(fused: bool):
+        params = train_params(scene)
+        img, left = pr.render_diff_pp_flat(
+            rtt.inject_params(scene, params), cam, 3, px, py, spp=cfg.spp,
+            max_depth=cfg.max_depth, t_min=cfg.t_min, jitter=cfg.jitter,
+            fused=fused, return_leftover=True)
+        loss = torch.mean((img - target.reshape(img.shape)) ** 2)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        return loss.detach(), int(left), dict(zip(params, grads)), img
+
+    steps = pr.REPLAY_STEPS
+    lu, leftu, gu, imgu = flat(False)
+    steps = pr.REPLAY_STEPS - steps
+    lf, leftf, gf, imgf = flat(True)
+    unfused = grad_diff(lf, gf, lu, gu, "fused vs eager", floor=1.0)
+    off = float(((imgf - imgu).abs() > STOCHASTIC_ATOL).double().mean())
+    if (unfused > EAGER_TOL or off >= STOCHASTIC_MAX_FRAC or leftu or leftf
+            or not steps):
+        raise AssertionError(f"grad: fused vs eager replay {unfused} (> "
+                             f"{EAGER_TOL}?), {off:.4%} of channels off; "
+                             f"leftover {leftf}, {leftu}; {steps} eager "
+                             "steps")
     phase("grad", f"random_bouncing 64x36 4spp d8 pixel_loss(recorded-pp) "
                   f"{float(lk):.6g}: loss and gradients, kernels vs plain, "
-                  f"within {worst:.3g} relative; leftover 0")
+                  f"within {worst:.3g} relative; fused kernels vs the eager "
+                  f"replay ({steps} steps, per-step gathers): loss and "
+                  f"gradients within {unfused:.3g} of max(1, largest), "
+                  f"{off:.4%} of channels > {STOCHASTIC_ATOL}; leftover 0")
     return worst
 
 
@@ -341,16 +611,12 @@ def train_phase(scene, cam, target, smi: str) -> dict:
     n = f["width"] * f["height"]
     passes = len(pr.default_schedule(MICRO_SPP, f["depth"],
                                      -(-n // 2048) * 2048, 2048))
-    if launches["record_pp"] != passes * micro:
-        raise AssertionError(f"train: {launches['record_pp']} recorder "
-                             f"launches, expected {passes * micro}")
-    # every replay step gathers; every step's rows get a cotangent except
-    # where nothing reaches the loss: the last step of each micro-batch's
-    # last pass adds only the sky, which no row value enters
-    if not steps or launches["gather_fwd"] != steps or not (
-            steps - micro <= launches["gather_bwd"] <= steps):
-        raise AssertionError(f"train: {steps} replay steps but gather "
-                             f"launches {launches}")
+    # each pass records once, gathers all its rows once, replays through
+    # the fused pair, and sends its row cotangents back through the gather
+    want = {k: passes * micro for k in pr.LAUNCHES}
+    if launches != want or steps:
+        raise AssertionError(f"train: launches {launches}, expected {want}; "
+                             f"{steps} eager replay steps, expected 0")
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"train: loss {float(loss)}")
     for name, g in grads.items():
@@ -362,7 +628,8 @@ def train_phase(scene, cam, target, smi: str) -> dict:
     rays = f["width"] * f["height"] * f["spp"]
     phase("train", f"fwdbwd 512x512 2x{MICRO_SPP}spp d{f['depth']}: loss "
                    f"{float(loss):.6g}, leftover {lefts}, launches "
-                   f"{launches} over {steps} replay steps; gradients finite "
+                   f"{launches} ({passes} passes x {micro} micro-batches); "
+                   "gradients finite "
                    f"(|d sphere_center| sum "
                    f"{float(grads['sphere_center'].abs().sum()):.4g}, "
                    f"|d tex_color| sum "
@@ -377,6 +644,13 @@ def train_phase(scene, cam, target, smi: str) -> dict:
                    + f"; {TRAIN_RUNS} after 1 warm-up; seconds "
                    + ", ".join(f"{s:.3f}" for s in secs)
                    + f") | peak {peak_gb:.3f} GB | {smi}")
+    with eager_replay():
+        torch.cuda.reset_peak_memory_stats()
+        _, eager_s = timed(lambda: fwdbwd(TRAIN_RUNS + 1))
+    phase("train", f"the same fwdbwd through the eager replay (fused=False), "
+                   f"one run: {rays / eager_s / 1e6:.4f} Mrays/s "
+                   f"({eager_s:.3f} s), peak "
+                   f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
     before = {k: v.detach().clone() for k, v in params.items()}
     step = rtt.make_train_step(torch.optim.Adam(list(params.values()),
@@ -604,15 +878,18 @@ def main() -> int:
     phase("shared", f"flagship tables in shared memory: "
                     f"{tables.shared_bytes(n_pad, m_pad)} bytes per block")
 
-    # ---- 7-9. recorder, gathers, small gradient: kernels vs plain ----
+    # ---- 7-10. recorder, gathers, fused replay, small gradient ----
     rec_err = record_phase(dev)
     gather = gather_phase(dev)
+    replay_err = replay_phase(dev)
     grad_phase(dev)
 
-    # ---- 10. the gradient main path: the flagship recorded-pp step ----
+    # ---- 11. the gradient main path: the flagship recorded-pp step ----
     scene, cam = rtt.scenes.random_bouncing(width=f["width"],
                                             height=f["height"], device=dev)
     flag_err, rec_ms, rec_plain_ms = record_flagship(scene, cam, dev)
+    replay = replay_flagship(scene, cam, dev)
+    torch.cuda.empty_cache()
     target = rtt.render_fast(scene, cam, 0, cfg)
     train = train_phase(scene, cam, target, smi)
 
@@ -633,6 +910,10 @@ def main() -> int:
               tl["gather_fwd"], *gather["gather_fwd"]),
         entry("gather_bwd", "gather.cu", "rayz_tpu/ops/pathrec.py:1120",
               tl["gather_bwd"], *gather["gather_bwd"]),
+        *(entry(name, "replay_pp.cu", f"rayz_tpu/ops/pathrec.py:{line}",
+                tl[name], max(small, replay[name][0]), *replay[name][1:])
+          for name, line, small in (("replay_fwd", 1512, replay_err[0]),
+                                    ("replay_bwd", 1565, replay_err[1]))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

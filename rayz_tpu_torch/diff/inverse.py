@@ -10,8 +10,10 @@ them through :func:`rayz_tpu_torch.ops.pathrec.render_diff_pp`.
 Not ported yet, and raising ``NotImplementedError`` rather than degrading:
 the ``"dense"`` engine (ROADMAP queue 1 item 4), the ``"recorded"`` engine
 (item 7), the mesh path (item 9) and checkpoints (item 10). The render
-under ``"recorded-pp"`` runs the replay unfused (``fused=False``) until the
-fused replay kernels land (ROADMAP queue 2 rows 8-9).
+under ``"recorded-pp"`` replays a float32 scene through the fused replay
+kernels and a float64 scene through the eager replay, as the JAX package
+does (the ``fused=None`` default of
+:func:`rayz_tpu_torch.ops.pathrec.render_diff_pp_flat`).
 
 Seeds are ints; :func:`fit` draws each step's seed from an explicit
 ``torch.Generator``.

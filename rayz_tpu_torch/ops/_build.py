@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes), under
-``build/kernels/<hash>/`` at the repository root: one ``nvcc -c`` per
-source, all started together, then one link. The hash covers the sources,
-the headers and the flags, so an edit rebuilds and an unchanged tree reuses
-the library. A missing ``nvcc`` or a failed build raises: there is no
-fallback.
+``nvcc`` compiles the kernel sources of ``csrc/`` (``megakernel.cu``,
+``record_pp.cu``, ``gather.cu``, ``replay_pp.cu``) into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes), under ``build/kernels/<hash>/`` at the repository root: one
+``nvcc -c`` per source, all started together, then one link. The hash
+covers the sources, the headers and the flags, so an edit rebuilds and an
+unchanged tree reuses the library. A missing ``nvcc`` or a failed build
+raises: there is no fallback.
 
 Flags: ``sm_90a`` (Hopper); no fast-math, so square roots and divisions are
 IEEE and the poisoned padding columns keep rejecting themselves through
@@ -30,7 +31,7 @@ from typing import NamedTuple
 __all__ = ["load", "check", "build_dir", "BuildInfo"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("megakernel.cu", "record_pp.cu", "gather.cu")
+_SOURCES = ("megakernel.cu", "record_pp.cu", "gather.cu", "replay_pp.cu")
 _HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
@@ -90,6 +91,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     ll = ctypes.c_longlong
     lib.rayz_gather_bwd.argtypes = [p, ll, ll, p, p, i, i, p, p]
     lib.rayz_gather_bwd.restype = i
+    lib.rayz_replay_fwd.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, i, f,
+                                    p]
+    lib.rayz_replay_fwd.restype = i
+    lib.rayz_replay_bwd.argtypes = [p, p, p, p, p, p, i, i, p, p, i, i, i, i,
+                                    f, p]
+    lib.rayz_replay_bwd.restype = i
     lib.rayz_error_string.argtypes = [i]
     lib.rayz_error_string.restype = ctypes.c_char_p
 

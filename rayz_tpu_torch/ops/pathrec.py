@@ -1,7 +1,7 @@
 """Persistent-path record/replay: the port's differentiable renderer.
 
 PyTorch counterpart of :mod:`rayz_tpu.ops.pathrec` (the ``recorded-pp``
-estimator) in its unfused configuration:
+estimator), fused and unfused:
 
 * **Record** (CUDA, non-differentiable): :func:`record_pp` (pathrec.py:552)
   over ``csrc/record_pp.cu``, which replaces ``_record_pp_kernel``
@@ -14,11 +14,19 @@ estimator) in its unfused configuration:
   :func:`gather_rows_T` (:1157) are ``torch.autograd.Function``\\ s over
   ``csrc/gather.cu``, which replaces ``_gather_fwd_kernel`` (:1095) and
   ``_gather_bwd_kernel`` (:1120); the backward is deterministic.
-* **Replay** (eager torch autograd): :func:`replay_pp` (pathrec.py:660)
-  re-derives every value of the recorded paths from the raw scene
-  parameters, one checkpointed step per recorded iteration, so gradients
-  reach centers, radii, velocities, triangle vertices, colors, fuzz and
-  IOR with O(R) work per iteration.
+* **Fused replay** (CUDA, the f32 default): :func:`replay_pp_fused`
+  (pathrec.py:1756) gathers every recorded iteration's winner rows once,
+  then runs ``csrc/replay_pp.cu``, which replaces ``_fused_fwd_kernel``
+  (:1512) and ``_fused_bwd_kernel`` (:1565): the forward replays all
+  iterations per slot and saves each entry carry, the backward walks them
+  in reverse through a hand-derived adjoint of :func:`_pp_step`.
+  :func:`_fused_fwd_reference` and :func:`_fused_bwd_reference` (autograd
+  of :func:`_pp_step` per iteration) are their plain versions.
+* **Eager replay** (torch autograd, the f64 path and the oracle):
+  :func:`replay_pp` (pathrec.py:660) re-derives every value of the
+  recorded paths from the raw scene parameters, one checkpointed step per
+  recorded iteration. Both replays reach centers, radii, velocities,
+  triangle vertices, colors, fuzz and IOR with O(R) work per iteration.
 * **Schedule**: :func:`render_diff_pp_flat` (pathrec.py:855) runs the
   straggler-compacted pass schedule of :func:`default_schedule`, with each
   resumed pass's replay carry handed over differentiably, and
@@ -26,9 +34,6 @@ estimator) in its unfused configuration:
 
 Departures from the JAX package:
 
-* ``fused`` (the fused replay kernels, pathrec.py:1512/:1565, ROADMAP queue
-  2 rows 8-9) is not ported yet: ``fused=None`` resolves to ``False`` here
-  (the JAX default is ``True`` for f32 scenes) and ``fused=True`` raises.
 * Draws are the megakernel's counter-keyed numbers (:mod:`.rng`), keyed by
   (seed, pixel, sample, bounce), so a recorded path is the path the
   megakernel traces for the same seed, and :func:`record_pp` takes flat
@@ -42,7 +47,7 @@ Departures from the JAX package:
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -58,14 +63,17 @@ from .tables import (_NROWS, _TNROWS, SHARED_LIMIT, _camera_vector,
                      fits_shared, scene_tables, shared_bytes, tri_tables)
 
 __all__ = ["render_diff_pp", "render_diff_pp_flat", "record_pp", "replay_pp",
-           "gather_rows", "gather_rows_T", "default_iters", "default_k1",
-           "default_schedule", "supports_pp", "LAUNCHES", "REPLAY_STEPS"]
+           "replay_pp_fused", "gather_rows", "gather_rows_T",
+           "default_iters", "default_k1", "default_schedule", "supports_pp",
+           "LAUNCHES", "REPLAY_STEPS"]
 
-#: Kernel launches made in this process by the wrappers of the recorder and
-#: of the two gather kernels (never by their plain versions).
-LAUNCHES = {"record_pp": 0, "gather_fwd": 0, "gather_bwd": 0}
+#: Kernel launches made in this process by the wrappers of the recorder, of
+#: the two gather kernels and of the two fused replay kernels (never by
+#: their plain versions).
+LAUNCHES = {"record_pp": 0, "gather_fwd": 0, "gather_bwd": 0,
+            "replay_fwd": 0, "replay_bwd": 0}
 
-#: Replay steps run in this process (one gather per step).
+#: Steps run in this process by the eager replay (one gather per step).
 REPLAY_STEPS = 0
 
 # aux plane rows (per iteration, per slot), as pathrec.py:118-124
@@ -497,6 +505,17 @@ def _safe_sqrt(x):
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
+def _vmin(x, c: float):
+    """``jnp.minimum(x, c)``: at a tie each side gets half the gradient
+    (``torch.clamp_max`` would pass all of it)."""
+    return torch.minimum(x, torch.full((), c, dtype=x.dtype, device=x.device))
+
+
+def _vmax(x, c: float):
+    """``jnp.maximum(x, c)``, with the same tie rule as :func:`_vmin`."""
+    return torch.maximum(x, torch.full((), c, dtype=x.dtype, device=x.device))
+
+
 def _replay_step(o, d, tau, thr, out, row, idx_t, aux_t, *, t_min: float,
                  n_sph_pad: int, with_sph: bool, with_tri: bool,
                  has_motion: bool, blue: torch.Tensor):
@@ -582,7 +601,8 @@ def _replay_step(o, d, tau, thr, out, row, idx_t, aux_t, *, t_min: float,
     ddn = (d * nrm).sum(-1)
     rf = d - 2.0 * ddn[:, None] * nrm
     rinv = torch.rsqrt(torch.clamp_min((rf * rf).sum(-1), 1e-24))
-    met = rf * rinv[:, None] + torch.clamp_max(fuzz, 1.0)[:, None] * u3
+    # jnp.minimum's tie rule: d/d fuzz is 0.5 at fuzz == 1 (clamp_max: 1)
+    met = rf * rinv[:, None] + _vmin(fuzz, 1.0)[:, None] * u3
 
     # ---- dielectric ----
     eta = torch.where(front, 1.0 / ior, ior)
@@ -655,8 +675,7 @@ def replay_pp(scene: Scene, idx: torch.Tensor, aux: torch.Tensor, *,
         n_sph_pad=int(scene.sphere_radius.shape[0]) if with_sph else 0,
         with_sph=with_sph, with_tri=with_tri, has_motion=scene.has_motion,
         blue=torch.tensor([0.5, 0.7, 1.0], dtype=dt, device=dev))
-    live = torch.nonzero((idx >= -1).any(dim=1)).flatten().tolist()
-    for t in live:
+    for t in _live_iterations(idx):
         idx_t = idx[t]
         row = gather_rows(tab, torch.clamp_min(idx_t, 0))
         o, d, tau, thr, out = checkpoint(
@@ -666,6 +685,383 @@ def replay_pp(scene: Scene, idx: torch.Tensor, aux: torch.Tensor, *,
     if return_final:
         return out, torch.cat([o.T, d.T, tau[None], thr.T], dim=0)
     return out
+
+
+def _live_iterations(idx: torch.Tensor) -> list:
+    """Recorded iterations in which some slot is live (idx >= -1); the
+    others change nothing."""
+    return torch.nonzero((idx >= -1).any(dim=1)).flatten().tolist()
+
+
+# --------------------------------------------------------------------------
+# fused replay: the step, plain versions, kernel wrappers, autograd
+# --------------------------------------------------------------------------
+
+class _ReplayCfg(NamedTuple):
+    """Static configuration of the fused replay (JAX's ``kcfg``)."""
+
+    t_min: float
+    n_sph_pad: int     # sphere rows of the table; triangles follow
+    with_sph: bool
+    with_tri: bool
+    has_motion: bool
+
+
+def _replay_cfg(scene: Scene, t_min: float) -> _ReplayCfg:
+    return _ReplayCfg(
+        t_min=float(t_min),
+        n_sph_pad=int(scene.sphere_radius.shape[0]) if scene.n_spheres else 0,
+        with_sph=scene.n_spheres > 0, with_tri=scene.n_triangles > 0,
+        has_motion=bool(scene.has_motion))
+
+
+def _pp_step(st, row, aux, hit, miss, is_tri, *, has_motion: bool,
+             with_sph: bool, with_tri: bool, t_min: float):
+    """One fused replay iteration on [R] components, term for term
+    ``_pp_step_c`` (pathrec.py:1325-1506): ``st`` the 10 carry components
+    BEFORE respawn, ``row`` the 20 winner-row components, ``aux`` the 13
+    recorded aux rows, ``hit``/``miss``/``is_tri`` masks from the raw index.
+    Returns (new carry, radiance to add), tuples of [R] tensors.
+
+    Unlike :func:`_replay_step`, it keeps the fused kernels' raw-index
+    semantics: miss and idle lanes read an all-zero row, ``is_tri`` is not
+    clamped, ``ior`` and the checker scale are floored at 1e-6 so a zero
+    row's 1/x stays finite, and spawn is read from the flag's low bit."""
+    ox, oy, oz, dx, dy, dz, tau, thx, thy, thz = st
+    ux, uy, uz, cb, us, sox, soy, soz, sdx, sdy, sdz, stau, flg = aux
+    spawn = flg - 2.0 * torch.floor(flg * 0.5) >= 0.5
+    cont = flg >= 2.0
+
+    ox = torch.where(spawn, sox, ox)
+    oy = torch.where(spawn, soy, oy)
+    oz = torch.where(spawn, soz, oz)
+    dx = torch.where(spawn, sdx, dx)
+    dy = torch.where(spawn, sdy, dy)
+    dz = torch.where(spawn, sdz, dz)
+    tau = torch.where(spawn, stau, tau)
+    thx = torch.where(spawn, 1.0, thx)
+    thy = torch.where(spawn, 1.0, thy)
+    thz = torch.where(spawn, 1.0, thz)
+
+    a = dx * dx + dy * dy + dz * dz
+
+    if with_sph:
+        cx, cy, cz = row[0], row[1], row[2]
+        if has_motion:
+            cx = cx + tau * row[3]
+            cy = cy + tau * row[4]
+            cz = cz + tau * row[5]
+        rad = row[6]
+        cox, coy, coz = cx - ox, cy - oy, cz - oz
+        half_b = dx * cox + dy * coy + dz * coz
+        c_term = cox * cox + coy * coy + coz * coz - rad * rad
+        disc = half_b * half_b - a * c_term
+        rt = _safe_sqrt(disc)
+        q1 = half_b - rt
+        q2 = half_b + rt
+        q = torch.where(q1 >= t_min * a, q1, q2)
+        t_sph = q / a
+    if with_tri:
+        v0x, v0y, v0z = row[0], row[1], row[2]
+        e1x, e1y, e1z = row[3] - v0x, row[4] - v0y, row[5] - v0z
+        e2x, e2y, e2z = row[6] - v0x, row[7] - v0y, row[8] - v0z
+        pnx = e1y * e2z - e1z * e2y
+        pny = e1z * e2x - e1x * e2z
+        pnz = e1x * e2y - e1y * e2x
+        ndd = pnx * dx + pny * dy + pnz * dz
+        ndd_safe = torch.where(ndd.abs() > 0.0, ndd, 1.0)
+        t_tri = (pnx * (v0x - ox) + pny * (v0y - oy)
+                 + pnz * (v0z - oz)) / ndd_safe
+
+    if with_sph and with_tri:
+        t_hit = torch.where(is_tri, t_tri, t_sph)
+    else:
+        t_hit = t_tri if with_tri else t_sph
+    ts = torch.where(hit, t_hit, 1.0)
+    px_ = ox + ts * dx
+    py_ = oy + ts * dy
+    pz_ = oz + ts * dz
+
+    if with_sph and with_tri:
+        nx = torch.where(is_tri, pnx, px_ - cx)
+        ny = torch.where(is_tri, pny, py_ - cy)
+        nz = torch.where(is_tri, pnz, pz_ - cz)
+    elif with_tri:
+        nx, ny, nz = pnx, pny, pnz
+    else:
+        nx, ny, nz = px_ - cx, py_ - cy, pz_ - cz
+    ninv = torch.rsqrt(_vmax(nx * nx + ny * ny + nz * nz, 1e-24))
+    nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+    front = nx * dx + ny * dy + nz * dz < 0.0
+    sgn = torch.where(front, 1.0, -1.0)
+    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+
+    kind, method, fuzz = row[9], row[10], row[11]
+    ior = _vmax(row[12], 1e-6)
+    isc = 1.0 / _vmax(row[13], 1e-6)
+    par = (torch.floor(px_ * isc) + torch.floor(py_ * isc)
+           + torch.floor(pz_ * isc))
+    even_par = par - 2.0 * torch.floor(par * 0.5) < 0.5
+    alr = torch.where(even_par, row[14], row[17])
+    alg = torch.where(even_par, row[15], row[18])
+    alb = torch.where(even_par, row[16], row[19])
+
+    # ---- diffuse ----
+    sx, sy, sz = ux * cb, uy * cb, uz * cb
+    flip = torch.where(sx * nx + sy * ny + sz * nz > 0.0, 1.0, -1.0)
+    m0 = method == DIFFUSE_UNIT_SPHERE
+    m1 = method == DIFFUSE_UNIT_SPHERE_SURFACE
+    offx = torch.where(m0, nx + sx, torch.where(m1, nx + ux, sx * flip))
+    offy = torch.where(m0, ny + sy, torch.where(m1, ny + uy, sy * flip))
+    offz = torch.where(m0, nz + sz, torch.where(m1, nz + uz, sz * flip))
+    tgx, tgy, tgz = px_ + offx, py_ + offy, pz_ + offz
+    nz_tgt = ((tgx.abs() <= 1e-8) & (tgy.abs() <= 1e-8)
+              & (tgz.abs() <= 1e-8))
+    tgx = torch.where(nz_tgt, nx, tgx)
+    tgy = torch.where(nz_tgt, ny, tgy)
+    tgz = torch.where(nz_tgt, nz, tgz)
+    difx, dify, difz = tgx - px_, tgy - py_, tgz - pz_
+
+    # ---- metallic ----
+    ddn = dx * nx + dy * ny + dz * nz
+    rfx = dx - 2.0 * ddn * nx
+    rfy = dy - 2.0 * ddn * ny
+    rfz = dz - 2.0 * ddn * nz
+    rinv = torch.rsqrt(_vmax(rfx * rfx + rfy * rfy + rfz * rfz, 1e-24))
+    fz = _vmin(fuzz, 1.0)
+    mex = rfx * rinv + fz * ux
+    mey = rfy * rinv + fz * uy
+    mez = rfz * rinv + fz * uz
+
+    # ---- dielectric ----
+    eta = torch.where(front, 1.0 / ior, ior)
+    dinv = torch.rsqrt(_vmax(a, 1e-24))
+    udx, udy, udz = dx * dinv, dy * dinv, dz * dinv
+    cos_t = -(udx * nx + udy * ny + udz * nz)
+    sin_t = _safe_sqrt(1.0 - cos_t * cos_t)
+    cannot = eta * sin_t > 1.0
+    r0 = (1.0 - eta) / (1.0 + eta)
+    r0 = r0 * r0
+    om = 1.0 - cos_t
+    om2 = om * om
+    refl_p = r0 + (1.0 - r0) * om2 * om2 * om
+    do_refl = cannot | (refl_p > us)
+    ppx = (udx + cos_t * nx) * eta
+    ppy = (udy + cos_t * ny) * eta
+    ppz = (udz + cos_t * nz) * eta
+    parm = -_safe_sqrt(1.0 - (ppx * ppx + ppy * ppy + ppz * ppz))
+    dlx = torch.where(do_refl, rfx, ppx + parm * nx)
+    dly = torch.where(do_refl, rfy, ppy + parm * ny)
+    dlz = torch.where(do_refl, rfz, ppz + parm * nz)
+
+    is_m = kind == float(MAT_METALLIC)
+    is_d = kind == float(MAT_DIELECTRIC)
+    ndirx = torch.where(is_d, dlx, torch.where(is_m, mex, difx))
+    ndiry = torch.where(is_d, dly, torch.where(is_m, mey, dify))
+    ndirz = torch.where(is_d, dlz, torch.where(is_m, mez, difz))
+    atr = torch.where(is_d, 1.0, alr)
+    atg = torch.where(is_d, 1.0, alg)
+    atb = torch.where(is_d, 1.0, alb)
+
+    # ---- recorded miss -> sky (the reference's exact formula) ----
+    sky_t = 0.5 * (dy * dinv + 1.0)
+    skyr = (1.0 - sky_t + 0.5) * sky_t
+    skyg = (1.0 - sky_t + 0.7) * sky_t
+    skyb = (1.0 - sky_t + 1.0) * sky_t
+    out_add = (torch.where(miss, thx * skyr, 0.0),
+               torch.where(miss, thy * skyg, 0.0),
+               torch.where(miss, thz * skyb, 0.0))
+
+    # state update gated by the RECORDED continue flag
+    new_st = (torch.where(cont, px_, ox), torch.where(cont, py_, oy),
+              torch.where(cont, pz_, oz),
+              torch.where(cont, ndirx, dx), torch.where(cont, ndiry, dy),
+              torch.where(cont, ndirz, dz), tau,
+              torch.where(cont, thx * atr, thx),
+              torch.where(cont, thy * atg, thy),
+              torch.where(cont, thz * atb, thz))
+    return new_st, out_add
+
+
+def _step_inputs(rowsT, aux, idx, t: int, cfg: _ReplayCfg):
+    """Iteration ``t``'s rows [20, R], aux [13, R] and masks."""
+    r = idx.shape[1]
+    i = idx[t]
+    return (rowsT[:, t * r:(t + 1) * r], aux[t], i >= 0, i == -1,
+            i >= cfg.n_sph_pad)
+
+
+def _step_kw(cfg: _ReplayCfg) -> dict:
+    return dict(has_motion=cfg.has_motion, with_sph=cfg.with_sph,
+                with_tri=cfg.with_tri, t_min=cfg.t_min)
+
+
+def _fused_fwd_reference(rowsT, aux, idx, st0, cfg: _ReplayCfg):
+    """Plain version of the forward kernel: ``rowsT`` [20, K*R] (iteration
+    t's rows in columns t*R..), ``aux`` [K, 13, R], ``idx`` [K, R] i32,
+    ``st0`` [10, R] -> (radiance sums [3, R], final carry [10, R], entry
+    carries [10, K, R]). Iterations with no live slot are skipped, as JAX
+    skips them (pathrec.py:1537); their entry carries stay zero."""
+    k_it, r = idx.shape
+    st = tuple(st0.unbind())
+    out = [torch.zeros_like(st0[0]) for _ in range(3)]
+    st_entry = st0.new_zeros((_ST_ROWS, k_it, r))
+    for t in _live_iterations(idx):
+        st_entry[:, t] = torch.stack(st)
+        row, aux_t, hit, miss, is_tri = _step_inputs(rowsT, aux, idx, t, cfg)
+        st, add = _pp_step(st, tuple(row.unbind()), tuple(aux_t.unbind()),
+                           hit, miss, is_tri, **_step_kw(cfg))
+        out = [o + a for o, a in zip(out, add)]
+    return torch.stack(out), torch.stack(st), st_entry
+
+
+def _fused_bwd_reference(rowsT, aux, idx, st_entry, g_out, g_fin,
+                         cfg: _ReplayCfg):
+    """Plain version of the backward kernel: walks the live iterations in
+    reverse, recomputes :func:`_pp_step` from the saved entry carry and
+    applies its vector-Jacobian product by ``torch.autograd.grad`` with the
+    cotangents (carry, ``g_out``), as JAX applies ``jax.vjp`` inside its
+    kernel (pathrec.py:1606-1615). Returns (row cotangents [20, K*R] in
+    ``rowsT``'s layout, zero on idle iterations; initial-carry cotangent
+    [10, R])."""
+    r = idx.shape[1]
+    drows = torch.zeros_like(rowsT)
+    d_st = g_fin.clone()
+    for t in reversed(_live_iterations(idx)):
+        row, aux_t, hit, miss, is_tri = _step_inputs(rowsT, aux, idx, t, cfg)
+        with torch.enable_grad():
+            st = st_entry[:, t].detach().requires_grad_(True)
+            row = row.detach().requires_grad_(True)
+            new_st, add = _pp_step(tuple(st.unbind()), tuple(row.unbind()),
+                                   tuple(aux_t.unbind()), hit, miss, is_tri,
+                                   **_step_kw(cfg))
+            d_st, d_row = torch.autograd.grad(
+                new_st + add, (st, row),
+                grad_outputs=tuple(d_st.unbind()) + tuple(g_out.unbind()))
+        drows[:, t * r:(t + 1) * r] = d_row
+    return drows, d_st
+
+
+def _check_replay(rowsT, aux, idx, st0):
+    k_it, r = idx.shape
+    want = (("rowsT", rowsT, (20, k_it * r)),
+            ("aux", aux, (k_it, _AUX_ROWS, r)), ("st0", st0, (_ST_ROWS, r)))
+    for name, t, shape in want:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+        if t.dtype != torch.float32 or t.device != idx.device:
+            raise ValueError(f"{name} must be f32 on {idx.device}, got "
+                             f"{t.dtype} on {t.device}")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"idx must be int32, got {idx.dtype}")
+
+
+def _replay_args(cfg: _ReplayCfg, dev) -> tuple:
+    return (cfg.n_sph_pad, int(cfg.with_sph), int(cfg.with_tri),
+            int(cfg.has_motion), cfg.t_min,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _fused_fwd(rowsT, aux, idx, st0, cfg: _ReplayCfg):
+    """Forward wrapper: the CUDA kernel for CUDA tensors (or raise), the
+    plain version for CPU tensors. Same arguments and results as
+    :func:`_fused_fwd_reference`; the kernel writes entry carries only on
+    live lanes (idx >= -1)."""
+    _check_replay(rowsT, aux, idx, st0)
+    if idx.device.type == "cpu":
+        return _fused_fwd_reference(rowsT, aux, idx, st0, cfg)
+    if idx.device.type != "cuda":
+        raise ValueError(f"no replay kernel for device {idx.device}")
+    rowsT, aux, idx, st0 = (t.contiguous() for t in (rowsT, aux, idx, st0))
+    (k_it, r), dev = idx.shape, idx.device
+    out = torch.empty((3, r), dtype=torch.float32, device=dev)
+    fin = torch.empty((_ST_ROWS, r), dtype=torch.float32, device=dev)
+    st_entry = torch.empty((_ST_ROWS, k_it, r), dtype=torch.float32,
+                           device=dev)
+    lib, _ = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.rayz_replay_fwd(
+            rowsT.data_ptr(), aux.data_ptr(), idx.data_ptr(), st0.data_ptr(),
+            k_it, r, out.data_ptr(), fin.data_ptr(), st_entry.data_ptr(),
+            *_replay_args(cfg, dev))
+    _build.check(lib, err, "replay_fwd")
+    LAUNCHES["replay_fwd"] += 1
+    return out, fin, st_entry
+
+
+def _fused_bwd(rowsT, aux, idx, st_entry, g_out, g_fin, cfg: _ReplayCfg):
+    """Backward wrapper: the CUDA kernel (hand-derived adjoint) for CUDA
+    tensors (or raise), the plain version for CPU tensors. Same arguments
+    and results as :func:`_fused_bwd_reference`."""
+    k_it, r = idx.shape
+    _check_replay(rowsT, aux, idx, g_fin)
+    if idx.device.type == "cpu":
+        return _fused_bwd_reference(rowsT, aux, idx, st_entry, g_out, g_fin,
+                                    cfg)
+    if idx.device.type != "cuda":
+        raise ValueError(f"no replay kernel for device {idx.device}")
+    if st_entry.shape != (_ST_ROWS, k_it, r) or g_out.shape != (3, r):
+        raise ValueError(f"st_entry must be [10, {k_it}, {r}] and g_out "
+                         f"[3, {r}]")
+    rowsT, aux, idx, st_entry, g_out, g_fin = (
+        t.contiguous() for t in (rowsT, aux, idx, st_entry, g_out.float(),
+                                 g_fin.float()))
+    dev = idx.device
+    drows = torch.empty_like(rowsT)
+    dst0 = torch.empty((_ST_ROWS, r), dtype=torch.float32, device=dev)
+    lib, _ = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.rayz_replay_bwd(
+            rowsT.data_ptr(), aux.data_ptr(), idx.data_ptr(),
+            st_entry.data_ptr(), g_out.data_ptr(), g_fin.data_ptr(), k_it, r,
+            drows.data_ptr(), dst0.data_ptr(), *_replay_args(cfg, dev))
+    _build.check(lib, err, "replay_bwd")
+    LAUNCHES["replay_bwd"] += 1
+    return drows, dst0
+
+
+class _FusedReplay(torch.autograd.Function):
+    """(out [3, R], fin [10, R]) of the fused replay, differentiable in the
+    gathered rows and the initial carry (JAX's ``_fused_replay`` custom
+    VJP, pathrec.py:1627-1745). The recorded aux and indices get no
+    gradient. An unused output's cotangent arrives as zeros (autograd
+    materializes it), as the last pass's final carry does."""
+
+    @staticmethod
+    def forward(ctx, rowsT, aux, idx, st0, cfg):
+        out, fin, st_entry = _fused_fwd(rowsT, aux, idx, st0, cfg)
+        ctx.save_for_backward(rowsT, aux, idx, st_entry)
+        ctx.cfg = cfg
+        return out, fin
+
+    @staticmethod
+    def backward(ctx, g_out, g_fin):
+        rowsT, aux, idx, st_entry = ctx.saved_tensors
+        drows, dst0 = _fused_bwd(rowsT, aux, idx, st_entry, g_out, g_fin,
+                                 ctx.cfg)
+        return drows, None, None, dst0, None
+
+
+def replay_pp_fused(scene: Scene, idx: torch.Tensor, aux: torch.Tensor, *,
+                    t_min: float, init_carry: Optional[torch.Tensor] = None,
+                    return_final: bool = False):
+    """Fused-kernel equivalent of :func:`replay_pp` (pathrec.py:1756): the
+    same estimator and gradients, f32 only. One :func:`gather_rows_T` over
+    the RAW indices of all iterations (miss and idle lanes get zero rows),
+    then the replay kernels (:class:`_FusedReplay`). Returns the radiance
+    sums [R, 3], and with ``return_final=True`` also the final carry
+    [10, R]; ``init_carry`` [10, R] replays a resumed recording."""
+    k_it, r = idx.shape
+    tab = _diff_tables(scene).float()
+    rowsT = gather_rows_T(tab, idx.reshape(-1))
+    st0 = (_default_carry(r, device=idx.device) if init_carry is None
+           else init_carry.float())
+    out, fin = _FusedReplay.apply(rowsT, aux.detach().float(), idx, st0,
+                                  _replay_cfg(scene, t_min))
+    if return_final:
+        return out.T, fin
+    return out.T
 
 
 # --------------------------------------------------------------------------
@@ -691,12 +1087,12 @@ def render_diff_pp_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
     ``return_leftover=True`` also returns the number of samples left
     unfinished (0 unless more slots straggle than a pass holds).
 
-    ``fused=None`` means ``False`` until the fused replay kernels land
-    (ROADMAP queue 2 rows 8-9); ``fused=True`` raises."""
-    if fused:
-        raise NotImplementedError(
-            "the fused replay kernels (_fused_fwd_kernel/_fused_bwd_kernel, "
-            "ROADMAP queue 2 rows 8-9) are not ported yet; use fused=False")
+    ``fused=None`` resolves to ``scene.dtype == torch.float32`` as in JAX
+    (pathrec.py:920-921): f32 scenes replay through the fused kernels
+    (:func:`replay_pp_fused`), f64 scenes through the eager
+    :func:`replay_pp`, which ``fused=False`` also selects."""
+    if fused is None:
+        fused = scene.dtype == torch.float32
     k_exh = spp * max_depth
     n_px = px.shape[0]
     rs = min(_TILE_SUBLANES, max(1, -(-n_px // 128)))
@@ -718,7 +1114,8 @@ def render_diff_pp_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
     pix[:n_px] = (py.long() * camera.width + px.long()).to(torch.int32)
 
     def _replay(idx_, aux_, **kw):
-        return replay_pp(scene, idx_, aux_, t_min=t_min, **kw)
+        rep = replay_pp_fused if fused else replay_pp
+        return rep(scene, idx_, aux_, t_min=t_min, **kw)
 
     rec_kw = dict(spp=spp, max_depth=max_depth, t_min=t_min, jitter=jitter)
     n_pass = len(schedule)

@@ -227,11 +227,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         rtt.fit(scene, cam, target, config=cfg, engine="recorded-pp",
                 checkpoint_dir="ckpt")
-    px = torch.arange(16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="rows 8-9"):
-        tpr.render_diff_pp_flat(scene, cam, 0, px, px * 0, spp=1,
-                                max_depth=2, t_min=1e-3, jitter=False,
-                                fused=True)
 
 
 def test_cuda_path_raises_without_card(monkeypatch):
@@ -250,6 +245,18 @@ def test_cuda_path_raises_without_card(monkeypatch):
         tpr._record_slots(torch.zeros(18, device="meta"), stab, ttab, idx,
                           width=4, spp=1, max_depth=2, t_min=1e-3,
                           jitter=False, has_motion=False, seed=0, iters=1)
+    k_it, r = 2, 4
+    rows = torch.zeros((20, k_it * r), device="meta")
+    aux = torch.zeros((k_it, 13, r), device="meta")
+    ridx = torch.zeros((k_it, r), dtype=torch.int32, device="meta")
+    st = torch.zeros((10, r), device="meta")
+    cfg = tpr._replay_cfg(scene, 1e-3)
+    with pytest.raises(ValueError, match="no replay kernel"):
+        tpr._fused_fwd(rows, aux, ridx, st, cfg)
+    with pytest.raises(ValueError, match="no replay kernel"):
+        tpr._fused_bwd(rows, aux, ridx, torch.zeros((10, k_it, r),
+                                                    device="meta"),
+                       torch.zeros((3, r), device="meta"), st, cfg)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda")
     with pytest.raises(RuntimeError, match="nvcc not found"):

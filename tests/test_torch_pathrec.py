@@ -90,15 +90,17 @@ def _golden_scene(m, dtype):
     return b.build(dtype=dtype), cam
 
 
-def _mixed_scene(m, dtype):
+def _mixed_scene(m, dtype, fuzz: float = 0.0):
     """tests/test_pathrec.py's all-branches scene; the triangle's diffuse
     is UNIT_SPHERE: with zero random bits the HEMISPHERE sample is rounding
-    noise of the hit point, which no two implementations share."""
+    noise of the hit point, which no two implementations share. ``fuzz``
+    is the metal's (1.0: the tie of min(fuzz, 1), as in three_sphere)."""
     b = m.SceneBuilder()
     unit = m.models.scene.DIFFUSE_UNIT_SPHERE
     b.add_sphere((0, -100.5, -2), 100.0,
                  b.add_diffuse(color=(0.5, 0.5, 0.5), method=unit))
-    b.add_sphere((-0.7, 0, -2), 0.45, b.add_metallic(color=(0.9, 0.8, 0.7)))
+    b.add_sphere((-0.7, 0, -2), 0.45,
+                 b.add_metallic(color=(0.9, 0.8, 0.7), fuzz=fuzz))
     b.add_sphere((0.7, 0, -2), 0.45, b.add_dielectric(1.5))
     b.add_triangle((-0.4, 0.8, -2.5), (0.4, 0.8, -2.5), (0, 1.5, -2.5),
                    b.add_diffuse(color=(0.8, 0.2, 0.2), method=unit))
@@ -379,8 +381,8 @@ def test_gather_rows_f64_takes_plain_indexing():
 
 # ---- 5. the replay on one recording ----
 
-def _replay_case(dtype):
-    jscene, jcam = _mixed_scene(rt, dtype)
+def _replay_case(dtype, fuzz: float = 0.0):
+    jscene, jcam = _mixed_scene(rt, dtype, fuzz)
     scene, _ = _port(jscene, jcam)
     (pxp, pyp, n, rs), _ = _slots(jcam)
     idx, aux, _ = jpr.record_pp(jscene, jcam, 3, pxp, pyp, n, spp=3,
@@ -413,13 +415,13 @@ def _jax_replay(jscene, idx, aux, carry, dtype):
             np.asarray(grads[1]))
 
 
-def _port_replay(scene, idx, aux, carry):
+def _port_replay(scene, idx, aux, carry, replay=tpr.replay_pp):
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in rtt.extract_params(scene).items()}
     ic = torch.tensor(carry, dtype=scene.dtype, requires_grad=True)
-    out, fin = tpr.replay_pp(rtt.inject_params(scene, params),
-                             torch.from_numpy(idx), torch.from_numpy(aux),
-                             t_min=1e-3, init_carry=ic, return_final=True)
+    out, fin = replay(rtt.inject_params(scene, params),
+                      torch.from_numpy(idx), torch.from_numpy(aux),
+                      t_min=1e-3, init_carry=ic, return_final=True)
     loss = (out ** 2).sum() + (fin[7:10] ** 2).sum()
     grads = torch.autograd.grad(loss, list(params.values()) + [ic],
                                 allow_unused=True)
@@ -428,10 +430,12 @@ def _port_replay(scene, idx, aux, carry):
     return out.detach().numpy(), fin.detach().numpy(), g, grads[-1].numpy()
 
 
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64],
-                         ids=["f32", "f64"])
-def test_replay_matches_jax_on_one_recording(dtype):
-    jscene, scene, idx, aux, carry = _replay_case(dtype)
+@pytest.mark.parametrize("dtype,fuzz", [(jnp.float32, 0.0),
+                                        (jnp.float64, 0.0),
+                                        (jnp.float32, 1.0)],
+                         ids=["f32", "f64", "f32_fuzz1"])
+def test_replay_matches_jax_on_one_recording(dtype, fuzz):
+    jscene, scene, idx, aux, carry = _replay_case(dtype, fuzz)
     want = _jax_replay(jscene, idx, aux, carry, dtype)
     got = _port_replay(scene, idx, aux, carry)
     f32 = dtype == jnp.float32
@@ -453,6 +457,17 @@ def test_replay_matches_jax_on_one_recording(dtype):
         tol = 1e-4 if f32 else 1e-10
         np.testing.assert_allclose(a, b, rtol=0, atol=tol * scale,
                                    err_msg=name)
+    if fuzz == 1.0:
+        # at fuzz == 1 exactly, d min(fuzz, 1) / d fuzz is 1/2 in JAX; the
+        # fused replay (plain versions here) must give the same
+        metal = int(np.flatnonzero(np.asarray(jscene.mat_fuzz) == 1.0)[0])
+        want_fuzz = want[2]["mat_fuzz"]
+        assert want_fuzz[metal] != 0
+        fused = _port_replay(scene, idx, aux, carry, tpr.replay_pp_fused)
+        scale = max(float(np.abs(want_fuzz).max()), 1e-3)
+        for got_fuzz in (got[2]["mat_fuzz"], fused[2]["mat_fuzz"]):
+            np.testing.assert_allclose(got_fuzz, want_fuzz, rtol=0,
+                                       atol=1e-4 * scale)
 
 
 # ---- 7. the port on its own, real random draws ----
@@ -482,7 +497,7 @@ def test_compaction_equals_exhaustive_single_pass():
     steps = tpr.REPLAY_STEPS
     img_c, left_c = tpr.render_diff_pp(scene, cam, 4, cfg,
                                        return_leftover=True)
-    assert tpr.REPLAY_STEPS > steps
+    assert tpr.REPLAY_STEPS == steps  # f32: the fused replay, no eager step
     img_x, left_x = tpr.render_diff_pp(scene, cam, 4, cfg,
                                        iters=cfg.spp * cfg.max_depth,
                                        return_leftover=True)
