@@ -3,19 +3,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout (nvcc, sm_90a), checks each
-against its plain torch version on the card, and drives the port's two main
-paths on the flagship ``random_bouncing`` scene at 512x512, depth 32: the
+against its plain torch version on the card, and drives the port's main
+paths: on the flagship ``random_bouncing`` scene at 512x512, depth 32, the
 forward render (64 spp through ``render_fast(engine="auto")``) and the
 ``recorded-pp`` train step (bench.py's ``fwdbwd`` shape: two value-and-
 gradient micro-batches of 32 spp through the recorder, the gathers and the
-fused replay kernels, then two ``make_train_step`` steps). For each path it
-resets the launch counters, runs it, and shows that it went through its
+fused replay kernels, then two ``make_train_step`` steps); and the forward
+render of large scenes, ``render_fast(engine="auto")`` on ``sphere_field``
+at 100k, 10k and 64k spheres (512x288, 16 spp, depth 8:
+scripts/bench_culling.py's defaults), which resolves to the wavefront
+engine, then the streamed megakernel on the 100k scene. Before them the
+wavefront kernel is held against its plain version launch by launch in its
+three table modes, the megakernel's culled and streamed modes against the
+full-table megakernel and their plain versions, the two engines against
+each other, and the new paths against the golden image. For each main path
+it resets the launch counters, runs it, and shows that it went through its
 kernels; then it times it (the train step also once through the eager
-replay, for comparison). One line per phase; the line before
-the last is a JSON summary of the kernels, the last line is
-``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
-exits non-zero and prints no result; so does a machine without a GPU.
-Imports torch, numpy and ``rayz_tpu_torch`` only (never JAX).
+replay, for comparison). One line per phase; the line before the last is a
+JSON summary of the kernels (times, launches, the least time the card could
+take from this run's inputs, and a PyTorch call's time where one computes
+the same function), the last line is ``{"ok": true, "device": {...}}``. Any
+failed phase raises, so the script exits non-zero and prints no result; so
+does a machine without a GPU. Imports torch, numpy and ``rayz_tpu_torch``
+only (never JAX).
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 import rayz_tpu_torch as rtt
 from rayz_tpu_torch.io.image import read_ppm, write_ppm
 from rayz_tpu_torch.ops import _build, megakernel as mk, pathrec as pr, rng
+from rayz_tpu_torch.ops import tables as tb, wavefront as wf
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden_deterministic.ppm")
@@ -79,6 +90,27 @@ EAGER_TOL = 5e-4
 REPLAY_RTOL = 1e-4
 REPLAY_GRAD_RTOL = 5e-4
 REPLAY_MAX_FRAC = 5e-3
+
+# The wavefront kernel vs its plain version on the same inputs, launch by
+# launch: the share of rays whose state, alive flag and radiance are bit-
+# identical. Only a ray whose sweep meets an exact tie between two columns
+# may differ (the bound tests change the order the columns are met in).
+WF_STATE_MATCH = 0.9999
+# Two table modes, or the two engines, for the same seed: the share of
+# pixels that are identical (the same paths, up to exact ties).
+PIXEL_MATCH = 0.999
+
+# The H100 SXM's published peaks (NVIDIA's data sheet): FP32 outside
+# the tensor cores, and device memory.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# The fewest FP32 operations of one primitive test, from csrc/common.cuh (a
+# square root counts as one): a sphere (+ its motion), a triangle's plane
+# test.
+SPHERE_OPS, MOTION_OPS, TRI_OPS = 20, 10, 14
+
+LARGE = dict(width=512, spp=16, depth=8)  # scripts/bench_culling.py:58-60
+LARGE_NS = (100_000, 10_000, 64_000)     # the first is the main path
 
 FLAGSHIP = dict(width=512, height=512, spp=64, depth=32)
 PLAIN_SPP = 4  # the plain version's spp cut at the flagship size
@@ -246,7 +278,11 @@ def record_phase(dev) -> float:
 
 def gather_phase(dev):
     """Gather kernels vs plain versions at a flagship replay step's shape;
-    returns {name: (max_abs_err, kernel ms, plain ms)}."""
+    returns {name: (max_abs_err, kernel ms, plain ms, bound ms, bound by,
+    library ms)}: the library call computes the same function in one
+    PyTorch call (index_select over the table with a zero row appended,
+    index_add_ into the table and a spare row), on indices mapped outside
+    the timing."""
     r, p, c = 262144, 512, 20
     g = np.random.default_rng(0)
     u = g.random(r)
@@ -263,11 +299,17 @@ def gather_phase(dev):
                                                           transposed)):
             raise AssertionError(f"gather forward (transposed={transposed}) "
                                  "differs from plain")
-    res = {"gather_fwd": (0.0, event_ms(
-        lambda: pr._gather_fwd(tab, idx, False), 20), event_ms(
-        lambda: pr._gather_fwd_reference(tab, idx, False), 20))}
     ok = ((idx >= 0) & (idx < p)).long()
     tgt = torch.where(ok > 0, idx.long(), p)
+    tab_z = torch.cat([tab, torch.zeros((1, c), device=dev)])
+    out = pr._gather_fwd(tab, idx, False)
+    if not torch.equal(torch.index_select(tab_z, 0, tgt), out):
+        raise AssertionError("gather forward differs from index_select")
+    res = {"gather_fwd": (0.0, event_ms(
+        lambda: pr._gather_fwd(tab, idx, False), 20), event_ms(
+        lambda: pr._gather_fwd_reference(tab, idx, False), 20),
+        *bound(nbytes(tab, idx, out), 0.0),
+        event_ms(lambda: torch.index_select(tab_z, 0, tgt), 20))}
     worst = 0.0
     for transposed in (False, True):
         grc = torch.from_numpy(g.standard_normal((r, c)).astype(np.float32)
@@ -287,9 +329,12 @@ def gather_phase(dev):
                                  "of the row's sum of |g|")
         worst = max(worst, rel)
     err = float((d1.double() - ref[:p]).abs().max())
+    acc = torch.zeros((p + 1, c), dtype=torch.float32, device=dev)
     res["gather_bwd"] = (err, event_ms(
         lambda: pr._gather_bwd(gin, idx, p, True), 20), event_ms(
-        lambda: pr._gather_bwd_reference(gin, idx, p, True), 20))
+        lambda: pr._gather_bwd_reference(gin, idx, p, True), 20),
+        *bound(nbytes(gin, idx, d1), 0.0),
+        event_ms(lambda: acc.index_add_(0, tgt, grc), 20))
     phase("gather", f"R={r} P={p} ({int((idx == 0).sum())} rays on row 0): "
                     "forward bit-identical to plain in both layouts; "
                     f"backward within {worst:.3g} of each row's sum of |g| "
@@ -297,7 +342,9 @@ def gather_phase(dev):
                     f"{res['gather_fwd'][1]:.4f} ms vs plain "
                     f"{res['gather_fwd'][2]:.4f}, bwd "
                     f"{res['gather_bwd'][1]:.4f} ms vs plain "
-                    f"{res['gather_bwd'][2]:.4f}")
+                    f"{res['gather_bwd'][2]:.4f}; index_select "
+                    f"{res['gather_fwd'][5]:.4f} ms, index_add_ "
+                    f"{res['gather_bwd'][5]:.4f} ms")
     return res
 
 
@@ -479,8 +526,16 @@ def replay_flagship(scene, cam, dev) -> dict:
                     f"{err_val:.3g} / {err_grad:.3g}; gathers at K*R = "
                     f"{flat.shape[0]}: forward {gf_ms:.3f} ms, backward "
                     f"{gb_ms:.3f} ms")
-    return {"replay_fwd": (err_val, f_ms, pf_s * 1e3),
-            "replay_bwd": (err_grad, b_ms, pb_s * 1e3)}
+    # bytes this pass needs: the per-iteration rows, aux and entry carries
+    # for live lane-iterations only (both kernels skip idle ones; the
+    # backward still writes their zero row cotangents), the rest whole
+    fwd_bytes = nbytes(idx, st0, k[0], k[1]) + live * nbytes(rows, aux, k[2])
+    bwd_bytes = (nbytes(idx, g_out, g_fin, *dk)
+                 + live * nbytes(rows, aux, k[2]))
+    return {"replay_fwd": (err_val, f_ms, pf_s * 1e3,
+                           *bound(fwd_bytes, 0.0)),
+            "replay_bwd": (err_grad, b_ms, pb_s * 1e3,
+                           *bound(bwd_bytes, 0.0))}
 
 
 def grad_diff(la, ga, lb, gb, what: str, floor: float = 1e-12) -> float:
@@ -572,7 +627,11 @@ def record_flagship(scene, cam, dev):
                     f"agree on {frac:.6%} of active lane-iterations"
                     f"{' (bit-identical)' if bool(same.all()) else ''}, aux "
                     f"max abs {err:.3g} where they agree")
-    return err, k_ms, p_s * 1e3
+    live = int((k[0] >= -1).sum())
+    stab = tb._smem_scene_inputs(scene, tb._resolve_tiling(scene)).stab
+    per = SPHERE_OPS + (MOTION_OPS if scene.has_motion else 0)
+    return (err, k_ms, p_s * 1e3,
+            *bound(nbytes(stab, pix, *k), live * stab.shape[1] * per))
 
 
 def train_phase(scene, cam, target, smi: str) -> dict:
@@ -715,6 +774,373 @@ def agreement(a: torch.Tensor, b: torch.Tensor) -> dict:
                 max_abs=float(d.max()), block=float(blk.abs().max()))
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(n_bytes: float, flops: float):
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the operations over the FP32 rate; and which
+    of the two it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def prim_ops(scene) -> int:
+    """FP32 operations of one primitive test of the scene's larger class."""
+    return (TRI_OPS if scene.n_triangles > scene.n_spheres
+            else SPHERE_OPS + (MOTION_OPS if scene.has_motion else 0))
+
+
+def floor_ops(scene, stats) -> int:
+    """The operations bound of a culled or streamed launch: one primitive
+    test per ray segment it traced (``stats[0]``), the least any nearest-hit
+    search does. The tests a kernel's own bound hierarchy leaves (and its
+    bound tests) are not counted: they grow with the work the hierarchy
+    wastes, and would raise the bound of a kernel that prunes badly."""
+    return int(stats[0]) * prim_ops(scene)
+
+
+def state_match(k, p):
+    """Share of rays whose state, alive flag and radiance agree bit for
+    bit, and the largest difference of state and radiance."""
+    same = (k[0] == p[0]).all(0) & (k[1] == p[1]) & (k[2] == p[2]).all(0)
+    err = max(float((k[0] - p[0]).abs().max()),
+              float((k[2] - p[2]).abs().max()))
+    return float(same.double().mean()), err
+
+
+@contextlib.contextmanager
+def compare_wavefront(records: list):
+    """Run every wavefront launch through the kernel and, on the same
+    inputs, through its plain version; record (tail launch?, share of rays
+    bit-identical, largest difference). The render goes on with the
+    kernel's outputs."""
+    kernel = wf._wf_bounce
+
+    def both(tabs, rays, st, alive, rid, **kw):
+        k = kernel(tabs, rays, st, alive, rid, **kw)
+        p = wf._wf_bounce_reference(tabs, rays, st, alive, rid, **kw)
+        records.append((kw["loop_bounces"] > 1, *state_match(k, p)))
+        return k
+
+    wf._wf_bounce = both
+    try:
+        yield
+    finally:
+        wf._wf_bounce = kernel
+
+
+@contextlib.contextmanager
+def capture_wavefront(calls: list):
+    """Record the arguments of every wavefront launch (the launch runs)."""
+    kernel = wf._wf_bounce
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return kernel(*args, **kw)
+
+    wf._wf_bounce = spy
+    try:
+        yield
+    finally:
+        wf._wf_bounce = kernel
+
+
+def same_pixels(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a == b).all(dim=-1).double().mean())
+
+
+def wavefront_phase(dev) -> float:
+    """The wavefront kernel against its plain version after every launch
+    (synchronous bounces and the tail), real draws, in its three table
+    modes; returns the largest difference."""
+    field3k = rtt.scenes.sphere_field(n=3000, width=128, device=dev)
+    field20k = rtt.scenes.sphere_field(n=20000, width=128, device=dev)
+    box = rtt.scenes.cornell_box(width=64, device=dev)
+    cfg = rtt.RenderConfig(spp=2, max_depth=8)
+    cases = (("resident", field3k, dict(culling=False), 0),
+             ("resident-culled", field3k, {}, 1),
+             ("streamed, default chunk", field20k, {}, 2),
+             ("streamed triangles, chunk 128", box, dict(stream=128), 2))
+    worst = 0.0
+    for label, (scene, cam), kw, want_mode in cases:
+        tabs, _ = wf._resolve_layout(scene, cam, kw.get("culling"),
+                                     tb.DEFAULT_BLOCK, kw.get("stream"))
+        if mk._mode(tabs) != want_mode:
+            raise AssertionError(f"wavefront {label}: resolved mode "
+                                 f"{mk._mode(tabs)}, expected {want_mode}")
+        recs = []
+        with compare_wavefront(recs):
+            img = wf.render_wavefront(scene, cam, 9, cfg, **kw)
+        torch.cuda.synchronize()
+        share = min(r[1] for r in recs)
+        err = max(r[2] for r in recs)
+        if share < WF_STATE_MATCH or len(recs) != 4 or not recs[-1][0]:
+            raise AssertionError(f"wavefront {label}: ray states identical "
+                                 f"on {share:.6%} (< {WF_STATE_MATCH}), "
+                                 f"launches {recs}")
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"wavefront {label}: image not finite")
+        worst = max(worst, err)
+        extra = ""
+        if want_mode == 2:
+            extra = (f"; chunk {tabs.stream}, block {tabs.blk}, "
+                     f"superclusters of {tabs.sc_group}")
+        phase("wavefront", f"{label} ({tabs.n_pad} sphere + {tabs.m_pad} "
+                           f"triangle columns{extra}), {cam.width}x"
+                           f"{cam.height} 2spp d8, 3 synchronous launches "
+                           "and the tail: ray states bit-identical to plain "
+                           "on " + ", ".join(f"{r[1]:.4%}" for r in recs)
+                           + f"; max abs difference {err:.3g}")
+    return worst
+
+
+def mk_launch(scene, cam, cfg, seed, **layout):
+    """The arguments of one megakernel launch over the image in the table
+    mode ``layout`` selects (``blk``, ``stream``), and the launch's input
+    tensors."""
+    args, kw = mk._launch_args(scene, cam, seed, spp=cfg.spp,
+                               max_depth=cfg.max_depth, t_min=cfg.t_min,
+                               jitter=cfg.jitter,
+                               unroll=tb._resolve_tiling(scene), **layout)
+    pix = mk._slot_table(cam.width * cam.height, scene.device)
+    b = kw["bounds"]
+    rows = () if b is None else (b.sblk, b.tblk) + (
+        (b.scb, b.tcb) if layout.get("stream") else ())
+    return (*args, pix), kw, (*args, pix, *rows)
+
+
+def mk_compare(scene, cam, cfg, seed, dev, label: str, **layout) -> tuple:
+    """One megakernel launch over the whole image in the table mode
+    ``layout`` selects, kernel (CUDA events) against its plain version on
+    the same inputs, and its bound (bytes read and written once; one
+    primitive test per ray segment, ``floor_ops``). Returns (err, ms,
+    plain ms, bound ms, bound by)."""
+    args, lkw, inputs = mk_launch(scene, cam, cfg, seed, **layout)
+    stats = torch.zeros(8, dtype=torch.int64, device=dev)
+    k_rgb, _ = mk._trace_slots(*args, stats=stats, **lkw)
+    k_ms = event_ms(lambda: mk._trace_slots(*args, **lkw), 3)
+    (p_rgb, _), p_s = timed(lambda: mk._trace_slots_reference(*args, **lkw))
+    kp = same_pixels(k_rgb.T, p_rgb.T)
+    err = float((k_rgb - p_rgb).abs().max())
+    if kp < PIXEL_MATCH:
+        raise AssertionError(f"megakernel {label} kernel vs plain: "
+                             f"{kp:.5%} of slots identical")
+    b_ms, b_by = bound(nbytes(*inputs, k_rgb), floor_ops(scene, stats))
+    st = [int(x) for x in stats.tolist()]
+    phase("megakernel", f"{label} launch, {scene.n_spheres} spheres "
+                        f"{cam.width}x{cam.height} {cfg.spp}spp "
+                        f"d{cfg.max_depth}, vs plain: {kp:.4%} of slots "
+                        f"identical, max abs {err:.3g}; kernel {k_ms:.3f} "
+                        f"ms, plain {p_s * 1e3:.1f} ms, bound {b_ms:.4f} ms "
+                        f"({b_by}); {st[0]} segments, {st[1]} primitive and "
+                        f"{st[2] + st[3]} bound tests")
+    return err, k_ms, p_s * 1e3, b_ms, b_by
+
+
+def megakernel_modes_phase(dev) -> tuple:
+    """The culled and streamed megakernel against the full-table
+    megakernel (same seed, the default schedules); then the culled kernel
+    against its plain version on one launch at its path's shape (one
+    launch runs all 16 samples). Returns the culled render's launches and
+    the culled launch's ``mk_compare``."""
+    scene, cam = rtt.scenes.sphere_field(n=3000, width=128, device=dev)
+    cfg = rtt.RenderConfig(spp=16, max_depth=8)
+    ref = rtt.render_megakernel(scene, cam, 5, cfg, culling=False)
+    launches = {}
+    for mode, kw in (("culled", dict(culling=True)),
+                     ("streamed", dict(stream=tb.DEFAULT_STREAM_CHUNK))):
+        mk.MODE_LAUNCHES[mode] = 0
+        img = rtt.render_megakernel(scene, cam, 5, cfg, **kw)
+        torch.cuda.synchronize()
+        launches[mode] = mk.MODE_LAUNCHES[mode]
+        share = same_pixels(img, ref)
+        if share < PIXEL_MATCH or launches[mode] != (10 if mode == "culled"
+                                                     else 1):
+            raise AssertionError(f"megakernel {mode}: {share:.5%} of pixels "
+                                 f"as the full-table render, "
+                                 f"{launches[mode]} launches")
+        phase("megakernel", f"{mode}: sphere_field 3000 128x72 16spp d8, "
+                            f"{launches[mode]} launch(es), {share:.4%} of "
+                            "pixels identical to the full-table render")
+    return launches["culled"], mk_compare(scene, cam, cfg, 5, dev, "culled",
+                                          blk=tb.DEFAULT_BLOCK)
+
+
+def engines_phase(dev) -> None:
+    """The wavefront against the megakernel, same seed: the same paths."""
+    scene, cam = rtt.scenes.sphere_field(n=3000, width=128, device=dev)
+    cfg = rtt.RenderConfig(spp=16, max_depth=8)
+    a = wf.render_wavefront(scene, cam, 11, cfg)
+    b = rtt.render_megakernel(scene, cam, 11, cfg)
+    share = same_pixels(a, b)
+    if share < PIXEL_MATCH:
+        raise AssertionError(f"wavefront vs megakernel: {share:.5%} of "
+                             "pixels identical")
+    phase("engines", f"sphere_field 3000 128x72 16spp d8, seed 11: wavefront "
+                     f"(resident-culled) vs megakernel (full table, "
+                     f"compacted): {share:.4%} of pixels identical, max abs "
+                     f"{float((a - b).abs().max()):.3g}")
+
+
+def large_golden_phase(dev) -> None:
+    """The golden image through the four new paths, kernels on the card."""
+    scene, cam, cfg = golden_scene(dev)
+    for label, fn in (
+            ("wavefront resident", lambda: wf.render_wavefront(
+                scene, cam, 0, cfg)),
+            ("wavefront streamed (chunk 128)", lambda: wf.render_wavefront(
+                scene, cam, 0, cfg, stream=128)),
+            ("megakernel culled", lambda: rtt.render_megakernel(
+                scene, cam, 0, cfg, culling=True)),
+            ("megakernel streamed (chunk 128)", lambda: rtt.render_megakernel(
+                scene, cam, 0, cfg, stream=128))):
+        launches = wf.LAUNCHES + mk.LAUNCHES
+        img = fn()
+        torch.cuda.synchronize()
+        if wf.LAUNCHES + mk.LAUNCHES == launches:
+            raise AssertionError(f"golden {label}: no kernel launched")
+        step, frac = golden_check(img)
+        phase("golden", f"{label}: max step {step}, {frac:.4%} channels off")
+
+
+def wavefront_full_width(scene, cam, dev) -> tuple:
+    """A render of the large main-path scene with the spp cut to 1
+    (147,456 rays, the main path's tables): every launch, the three
+    synchronous bounces and the tail, against its plain version on the
+    same inputs; then the bounce-1 launch timed, kernel (CUDA events) vs
+    plain version, with its bound (bytes read and written once; one
+    primitive test per ray segment, ``floor_ops``). Returns (err, ms, plain
+    ms, bound ms, bound by)."""
+    calls, recs = [], []
+    with capture_wavefront(calls), compare_wavefront(recs):
+        wf.render_wavefront(scene, cam, 1, rtt.RenderConfig(
+            spp=1, max_depth=LARGE["depth"]))
+    torch.cuda.synchronize()
+    if min(r[1] for r in recs) < WF_STATE_MATCH or len(recs) != 4 \
+            or not recs[-1][0]:
+        raise AssertionError(f"wavefront at full width: launches {recs}")
+    phase("wavefront", f"{cam.width}x{cam.height} 1spp render on "
+                       f"{scene.n_spheres} spheres, "
+                       "3 synchronous launches and the tail: ray states "
+                       "bit-identical to plain on "
+                       + ", ".join(f"{r[1]:.4%}" for r in recs)
+                       + f"; max abs difference {max(r[2] for r in recs):.3g}")
+    args, kw = calls[1]
+    stats = torch.zeros(8, dtype=torch.int64, device=dev)
+    k = wf._wf_bounce(*args, **{**kw, "stats": stats})
+    k_ms = event_ms(lambda: wf._wf_bounce(*args, **kw), 3)
+    p, p_s = timed(lambda: wf._wf_bounce_reference(*args, **kw))
+    share, err = state_match(k, p)
+    if share < WF_STATE_MATCH:
+        raise AssertionError(f"wavefront bounce 1 at full width: {share}")
+    tabs, rays, st, alive, rid = args
+    b_ms, b_by = bound(nbytes(tabs.stab, tabs.ttab, tabs.scb, tabs.tcb,
+                              tabs.ssc, tabs.tsc, tabs.sblk, tabs.tblk,
+                              rays.cam, rays.slot_pix, st, alive, rid, *k),
+                       floor_ops(scene, stats))
+    s = [int(x) for x in stats.tolist()]
+    phase("wavefront", f"bounce-1 launch at {cam.width}x{cam.height} 1spp on "
+                       f"{scene.n_spheres} spheres ({rid.shape[0]} rays, "
+                       f"{s[0]} live): kernel "
+                       f"{k_ms:.3f} ms, plain {p_s * 1e3:.1f} ms; states "
+                       f"bit-identical on {share:.4%}, max abs {err:.3g}; "
+                       f"{s[1]} primitive tests ({s[1] / max(s[0], 1):.1f} "
+                       f"per ray), {s[2] + s[3]} bound tests, chunk votes "
+                       f"{s[3]} of which {s[4]} passed; bound {b_ms:.4f} ms "
+                       f"({b_by})")
+    return err, k_ms, p_s * 1e3, b_ms, b_by
+
+
+def large_phase(dev, smi: str) -> dict:
+    """The large-scene main path: render_fast(engine="auto") on
+    sphere_field at LARGE_NS spheres, 512x288, 16 spp, depth 8: resolves to
+    the wavefront, 4 launches per render, image finite and not black;
+    Mrays/s (median of 5 after a warm-up), peak memory, the share of chunk
+    votes that pruned. Then the streamed megakernel on the first scene,
+    timed the same way. Returns the main path's launch count, the kernel
+    timing of the wavefront and the streamed megakernel's launches."""
+    cfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
+    out = {}
+    for i, n in enumerate(LARGE_NS):
+        scene, cam = rtt.scenes.sphere_field(n=n, width=LARGE["width"],
+                                             device=dev)
+        rays = cam.width * cam.height * cfg.spp
+        eng = rtt.pick_engine(scene, "auto")
+        if eng != "wavefront" or tb.fits_shared(scene):
+            raise AssertionError(f"sphere_field {n}: auto resolved to {eng}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wf.LAUNCHES = 0
+        img, first_s = timed(lambda: rtt.render_fast(scene, cam, 0, cfg,
+                                                     engine="auto"))
+        launches = wf.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if launches != 4:
+            raise AssertionError(f"sphere_field {n}: {launches} wavefront "
+                                 "launches, expected 3 synchronous + 1 tail")
+        if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0.0
+                and float(img.min()) >= 0.0
+                and img.shape == (cam.height, cam.width, 3)):
+            raise AssertionError(f"sphere_field {n}: image not finite, "
+                                 "non-negative and non-black")
+        secs = [timed(lambda s=s: rtt.render_fast(scene, cam, s, cfg))[1]
+                for s in range(1, RUNS + 1)]
+        if wf.LAUNCHES != 4 * (RUNS + 1):
+            raise AssertionError(f"sphere_field {n}: {wf.LAUNCHES} launches "
+                                 f"in {RUNS + 1} renders")
+        mr = [rays / s / 1e6 for s in secs]
+        stats = torch.zeros(8, dtype=torch.int64, device=dev)
+        wf.render_wavefront(scene, cam, 0, cfg, stats=stats)
+        st = [int(x) for x in stats.tolist()]
+        tabs, _ = wf._resolve_layout(scene, cam, None, tb.DEFAULT_BLOCK, None)
+        phase("large", f"sphere_field {n} ({tabs.n_pad} columns, "
+                       f"{nbytes(tabs.stab) / 1e6:.2f} MB of tables, "
+                       f"{tabs.n_pad // tabs.stream} chunks in superclusters "
+                       f"of {tabs.sc_group}) {cam.width}x{cam.height} "
+                       f"{cfg.spp}spp d{cfg.max_depth}: render_fast(auto) -> "
+                       f"{eng}, {launches} launches, mean "
+                       f"{float(img.mean()):.4f}; Mrays/s median "
+                       f"{statistics.median(mr):.3f} (runs "
+                       + ", ".join(f"{m:.3f}" for m in mr)
+                       + f"; first {first_s:.3f} s); peak {peak:.3f} GB; "
+                       f"{st[0]} segments, {st[1] / max(st[0], 1):.1f} "
+                       f"primitive tests per segment; chunk votes {st[3]}, "
+                       f"{1.0 - st[4] / max(st[3], 1):.4%} pruned | {smi}")
+        if i == 0:
+            out["launches"] = launches
+            out["wavefront"] = wavefront_full_width(scene, cam, dev)
+            mk.MODE_LAUNCHES["streamed"] = 0
+            mimg, m_first = timed(lambda: rtt.render_megakernel(scene, cam, 0,
+                                                                cfg))
+            out["mk_launches"] = mk.MODE_LAUNCHES["streamed"]
+            share = same_pixels(mimg, img)
+            if (out["mk_launches"] != 1 or share < PIXEL_MATCH
+                    or not bool(torch.isfinite(mimg).all())):
+                raise AssertionError(f"streamed megakernel at {n}: "
+                                     f"{out['mk_launches']} launches, "
+                                     f"{share:.5%} of pixels as the "
+                                     "wavefront's")
+            msecs = [timed(lambda s=s: rtt.render_megakernel(
+                scene, cam, s, cfg))[1] for s in range(1, RUNS + 1)]
+            mmr = [rays / s / 1e6 for s in msecs]
+            phase("large", f"render_megakernel (streamed, chunk "
+                           f"{tb.DEFAULT_STREAM_CHUNK}, block "
+                           f"{tb.STREAM_BLOCK}) on sphere_field {n}: 1 "
+                           f"launch, {share:.4%} of pixels as the "
+                           f"wavefront's; Mrays/s median "
+                           f"{statistics.median(mmr):.3f} (runs "
+                           + ", ".join(f"{m:.3f}" for m in mmr)
+                           + f"; first {m_first:.3f} s) | {smi}")
+            out["megakernel_streamed"] = mk_compare(
+                scene, cam, rtt.RenderConfig(spp=1, max_depth=LARGE["depth"]),
+                1, dev, "streamed", stream=tb.DEFAULT_STREAM_CHUNK,
+                blk=tb.STREAM_BLOCK)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch sees no CUDA device: this smoke test runs "
@@ -810,7 +1236,7 @@ def main() -> int:
     if agr["frac"] >= STOCHASTIC_MAX_FRAC or agr["block"] > BLOCK_MEAN_ATOL:
         raise AssertionError(f"cornell_box kernel vs plain: {agr}")
     max_err = max(max_err, agr["max_abs"])
-    n_pad, m_pad = rtt.ops.tables._smem_scene_inputs(scene, 16)[2:]
+    n_pad, m_pad = rtt.ops.tables._smem_scene_inputs(scene, 16)[2:4]
     phase("stochastic", f"cornell_box 48x48 4spp d8 "
                         f"({rtt.ops.tables.shared_bytes(n_pad, m_pad)} B of "
                         f"tables): kernel vs plain {agr['frac']:.4%} channels "
@@ -862,19 +1288,30 @@ def main() -> int:
     kimg, k_s = timed(kernel_run)
     pimg, p_s = timed(plain_run)
     agr = agreement(kimg, pimg)
+    # the work this launch needed: its ray segments (the wavefront traces
+    # the same paths and counts them) against every sphere column, the
+    # full-table sweep this kernel is
+    seg = torch.zeros(8, dtype=torch.int64, device=dev)
+    wimg = wf.render_wavefront(scene, cam, 1, pcfg, stats=seg)
+    inputs = mk_launch(scene, cam, pcfg, 1)[2]
+    mk_bound = bound(nbytes(*inputs) + 3 * 4 * inputs[3].shape[0],
+                     int(seg[1]) * prim_ops(scene))
     phase("plain", f"512x512 {PLAIN_SPP}spp d{f['depth']} single launch: "
                    f"kernel {k_s * 1e3:.2f} ms ({prays / k_s / 1e6:.3f} "
                    f"Mrays/s), plain torch {p_s * 1e3:.2f} ms "
                    f"({prays / p_s / 1e6:.3f} Mrays/s); kernel vs plain "
                    f"{agr['frac']:.4%} channels > {STOCHASTIC_ATOL}, 8x8 "
                    f"block means within {agr['block']:.3g}, max abs "
-                   f"{agr['max_abs']:.3g}")
+                   f"{agr['max_abs']:.3g}; {int(seg[0])} ray segments "
+                   f"(counted by the wavefront, whose image has "
+                   f"{same_pixels(wimg, kimg):.4%} of its pixels), bound "
+                   f"{mk_bound[0]:.4f} ms ({mk_bound[1]})")
     if agr["frac"] >= STOCHASTIC_MAX_FRAC or agr["block"] > BLOCK_MEAN_ATOL:
         raise AssertionError(f"flagship kernel vs plain: {agr}")
     max_err = max(max_err, agr["max_abs"])
 
     tables = rtt.ops.tables
-    n_pad, m_pad = tables._smem_scene_inputs(scene, 8)[2:]
+    n_pad, m_pad = tables._smem_scene_inputs(scene, 8)[2:4]
     phase("shared", f"flagship tables in shared memory: "
                     f"{tables.shared_bytes(n_pad, m_pad)} bytes per block")
 
@@ -887,25 +1324,47 @@ def main() -> int:
     # ---- 11. the gradient main path: the flagship recorded-pp step ----
     scene, cam = rtt.scenes.random_bouncing(width=f["width"],
                                             height=f["height"], device=dev)
-    flag_err, rec_ms, rec_plain_ms = record_flagship(scene, cam, dev)
+    flag_err, *rec = record_flagship(scene, cam, dev)
     replay = replay_flagship(scene, cam, dev)
     torch.cuda.empty_cache()
     target = rtt.render_fast(scene, cam, 0, cfg)
     train = train_phase(scene, cam, target, smi)
+    del target
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    # ---- 12-15. large scenes: the wavefront kernel vs plain in its three
+    # table modes, the megakernel's culled and streamed modes, the two
+    # engines, the golden; then the large-scene main path ----
+    wf_err = wavefront_phase(dev)
+    culled_launches, culled = megakernel_modes_phase(dev)
+    engines_phase(dev)
+    large_golden_phase(dev)
+    large = large_phase(dev, smi)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
+              bound_by, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"rayz_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
 
     tl = train["launches"]
+    wf_kernel = large["wavefront"]
     print(smi)
     print(json.dumps({"kernels": [
         entry("megakernel", "megakernel.cu", "rayz_tpu/ops/megakernel.py:459",
-              launches, max_err, k_s * 1e3, p_s * 1e3),
+              launches, max_err, k_s * 1e3, p_s * 1e3, *mk_bound),
+        entry("megakernel_culled", "megakernel.cu",
+              "rayz_tpu/ops/megakernel.py:767", culled_launches, *culled),
+        entry("megakernel_streamed", "megakernel.cu",
+              "rayz_tpu/ops/megakernel.py:883", large["mk_launches"],
+              *large["megakernel_streamed"]),
+        entry("wavefront", "wavefront.cu", "rayz_tpu/ops/wavefront.py:127",
+              large["launches"], max(wf_err, wf_kernel[0]), *wf_kernel[1:]),
         entry("record_pp", "record_pp.cu", "rayz_tpu/ops/pathrec.py:186",
-              tl["record_pp"], max(rec_err, flag_err), rec_ms, rec_plain_ms),
+              tl["record_pp"], max(rec_err, flag_err), *rec),
         entry("gather_fwd", "gather.cu", "rayz_tpu/ops/pathrec.py:1095",
               tl["gather_fwd"], *gather["gather_fwd"]),
         entry("gather_bwd", "gather.cu", "rayz_tpu/ops/pathrec.py:1120",

@@ -2,9 +2,9 @@
 
 A second package beside the JAX reference, laid out the same way
 (``models/``, ``ops/``, ``diff/``, ``io/``). Plain tensor code is PyTorch;
-the render, record and gather kernels are hand-written CUDA for Hopper
-(``csrc/``), built at first use. This package imports torch and numpy,
-never JAX.
+the render, record, gather and replay kernels are hand-written CUDA for
+Hopper (``csrc/``), built at first use. This package imports torch and
+numpy, never JAX.
 """
 
 from .io import read_ppm, to_u8, write_png, write_ppm
@@ -12,7 +12,7 @@ from .models import (Camera, Scene, SceneBuilder, camera_from_numpy,
                      make_camera, scene_from_numpy)
 from .models import scenes
 from .ops import (RenderConfig, pick_engine, render_diff_pp, render_fast,
-                  render_megakernel)
+                  render_megakernel, render_wavefront)
 from .diff import (DEFAULT_TRAINABLE, extract_params, fit, inject_params,
                    make_train_step, params_from_numpy, pixel_loss)
 
@@ -29,6 +29,7 @@ __all__ = [
     "RenderConfig",
     "render_fast",
     "render_megakernel",
+    "render_wavefront",
     "render_diff_pp",
     "pick_engine",
     "DEFAULT_TRAINABLE",

@@ -51,8 +51,9 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--t-min", type=float, default=1e-3)
     p.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="render engine; auto picks the megakernel for every "
-                        "scene it supports (the others are not ported yet)")
+                   help="render engine; auto picks the megakernel for scenes "
+                        "whose tables fit one block's shared memory and the "
+                        "wavefront for larger ones (xla is not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernel (and fails "
                         "without a GPU); cpu runs the plain torch version")
@@ -60,8 +61,7 @@ def main(argv=None) -> int:
 
     dev = _device(args.device)
     scene, camera = scenes.SCENES[args.scene](width=args.width,
-                                              height=args.height)
-    scene, camera = scene.to(dev), camera.to(dev)
+                                              height=args.height, device=dev)
     cfg = RenderConfig(spp=args.spp, max_depth=args.depth, t_min=args.t_min)
     engine = pick_engine(scene, args.engine)
 

@@ -111,38 +111,41 @@ __device__ __forceinline__ RayTerms ray_terms(const Ray& r, float t_min) {
   return t;
 }
 
-// Sphere j's center at the ray's time (and |c|^2 - r^2 with it).
+// Sphere j's center at the ray's time (and |c|^2 - r^2 with it); the
+// table's rows are `stride` columns apart.
 template <bool kMotion>
 __device__ __forceinline__ void sphere_at(const float* __restrict__ tab,
-                                          int n, int j, const Ray& r,
+                                          int stride, int j, const Ray& r,
                                           const RayTerms& t, float& cx,
                                           float& cy, float& cz,
                                           float& ccmr2) {
-  cx = tab[kCX * n + j];
-  cy = tab[kCY * n + j];
-  cz = tab[kCZ * n + j];
-  ccmr2 = tab[kCCMR2 * n + j];
+  cx = tab[kCX * stride + j];
+  cy = tab[kCY * stride + j];
+  cz = tab[kCZ * stride + j];
+  ccmr2 = tab[kCCMR2 * stride + j];
   if (kMotion) {
-    cx = cx + r.tau * tab[kVX * n + j];
-    cy = cy + r.tau * tab[kVY * n + j];
-    cz = cz + r.tau * tab[kVZ * n + j];
-    ccmr2 = ccmr2 + tab[kCV2 * n + j] * r.tau + tab[kVV * n + j] * t.tau2;
+    cx = cx + r.tau * tab[kVX * stride + j];
+    cy = cy + r.tau * tab[kVY * stride + j];
+    cz = cz + r.tau * tab[kVZ * stride + j];
+    ccmr2 = ccmr2 + tab[kCV2 * stride + j] * r.tau +
+            tab[kVV * stride + j] * t.tau2;
   }
 }
 
-// Nearest-hit sweep over the sphere table: a sequential scan with a
-// shrinking q_best, carrying only the winner's column in registers. Every
-// thread of a warp reads column j at the same moment, so each shared-memory
-// read is a broadcast. Ties keep the earlier column.
+// Nearest-hit sweep over columns [j0, j1) of the sphere table (row stride
+// `stride`): a sequential scan with a shrinking q_best, carrying only the
+// winner's column in registers. Every thread of a warp reads column j at
+// the same moment, so each read is a broadcast (shared memory) or one
+// cached line (device memory). Ties keep the earlier column.
 template <bool kMotion>
 __device__ __forceinline__ void sweep_spheres(const float* __restrict__ tab,
-                                              int n, const Ray& r,
-                                              const RayTerms& t, float& qb,
-                                              int& best) {
+                                              int stride, int j0, int j1,
+                                              const Ray& r, const RayTerms& t,
+                                              float& qb, int& best) {
 #pragma unroll 8
-  for (int j = 0; j < n; ++j) {
+  for (int j = j0; j < j1; ++j) {
     float cx, cy, cz, ccmr2;
-    sphere_at<kMotion>(tab, n, j, r, t, cx, cy, cz, ccmr2);
+    sphere_at<kMotion>(tab, stride, j, r, t, cx, cy, cz, ccmr2);
     const float half_b = r.dx * cx + r.dy * cy + r.dz * cz - t.d_dot_o;
     const float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
     const float c_term = ccmr2 - 2.0f * o_dot_c + t.o2;
@@ -162,16 +165,27 @@ __device__ __forceinline__ void sweep_spheres(const float* __restrict__ tab,
   }
 }
 
-// Triangle sweep after the spheres, sharing q_best: plane test, then
-// dual-basis barycentrics on the hit point. Double-sided; a parallel ray
-// (n.d = 0) and the poisoned padding columns (g1.v0 = +BIG) reject
-// themselves.
+// The whole sphere table of n columns.
+template <bool kMotion>
+__device__ __forceinline__ void sweep_spheres(const float* __restrict__ tab,
+                                              int n, const Ray& r,
+                                              const RayTerms& t, float& qb,
+                                              int& best) {
+  sweep_spheres<kMotion>(tab, n, 0, n, r, t, qb, best);
+}
+
+// Triangle sweep over columns [j0, j1) after the spheres, sharing q_best:
+// plane test, then dual-basis barycentrics on the hit point. Double-sided;
+// a parallel ray (n.d = 0) and the poisoned padding columns (g1.v0 = +BIG)
+// reject themselves.
 __device__ __forceinline__ void sweep_triangles(const float* __restrict__ tab,
-                                                int m, const Ray& r,
+                                                int stride, int j0, int j1,
+                                                const Ray& r,
                                                 const RayTerms& t, float& qb,
                                                 int& best, bool& is_tri) {
+  const int m = stride;
 #pragma unroll 8
-  for (int j = 0; j < m; ++j) {
+  for (int j = j0; j < j1; ++j) {
     const float tnx = tab[kTNX * m + j];
     const float tny = tab[kTNY * m + j];
     const float tnz = tab[kTNZ * m + j];
@@ -195,6 +209,36 @@ __device__ __forceinline__ void sweep_triangles(const float* __restrict__ tab,
       }
     }
   }
+}
+
+// The whole triangle table of m columns.
+__device__ __forceinline__ void sweep_triangles(const float* __restrict__ tab,
+                                                int m, const Ray& r,
+                                                const RayTerms& t, float& qb,
+                                                int& best, bool& is_tri) {
+  sweep_triangles(tab, m, 0, m, r, t, qb, best, is_tri);
+}
+
+// Bounding-sphere test of one culling block, chunk or supercluster: column
+// i of a [4, stride] bound table (centre xyz, |c|^2 - r^2, the row form of
+// a sphere). True when the segment [t_min, q_best) of the ray may enter
+// the sphere: the nearer root below q_best and the farther at or past
+// t_min. A miss gives a NaN root, which compares false, and a bound with
+// no valid member (|c|^2 - r^2 = +BIG) never passes. Conservative: a
+// primitive inside can only win if its bound passes.
+__device__ __forceinline__ bool bound_possible(const float* __restrict__ rows,
+                                               int stride, int i,
+                                               const Ray& r,
+                                               const RayTerms& t, float qb) {
+  const float bx = rows[i];
+  const float by = rows[stride + i];
+  const float bz = rows[2 * stride + i];
+  const float ccb = rows[3 * stride + i];
+  const float hb = r.dx * bx + r.dy * by + r.dz * bz - t.d_dot_o;
+  const float ob = r.ox * bx + r.oy * by + r.oz * bz;
+  const float disc = hb * hb - t.a * (ccb - 2.0f * ob + t.o2);
+  const float rtb = sqrtf(disc);
+  return ccb < kBig && hb - rtb < qb && hb + rtb >= t.tmin_a;
 }
 
 // What one bounce does at a hit: the new direction and the attenuation, or
@@ -324,6 +368,131 @@ __device__ __forceinline__ Scatter scatter(const float* __restrict__ mat,
   s.dz = tgz - pz;
   s.ok = s.dx * s.dx + s.dy * s.dy + s.dz * s.dz > 1e-20f;
   return s;
+}
+
+// Camera ray of a pixel's next sample (draws 0-4 under `key`): +-0.5 px
+// jitter, polar defocus-disk origin and a time in [0, 1) when `jitter`;
+// otherwise the pixel centre from the lens centre at time 0. `cam` is the
+// [18] camera vector.
+__device__ __forceinline__ void camera_ray(const float* __restrict__ cam,
+                                           float pxf, float pyf, bool jitter,
+                                           uint32_t key, Ray& r) {
+  float x = pxf, y = pyf;
+  float nox = cam[0], noy = cam[1], noz = cam[2];
+  float ntau = 0.0f;
+  if (jitter) {
+    x = pxf + uniform(draw_bits(key, 0)) - 0.5f;
+    y = pyf + uniform(draw_bits(key, 1)) - 0.5f;
+    const float rr = sqrtf(uniform(draw_bits(key, 2)));
+    const float th = kTwoPi * uniform(draw_bits(key, 3));
+    const float ca = cosf(th);
+    const float sa = sinf(th);
+    nox = cam[0] + rr * (ca * cam[12] + sa * cam[15]);
+    noy = cam[1] + rr * (ca * cam[13] + sa * cam[16]);
+    noz = cam[2] + rr * (ca * cam[14] + sa * cam[17]);
+    ntau = uniform(draw_bits(key, 4));
+  }
+  r.dx = x * cam[3] + y * cam[6] + cam[9] - nox;
+  r.dy = x * cam[4] + y * cam[7] + cam[10] - noy;
+  r.dz = x * cam[5] + y * cam[8] + cam[11] - noz;
+  r.ox = nox;
+  r.oy = noy;
+  r.oz = noz;
+  r.tau = ntau;
+}
+
+// What one bounce did to a path.
+enum class Bounce { kMiss, kAbsorbed, kContinued };
+
+// One bounce after the nearest-hit sweep found (qb, best, is_tri) in the
+// tables `sph` [17, n_pad] and `tri` [20, m_pad]: on a miss the sky,
+// weighted by the throughput, joins the radiance; on a hit the hit point,
+// the unit normal turned against the ray and the material scatter (draws
+// 5-8 under `key`) give the next ray and throughput, unless the surface
+// absorbs the path. The caller applies its depth rule to kContinued.
+template <bool kMotion>
+__device__ __forceinline__ Bounce shade(
+    const float* __restrict__ sph, int n_pad, const float* __restrict__ tri,
+    int m_pad, Ray& r, const RayTerms& t, float qb, int best, bool is_tri,
+    uint32_t key, float& thx, float& thy, float& thz, float& ar, float& ag,
+    float& ab) {
+  const float dinv = 1.0f / sqrtf(clamp_min(t.a, 1e-24f));
+  if (!(qb < kBig)) {
+    // miss: sky weighted by throughput, (white * (1 - t) + blue) * t
+    const float sky_t = 0.5f * (r.dy * dinv + 1.0f);
+    ar = ar + thx * ((1.0f - sky_t + 0.5f) * sky_t);
+    ag = ag + thy * ((1.0f - sky_t + 0.7f) * sky_t);
+    ab = ab + thz * ((1.0f - sky_t + 1.0f) * sky_t);
+    return Bounce::kMiss;
+  }
+
+  const float ts = qb * (1.0f / t.a);
+  const float px = r.ox + ts * r.dx;
+  const float py = r.oy + ts * r.dy;
+  const float pz = r.oz + ts * r.dz;
+  float nx, ny, nz;
+  const float* mat;
+  int stride;
+  if (is_tri) {
+    nx = tri[kTNX * m_pad + best];
+    ny = tri[kTNY * m_pad + best];
+    nz = tri[kTNZ * m_pad + best];
+    mat = tri + kTPKF * m_pad + best;
+    stride = m_pad;
+  } else {
+    float cx, cy, cz, ccmr2;
+    sphere_at<kMotion>(sph, n_pad, best, r, t, cx, cy, cz, ccmr2);
+    nx = px - cx;
+    ny = py - cy;
+    nz = pz - cz;
+    mat = sph + kPKF * n_pad + best;
+    stride = n_pad;
+  }
+  const float ninv =
+      1.0f / sqrtf(clamp_min(nx * nx + ny * ny + nz * nz, 1e-24f));
+  nx = nx * ninv;
+  ny = ny * ninv;
+  nz = nz * ninv;
+  const bool front = nx * r.dx + ny * r.dy + nz * r.dz < 0.0f;
+  const float sgn = front ? 1.0f : -1.0f;
+  nx = nx * sgn;
+  ny = ny * sgn;
+  nz = nz * sgn;
+
+  const Scatter s =
+      scatter(mat, stride, r, dinv, px, py, pz, nx, ny, nz, front, key);
+  if (!s.ok) return Bounce::kAbsorbed;
+  thx = thx * s.ar;
+  thy = thy * s.ag;
+  thz = thz * s.ab;
+  r.ox = px;
+  r.oy = py;
+  r.oz = pz;
+  r.dx = s.dx;
+  r.dy = s.dy;
+  r.dz = s.dz;
+  return Bounce::kContinued;
+}
+
+// Work counters of the culled and streamed kernels (per thread, summed
+// per warp into the [8] device array the wrapper passes): ray segments
+// traced, primitive columns tested, bound tests, and the tile-level votes
+// on chunks (blocks where there are no chunks) and how many passed.
+struct Work {
+  unsigned int segments = 0, prims = 0, bounds = 0, votes = 0, passed = 0;
+};
+
+__device__ __forceinline__ void flush_work(const Work& w,
+                                           unsigned long long* stats) {
+  const unsigned int mask = __activemask();
+  const unsigned int v[5] = {w.segments, w.prims, w.bounds, w.votes,
+                             w.passed};
+  const bool lead = (threadIdx.x & 31) == __ffs(mask) - 1;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const unsigned int sum = __reduce_add_sync(mask, v[k]);
+    if (lead && sum) atomicAdd(stats + k, static_cast<unsigned long long>(sum));
+  }
 }
 
 }  // namespace rz

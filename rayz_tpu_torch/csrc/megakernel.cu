@@ -1,11 +1,11 @@
 // Persistent path-tracing megakernel for Hopper (sm_90a).
 //
-// Replaces the TPU kernel rayz_tpu/ops/megakernel.py:_kernel in its
-// SMEM-resident, culling-off, full-table mode (launched there by
-// _trace_shard and _trace_shard_compact). It computes the same image: spawn
-// with jitter, defocus and time; nearest hit over the spheres, then the
-// triangles; one-level checker; diffuse / metal / dielectric scatter; sky on
-// a miss; per-slot RGB radiance sums.
+// Replaces the TPU kernel rayz_tpu/ops/megakernel.py:_kernel in its three
+// table modes (launched there by _trace_shard, _trace_shard_compact and
+// _trace_shard_streamed). It computes the same image: spawn with jitter,
+// defocus and time; nearest hit over the spheres, then the triangles;
+// one-level checker; diffuse / metal / dielectric scatter; sky on a miss;
+// per-slot RGB radiance sums.
 //
 // What bounds it on the H100: FP32 ALU issue in the per-sphere quadratic
 // (about 25 operations and a square root per sphere per bounce, every
@@ -23,6 +23,32 @@
 // tail. Each block holds its own copy of the tables, so shared memory bounds
 // the resident blocks (six flagship copies of 34.9 KB per SM) about as much
 // as registers do (56 per thread: nine blocks).
+//
+// Table modes:
+//  * resident (`megakernel`, the flagship's): the full tables in shared
+//    memory, every column swept.
+//  * kCulled (`megakernel_culled`; the TPU's _culled_loop): Morton-sorted
+//    tables and per-block bound rows in shared memory; a block of `blk`
+//    columns is swept only if its bounding sphere may hold a hit nearer
+//    than the current best.
+//  * kStreamed (`megakernel_culled`; the TPU's _stream_loop): tables and
+//    block rows stay in device memory and are read through L1/L2; the
+//    chunk bound rows sit in shared memory. A chunk is entered only if its bound passes, then its
+//    blocks as in kCulled. The TPU copies a chunk into SMEM scratch because
+//    its scalar core reads only SMEM; here a copy would buy nothing, since
+//    a sweep reads each column once per ray and a warp's threads read the
+//    same column at once (one cached line serves 32 columns of a row).
+// The TPU tests a bound tile-wide and sweeps the block if ANY lane may hit
+// it. The threads of this persistent kernel run independent trip counts
+// and cannot vote, so each thread tests bounds for its own ray and skips
+// what its own test rejects. Culling is conservative either way, so the
+// winners are those of a full sweep over the same tables, up to exact
+// ties. Both kernels run one slot loop (trace_slot: resume and save,
+// respawn, trip budget, shading through rz::camera_ray and rz::shade, the
+// continue/die rule), each with its own sweep. They stay two kernels: one
+// template over all three modes cost the flagship 3% in an A/B on the
+// card, the resident kernel needs no work counters, and its Params stay
+// the smaller struct.
 //
 // Compaction mode (the multi-pass main path at spp >= 16): `budget` caps the
 // thread's loop trips (0 = run to the end), `resume` is the [16, cap] state
@@ -56,21 +82,15 @@ struct Params {
   bool jitter;
 };
 
-template <bool kMotion>
-__global__ void __launch_bounds__(128) megakernel(Params p) {
-  extern __shared__ float smem[];
-  float* s_cam = smem;
-  float* s_sph = smem + rz::kCamWords;
-  float* s_tri = s_sph + rz::kSRows * p.n_pad;
-  for (int i = threadIdx.x; i < 18; i += blockDim.x) s_cam[i] = p.cam[i];
-  for (int i = threadIdx.x; i < rz::kSRows * p.n_pad; i += blockDim.x)
-    s_sph[i] = p.stab[i];
-  for (int i = threadIdx.x; i < rz::kTRows * p.m_pad; i += blockDim.x)
-    s_tri[i] = p.ttab[i];
-  __syncthreads();
-
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= p.cap) return;
+// One slot's samples in either kernel: resume the saved state or start;
+// respawn each sample's camera ray; the nearest hit through `sweep(r, t,
+// qb, best, is_tri)`, the kernel's table mode; shading; continue or die;
+// then the radiance sums and, compacting, the state.
+template <bool kMotion, typename Sweep>
+__device__ __forceinline__ void trace_slot(Params p, int slot,
+                                           const float* s_cam,
+                                           const float* sph, const float* tri,
+                                           Sweep sweep) {
   const int cap = p.cap;
   const int pix = p.pix[slot];
   const int pp = pix >= 0 ? pix : 0;
@@ -115,111 +135,30 @@ __global__ void __launch_bounds__(128) megakernel(Params p) {
   int trips = 0;
   while ((active || samples > 0) && (p.budget == 0 || trips < p.budget)) {
     ++trips;
-    const bool spawn = !active;
-    if (spawn) {
+    if (!active) {
       samples -= 1;
       depth = p.max_depth;
     }
     const uint32_t key = rz::step_key(key0, p.spp - samples,
                                       p.max_depth - depth);
-
-    // ---- respawn with the next camera sample (+-0.5 px jitter, polar
-    // defocus-disk origin, time in [0, 1)) ----
-    if (spawn) {
-      float x = pxf, y = pyf;
-      float nox = s_cam[0], noy = s_cam[1], noz = s_cam[2];
-      float ntau = 0.0f;
-      if (p.jitter) {
-        x = pxf + rz::uniform(rz::draw_bits(key, 0)) - 0.5f;
-        y = pyf + rz::uniform(rz::draw_bits(key, 1)) - 0.5f;
-        const float rr = sqrtf(rz::uniform(rz::draw_bits(key, 2)));
-        const float th = rz::kTwoPi * rz::uniform(rz::draw_bits(key, 3));
-        const float ca = cosf(th);
-        const float sa = sinf(th);
-        nox = s_cam[0] + rr * (ca * s_cam[12] + sa * s_cam[15]);
-        noy = s_cam[1] + rr * (ca * s_cam[13] + sa * s_cam[16]);
-        noz = s_cam[2] + rr * (ca * s_cam[14] + sa * s_cam[17]);
-        ntau = rz::uniform(rz::draw_bits(key, 4));
-      }
-      r.dx = x * s_cam[3] + y * s_cam[6] + s_cam[9] - nox;
-      r.dy = x * s_cam[4] + y * s_cam[7] + s_cam[10] - noy;
-      r.dz = x * s_cam[5] + y * s_cam[8] + s_cam[11] - noz;
-      r.ox = nox;
-      r.oy = noy;
-      r.oz = noz;
-      r.tau = ntau;
+    if (!active) {
+      rz::camera_ray(s_cam, pxf, pyf, p.jitter, key, r);
       thx = thy = thz = 1.0f;
       active = true;
     }
 
-    // ---- nearest hit: spheres, then triangles ----
     const rz::RayTerms t = rz::ray_terms(r, p.t_min);
     float qb = rz::kBig;
     int best = -1;
     bool is_tri = false;
-    rz::sweep_spheres<kMotion>(s_sph, p.n_pad, r, t, qb, best);
-    rz::sweep_triangles(s_tri, p.m_pad, r, t, qb, best, is_tri);
-
-    const float dinv = 1.0f / sqrtf(rz::clamp_min(t.a, 1e-24f));
-    if (!(qb < rz::kBig)) {
-      // miss: sky weighted by throughput, (white * (1 - t) + blue) * t
-      const float sky_t = 0.5f * (r.dy * dinv + 1.0f);
-      ar = ar + thx * ((1.0f - sky_t + 0.5f) * sky_t);
-      ag = ag + thy * ((1.0f - sky_t + 0.7f) * sky_t);
-      ab = ab + thz * ((1.0f - sky_t + 1.0f) * sky_t);
-      active = false;
-      continue;
-    }
-
-    const float ts = qb * (1.0f / t.a);
-    const float px = r.ox + ts * r.dx;
-    const float py = r.oy + ts * r.dy;
-    const float pz = r.oz + ts * r.dz;
-    float nx, ny, nz;
-    const float* mat;
-    int stride;
-    if (is_tri) {
-      nx = s_tri[rz::kTNX * p.m_pad + best];
-      ny = s_tri[rz::kTNY * p.m_pad + best];
-      nz = s_tri[rz::kTNZ * p.m_pad + best];
-      mat = s_tri + rz::kTPKF * p.m_pad + best;
-      stride = p.m_pad;
-    } else {
-      float cx, cy, cz, ccmr2;
-      rz::sphere_at<kMotion>(s_sph, p.n_pad, best, r, t, cx, cy, cz, ccmr2);
-      nx = px - cx;
-      ny = py - cy;
-      nz = pz - cz;
-      mat = s_sph + rz::kPKF * p.n_pad + best;
-      stride = p.n_pad;
-    }
-    const float ninv =
-        1.0f / sqrtf(rz::clamp_min(nx * nx + ny * ny + nz * nz, 1e-24f));
-    nx = nx * ninv;
-    ny = ny * ninv;
-    nz = nz * ninv;
-    const bool front = nx * r.dx + ny * r.dy + nz * r.dz < 0.0f;
-    const float sgn = front ? 1.0f : -1.0f;
-    nx = nx * sgn;
-    ny = ny * sgn;
-    nz = nz * sgn;
-
-    const rz::Scatter s =
-        rz::scatter(mat, stride, r, dinv, px, py, pz, nx, ny, nz, front, key);
-    if (s.ok) {
-      thx = thx * s.ar;
-      thy = thy * s.ag;
-      thz = thz * s.ab;
-      r.ox = px;
-      r.oy = py;
-      r.oz = pz;
-      r.dx = s.dx;
-      r.dy = s.dy;
-      r.dz = s.dz;
+    sweep(r, t, qb, best, is_tri);
+    if (rz::shade<kMotion>(sph, p.n_pad, tri, p.m_pad, r, t, qb, best, is_tri,
+                           key, thx, thy, thz, ar, ag,
+                           ab) == rz::Bounce::kContinued) {
       depth -= 1;
       active = depth > 0;  // depth exhausted -> black
     } else {
-      active = false;  // absorbed
+      active = false;  // the sky, or absorbed
     }
   }
 
@@ -247,6 +186,161 @@ __global__ void __launch_bounds__(128) megakernel(Params p) {
   }
 }
 
+template <bool kMotion>
+__global__ void __launch_bounds__(128) megakernel(Params p) {
+  extern __shared__ float smem[];
+  float* s_cam = smem;
+  float* s_sph = smem + rz::kCamWords;
+  float* s_tri = s_sph + rz::kSRows * p.n_pad;
+  for (int i = threadIdx.x; i < 18; i += blockDim.x) s_cam[i] = p.cam[i];
+  for (int i = threadIdx.x; i < rz::kSRows * p.n_pad; i += blockDim.x)
+    s_sph[i] = p.stab[i];
+  for (int i = threadIdx.x; i < rz::kTRows * p.m_pad; i += blockDim.x)
+    s_tri[i] = p.ttab[i];
+  __syncthreads();
+
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= p.cap) return;
+  const int n = p.n_pad, m = p.m_pad;
+  trace_slot<kMotion>(
+      p, slot, s_cam, s_sph, s_tri,
+      [s_sph, s_tri, n, m](const rz::Ray& r, const rz::RayTerms& t, float& qb,
+                           int& best, bool& is_tri) {
+        rz::sweep_spheres<kMotion>(s_sph, n, r, t, qb, best);
+        rz::sweep_triangles(s_tri, m, r, t, qb, best, is_tri);
+      });
+}
+
+// Launch parameters of the culled and streamed modes.
+struct ModeParams : Params {
+  const float* sblk;  // [4, n_pad / blk] sphere block rows
+  const float* tblk;  // [4, m_pad / blk] triangle block rows
+  const float* scb;   // [4, n_pad / stream] sphere chunk bounds
+  const float* tcb;   // [4, m_pad / stream] triangle chunk bounds
+  int blk, stream;    // block and chunk columns (streamed blk 0: no blocks)
+  bool cull;          // streamed: false sweeps every chunk untested
+  unsigned long long* stats;  // [8] work counters (rz::Work) or null
+};
+
+enum : int { kCulled = 1, kStreamed = 2 };
+
+// Blocks [b0, b1) of one class, each swept only if the ray's own bound
+// test passes.
+template <bool kMotion, bool kTri>
+__device__ __forceinline__ void sweep_blocks(
+    const float* __restrict__ tab, int stride,
+    const float* __restrict__ brows, int nb, int blk, int b0, int b1,
+    const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
+    bool& is_tri, rz::Work& w) {
+  for (int b = b0; b < b1; ++b) {
+    ++w.bounds;
+    if (!rz::bound_possible(brows, nb, b, r, t, qb)) continue;
+    w.prims += blk;
+    if (kTri)
+      rz::sweep_triangles(tab, stride, b * blk, (b + 1) * blk, r, t, qb, best,
+                          is_tri);
+    else
+      rz::sweep_spheres<kMotion>(tab, stride, b * blk, (b + 1) * blk, r, t,
+                                 qb, best);
+  }
+}
+
+// One class of a streamed table: the chunk bound first (rows in shared
+// memory), then the chunk's blocks, or all its columns when blk = 0.
+template <bool kMotion, bool kTri>
+__device__ __forceinline__ void sweep_chunks(
+    const float* __restrict__ tab, int n, const float* __restrict__ cb,
+    const float* __restrict__ brows, int stream, int blk, bool cull,
+    const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
+    bool& is_tri, rz::Work& w) {
+  const int nc = n / stream;
+  for (int c = 0; c < nc; ++c) {
+    if (cull) {
+      ++w.votes;
+      if (!rz::bound_possible(cb, nc, c, r, t, qb)) continue;
+      ++w.passed;
+    }
+    if (blk) {
+      const int per = stream / blk;
+      sweep_blocks<kMotion, kTri>(tab, n, brows, n / blk, blk, c * per,
+                                  (c + 1) * per, r, t, qb, best, is_tri, w);
+    } else {
+      w.prims += stream;
+      if (kTri)
+        rz::sweep_triangles(tab, n, c * stream, (c + 1) * stream, r, t, qb,
+                            best, is_tri);
+      else
+        rz::sweep_spheres<kMotion>(tab, n, c * stream, (c + 1) * stream, r,
+                                   t, qb, best);
+    }
+  }
+}
+
+// The culled (kCulled) and streamed (kStreamed) modes: trace_slot with the
+// sweep behind bound tests, counting its work.
+template <bool kMotion, int kMode>
+__global__ void __launch_bounds__(128) megakernel_culled(ModeParams p) {
+  extern __shared__ float smem[];
+  float* s_cam = smem;
+  for (int i = threadIdx.x; i < 18; i += blockDim.x) s_cam[i] = p.cam[i];
+  // culled: tables, then block rows; streamed: the chunk bound rows only
+  const float* sph = p.stab;
+  const float* tri = p.ttab;
+  const float* sbl = p.sblk;
+  const float* tbl = p.tblk;
+  const int ns = kMode == kCulled ? 4 * (p.n_pad / p.blk)
+                                  : 4 * (p.n_pad / p.stream);
+  const int nt = kMode == kCulled ? 4 * (p.m_pad / p.blk)
+                                  : 4 * (p.m_pad / p.stream);
+  float* s = smem + rz::kCamWords;
+  if constexpr (kMode == kCulled) {
+    for (int i = threadIdx.x; i < rz::kSRows * p.n_pad; i += blockDim.x)
+      s[i] = p.stab[i];
+    sph = s;
+    s += rz::kSRows * p.n_pad;
+    for (int i = threadIdx.x; i < rz::kTRows * p.m_pad; i += blockDim.x)
+      s[i] = p.ttab[i];
+    tri = s;
+    s += rz::kTRows * p.m_pad;
+  }
+  const float* sb = kMode == kCulled ? p.sblk : p.scb;
+  const float* tb = kMode == kCulled ? p.tblk : p.tcb;
+  for (int i = threadIdx.x; i < ns; i += blockDim.x) s[i] = sb[i];
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) s[ns + i] = tb[i];
+  if constexpr (kMode == kCulled) {
+    sbl = s;
+    tbl = s + ns;
+  }
+  const float* scb = s;  // streamed: chunk bounds
+  const float* tcb = s + ns;
+  __syncthreads();
+
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= p.cap) return;
+  rz::Work w;
+  const int n = p.n_pad, m = p.m_pad, blk = p.blk, stream = p.stream;
+  const bool cull = p.cull;
+  trace_slot<kMotion>(
+      p, slot, s_cam, sph, tri,
+      [&w, sph, tri, sbl, tbl, scb, tcb, n, m, blk, stream, cull](
+          const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
+          bool& is_tri) {
+        ++w.segments;
+        if constexpr (kMode == kCulled) {
+          sweep_blocks<kMotion, false>(sph, n, sbl, n / blk, blk, 0, n / blk,
+                                       r, t, qb, best, is_tri, w);
+          sweep_blocks<kMotion, true>(tri, m, tbl, m / blk, blk, 0, m / blk,
+                                      r, t, qb, best, is_tri, w);
+        } else {
+          sweep_chunks<kMotion, false>(sph, n, scb, sbl, stream, blk, cull, r,
+                                       t, qb, best, is_tri, w);
+          sweep_chunks<kMotion, true>(tri, m, tcb, tbl, stream, blk, cull, r,
+                                      t, qb, best, is_tri, w);
+        }
+      });
+  if (p.stats) rz::flush_work(w, p.stats);
+}
+
 __global__ void rng_bits_kernel(uint32_t seed, const int* pix,
                                 const int* sample, const int* bounce,
                                 const int* draw, int n, uint32_t* out) {
@@ -257,29 +351,36 @@ __global__ void rng_bits_kernel(uint32_t seed, const int* pix,
   out[i] = rz::draw_bits(key, static_cast<uint32_t>(draw[i]));
 }
 
-template <bool kMotion>
-cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
+template <typename P, typename K>
+cudaError_t launch(K kernel, const P& p, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        megakernel<kMotion>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int threads = 128;
   const int blocks = (p.cap + threads - 1) / threads;
-  megakernel<kMotion><<<blocks, threads, smem, stream>>>(p);
+  kernel<<<blocks, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// mode: 0 resident, 1 culled (sblk/tblk, blk), 2 streamed (scb/tcb, stream,
+// sblk/tblk with blk, cull). stats: null or [8] uint64 counters (culled and
+// streamed modes).
 extern "C" int rayz_megakernel(const float* cam, const float* stab, int n_pad,
                                const float* ttab, int m_pad, const int* pix,
                                int cap, const float* resume, float* save,
                                float* rgb, int width, int spp, int max_depth,
                                float t_min, int jitter, int has_motion,
-                               unsigned int seed, int budget, void* stream) {
-  Params p;
+                               unsigned int seed, int budget, int mode,
+                               const float* sblk, const float* tblk,
+                               const float* scb, const float* tcb, int blk,
+                               int stream_cols, int cull, void* stats,
+                               void* stream) {
+  ModeParams p;
   p.cam = cam;
   p.stab = stab;
   p.ttab = ttab;
@@ -297,12 +398,41 @@ extern "C" int rayz_megakernel(const float* cam, const float* stab, int n_pad,
   p.t_min = t_min;
   p.seed = seed;
   p.jitter = jitter != 0;
-  const size_t smem =
-      sizeof(float) * (rz::kCamWords + rz::kSRows * static_cast<size_t>(n_pad) +
-                       rz::kTRows * static_cast<size_t>(m_pad));
+  p.sblk = sblk;
+  p.tblk = tblk;
+  p.scb = scb;
+  p.tcb = tcb;
+  p.blk = blk;
+  p.stream = stream_cols;
+  p.cull = cull != 0;
+  p.stats = static_cast<unsigned long long*>(stats);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = has_motion ? launch<true>(p, smem, s)
-                                   : launch<false>(p, smem, s);
+  const bool motion = has_motion != 0;
+  const size_t tables = rz::kSRows * static_cast<size_t>(n_pad) +
+                        rz::kTRows * static_cast<size_t>(m_pad);
+  const size_t cam_words = rz::kCamWords;
+  cudaError_t e;
+  if (mode == 0) {
+    const Params& base = p;
+    const size_t smem = sizeof(float) * (cam_words + tables);
+    e = motion ? launch(megakernel<true>, base, smem, s)
+               : launch(megakernel<false>, base, smem, s);
+  } else if (mode == kCulled) {
+    const size_t smem =
+        sizeof(float) * (cam_words + tables +
+                         4 * static_cast<size_t>(n_pad / blk + m_pad / blk));
+    e = motion ? launch(megakernel_culled<true, kCulled>, p, smem, s)
+               : launch(megakernel_culled<false, kCulled>, p, smem, s);
+  } else if (mode == kStreamed) {
+    const size_t smem =
+        sizeof(float) *
+        (cam_words + 4 * static_cast<size_t>(n_pad / stream_cols +
+                                             m_pad / stream_cols));
+    e = motion ? launch(megakernel_culled<true, kStreamed>, p, smem, s)
+               : launch(megakernel_culled<false, kStreamed>, p, smem, s);
+  } else {
+    e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
 }
 

@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from .scene import resolve_device
+
 __all__ = ["Camera", "make_camera", "camera_from_numpy"]
 
 _DEG_TO_RAD = math.pi / 180.0
@@ -69,10 +71,13 @@ def make_camera(
     look_at=(0.0, 0.0, 0.0),
     vup=(0.0, 1.0, 0.0),
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> Camera:
-    """Build the camera frame. ``height=None`` derives height from the
-    reference's fixed 16:9 aspect (height = floor(width / (16/9)))."""
+    """Build the camera frame on ``device`` (the card unless
+    ``device="cpu"``; see :func:`rayz_tpu_torch.models.scene.resolve_device`).
+    ``height=None`` derives height from the reference's fixed 16:9 aspect
+    (height = floor(width / (16/9)))."""
+    device = resolve_device(device)
     if height is None:
         height = int(width / (16.0 / 9.0))
 

@@ -30,6 +30,7 @@ __all__ = [
     "Scene",
     "SceneBuilder",
     "scene_from_numpy",
+    "resolve_device",
 ]
 
 # Material kinds (the reference's Material tagged union as integer codes).
@@ -52,6 +53,20 @@ _STATIC = ("n_spheres", "n_triangles", "has_motion", "deep_checker",
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m if m > 0 else n
+
+
+def resolve_device(device) -> torch.device:
+    """The device a constructor builds on. Scenes and cameras default to
+    the card (``"cuda"``), where the kernels run; without one that default
+    raises instead of quietly building for the CPU, whose plain versions are
+    hundreds of times slower: pass ``device="cpu"`` to ask for them."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but torch sees no CUDA device; pass "
+            "device=\"cpu\" to build on the CPU (the kernels' plain "
+            "versions render there)")
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,7 +235,10 @@ class SceneBuilder:
     # -- freeze --
 
     def build(self, dtype=torch.float32, pad_multiple: int = 8,
-              device="cpu") -> Scene:
+              device="cuda") -> Scene:
+        """Freeze into a :class:`Scene` on ``device`` (the card unless
+        ``device="cpu"``; see :func:`resolve_device`)."""
+        device = resolve_device(device)
         ns = len(self._sph_radius)
         nt = len(self._tri_mat)
         npad = max(_round_up(max(ns, 1), pad_multiple), pad_multiple)

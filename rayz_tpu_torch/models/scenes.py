@@ -2,7 +2,9 @@
 
 PyTorch counterpart of :mod:`rayz_tpu.models.scenes`. Every constructor
 draws from ``np.random.default_rng(seed)`` in the same order as its JAX
-twin, so each tensor equals the JAX array exactly.
+twin, so each tensor equals the JAX array exactly. Scenes and cameras are
+built on the card unless ``device="cpu"`` is given (see
+:func:`rayz_tpu_torch.models.scene.resolve_device`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ __all__ = [
 
 
 def two_sphere(width: int = 256, height: int | None = None,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
     """BASELINE config 1: Lambertian sphere + ground sphere, gradient sky.
     Default height: square."""
     if height is None:
@@ -44,7 +46,7 @@ def two_sphere(width: int = 256, height: int | None = None,
 
 
 def three_sphere(width: int = 512, height: int | None = None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
     """BASELINE config 2: Lambertian/metal/dielectric trio on a ground
     sphere."""
     b = SceneBuilder()
@@ -67,7 +69,7 @@ def three_sphere(width: int = 512, height: int | None = None,
 
 
 def random_bouncing(width: int = 512, height: int | None = None,
-                    seed: int = 0, dtype=torch.float32, device="cpu"):
+                    seed: int = 0, dtype=torch.float32, device="cuda"):
     """BASELINE config 3 / the reference's final scene: ~500 random spheres
     with motion blur, checkered ground, three heroes."""
     rng = np.random.default_rng(seed)
@@ -119,7 +121,7 @@ def random_bouncing(width: int = 512, height: int | None = None,
 
 
 def cornell_box(width: int = 512, height: int | None = None,
-                tessellation: int = 12, dtype=torch.float32, device="cpu"):
+                tessellation: int = 12, dtype=torch.float32, device="cuda"):
     """BASELINE config 4: triangle-mesh Cornell box (~1.5k triangles), lit by
     the sky gradient through the open front. Default height: square."""
     if height is None:
@@ -171,7 +173,7 @@ def cornell_box(width: int = 512, height: int | None = None,
 
 
 def sphere_grid(n: int = 100, width: int = 64, height: int | None = None,
-                seed: int = 0, dtype=torch.float32, device="cpu"):
+                seed: int = 0, dtype=torch.float32, device="cuda"):
     """BASELINE config 5 scene: ``n`` diffuse spheres on a square grid, one
     independent albedo each, viewed from above. Diffuse scatter uses
     UNIT_SPHERE, which is smooth in the normal (the inverse-rendering
@@ -198,7 +200,7 @@ def sphere_grid(n: int = 100, width: int = 64, height: int | None = None,
 
 
 def sphere_field(n: int = 10000, width: int = 512, height: int | None = None,
-                 seed: int = 0, dtype=torch.float32, device="cpu"):
+                 seed: int = 0, dtype=torch.float32, device="cuda"):
     """Large-scene stress config: ``n`` random small spheres in a slab plus
     a checkered ground. Material mix mirrors random_bouncing."""
     rng = np.random.default_rng(seed)

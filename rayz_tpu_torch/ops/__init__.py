@@ -3,12 +3,15 @@ from .integrator import RenderConfig
 from .megakernel import render_megakernel
 from .pathrec import (gather_rows, gather_rows_T, record_pp, render_diff_pp,
                       render_diff_pp_flat, replay_pp, supports_pp)
-from .tables import fits_shared, scene_tables, supports_scene, tri_tables
+from .tables import (fits_shared, fits_stream, scene_tables, supports_scene,
+                     tri_tables)
+from .wavefront import render_wavefront
 
 __all__ = [
     "RenderConfig",
     "render_fast",
     "render_megakernel",
+    "render_wavefront",
     "pick_engine",
     "render_diff_pp",
     "render_diff_pp_flat",
@@ -18,6 +21,7 @@ __all__ = [
     "gather_rows_T",
     "supports_pp",
     "fits_shared",
+    "fits_stream",
     "scene_tables",
     "tri_tables",
     "supports_scene",

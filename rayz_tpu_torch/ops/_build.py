@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 ``nvcc`` compiles the kernel sources of ``csrc/`` (``megakernel.cu``,
-``record_pp.cu``, ``gather.cu``, ``replay_pp.cu``) into one shared library
+``record_pp.cu``, ``gather.cu``, ``replay_pp.cu``, ``wavefront.cu``) into
+one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes), under ``build/kernels/<hash>/`` at the repository root: one
 ``nvcc -c`` per source, all started together, then one link. The hash
@@ -31,7 +32,8 @@ from typing import NamedTuple
 __all__ = ["load", "check", "build_dir", "BuildInfo"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("megakernel.cu", "record_pp.cu", "gather.cu", "replay_pp.cu")
+_SOURCES = ("megakernel.cu", "record_pp.cu", "gather.cu", "replay_pp.cu",
+            "wavefront.cu")
 _HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
@@ -79,7 +81,8 @@ def _digest() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.rayz_megakernel.argtypes = [p, p, i, p, i, p, i, p, p, p, i, i, i,
-                                    f, i, i, u, i, p]
+                                    f, i, i, u, i, i, p, p, p, p, i, i, i, p,
+                                    p]
     lib.rayz_megakernel.restype = i
     lib.rayz_rng_bits.argtypes = [u, p, p, p, p, i, p, p]
     lib.rayz_rng_bits.restype = i
@@ -97,6 +100,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rayz_replay_bwd.argtypes = [p, p, p, p, p, p, i, i, p, p, i, i, i, i,
                                     f, p]
     lib.rayz_replay_bwd.restype = i
+    lib.rayz_wavefront.argtypes = [p, p, i, p, i, i, p, p, i, p, p, p, p, i,
+                                   i, i, i, p, p, p, p, p, p, p, i, i, i, i,
+                                   i, i, f, i, i, u, i, p, p]
+    lib.rayz_wavefront.restype = i
     lib.rayz_error_string.argtypes = [i]
     lib.rayz_error_string.restype = ctypes.c_char_p
 

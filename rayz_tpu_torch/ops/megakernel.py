@@ -1,16 +1,26 @@
 """Persistent path-tracing megakernel: host side, wrapper and plain version.
 
-PyTorch counterpart of :mod:`rayz_tpu.ops.megakernel` for its main path:
-the SMEM-resident (here: shared-memory-resident), culling-off, full-table
-mode of ``_kernel`` as launched by ``_trace_shard`` and, at spp >= 16,
-by the straggler-compacted ``_trace_shard_compact``. The kernel itself is
-``csrc/megakernel.cu`` (hand-written CUDA for sm_90a); the per-ray device
-code is in ``csrc/common.cuh``.
+PyTorch counterpart of :mod:`rayz_tpu.ops.megakernel`: ``_kernel`` in its
+three table modes, as launched by ``_trace_shard``, the straggler-compacted
+``_trace_shard_compact`` (the default at spp >= 16) and
+``_trace_shard_streamed``:
+
+* resident, culling off (the flagship's mode): the full tables in shared
+  memory;
+* resident, culled (``culling=True``): Morton-sorted tables and per-block
+  bound rows in shared memory;
+* streamed (a scene beyond one block's shared memory): the tables in device
+  memory behind chunk and block bound tests; single launch, no compaction.
+
+The kernel itself is ``csrc/megakernel.cu`` (hand-written CUDA for
+sm_90a); the per-ray device code is in ``csrc/common.cuh``.
 
 * :func:`_trace_slots_reference` is the plain torch version of the kernel:
   the same algorithm in eager torch, vectorized over slots, with a lockstep
   loop like the TPU tile. It runs for CPU tensors and is what the kernel is
-  held against.
+  held against. It sweeps every column of the tables it is given: the
+  culled and streamed modes test bounds that are conservative, so over the
+  same (sorted) tables they find the same winners, up to exact ties.
 * :func:`_trace_slots` is the kernel wrapper. For a CUDA tensor it launches
   the kernel (counting the launch in :data:`LAUNCHES`) or raises; only CPU
   tensors take the plain version.
@@ -36,16 +46,26 @@ from . import _build, rng
 from .integrator import RenderConfig
 from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
                      _TG1Y, _TG1Z, _TG2V, _TG2X, _TG2Y, _TG2Z, _TNV0, _TNX,
-                     _TNY, _TNZ, _TPKF, _VV, _VX, _VY, _VZ, SHARED_LIMIT,
-                     _camera_vector, _resolve_tiling, _smem_scene_inputs,
-                     fits_shared, shared_bytes, supports_scene)
+                     _TNY, _TNZ, _TPKF, _VV, _VX, _VY, _VZ, DEFAULT_BLOCK,
+                     DEFAULT_STREAM_CHUNK, SHARED_LIMIT, STREAM_BLOCK,
+                     StreamTables, Tables, _camera_vector, _padded_counts,
+                     _resolve_tiling, _smem_scene_inputs,
+                     _stream_scene_inputs, fits_shared, shared_bytes,
+                     stream_shared_bytes, supports_scene)
 
-__all__ = ["render_megakernel", "LAUNCHES", "STATE_PLANES", "BLOCK"]
+__all__ = ["render_megakernel", "LAUNCHES", "MODE_LAUNCHES", "STATE_PLANES",
+           "BLOCK", "MODES"]
 
 #: Kernel launches made by :func:`_trace_slots` in this process (never by
 #: the plain version). A run that resets it and reads it back shows which
 #: path it took.
 LAUNCHES = 0
+
+#: Table modes of the kernel, in the order of its ``mode`` argument.
+MODES = ("resident", "culled", "streamed")
+
+#: The same launches, counted per table mode.
+MODE_LAUNCHES = dict.fromkeys(MODES, 0)
 
 #: Saved per-slot state: origin xyz, direction xyz, time, throughput rgb,
 #: radiance rgb, depth left, samples left, active (integers as f32).
@@ -306,9 +326,12 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
                            budget: int = 0,
                            resume: Optional[torch.Tensor] = None,
                            save_state: bool = False,
-                           bits: Optional[Bits] = None):
+                           bits: Optional[Bits] = None, bounds=None,
+                           cull: bool = True, stats=None):
     """Plain torch version of the kernel (same arguments as
-    :func:`_trace_slots`). Each slot runs its ``spp`` samples with
+    :func:`_trace_slots`; ``bounds``, ``cull`` and ``stats`` change only
+    which columns the kernel skips or what it counts, so they are not read
+    here). Each slot runs its ``spp`` samples with
     persistent respawn; the loop runs in lockstep over all slots until none
     is alive or ``budget`` trips are done (0 = no cap).
 
@@ -411,7 +434,46 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
 # kernel wrapper
 # --------------------------------------------------------------------------
 
-def _check_inputs(cam, stab, ttab, pix, resume):
+def _mode(bounds) -> int:
+    """Index into :data:`MODES` of a launch given its bound rows: None or an
+    unculled :class:`Tables` is resident, a culled one culled, a
+    :class:`StreamTables` streamed."""
+    if isinstance(bounds, StreamTables):
+        return 2
+    return 1 if isinstance(bounds, Tables) and bounds.blk else 0
+
+
+def _check_bounds(bounds, n_pad: int, m_pad: int, dev) -> None:
+    """The bound rows of a culled or streamed launch match the tables."""
+    if (bounds.n_pad, bounds.m_pad) != (n_pad, m_pad):
+        raise ValueError("bounds were built for other tables")
+    want = [(bounds.sblk, n_pad // bounds.blk if bounds.blk else 0),
+            (bounds.tblk, m_pad // bounds.blk if bounds.blk else 0)]
+    if isinstance(bounds, StreamTables):
+        if bounds.stream <= 0 or n_pad % bounds.stream or m_pad % bounds.stream:
+            raise ValueError("streamed tables must be chunk multiples")
+        if bounds.blk and bounds.stream % bounds.blk:
+            raise ValueError("the chunk must be a block multiple")
+        want += [(bounds.scb, n_pad // bounds.stream),
+                 (bounds.tcb, m_pad // bounds.stream)]
+    elif n_pad % bounds.blk or m_pad % bounds.blk:
+        raise ValueError("culled tables must be block multiples")
+    for t, cols in want:
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != (4, cols)):
+            raise ValueError(f"bound rows must be contiguous f32 [4, {cols}] "
+                             f"on {dev}, got {tuple(t.shape)}")
+
+
+def _mode_shared_bytes(mode: int, n_pad: int, m_pad: int, bounds) -> int:
+    """Dynamic shared memory of a launch in ``mode`` (the C entry point's
+    own accounting)."""
+    if mode == 2:
+        return stream_shared_bytes(n_pad, m_pad, bounds.stream)
+    return shared_bytes(n_pad, m_pad, bounds.blk if mode else 0)
+
+
+def _check_inputs(cam, stab, ttab, pix, resume, bounds=None):
     dev = pix.device
     for name, t, dtype in (("cam", cam, torch.float32),
                            ("stab", stab, torch.float32),
@@ -437,17 +499,22 @@ def _check_inputs(cam, stab, ttab, pix, resume):
                 or resume.shape != (STATE_PLANES, pix.shape[0])):
             raise ValueError("resume must be a contiguous f32 [16, cap] "
                              "tensor on pix's device")
-    smem = shared_bytes(stab.shape[1], ttab.shape[1])
+    mode = _mode(bounds)
+    if mode:
+        _check_bounds(bounds, stab.shape[1], ttab.shape[1], dev)
+    smem = _mode_shared_bytes(mode, stab.shape[1], ttab.shape[1], bounds)
     if smem > SHARED_LIMIT:
         raise ValueError(f"scene tables need {smem} bytes of shared memory "
                          f"(> {SHARED_LIMIT} per block on an H100)")
+    return mode
 
 
 def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
                  pix: torch.Tensor, *, width: int, spp: int, max_depth: int,
                  t_min: float, jitter: bool, has_motion: bool, seed: int,
                  budget: int = 0, resume: Optional[torch.Tensor] = None,
-                 save_state: bool = False):
+                 save_state: bool = False, bounds=None, cull: bool = True,
+                 stats: Optional[torch.Tensor] = None):
     """Trace the slots ``pix`` (flat pixel ids, -1 = retired) through the
     megakernel: camera vector ``cam`` [18], sphere table ``stab`` [17, N]
     and triangle table ``ttab`` [20, M] (N, M multiples of 8, 0 for an
@@ -455,10 +522,18 @@ def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     ``resume`` [16, cap] continues from a saved state, ``save_state`` also
     returns the state after this launch.
 
+    ``bounds`` selects the table mode: None (resident, every column), the
+    culled :class:`Tables` the tables came from (block rows), or the
+    :class:`StreamTables` (chunk and block rows, tables read from device
+    memory; ``cull=False`` sweeps every chunk untested). ``stats``, an int64
+    [8] tensor on the device, receives the culled and streamed modes' work
+    counters (segments, primitive tests, bound tests, chunk tests, chunk
+    tests passed; see ``rz::Work``).
+
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns (rgb [3, cap], state or None)."""
     global LAUNCHES
-    _check_inputs(cam, stab, ttab, pix, resume)
+    mode = _check_inputs(cam, stab, ttab, pix, resume, bounds)
     kw = dict(width=width, spp=spp, max_depth=max_depth, t_min=t_min,
               jitter=jitter, has_motion=has_motion, seed=seed, budget=budget,
               resume=resume, save_state=save_state)
@@ -466,11 +541,17 @@ def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
         return _trace_slots_reference(cam, stab, ttab, pix, **kw)
     if pix.device.type != "cuda":
         raise ValueError(f"no megakernel for device {pix.device}")
+    if stats is not None and (stats.device != pix.device
+                              or stats.dtype != torch.int64
+                              or stats.shape != (8,)):
+        raise ValueError("stats must be an int64 [8] tensor on pix's device")
     lib, _ = _build.load()
     cap = pix.shape[0]
     rgb = torch.empty((3, cap), dtype=torch.float32, device=pix.device)
     save = (torch.empty((STATE_PLANES, cap), dtype=torch.float32,
                         device=pix.device) if save_state else None)
+    rows = ([bounds.sblk, bounds.tblk] if mode else [None, None]) + (
+        [bounds.scb, bounds.tcb] if mode == 2 else [None, None])
     with torch.cuda.device(pix.device):
         err = lib.rayz_megakernel(
             cam.data_ptr(), stab.data_ptr(), stab.shape[1], ttab.data_ptr(),
@@ -478,10 +559,14 @@ def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
             None if resume is None else resume.data_ptr(),
             None if save is None else save.data_ptr(), rgb.data_ptr(),
             width, spp, max_depth, t_min, int(jitter), int(has_motion),
-            seed & rng.MASK, budget,
+            seed & rng.MASK, budget, mode,
+            *(None if t is None else t.data_ptr() for t in rows),
+            bounds.blk if mode else 0, bounds.stream if mode == 2 else 0,
+            int(cull), None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream(pix.device).cuda_stream)
     _build.check(lib, err, "megakernel")
     LAUNCHES += 1
+    MODE_LAUNCHES[MODES[mode]] += 1
     return rgb, save
 
 
@@ -498,21 +583,33 @@ def _slot_table(n_local: int, device) -> torch.Tensor:
 
 
 def _launch_args(scene: Scene, camera: Camera, seed: int, *, spp: int,
-                 max_depth: int, t_min: float, jitter: bool, unroll: int):
-    stab, ttab, _, _ = _smem_scene_inputs(scene, unroll)
+                 max_depth: int, t_min: float, jitter: bool, unroll: int,
+                 blk: int = 0, stream: int = 0, cull: bool = True):
+    """The kernel's tables and keywords for one render: resident (culled
+    with ``blk > 0``) or streamed (``stream > 0``, blocks of ``blk``)."""
+    if stream:
+        tabs = _stream_scene_inputs(scene, stream, blk,
+                                    camera.look_from.to(torch.float32))
+    else:
+        tabs = _smem_scene_inputs(scene, unroll, blk)
     cam = _camera_vector(camera).contiguous()
     kw = dict(width=camera.width, spp=spp, max_depth=max_depth, t_min=t_min,
-              jitter=jitter, has_motion=scene.has_motion, seed=int(seed))
-    return (cam, stab, ttab), kw
+              jitter=jitter, has_motion=scene.has_motion, seed=int(seed),
+              bounds=tabs if (blk or stream) else None, cull=cull)
+    return (cam, tabs.stab, tabs.ttab), kw
 
 
 def _trace_shard(scene: Scene, camera: Camera, seed: int, n_local: int, *,
                  spp: int, max_depth: int, t_min: float, jitter: bool,
-                 unroll: int) -> torch.Tensor:
-    """Trace pixels [0, n_local) in one launch; returns flat [n_local, 3]
-    radiance sums (divide by spp for the image)."""
+                 unroll: int, blk: int = 0, stream: int = 0,
+                 cull: bool = True) -> torch.Tensor:
+    """Trace pixels [0, n_local) in one launch, in the table mode that
+    ``blk``/``stream`` select (streamed, it is JAX's
+    ``_trace_shard_streamed``); returns flat [n_local, 3] radiance sums
+    (divide by spp for the image)."""
     args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
-                            t_min=t_min, jitter=jitter, unroll=unroll)
+                            t_min=t_min, jitter=jitter, unroll=unroll,
+                            blk=blk, stream=stream, cull=cull)
     pix = _slot_table(n_local, scene.device)
     rgb, _ = _trace_slots(*args, pix, **kw)
     return rgb[:, :n_local].T
@@ -521,7 +618,8 @@ def _trace_shard(scene: Scene, camera: Camera, seed: int, n_local: int, *,
 def _trace_shard_compact(scene: Scene, camera: Camera, seed: int,
                          n_local: int, *, spp: int, max_depth: int,
                          t_min: float, jitter: bool, unroll: int,
-                         budget: int = 32, passes: int = 26) -> torch.Tensor:
+                         budget: int = 32, passes: int = 26,
+                         blk: int = 0) -> torch.Tensor:
     """Straggler-compacted respawn: the budgeted multi-pass variant of
     :func:`_trace_shard`. A single launch runs each block until its last
     slot finishes all spp samples, and per-pixel path cost varies widely
@@ -530,9 +628,10 @@ def _trace_shard_compact(scene: Scene, camera: Camera, seed: int,
     are stable-partitioned so unfinished ones pack densely at the front;
     the last pass runs unbounded, so every sample is traced to the end.
     Draws depend only on each slot's own state, so the result is the single
-    launch's, bit for bit."""
+    launch's, bit for bit. Resident modes only (culled with ``blk > 0``)."""
     args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
-                            t_min=t_min, jitter=jitter, unroll=unroll)
+                            t_min=t_min, jitter=jitter, unroll=unroll,
+                            blk=blk)
     pix = _slot_table(n_local, scene.device)
     st = None
     for p in range(passes):
@@ -560,14 +659,27 @@ def _trace_shard_compact(scene: Scene, camera: Camera, seed: int,
 def render_megakernel(scene: Scene, camera: Camera, seed: int,
                       config: RenderConfig = RenderConfig(), *,
                       budget: Optional[int] = None,
-                      passes: Optional[int] = None) -> torch.Tensor:
+                      passes: Optional[int] = None,
+                      culling: Optional[bool] = None,
+                      block_size: int = DEFAULT_BLOCK,
+                      stream: Optional[int] = None) -> torch.Tensor:
     """Render [H, W, 3] through the megakernel on the scene's device (the
     CUDA kernel on a GPU; the plain version on the CPU).
 
-    ``budget``/``passes``: the straggler-compacted schedule. Defaults as
-    ``render_pallas``: 10 passes of ``budget=spp`` trips at spp >= 16, a
-    single launch below; ``passes=0`` forces the single launch. Any schedule
-    renders the same bits."""
+    Resolved as ``render_pallas`` does, with the H100's limits:
+
+    * ``stream=None`` keeps the tables in shared memory where they fit
+      (:func:`fits_shared` at this ``culling``) and streams them in chunks
+      of :data:`DEFAULT_STREAM_CHUNK` otherwise; ``stream=k`` forces chunks
+      of k columns (a multiple of 16).
+    * ``culling``: resident scenes default to no culling (the full-table
+      mode); ``True`` Morton-sorts them into blocks of ``block_size`` behind
+      bound tests. Streamed scenes always test chunk and block bounds
+      (blocks of :data:`STREAM_BLOCK`) unless ``culling=False``.
+    * ``budget``/``passes``: the straggler-compacted schedule. Defaults: 10
+      passes of ``budget=spp`` trips for resident scenes at spp >= 16, a
+      single launch below; ``passes=0`` forces the single launch. Streamed
+      renders take one launch. Any schedule renders the same bits."""
     if not supports_scene(scene):
         if scene.deep_checker:
             raise ValueError(
@@ -576,23 +688,42 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
                 "ROADMAP queue 1 item 4, will render it)")
         raise ValueError("megakernel needs a non-empty scene (spheres and/or "
                          "triangles)")
-    if not fits_shared(scene):
-        raise ValueError(
-            f"scene tables exceed one block's {SHARED_LIMIT} bytes of shared "
-            "memory; streamed tables are ROADMAP queue 1 item 8")
     if camera.device != scene.device:
         raise ValueError(f"camera is on {camera.device}, scene on "
                          f"{scene.device}")
+    unroll = _resolve_tiling(scene)
+    if stream is None:
+        stream = 0 if fits_shared(scene, culling, block_size) \
+            else DEFAULT_STREAM_CHUNK
+    cull = culling is not False
+    if stream:
+        if stream % 16:
+            raise ValueError("stream chunk must be a multiple of 16")
+        blk = STREAM_BLOCK if cull and stream % STREAM_BLOCK == 0 else 0
+        passes = 0
+        n_r, m_r = _padded_counts(scene, 1, stream)
+        if stream_shared_bytes(n_r, m_r, stream) > SHARED_LIMIT:
+            raise ValueError(
+                f"streamed megakernel: {n_r + m_r} columns in chunks of "
+                f"{stream} need more than {SHARED_LIMIT} bytes of chunk "
+                "bounds in shared memory; use a larger chunk")
+    else:
+        blk = block_size if culling else 0
+        if not fits_shared(scene, culling, block_size):
+            raise ValueError(
+                f"scene tables exceed one block's {SHARED_LIMIT} bytes of "
+                "shared memory; stream them (stream=None picks that)")
     if passes is None:
         passes = 10 if config.spp >= 16 else 0
     if budget is None:
         budget = config.spp
     h, w = camera.height, camera.width
     kw = dict(spp=config.spp, max_depth=config.max_depth, t_min=config.t_min,
-              jitter=config.jitter, unroll=_resolve_tiling(scene))
+              jitter=config.jitter, unroll=unroll, blk=blk)
     if passes > 1:
         flat = _trace_shard_compact(scene, camera, seed, h * w,
                                     budget=budget, passes=passes, **kw)
     else:
-        flat = _trace_shard(scene, camera, seed, h * w, **kw)
+        flat = _trace_shard(scene, camera, seed, h * w, stream=stream,
+                            cull=cull, **kw)
     return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)

@@ -3,27 +3,54 @@
 PyTorch counterpart of the host-side table builders of
 :mod:`rayz_tpu.ops.megakernel` (``supports_scene``, ``_material_rows``,
 ``scene_tables``, ``tri_tables``, ``_pad_poison``, ``_camera_vector``,
-``_resolve_tiling`` and the culling-off part of ``_smem_scene_inputs``).
-Every table equals its JAX twin exactly: the sums are written out in the
-order XLA evaluates them.
+``_resolve_tiling``, ``_smem_scene_inputs``, ``_stream_scene_inputs`` and
+their culling helpers: Morton order, bound rows, near-to-far order,
+superclusters). Every table equals its JAX twin exactly or within an ulp:
+the sums are written out in the order XLA evaluates them, and every sort is
+stable, as ``jnp.argsort`` is.
 
-The residency rule is re-derived for the H100: the megakernel copies the
-camera vector and the full tables into one block's dynamic shared memory,
-which holds at most 227 KB (232,448 bytes) per block on Hopper.
-:func:`fits_shared` is that rule; it replaces the JAX package's
-``fits_smem``/``SMEM_BUDGET``, which are sized for the 1 MiB SMEM of a TPU
-v5e.
+The residency rules are re-derived for the H100, whose blocks hold at most
+227 KB (232,448 bytes) of dynamic shared memory:
+
+* :func:`fits_shared`: the megakernel copies the camera vector and the
+  whole tables (and, culled, 4 bound rows per block) into shared memory.
+  It admits at most n_pad = 3,416 spheres or m_pad = 2,904 triangles.
+* :func:`fits_stream`: a streamed launch keeps only the camera vector, a
+  reduction scratch and the chunk and supercluster bound rows in shared
+  memory; the tables and block rows stay in device memory and are read
+  through L1/L2. About 7 M primitives at the default chunk.
+
+They replace the JAX package's ``fits_smem``/``fits_stream``/
+``SMEM_BUDGET``, which are sized for the 1 MiB SMEM of a TPU v5e.
+
+Chunk and block sizes of the streamed layout (:data:`DEFAULT_STREAM_CHUNK`,
+:data:`STREAM_BLOCK`) are the H100's own. On the TPU a chunk is a DMA into
+SMEM scratch (4,096 columns, 327,680 bytes for triangles: more than a
+Hopper block holds), and the block inside it is ``stream // 128`` by a DMA
+alignment rule. Here nothing is copied: a chunk is a bound level only, so
+its size trades bound tests against pruning granularity. The defaults,
+chunk 512 and block 32, are the best of a sweep on the card (chunks 256 to
+2,048, blocks 16 to 128, ``python -m rayz_tpu_torch.tune tiling``; PERF.md
+Findings PR 4). Chunk and block size change only the order of the sweep,
+never the winner (except at exact ties).
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..models.camera import Camera
 from ..models.scene import MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
 
 __all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
-           "shared_bytes", "SHARED_LIMIT", "CAM_WORDS"]
+           "fits_stream", "shared_bytes", "stream_shared_bytes",
+           "wavefront_shared_bytes", "SHARED_LIMIT", "CAM_WORDS",
+           "WF_HEAD_WORDS", "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
+           "DEFAULT_STREAM_CHUNK", "STREAM_BLOCK", "Tables", "StreamTables"]
 
 # Sphere table rows (one f32 row per attribute, columns = spheres).
 _CX, _CY, _CZ, _CCMR2 = 0, 1, 2, 3
@@ -50,6 +77,23 @@ CAM_WORDS = 20
 
 #: Dynamic shared memory one block may use on an H100 (bytes).
 SHARED_LIMIT = 232_448
+
+#: f32 words at the head of the wavefront kernel's shared memory: the
+#: camera vector (20) and the scratch of its tile-bound reduction (7 values
+#: for each of 4 warps), keeping the tables 16-byte aligned.
+WF_HEAD_WORDS = 48
+
+#: Block culling switches on at or above this many primitives (both
+#: classes together) where the caller leaves ``culling`` to the default.
+CULLING_AUTO_THRESHOLD = 2048
+#: Primitives per culling block of the resident (in-shared-memory) layout.
+DEFAULT_BLOCK = 64
+#: Primitives per chunk of the streamed layout (H100 default, see the
+#: module docstring): a 100k-sphere scene has 196 chunks in 49
+#: superclusters of 4 (3.9 KB of bound rows in shared memory).
+DEFAULT_STREAM_CHUNK = 512
+#: Primitives per culling block inside a streamed chunk.
+STREAM_BLOCK = 32
 
 
 def supports_scene(scene: Scene) -> bool:
@@ -193,37 +237,340 @@ def _camera_vector(camera: Camera) -> torch.Tensor:
     ])
 
 
-def _padded_counts(scene: Scene, unroll: int):
+def _padded_counts(scene: Scene, unroll: int, blk: int = 0):
+    """Raw column counts of the two classes (0 for an absent class), padded
+    to a culling-block multiple (``blk > 0``) and then to the unroll."""
     n_pad = int(scene.sphere_radius.shape[0]) if scene.n_spheres > 0 else 0
     m_pad = int(scene.tri_material.shape[0]) if scene.n_triangles > 0 else 0
+    if blk:
+        n_pad, m_pad = _round_up(n_pad, blk), _round_up(m_pad, blk)
     return _round_up(n_pad, unroll), _round_up(m_pad, unroll)
 
 
-def _smem_scene_inputs(scene: Scene, unroll: int):
-    """Whole-scene-in-shared-memory table prep (culling off): the sphere
-    and triangle tables, each padded to an unroll multiple with poisoned
-    columns. An absent primitive class gives an empty [rows, 0] table.
-    Returns (sphere table, triangle table, padded sphere count, padded
-    triangle count)."""
-    n_pad, m_pad = _padded_counts(scene, unroll)
+# --------------------------------------------------------------------------
+# culling helpers: Morton order, bound rows, near-to-far order
+# --------------------------------------------------------------------------
+
+def _sum3(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of length 3, left to right (XLA's order)."""
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of ``x`` (int64) so they occupy every third
+    bit: the Morton bit-interleave. JAX computes it in uint32; every value
+    here stays below 2^32, so int64 gives the same bits."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def _morton_perm(lo: torch.Tensor, hi: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting primitives by the 30-bit Morton code of their
+    AABB centre (invalid and padding columns last), so that neighbouring
+    primitives share a culling block. Stable, as ``jnp.argsort``."""
+    c = 0.5 * (lo + hi)
+    inf = torch.tensor(float("inf"), dtype=c.dtype, device=c.device)
+    cmin = torch.where(valid[:, None], c, inf).amin(dim=0)
+    cmax = torch.where(valid[:, None], c, -inf).amax(dim=0)
+    span = torch.clamp_min(cmax - cmin, 1e-12)
+    q = torch.clip((c - cmin) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
+    code = (_part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1)
+            | (_part1by2(q[:, 2]) << 2))
+    code = torch.where(valid, code, 0xFFFFFFFF)
+    return torch.argsort(code, stable=True)
+
+
+def _block_rows(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor,
+                block: int) -> torch.Tensor:
+    """[4, N/block] bounding-sphere rows of blocks of ``block`` consecutive
+    primitives: centre xyz and |c|^2 - r^2, the form a sphere test reads, so
+    a bound test is a sphere test. A block with no valid member gets
+    |c|^2 - r^2 = +BIG and never passes."""
+    nb = lo.shape[0] // block
+    inf = torch.tensor(float("inf"), dtype=lo.dtype, device=lo.device)
+    blo = torch.where(valid[:, None], lo, inf).reshape(nb, block, 3).amin(1)
+    bhi = torch.where(valid[:, None], hi, -inf).reshape(nb, block, 3).amax(1)
+    bc = 0.5 * (blo + bhi)
+    half = 0.5 * (bhi - blo)
+    br2 = _sum3(half * half)
+    any_valid = valid.reshape(nb, block).any(dim=1)
+    bc = torch.where(any_valid[:, None], bc, 0.0)
+    ccmr2 = torch.where(any_valid, _sum3(bc * bc) - br2, _BIG)
+    return torch.stack([bc[:, 0], bc[:, 1], bc[:, 2], ccmr2])
+
+
+def _sphere_aabbs(scene: Scene):
+    """Per-sphere AABB over t in [0, 1] (the motion is enclosed)."""
+    c0 = scene.sphere_center.to(torch.float32)
+    c1 = c0 + scene.sphere_velocity.to(torch.float32)
+    r = scene.sphere_radius.to(torch.float32)[:, None]
+    return torch.minimum(c0, c1) - r, torch.maximum(c0, c1) + r
+
+
+def _tri_aabbs(scene: Scene):
+    v0, v1, v2 = (v.to(torch.float32) for v in (scene.tri_v0, scene.tri_v1,
+                                                 scene.tri_v2))
+    return (torch.minimum(torch.minimum(v0, v1), v2),
+            torch.maximum(torch.maximum(v0, v1), v2))
+
+
+def _near_to_far(tab, lo, hi, valid, group: int, origin: torch.Tensor,
+                 within: int = 0):
+    """Permute ``group``-sized column groups so a sweep meets them in order
+    of increasing distance from ``origin`` (the camera), keyed by each
+    group's nearest valid member. With ``within`` > 0 the groups are
+    reordered only inside each ``within``-sized segment (blocks inside a
+    chunk), keeping the segments' order."""
+    ng = valid.shape[0] // group
+    diff = 0.5 * (lo + hi) - origin[None, :]
+    d2 = torch.where(valid, _sum3(diff * diff), float("inf"))
+    gd = d2.reshape(ng, group).amin(dim=1)
+    if within:
+        gpw = within // group
+        inner = torch.argsort(gd.reshape(-1, gpw), dim=1, stable=True)
+        base = torch.arange(ng // gpw, device=gd.device)[:, None] * gpw
+        order = (base + inner).reshape(-1)
+    else:
+        order = torch.argsort(gd, stable=True)
+    col = (order[:, None] * group
+           + torch.arange(group, device=gd.device)[None, :]).reshape(-1)
+    return tab[:, col], lo[col], hi[col], valid[col]
+
+
+def _sc_enabled(n_items: int, stream: int, sc_group: int) -> bool:
+    """Whether the supercluster level applies to a streamed class: the
+    chunk count splits evenly into at least 2 groups of ``sc_group``."""
+    if not (sc_group and n_items and stream):
+        return False
+    n_chunks = n_items // stream
+    return n_chunks % sc_group == 0 and n_chunks // sc_group >= 2
+
+
+def _pick_sc_group(n_chunks: int) -> int:
+    """Chunks per supercluster: the first small divisor that yields at
+    least 2 groups, 0 if none."""
+    for g in (5, 4, 6, 7, 8, 3, 2):
+        if n_chunks % g == 0 and n_chunks // g >= 2:
+            return g
+    return 0
+
+
+def _resolve_blk(scene: Scene, culling, block_size: int) -> int:
+    """Culling block size: ``culling=None`` switches culling on at
+    :data:`CULLING_AUTO_THRESHOLD` primitives."""
+    if culling is None:
+        n = ((scene.sphere_radius.shape[0] if scene.n_spheres else 0)
+             + (scene.tri_material.shape[0] if scene.n_triangles else 0))
+        culling = n >= CULLING_AUTO_THRESHOLD
+    return block_size if culling else 0
+
+
+def use_patch_order(width: int, height: int) -> bool:
+    """Whether the wavefront's camera rays can be laid out in 64x32-pixel
+    patches (the image tiles evenly)."""
+    return width % 64 == 0 and height % 32 == 0
+
+
+@functools.lru_cache(maxsize=64)
+def _patch_inverse(width: int, height: int) -> np.ndarray:
+    """Row-major pixel index -> slot index under the patch layout (static
+    per image size): ``flat[_patch_inverse(w, h)]`` is the row-major
+    image."""
+    p = np.arange(width * height)
+    x, y = p % width, p // width
+    pid = (y // 32) * (width // 64) + (x // 64)
+    return np.asarray(pid * 2048 + (y % 32) * 64 + (x % 64), np.int32)
+
+
+# --------------------------------------------------------------------------
+# the layouts the kernels read
+# --------------------------------------------------------------------------
+
+class Tables(NamedTuple):
+    """Shared-memory-resident layout: the sphere table [17, n_pad] and the
+    triangle table [20, m_pad] (an absent class gives [rows, 0]); culled
+    (``blk > 0``), Morton-sorted with per-block bound rows [4, n_pad/blk]
+    and [4, m_pad/blk] ([4, 0] otherwise)."""
+
+    stab: torch.Tensor
+    ttab: torch.Tensor
+    n_pad: int
+    m_pad: int
+    sblk: torch.Tensor
+    tblk: torch.Tensor
+    blk: int
+
+
+class StreamTables(NamedTuple):
+    """Streamed layout: Morton-sorted tables padded to a chunk multiple,
+    chunks ordered near to far from the camera and blocks near to far
+    inside each chunk; chunk bounds [4, n_pad/stream], supercluster bounds
+    [4, n_pad/(stream*sc_group)] where :func:`_sc_enabled` holds ([4, 0]
+    otherwise) and block rows [4, n_pad/blk] ([4, 0] for ``blk = 0``)."""
+
+    stab: torch.Tensor
+    ttab: torch.Tensor
+    n_pad: int
+    m_pad: int
+    scb: torch.Tensor
+    tcb: torch.Tensor
+    ssc: torch.Tensor
+    tsc: torch.Tensor
+    sblk: torch.Tensor
+    tblk: torch.Tensor
+    stream: int
+    blk: int
+    sc_group: int
+
+
+def _class_parts(scene: Scene, tri: bool):
+    """(table, AABB lo, AABB hi, valid mask, poison row) of one class."""
+    if tri:
+        lo, hi = _tri_aabbs(scene)
+        return tri_tables(scene), lo, hi, scene.tri_valid, _TG1V
+    lo, hi = _sphere_aabbs(scene)
+    return scene_tables(scene), lo, hi, scene.sphere_valid, _CCMR2
+
+
+def _sorted_padded(scene: Scene, tri: bool, multiple: int):
+    """One class Morton-sorted and padded to ``multiple`` columns (poisoned
+    table columns, invalid AABBs)."""
+    tab, lo, hi, valid, poison = _class_parts(scene, tri)
+    perm = _morton_perm(lo, hi, valid)
+    n = _round_up(perm.shape[0], multiple)
+    pad = n - perm.shape[0]
+    tab = _pad_poison(tab[:, perm], n, poison)
+    valid = torch.nn.functional.pad(valid[perm], (0, pad))
+    lo = torch.nn.functional.pad(lo[perm], (0, 0, 0, pad))
+    hi = torch.nn.functional.pad(hi[perm], (0, 0, 0, pad))
+    return tab, lo, hi, valid, poison
+
+
+def _empty(rows: int, dev) -> torch.Tensor:
+    return torch.zeros((rows, 0), dtype=torch.float32, device=dev)
+
+
+def _smem_scene_inputs(scene: Scene, unroll: int, blk: int = 0) -> Tables:
+    """Shared-memory-resident table prep shared by the megakernel and the
+    wavefront kernel: each class padded to an unroll multiple with poisoned
+    columns; with ``blk > 0`` first Morton-sorted, padded to a block
+    multiple and given per-block bound rows."""
     dev = scene.device
-    stab = (_pad_poison(scene_tables(scene), n_pad, _CCMR2) if n_pad
-            else torch.zeros((_NROWS, 0), dtype=torch.float32, device=dev))
-    ttab = (_pad_poison(tri_tables(scene), m_pad, _TG1V) if m_pad
-            else torch.zeros((_TNROWS, 0), dtype=torch.float32, device=dev))
-    return stab.contiguous(), ttab.contiguous(), n_pad, m_pad
+    parts = []
+    for tri, rows, present in ((False, _NROWS, scene.n_spheres > 0),
+                               (True, _TNROWS, scene.n_triangles > 0)):
+        if not present:
+            parts.append((_empty(rows, dev), 0, _empty(4, dev)))
+            continue
+        if blk:
+            tab, lo, hi, valid, poison = _sorted_padded(scene, tri, blk)
+            brows = _block_rows(lo, hi, valid, blk)
+        else:
+            tab, poison = ((tri_tables(scene), _TG1V) if tri
+                           else (scene_tables(scene), _CCMR2))
+            brows = _empty(4, dev)
+        n = _round_up(tab.shape[1], unroll)
+        parts.append((_pad_poison(tab, n, poison).contiguous(), n,
+                      brows.contiguous()))
+    (stab, n_pad, sblk), (ttab, m_pad, tblk) = parts
+    return Tables(stab, ttab, n_pad, m_pad, sblk, tblk, blk)
 
 
-def shared_bytes(n_pad: int, m_pad: int) -> int:
-    """Dynamic shared memory the megakernel asks for: the camera vector and
-    both full tables, f32."""
-    return 4 * (CAM_WORDS + _NROWS * n_pad + _TNROWS * m_pad)
+def _stream_scene_inputs(scene: Scene, stream: int, blk: int,
+                         origin: torch.Tensor,
+                         sc_group: int = 0) -> StreamTables:
+    """Streamed table prep shared by the megakernel and the wavefront
+    kernel: Morton sort, padding to a chunk multiple, chunks near to far
+    from ``origin`` and blocks near to far inside each chunk, then the
+    chunk, supercluster and block bound rows. ``sc_group = 0`` gives no
+    superclusters."""
+    dev = scene.device
+    parts = []
+    for tri, rows, present in ((False, _NROWS, scene.n_spheres > 0),
+                               (True, _TNROWS, scene.n_triangles > 0)):
+        if not present:
+            parts.append((_empty(rows, dev), 0) + (_empty(4, dev),) * 3)
+            continue
+        tab, lo, hi, valid, _ = _sorted_padded(scene, tri, stream)
+        tab, lo, hi, valid = _near_to_far(tab, lo, hi, valid, stream, origin)
+        if blk:
+            tab, lo, hi, valid = _near_to_far(tab, lo, hi, valid, blk, origin,
+                                              within=stream)
+        n = tab.shape[1]
+        sc = (_block_rows(lo, hi, valid, stream * sc_group)
+              if _sc_enabled(n, stream, sc_group) else _empty(4, dev))
+        brows = _block_rows(lo, hi, valid, blk) if blk else _empty(4, dev)
+        parts.append((tab.contiguous(), n,
+                      _block_rows(lo, hi, valid, stream).contiguous(),
+                      sc.contiguous(), brows.contiguous()))
+    (stab, n_pad, scb, ssc, sblk), (ttab, m_pad, tcb, tsc, tblk) = parts
+    return StreamTables(stab, ttab, n_pad, m_pad, scb, tcb, ssc, tsc, sblk,
+                        tblk, stream, blk, sc_group)
 
 
-def fits_shared(scene: Scene) -> bool:
-    """Whether the scene's tables fit one block's shared memory on an H100
-    (~13.6k spheres or ~11.6k triangles). The flagship needs 34.8 KB, the
-    Cornell box 122.9 KB (above the 48 KB default, so the kernel opts in).
-    Same accounting as the launch-time check in the wrapper."""
+def _stream_counts(scene: Scene, stream: int):
+    """Streamed column counts and the supercluster group they imply."""
+    n_r, m_r = _padded_counts(scene, 1, stream)
+    return n_r, m_r, _pick_sc_group(max(n_r, m_r) // stream)
+
+
+# --------------------------------------------------------------------------
+# residency rules (H100)
+# --------------------------------------------------------------------------
+
+def shared_bytes(n_pad: int, m_pad: int, blk: int = 0) -> int:
+    """Dynamic shared memory the megakernel asks for in its resident modes:
+    the camera vector and both tables, f32, plus the 4 bound rows of each
+    block when culled (``blk > 0``)."""
+    words = CAM_WORDS + _NROWS * n_pad + _TNROWS * m_pad
+    if blk:
+        words += 4 * (n_pad // blk + m_pad // blk)
+    return 4 * words
+
+
+def stream_shared_bytes(n_r: int, m_r: int, stream: int) -> int:
+    """Dynamic shared memory of the streamed megakernel: the camera vector
+    and the chunk bound rows of both classes."""
+    return 4 * (CAM_WORDS + 4 * (n_r // stream + m_r // stream))
+
+
+def wavefront_shared_bytes(n_pad: int, m_pad: int, *, blk: int = 0,
+                           stream: int = 0, sc_group: int = 0) -> int:
+    """Dynamic shared memory of the wavefront kernel: its head (camera and
+    reduction scratch) and, resident, the tables and block rows; streamed,
+    the chunk and supercluster bound rows."""
+    words = WF_HEAD_WORDS
+    if stream:
+        for n in (n_pad, m_pad):
+            words += 4 * (n // stream)
+            if _sc_enabled(n, stream, sc_group):
+                words += 4 * (n // (stream * sc_group))
+        return 4 * words
+    return 4 * (words - CAM_WORDS) + shared_bytes(n_pad, m_pad, blk)
+
+
+def fits_shared(scene: Scene, culling=None,
+                block_size: int = DEFAULT_BLOCK) -> bool:
+    """Whether the megakernel can hold the scene in one block's shared
+    memory on an H100 (n_pad <= 3,416 spheres or m_pad <= 2,904 triangles,
+    culling off), at the layout ``render_megakernel`` resolves: culling off
+    unless ``culling=True``. The flagship needs 34.8 KB, the Cornell box
+    122.9 KB (above the 48 KB default, so the kernel opts in). Same
+    accounting as the launch-time check in the wrapper."""
+    blk = block_size if culling else 0
     unroll = _resolve_tiling(scene)
-    return shared_bytes(*_padded_counts(scene, unroll)) <= SHARED_LIMIT
+    return shared_bytes(*_padded_counts(scene, unroll, blk),
+                        blk) <= SHARED_LIMIT
+
+
+def fits_stream(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:
+    """Whether the streamed kernels can run the scene: what their launches
+    put in shared memory (the wavefront's head and the chunk and
+    supercluster bound rows, a superset of the streamed megakernel's) fits
+    one block. About 7 M primitives at the default chunk."""
+    n_r, m_r, g = _stream_counts(scene, stream)
+    return wavefront_shared_bytes(n_r, m_r, stream=stream,
+                                  sc_group=g) <= SHARED_LIMIT

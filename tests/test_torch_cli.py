@@ -47,8 +47,20 @@ def test_cuda_device_without_gpu_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "x.png").exists()
 
 
-@pytest.mark.parametrize("engine", ["xla", "wavefront"])
+@pytest.mark.parametrize("engine", ["xla"])
 def test_unported_engines_raise(engine, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["16", str(tmp_path / "x.png"), "--scene", "two_sphere",
               "--engine", engine, "--device", "cpu"])
+
+
+def test_wavefront_engine_renders(tmp_path):
+    out = tmp_path / "wf.ppm"
+    assert main(["24", str(out), "--scene", "two_sphere", "--spp", "2",
+                 "--depth", "4", "--engine", "wavefront", "--device",
+                 "cpu"]) == 0
+    ref = tmp_path / "mk.ppm"
+    assert main(["24", str(ref), "--scene", "two_sphere", "--spp", "2",
+                 "--depth", "4", "--engine", "megakernel", "--device",
+                 "cpu"]) == 0
+    assert (read_ppm(str(out)) == read_ppm(str(ref))).all()

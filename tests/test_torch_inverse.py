@@ -193,11 +193,11 @@ def test_check_recordable_raises():
     inner = b.add_checker_texture(0.3, e, o)
     b.add_sphere((0, -100.5, -1), 100.0, b.add_diffuse(
         texture=b.add_checker_texture(1.1, inner, o)))
-    nested = b.build()
+    nested = b.build(device="cpu")
     assert nested.deep_checker
     with pytest.raises(ValueError, match="checker"):
         inverse._check_recordable(nested, "recorded-pp")
-    big, cam = rtt.scenes.sphere_field(n=14_000, width=8)
+    big, cam = rtt.scenes.sphere_field(n=14_000, width=8, device="cpu")
     assert not rtt.ops.fits_shared(big) and not tpr.supports_pp(big)
     with pytest.raises(ValueError, match="shared memory"):
         inverse._check_recordable(big, "recorded-pp")
@@ -206,7 +206,8 @@ def test_check_recordable_raises():
                       spp=1, max_depth=2, t_min=1e-3, jitter=False, iters=1)
     cfg = rtt.RenderConfig(spp=1, max_depth=2)
     with pytest.raises(ValueError, match="checker"):
-        tpr.render_diff_pp(nested, rtt.make_camera(width=8, height=8), 0,
+        tpr.render_diff_pp(nested, rtt.make_camera(width=8, height=8,
+                                                    device="cpu"), 0,
                            cfg)
 
 

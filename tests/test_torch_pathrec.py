@@ -233,7 +233,8 @@ def test_recorded_indices_land_on_their_rows(name):
     Cornell box (no spheres, so triangles start at row 0) and on a scene
     whose megakernel tables pad spheres past the raw count."""
     if name == "cornell_box":
-        scene, cam = rtt.scenes.cornell_box(width=16, tessellation=2)
+        scene, cam = rtt.scenes.cornell_box(width=16, tessellation=2,
+                                              device="cpu")
     else:
         scene, cam = _port(*_tri_heavy_scene(rt, jnp.float32))
     n = cam.width * cam.height
@@ -473,7 +474,8 @@ def test_replay_matches_jax_on_one_recording(dtype, fuzz):
 # ---- 7. the port on its own, real random draws ----
 
 def _bouncing():
-    scene, cam = rtt.scenes.random_bouncing(width=32, height=18, seed=2)
+    scene, cam = rtt.scenes.random_bouncing(width=32, height=18, seed=2,
+                                            device="cpu")
     return scene, cam, rtt.RenderConfig(spp=4, max_depth=8)
 
 
@@ -554,10 +556,10 @@ def test_velocity_grad_matches_fd_f64():
     m = b.add_metallic(color=(0.8, 0.7, 0.6), fuzz=0.0)
     b.add_sphere((0, -100.5, -2), 100.0, m)
     b.add_sphere((0, 0, -2), 0.5, m, velocity=(0.15, 0.1, -0.05))
-    scene = b.build(dtype=torch.float64)
+    scene = b.build(dtype=torch.float64, device="cpu")
     cam = rtt.make_camera(width=16, height=16, vfov=55.0, focus_dist=1.0,
                           look_from=(0, 0, 0), look_at=(0, 0, -1),
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     pix = torch.arange(256, dtype=torch.int32)
     idx, aux, left = tpr.record_pp(scene, cam, 2, pix, spp=1, max_depth=4,
                                    t_min=1e-3, jitter=True, iters=8)

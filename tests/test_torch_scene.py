@@ -50,7 +50,7 @@ def _leaves(obj):
 @pytest.mark.parametrize("name,kw", CASES, ids=[c[0] for c in CASES])
 def test_scene_constructors_match_jax(name, kw):
     jscene, jcam = _jax_pair(name, kw)
-    tscene, tcam = rtt.scenes.SCENES[name](**kw)
+    tscene, tcam = rtt.scenes.SCENES[name](device="cpu", **kw)
     for k, v in _leaves(jscene).items():
         t = getattr(tscene, k).numpy()
         assert t.dtype == v.dtype, k
@@ -92,25 +92,52 @@ def test_padded_tables_and_shared_memory_rule():
     """Tables pad to the sweep unroll with poisoned columns, and the H100
     residency rule admits the flagship (34.8 KB) and the Cornell box
     (122.9 KB) but not a scene past 227 KB."""
-    scene, _ = rtt.scenes.random_bouncing(width=16)
-    stab, ttab, n_pad, m_pad = tables._smem_scene_inputs(scene, 8)
+    scene, _ = rtt.scenes.random_bouncing(width=16, device="cpu")
+    stab, ttab, n_pad, m_pad = tables._smem_scene_inputs(scene, 8)[:4]
     assert (n_pad, m_pad) == (512, 0) and ttab.shape == (20, 0)
     assert tables.shared_bytes(n_pad, m_pad) - 4 * tables.CAM_WORDS == 34_816
     assert tables.fits_shared(scene)
-    box, _ = rtt.scenes.cornell_box(width=16)
+    box, _ = rtt.scenes.cornell_box(width=16, device="cpu")
     assert tables.shared_bytes(0, 1536) - 4 * tables.CAM_WORDS == 122_880
     assert tables.fits_shared(box)
-    big, _ = rtt.scenes.sphere_field(n=14_000, width=16)
+    big, _ = rtt.scenes.sphere_field(n=14_000, width=16, device="cpu")
     assert not tables.fits_shared(big)
+    # the boundary: 4 * (20 + 17 * n_pad + 20 * m_pad) <= 232,448 bytes
+    limit = tables.SHARED_LIMIT
+    assert tables.shared_bytes(3416, 0) <= limit < tables.shared_bytes(3424, 0)
+    assert tables.shared_bytes(0, 2904) <= limit < tables.shared_bytes(0, 2912)
+    for n, fits in ((3416, True), (3417, False)):
+        b = rtt.SceneBuilder()
+        m = b.add_diffuse(color=(0.5, 0.5, 0.5))
+        for i in range(n):
+            b.add_sphere((float(i), 0.0, 0.0), 0.1, m)
+        assert tables.fits_shared(b.build(device="cpu")) == fits, n
 
     b = rtt.SceneBuilder()
     b.add_sphere((0, 0, -1), 0.5, b.add_diffuse(color=(0.5, 0.5, 0.5)))
     b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), 0)
-    small = b.build(pad_multiple=4)
-    stab, ttab, n_pad, m_pad = tables._smem_scene_inputs(small, 8)
+    small = b.build(pad_multiple=4, device="cpu")
+    stab, ttab, n_pad, m_pad = tables._smem_scene_inputs(small, 8)[:4]
     assert (n_pad, m_pad) == (8, 8)
     assert (stab[tables._CCMR2, 4:] == tables._BIG).all()
     assert (ttab[tables._TG1V, 4:] == tables._BIG).all()
+
+
+def test_constructors_default_to_the_card(monkeypatch):
+    """Scenes and cameras are built on the card unless the caller asks for
+    the CPU; with no card the default raises and names device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        rtt.scenes.two_sphere(width=8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        rtt.make_camera(width=8)
+    b = rtt.SceneBuilder()
+    b.add_sphere((0, 0, -1), 0.5, b.add_diffuse(color=(0.5, 0.5, 0.5)))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        b.build()
+    scene, cam = rtt.scenes.two_sphere(width=8, device="cpu")
+    assert scene.device.type == cam.device.type == "cpu"
+    assert b.build(device="cpu").device.type == "cpu"
 
 
 def _ppm_png(mod, img):
@@ -131,7 +158,7 @@ def test_image_bytes_match_jax_writers():
 
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import rayz_tpu_torch, rayz_tpu_torch.cli; "
+            "import rayz_tpu_torch, rayz_tpu_torch.cli, rayz_tpu_torch.tune; "
             "assert 'rayz_tpu' not in sys.modules; print('ok')")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,0 +1,210 @@
+"""The port's culling table prep (rayz_tpu_torch/ops/tables.py) against the
+JAX package's: Morton order, block bound rows, near-to-far order, the
+culled resident layout and the streamed layout with superclusters, on a
+moving-sphere scene, a triangle scene and a mixed one.
+
+Tolerance: permutations equal; tables and bound rows within 1 ulp (both
+build from the same float32 values in the same order; the rows agree bit
+for bit today)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rayz_tpu as rt
+import rayz_tpu_torch as rtt
+from rayz_tpu.ops import megakernel as jmk
+from rayz_tpu.ops import wavefront as jwf
+from rayz_tpu_torch.ops import tables, wavefront as twf
+
+torch.set_num_threads(2)
+
+
+def _mixed(m, **dt):
+    """Spheres (one moving) and triangles in one scene. The triangles' vertices
+    lie on a 1/16 grid, so the products of the triangle table are exact in
+    float32 (XLA contracts the cross product into multiply-adds, which
+    rounds otherwise than separate operations)."""
+    b = m.SceneBuilder()
+    b.add_sphere((0, -100.5, -1), 100.0, b.add_diffuse(color=(0.5, 0.5, 0.5)))
+    b.add_sphere((0.4, 0.2, -0.5), 0.3, b.add_dielectric(1.5),
+                 velocity=(0.0, 0.2, 0.0))
+    mt = b.add_metallic(color=(0.7, 0.8, 0.9), fuzz=0.2)
+    g = np.random.default_rng(4)
+    for _ in range(150):
+        c = g.integers(-32, 32, 3) / 16
+        b.add_triangle(c, c + g.integers(-5, 6, 3) / 16,
+                       c + g.integers(-5, 6, 3) / 16, mt)
+        b.add_sphere(g.uniform(-2, 2, 3), g.uniform(0.05, 0.2), mt)
+    cam = m.make_camera(width=16, height=16, look_from=(0, 1, 3),
+                        look_at=(0, 0, 0), **dt)
+    return b.build(**dt), cam
+
+
+def _pair(name):
+    if name == "mixed":
+        return _mixed(rt, dtype=jnp.float32), _mixed(rtt, device="cpu")
+    kw = dict(random_bouncing=dict(width=16, seed=3),
+              cornell_box=dict(width=16, tessellation=6))[name]
+    return (rt.scenes.SCENES[name](dtype=jnp.float32, **kw),
+            rtt.scenes.SCENES[name](device="cpu", **kw))
+
+
+SCENES = ["random_bouncing", "cornell_box", "mixed"]
+
+
+def _ulp1(got, want, what):
+    np.testing.assert_array_max_ulp(np.asarray(got, np.float32),
+                                    np.asarray(want, np.float32), maxulp=1)
+    assert got.shape == want.shape, what
+
+
+def _classes(js, ts):
+    """(JAX aabbs, port aabbs, valid masks) per present class."""
+    out = []
+    if js.n_spheres:
+        out.append((jmk._sphere_aabbs(js), tables._sphere_aabbs(ts),
+                    js.sphere_valid, ts.sphere_valid))
+    if js.n_triangles:
+        out.append((jmk._tri_aabbs(js), tables._tri_aabbs(ts),
+                    js.tri_valid, ts.tri_valid))
+    return out
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_morton_blocks_and_near_to_far_match_jax(name):
+    (js, jc), (ts, tc) = _pair(name)
+    origin_j = jmk._cam_origin(jc)
+    origin_t = tc.look_from.to(torch.float32)
+    for (jlo, jhi), (tlo, thi), jv, tv in _classes(js, ts):
+        _ulp1(tlo.numpy(), np.asarray(jlo), "aabb lo")
+        _ulp1(thi.numpy(), np.asarray(jhi), "aabb hi")
+        jp = np.asarray(jmk._morton_perm(jlo, jhi, jv))
+        tp = tables._morton_perm(tlo, thi, tv).numpy()
+        np.testing.assert_array_equal(tp, jp)
+        n = (tp.shape[0] // 64) * 64
+        jlo, jhi, jv = (x[jp][:n] for x in (jlo, jhi, jv))
+        tlo, thi, tv = (x[torch.from_numpy(tp)][:n] for x in (tlo, thi, tv))
+        for blk in (16, 64):
+            _ulp1(tables._block_rows(tlo, thi, tv, blk).numpy(),
+                  np.asarray(jmk._block_rows(jlo, jhi, jv, blk)), "rows")
+        tab_j = jnp.arange(n, dtype=jnp.float32)[None, :]
+        tab_t = torch.arange(n, dtype=torch.float32)[None, :]
+        for group, within in ((32, 0), (16, 64), (64, 0)):
+            jr = jmk._near_to_far(tab_j, jlo, jhi, jv, group, origin_j,
+                                  within=within)
+            tr = tables._near_to_far(tab_t, tlo, thi, tv, group, origin_t,
+                                     within=within)
+            np.testing.assert_array_equal(tr[0].numpy(), np.asarray(jr[0]))
+            np.testing.assert_array_equal(tr[3].numpy(), np.asarray(jr[3]))
+
+
+def _counts(js):
+    return (int(js.sphere_radius.shape[0]) if js.n_spheres else 0,
+            int(js.tri_material.shape[0]) if js.n_triangles else 0)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_culled_resident_layout_matches_jax(name):
+    (js, _), (ts, _) = _pair(name)
+    unroll = tables._resolve_tiling(ts)
+    tabs, brows, n_pad, m_pad = jmk._smem_scene_inputs(
+        js, False, 64, unroll, *_counts(js))
+    got = tables._smem_scene_inputs(ts, unroll, 64)
+    assert (got.n_pad, got.m_pad, got.blk) == (n_pad, m_pad, 64)
+    port_tabs = [t for t in (got.stab, got.ttab) if t.shape[1]]
+    port_rows = [t for t in (got.sblk, got.tblk) if t.shape[1]]
+    assert len(port_tabs) == len(tabs) and len(port_rows) == len(brows)
+    for a, b in zip(port_tabs + port_rows, list(tabs) + list(brows)):
+        _ulp1(a.numpy(), np.asarray(b), "resident")
+
+
+@pytest.mark.parametrize("stream,blk", [(128, 16), (256, 32)])
+@pytest.mark.parametrize("name", SCENES)
+def test_streamed_layout_matches_jax(name, stream, blk):
+    (js, jc), (ts, tc) = _pair(name)
+    n_r, m_r, g = tables._stream_counts(ts, stream)
+    jn_r = -(-_counts(js)[0] // stream) * stream
+    jm_r = -(-_counts(js)[1] // stream) * stream
+    assert (n_r, m_r, g) == (jn_r, jm_r,
+                             jmk._pick_sc_group(max(jn_r, jm_r) // stream))
+    (tabs, _, cbnds, scbnds, blk_hbm, n_pad,
+     m_pad) = jmk._stream_scene_inputs(js, False, stream, blk,
+                                       jmk._cam_origin(jc), *_counts(js), g)
+    got = tables._stream_scene_inputs(ts, stream, blk,
+                                      tc.look_from.to(torch.float32), g)
+    assert (got.n_pad, got.m_pad, got.sc_group) == (n_pad, m_pad, g)
+    present = [k for k, n in enumerate((n_pad, m_pad)) if n]
+    for k, jt in zip(present, tabs):
+        pt = (got.stab, got.ttab)[k]
+        _ulp1(pt.numpy(), np.asarray(jt)[:pt.shape[0]], "table")
+        _ulp1((got.scb, got.tcb)[k].numpy(), np.asarray(cbnds[present.index(k)]),
+              "chunk bounds")
+        _ulp1((got.sblk, got.tblk)[k].numpy(),
+              np.asarray(blk_hbm[present.index(k)])[:4], "block rows")
+    port_sc = [t for t in (got.ssc, got.tsc) if t.shape[1]]
+    assert len(port_sc) == len(scbnds)
+    for a, b in zip(port_sc, scbnds):
+        _ulp1(a.numpy(), np.asarray(b), "supercluster bounds")
+    if name != "mixed" and stream == 128:
+        assert len(port_sc) == 1  # 4 chunks: superclusters exercised
+
+
+def test_small_helpers_match_jax():
+    for n in range(1, 40):
+        assert tables._pick_sc_group(n) == jmk._pick_sc_group(n)
+        for g in (0, 2, 5):
+            assert (tables._sc_enabled(n * 128, 128, g)
+                    == jmk._sc_enabled(n * 128, 128, g))
+    for w, h in ((128, 64), (64, 32), (20, 12), (512, 288)):
+        assert tables.use_patch_order(w, h) == jmk.use_patch_order(w, h)
+        np.testing.assert_array_equal(tables._patch_inverse(w, h),
+                                      jmk._patch_inverse(w, h))
+    for name in SCENES:
+        (js, _), (ts, _) = _pair(name)
+        for culling in (None, True, False):
+            assert (tables._resolve_blk(ts, culling, 64)
+                    == jmk._resolve_blk(js, culling, 64))
+        jlo, jspan = jwf._scene_bounds(js)
+        tlo, tspan = twf._scene_bounds(ts)
+        np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
+        np.testing.assert_array_equal(tspan.numpy(), np.asarray(jspan))
+
+
+def test_sort_key_matches_jax():
+    g = np.random.default_rng(0)
+    o = g.uniform(-3, 3, (4096, 3)).astype(np.float32)
+    d = g.standard_normal((4096, 3)).astype(np.float32)
+    alive = (g.random(4096) < 0.7).astype(np.int32)
+    lo = np.array([-2.5, -3.0, -1.0], np.float32)
+    span = np.array([5.0, 6.5, 2.0], np.float32)
+    want = np.asarray(jwf._sort_key(jnp.asarray(o), jnp.asarray(d),
+                                    jnp.asarray(alive), jnp.asarray(lo),
+                                    jnp.asarray(span)))
+    st = torch.from_numpy(np.concatenate([o.T, d.T]))
+    got = twf._sort_key(st, torch.from_numpy(alive), torch.from_numpy(lo),
+                        torch.from_numpy(span))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_streamed_residency_rule():
+    """fits_stream counts the streamed launches' shared memory: the head
+    and the chunk and supercluster bound rows. At the default chunk of 512
+    a 100k-sphere field (196 chunks in 49 superclusters) needs 4,112
+    bytes; the rule gives out near 7.4 M columns; fits_shared stops at
+    n_pad 3,416."""
+    chunk = tables.DEFAULT_STREAM_CHUNK
+    assert chunk == 512
+    assert tables._stream_counts(
+        rtt.scenes.sphere_field(n=100_000, width=8, device="cpu")[0],
+        chunk) == (100_352, 0, 4)
+    assert tables.wavefront_shared_bytes(
+        100_352, 0, stream=chunk, sc_group=4) == 4 * (48 + 4 * (196 + 49))
+    assert tables.wavefront_shared_bytes(
+        14_500 * chunk, 0, stream=chunk, sc_group=0) <= tables.SHARED_LIMIT
+    assert tables.wavefront_shared_bytes(
+        14_600 * chunk, 0, stream=chunk, sc_group=0) > tables.SHARED_LIMIT
+    field, _ = rtt.scenes.sphere_field(n=3500, width=8, device="cpu")
+    assert tables.fits_stream(field) and not tables.fits_shared(field)
+    assert tables.fits_shared(field, culling=False, block_size=64) is False
