@@ -5,18 +5,22 @@
 Builds the port's CUDA kernels from this checkout (nvcc, sm_90a), checks each
 against its plain torch version on the card, and drives the port's main
 paths: on the flagship ``random_bouncing`` scene at 512x512, depth 32, the
-forward render (64 spp through ``render_fast(engine="auto")``) and the
+forward render (64 spp through ``render_fast(engine="auto")``), the
 ``recorded-pp`` train step (bench.py's ``fwdbwd`` shape: two value-and-
 gradient micro-batches of 32 spp through the recorder, the gathers and the
-fused replay kernels, then two ``make_train_step`` steps); and the forward
-render of large scenes, ``render_fast(engine="auto")`` on ``sphere_field``
-at 100k, 10k and 64k spheres (512x288, 16 spp, depth 8:
-scripts/bench_culling.py's defaults), which resolves to the wavefront
-engine, then the streamed megakernel on the 100k scene. Before them the
-wavefront kernel is held against its plain version launch by launch in its
-three table modes, the megakernel's culled and streamed modes against the
-full-table megakernel and their plain versions, the two engines against
-each other, and the new paths against the golden image. For each main path
+fused replay kernels, then two ``make_train_step`` steps) and the same step
+through ``engine="recorded"`` (the bounce-indexed record kernel, the
+gathers and the eager replay); the forward render of large scenes,
+``render_fast(engine="auto")`` on ``sphere_field`` at 100k, 10k and 64k
+spheres (512x288, 16 spp, depth 8: scripts/bench_culling.py's defaults),
+which resolves to the wavefront engine, then the streamed megakernel on the
+100k scene; and one ``engine="recorded"`` value and gradient on the 100k
+scene through the streamed record kernel. Before them the wavefront kernel
+is held against its plain version launch by launch in its three table
+modes, the record kernel in its two, the megakernel's culled and streamed
+modes against the full-table megakernel and their plain versions, the two
+engines against each other, and the new paths against the golden image.
+For each main path
 it resets the launch counters, runs it, and shows that it went through its
 kernels; then it times it (the train step also once through the eager
 replay, for comparison). One line per phase; the line before the last is a
@@ -44,7 +48,8 @@ import torch
 
 import rayz_tpu_torch as rtt
 from rayz_tpu_torch.io.image import read_ppm, write_ppm
-from rayz_tpu_torch.ops import _build, megakernel as mk, pathrec as pr, rng
+from rayz_tpu_torch.ops import _build, diffkernel as dk
+from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, rng
 from rayz_tpu_torch.ops import tables as tb, wavefront as wf
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -214,12 +219,12 @@ def train_params(scene) -> dict:
             for k, v in rtt.extract_params(scene).items()}
 
 
-def loss_and_grads(scene, cam, seed, target, cfg):
-    """pixel_loss(engine="recorded-pp") and its gradients over the default
-    trainable fields (None where a field does not reach the loss)."""
+def loss_and_grads(scene, cam, seed, target, cfg, engine="recorded-pp"):
+    """pixel_loss and its gradients over the default trainable fields
+    (None where a field does not reach the loss)."""
     params = train_params(scene)
     loss, left = rtt.pixel_loss(params, scene, cam, seed, target, cfg,
-                                "recorded-pp", return_leftover=True)
+                                engine, return_leftover=True)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     return loss.detach(), int(left), dict(zip(params, grads))
@@ -634,6 +639,34 @@ def record_flagship(scene, cam, dev):
             *bound(nbytes(stab, pix, *k), live * stab.shape[1] * per))
 
 
+def micro_batches(params, scene, cam, target, cfg, engine: str, micro: int,
+                  seed: int):
+    """bench.py's fwdbwd: ``micro`` value-and-gradient calls of pixel_loss,
+    gradients summed. Returns (last loss, leftovers, gradients)."""
+    total, lefts, loss = None, [], None
+    for i in range(micro):
+        loss, left = rtt.pixel_loss(params, scene, cam, seed * micro + i,
+                                    target, cfg, engine, return_leftover=True)
+        g = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+        total = g if total is None else [
+            a if b is None else a + b for a, b in zip(total, g)]
+        lefts.append(left)
+    return loss.detach(), [int(x) for x in lefts], dict(zip(params, total))
+
+
+def check_grads(what: str, loss, grads) -> None:
+    """Finite loss and gradients, and nonzero centre and colour gradients."""
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{what}: loss {float(loss)}")
+    for name, g in grads.items():
+        if g is not None and not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: gradient {name} not finite")
+    for name in ("sphere_center", "tex_color"):
+        if grads[name] is None or not bool((grads[name] != 0).any()):
+            raise AssertionError(f"{what}: gradient {name} is zero")
+
+
 def train_phase(scene, cam, target, smi: str) -> dict:
     """The slice's main path: bench.py's fwdbwd (two value-and-gradient
     micro-batches of spp 32, gradients summed), counted, checked and
@@ -644,18 +677,8 @@ def train_phase(scene, cam, target, smi: str) -> dict:
     micro = f["spp"] // MICRO_SPP
 
     def fwdbwd(seed):
-        total, lefts, loss = None, [], None
-        for i in range(micro):
-            loss, left = rtt.pixel_loss(params, scene, cam, seed * micro + i,
-                                        target, cfg, "recorded-pp",
-                                        return_leftover=True)
-            g = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-            total = g if total is None else [
-                a if b is None else a + b for a, b in zip(total, g)]
-            lefts.append(left)
-        return loss.detach(), [int(x) for x in lefts], dict(zip(params,
-                                                                total))
+        return micro_batches(params, scene, cam, target, cfg, "recorded-pp",
+                             micro, seed)
 
     for k in pr.LAUNCHES:
         pr.LAUNCHES[k] = 0
@@ -676,14 +699,7 @@ def train_phase(scene, cam, target, smi: str) -> dict:
     if launches != want or steps:
         raise AssertionError(f"train: launches {launches}, expected {want}; "
                              f"{steps} eager replay steps, expected 0")
-    if not bool(torch.isfinite(loss)):
-        raise AssertionError(f"train: loss {float(loss)}")
-    for name, g in grads.items():
-        if g is not None and not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"train: gradient {name} not finite")
-    for name in ("sphere_center", "tex_color"):
-        if grads[name] is None or not bool((grads[name] != 0).any()):
-            raise AssertionError(f"train: gradient {name} is zero")
+    check_grads("train", loss, grads)
     rays = f["width"] * f["height"] * f["spp"]
     phase("train", f"fwdbwd 512x512 2x{MICRO_SPP}spp d{f['depth']}: loss "
                    f"{float(loss):.6g}, leftover {lefts}, launches "
@@ -1141,6 +1157,435 @@ def large_phase(dev, smi: str) -> dict:
     return out
 
 
+# ---- the bounce-indexed "recorded" engine (ops/diffkernel.py) ----
+
+RECORD_MATCH = 0.9999  # record kernel vs plain: share of equal indices
+# render_diff vs the megakernel, per channel: STOCHASTIC_MAX_FRAC is the CPU
+# tests' bound at 4 spp; a pixel of 16 spp averages four times as many
+# paths, each as likely to part from the recorded one in the replay
+DIFF_SPP = 16
+DIFF_MAX_FRAC = STOCHASTIC_MAX_FRAC * DIFF_SPP / 4
+
+
+@contextlib.contextmanager
+def plain_recorded():
+    """Route the record kernel's launches, and the gathers', to their plain
+    torch versions (on the same CUDA tensors) for a comparison run."""
+    kernel = dk._record
+    dk._record = dk._record_reference
+    try:
+        with plain_pathrec():
+            yield
+    finally:
+        dk._record = kernel
+
+
+@contextlib.contextmanager
+def forced_stream(chunk: int):
+    """Have record_paths stream every scene in chunks of ``chunk``, as it
+    does the scenes beyond one block's shared memory."""
+    rule, default = dk.fits_shared, dk.RECORD_STREAM_CHUNK
+    dk.fits_shared, dk.RECORD_STREAM_CHUNK = (lambda scene: False), chunk
+    try:
+        yield
+    finally:
+        dk.fits_shared, dk.RECORD_STREAM_CHUNK = rule, default
+
+
+@contextlib.contextmanager
+def host_draws():
+    """render_diff's camera rays and randoms made by torch on the CPU and
+    moved to the card."""
+    make_rand, camera_rays = dk._make_rand, dk._camera_rays
+
+    def rand(seed, pix, sample, depth):
+        return make_rand(seed, pix.cpu(), sample, depth).to(pix.device)
+
+    def rays(cam, seed, pix, sample, jitter):
+        return tuple(x.to(pix.device) for x in camera_rays(
+            cam.to("cpu"), seed, pix.cpu(), sample, jitter))
+
+    dk._make_rand, dk._camera_rays = rand, rays
+    try:
+        yield
+    finally:
+        dk._make_rand, dk._camera_rays = make_rand, camera_rays
+
+
+def draws_off_host(cam, seed: int, cfg) -> tuple:
+    """Values of render_diff's camera rays and randoms (all sample passes)
+    that torch on the card rounds otherwise than torch on the CPU: (count,
+    total, largest difference)."""
+    pix = torch.arange(cam.width * cam.height, dtype=torch.int32,
+                       device=cam.device)
+    off = total = 0
+    worst = 0.0
+    for s in range(cfg.spp):
+        card = (*dk._camera_rays(cam, seed, pix, s, cfg.jitter),
+                dk._make_rand(seed, pix, s, cfg.max_depth))
+        host = (*dk._camera_rays(cam.to("cpu"), seed, pix.cpu(), s,
+                                 cfg.jitter),
+                dk._make_rand(seed, pix.cpu(), s, cfg.max_depth))
+        for a, b in zip(card, host):
+            d = (a.cpu() - b).abs()
+            off += int((d > 0).sum())
+            total += d.numel()
+            worst = max(worst, float(d.max()))
+    return off, total, worst
+
+
+def record_inputs(scene, cam, seed: int, depth: int, dev, sample: int = 0):
+    """render_diff's inputs of one sample pass over the whole image: the
+    camera rays and the [depth, 5, R] randoms."""
+    pix = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
+    o, d, tm = dk._camera_rays(cam, seed, pix, sample, True)
+    return o, d, tm, dk._make_rand(seed, pix, sample, depth)
+
+
+def record_compare(scene, inputs, depth: int, stream=None):
+    """One record launch against its plain version on the same inputs:
+    (share of equal indices, kernel idx, stats)."""
+    stats = torch.zeros(8, dtype=torch.int64, device=inputs[0].device)
+    k = dk.record_paths(scene, *inputs, max_depth=depth, t_min=1e-3,
+                        stream=stream, stats=stats)
+    with plain_recorded():
+        p = dk.record_paths(scene, *inputs, max_depth=depth, t_min=1e-3,
+                            stream=stream)
+    torch.cuda.synchronize()
+    return float((k == p).double().mean()), k, stats
+
+
+def diff_record_phase(dev) -> dict:
+    """The record kernel against its plain version with real draws
+    (render_diff's rays and randoms), resident and streamed; render_diff
+    against the megakernel; the golden. Returns the largest share of
+    unequal indices per table mode."""
+    mixed, mcam = mixed_scene(dev)
+    cases = [
+        ("random_bouncing 64x36 d8",
+         rtt.scenes.random_bouncing(width=64, height=36, device=dev), None,
+         "resident"),
+        ("cornell_box 48x48 d8 (tables > 48 KB)",
+         rtt.scenes.cornell_box(width=48, device=dev), None, "resident"),
+        ("mixed spheres+triangles 64x36 d8 (motion)", (mixed, mcam), None,
+         "resident"),
+        ("mixed, chunk 128", (mixed, mcam), 128, "streamed")]
+    field = rtt.scenes.sphere_field(n=20_000, width=128, device=dev)
+    cases += [(f"sphere_field 20000 128x72 d8, chunk {c}", field, c,
+               "streamed") for c in (128, dk.RECORD_STREAM_CHUNK)]
+    worst = dict(resident=0.0, streamed=0.0)
+    for label, (scene, cam), stream, mode in cases:
+        before = dict(dk.LAUNCHES)
+        share, k, st = record_compare(scene, record_inputs(scene, cam, 5, 8,
+                                                           dev), 8, stream)
+        if dk.LAUNCHES[mode] != before[mode] + 1 or share < RECORD_MATCH:
+            raise AssertionError(f"record {label}: {share:.6%} of indices "
+                                 f"as plain, launches {dk.LAUNCHES} (before "
+                                 f"{before})")
+        worst[mode] = max(worst[mode], 1.0 - share)
+        s = [int(x) for x in st.tolist()]
+        phase("record", f"{label} ({mode}): indices equal to plain on "
+                        f"{share:.4%}; {s[0]} segments, "
+                        f"{s[1] / max(s[0], 1):.1f} columns tested per "
+                        f"segment, chunk tests {s[3]} ({s[4]} passed)")
+    # the given-draw scatter: render_diff records the megakernel's paths
+    # for the same seed, as the persistent-path recorder (hashed draws)
+    # does. A pixel parts from the megakernel's where the replay, which
+    # re-derives each bounce in its own rounding, resolves a near-tie (a
+    # glass coin, a grazing hit) otherwise than the recorder did: the plain
+    # versions part as often, and so does the image from draws made on the
+    # CPU, so neither the kernels nor the card's rounding of the draws is
+    # the cause
+    scene, cam = rtt.scenes.random_bouncing(width=128, height=72,
+                                            device=dev)
+    cfg = rtt.RenderConfig(spp=DIFF_SPP, max_depth=8)
+    img = rtt.render_diff(scene, cam, 7, cfg)
+    agr = agreement(img, rtt.render_megakernel(scene, cam, 7, cfg))
+    app = agreement(img, pr.render_diff_pp(scene, cam, 7, cfg))
+    with plain_recorded(), plain_version():
+        plain = agreement(rtt.render_diff(scene, cam, 7, cfg),
+                          rtt.render_megakernel(scene, cam, 7, cfg,
+                                                passes=0))
+    with host_draws():
+        himg = rtt.render_diff(scene, cam, 7, cfg)
+    host = agreement(himg, rtt.render_megakernel(scene, cam, 7, cfg))
+    same = agreement(himg, img)
+    off, total, off_max = draws_off_host(cam, 7, cfg)
+    for what, a in (("megakernel", agr), ("render_diff_pp", app),
+                    ("megakernel, plain versions", plain),
+                    ("megakernel, draws made on the CPU", host)):
+        if a["frac"] >= DIFF_MAX_FRAC or a["block"] > BLOCK_MEAN_ATOL:
+            raise AssertionError(f"render_diff vs {what}: {a}")
+    phase("record", f"render_diff, random_bouncing 128x72 {DIFF_SPP}spp d8, "
+                    f"seed 7, channels off by > {STOCHASTIC_ATOL} (bound "
+                    f"{DIFF_MAX_FRAC:.0%}) and 8x8 block means: vs "
+                    f"render_megakernel {agr['frac']:.4%}, "
+                    f"{agr['block']:.3g}; vs render_diff_pp "
+                    f"{app['frac']:.4%}, {app['block']:.3g}; plain versions "
+                    f"on the card {plain['frac']:.4%}, {plain['block']:.3g}; "
+                    f"from draws made on the CPU vs the megakernel "
+                    f"{host['frac']:.4%}, vs from the card's draws "
+                    f"{same['frac']:.4%}; {off} of {total} draw and camera "
+                    f"ray values rounded otherwise on the card than on the "
+                    f"CPU (largest {off_max:.3g})")
+    scene, cam, cfg = golden_scene(dev)
+    for label, chunk in (("resident", 0), ("streamed (chunk 128)", 128)):
+        before = dict(dk.LAUNCHES)
+        mode = "streamed" if chunk else "resident"
+        if chunk:
+            with forced_stream(chunk):
+                gimg = rtt.render_diff(scene, cam, 0, cfg)
+        else:
+            gimg = rtt.render_diff(scene, cam, 0, cfg)
+        if dk.LAUNCHES[mode] != before[mode] + cfg.spp:
+            raise AssertionError(f"golden render_diff {label}: launches "
+                                 f"{dk.LAUNCHES} (before {before})")
+        step, frac = golden_check(gimg)
+        phase("golden", f"render_diff {label}: max step {step}, "
+                        f"{frac:.4%} channels off")
+    return worst
+
+
+def recorded_grad_phase(dev) -> float:
+    """pixel_loss(engine="recorded") and its gradients through the record
+    and gather kernels vs through their plain versions."""
+    scene, cam = rtt.scenes.random_bouncing(width=64, height=36, device=dev)
+    cfg = rtt.RenderConfig(spp=4, max_depth=8)
+    target = rtt.render_fast(scene, cam, 11, cfg)
+    before = dk.LAUNCHES["resident"], pr.LAUNCHES["gather_bwd"]
+    lk, _, gk = loss_and_grads(scene, cam, 3, target, cfg, "recorded")
+    if (dk.LAUNCHES["resident"], pr.LAUNCHES["gather_bwd"]) <= before:
+        raise AssertionError("grad: the recorded pixel_loss launched no "
+                             "record or gather kernel")
+    with plain_recorded():
+        lp, _, gp = loss_and_grads(scene, cam, 3, target, cfg, "recorded")
+    worst = grad_diff(lk, gk, lp, gp, "recorded grad")
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"recorded grad: kernels vs plain {worst}")
+    phase("grad", f"random_bouncing 64x36 4spp d8 pixel_loss(recorded) "
+                  f"{float(lk):.6g}: loss and gradients, kernels vs plain, "
+                  f"within {worst:.3g} relative")
+    return worst
+
+
+def kernel_split(fn) -> dict:
+    """Device time (ms) of the kernels ``fn`` launches, by torch.profiler:
+    the record kernel, the gathers with their sort glue, and the rest (the
+    eager replay), and the run's host-clock ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, secs = timed(fn)
+    split = dict(record=0.0, gathers=0.0, replay=0.0)
+    for ev in prof.key_averages():
+        ms = getattr(ev, "device_time_total", None)
+        ms = (ev.cuda_time_total if ms is None else ms) / 1e3
+        name = ev.key
+        if "record_kernel" in name:
+            split["record"] += ms
+        elif "gather" in name or "sort" in name.lower() or \
+                "searchsorted" in name.lower():
+            split["gathers"] += ms
+        elif not name.startswith("ProfilerStep"):
+            split["replay"] += ms
+    split["wall"] = secs * 1e3
+    return split
+
+
+def split_line(fwd: dict, bwd: dict) -> str:
+    tot = sum(fwd[k] + bwd[k] for k in ("record", "gathers", "replay"))
+    wall = fwd["wall"] + bwd["wall"]
+    return (f"device time of one pass {tot:.1f} ms in {wall:.1f} ms of "
+            f"host clock (idle {1 - tot / wall:.3f}): recorder "
+            f"{fwd['record'] + bwd['record']:.2f} ms, gathers "
+            f"{fwd['gathers'] + bwd['gathers']:.2f} (sort glue included), "
+            f"replay forward {fwd['replay']:.1f}, replay backward "
+            f"{bwd['replay']:.1f} ({bwd['replay'] / max(tot, 1e-9):.1%})")
+
+
+def one_pass_split(scene, cam, target, seed: int, cfg) -> str:
+    """The device-time split of one sample pass of the recorded train
+    step (forward, then backward), profiled."""
+    params = train_params(scene)
+    one = rtt.RenderConfig(spp=1, max_depth=cfg.max_depth)
+    out = {}
+
+    def fwd():
+        out["loss"] = rtt.pixel_loss(params, scene, cam, seed, target, one,
+                                     "recorded")
+
+    f = kernel_split(fwd)
+    b = kernel_split(lambda: torch.autograd.grad(
+        out["loss"], list(params.values()), allow_unused=True))
+    return split_line(f, b)
+
+
+def record_pass_kernel(scene, cam, dev, depth: int, stream=None) -> tuple:
+    """One sample pass's record launch over the whole image, kernel (CUDA
+    events) vs plain (host clock), with its bound, one rule for both table
+    modes: bytes read and written once, and one primitive test per live
+    segment (:func:`floor_ops`). Returns (share unequal, ms, plain ms,
+    bound ms, bound by, stats)."""
+    inputs = record_inputs(scene, cam, 1, depth, dev)
+    share, k, st = record_compare(scene, inputs, depth, stream)
+    if share < RECORD_MATCH:
+        raise AssertionError(f"record pass at full width: {share:.6%}")
+    k_ms = event_ms(lambda: dk.record_paths(scene, *inputs, max_depth=depth,
+                                            t_min=1e-3, stream=stream), 3)
+    with plain_recorded():
+        _, p_s = timed(lambda: dk.record_paths(scene, *inputs,
+                                               max_depth=depth, t_min=1e-3,
+                                               stream=stream))
+    stab, ttab, bounds = dk._record_inputs(scene, 0 if stream is None
+                                           else stream)
+    rows = () if bounds is None else bounds[:2]
+    b_ms, b_by = bound(nbytes(stab, ttab, *rows, *inputs, k),
+                       floor_ops(scene, st))
+    return 1.0 - share, k_ms, p_s * 1e3, b_ms, b_by, st
+
+
+def recorded_train_phase(scene, cam, target, smi: str, pp_mrays: float):
+    """The recorded engine's main path at full width: bench.py's fwdbwd
+    shape through engine="recorded" (two value-and-gradient micro-batches of 32 spp,
+    gradients summed), counted, checked and timed; then two
+    make_train_step steps. Returns the record launches, and the record
+    kernel's line at one pass (err, ms, plain ms, bound ms, bound by)."""
+    f = FLAGSHIP
+    cfg = rtt.RenderConfig(spp=MICRO_SPP, max_depth=f["depth"])
+    params = train_params(scene)
+    micro = f["spp"] // MICRO_SPP
+
+    def fwdbwd(seed):
+        return micro_batches(params, scene, cam, target, cfg, "recorded",
+                             micro, seed)
+
+    for k in dk.LAUNCHES:
+        dk.LAUNCHES[k] = 0
+    for k in pr.LAUNCHES:
+        pr.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    (loss, _, grads), first_s = timed(lambda: fwdbwd(0))
+    launches = dict(dk.LAUNCHES)
+    gathers = {k: pr.LAUNCHES[k] for k in ("gather_fwd", "gather_bwd")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one record launch per pass; per replayed bounce one gather forward,
+    # one more in the pass's recompute, and one backward unless no
+    # gradient reaches its rows (a pass's last bounce adds only the sky)
+    if (launches != {"resident": MICRO_SPP * micro, "streamed": 0}
+            or gathers["gather_fwd"] % 2
+            or not 0 < gathers["gather_bwd"] <= gathers["gather_fwd"] // 2
+            or gathers["gather_fwd"] > 2 * MICRO_SPP * micro * f["depth"]):
+        raise AssertionError(f"train-recorded: record launches {launches}, "
+                             f"gathers {gathers}")
+    check_grads("train-recorded", loss, grads)
+    rays = f["width"] * f["height"] * f["spp"]
+    phase("train-recorded", f"fwdbwd 512x512 2x{MICRO_SPP}spp "
+                            f"d{f['depth']}: loss {float(loss):.6g}, record "
+                            f"launches {launches}, gathers {gathers} (per "
+                            "replayed bounce two forward, the pass's "
+                            "recompute being one, and one backward where a "
+                            "gradient reaches the rows); gradients "
+                            "finite (|d sphere_center| sum "
+                            f"{float(grads['sphere_center'].abs().sum()):.4g}"
+                            ", |d tex_color| sum "
+                            f"{float(grads['tex_color'].abs().sum()):.4g}); "
+                            f"first run {first_s:.2f} s, peak {peak_gb:.3f} "
+                            "GB allocated")
+    secs = [timed(lambda s=s: fwdbwd(s))[1] for s in range(1, TRAIN_RUNS + 1)]
+    mrays = [rays / s / 1e6 for s in secs]
+    phase("train-recorded", f"forward+backward Mrays/s median "
+                            f"{statistics.median(mrays):.4f} (runs "
+                            + ", ".join(f"{m:.4f}" for m in mrays)
+                            + f"; {TRAIN_RUNS} after 1 warm-up; seconds "
+                            + ", ".join(f"{s:.3f}" for s in secs)
+                            + f"); recorded-pp in this run "
+                            f"{pp_mrays:.4f} | peak {peak_gb:.3f} GB | {smi}")
+    phase("train-recorded", one_pass_split(scene, cam, target, 5, cfg))
+    err, k_ms, p_ms, b_ms, b_by, st = record_pass_kernel(
+        scene, cam, scene.device, f["depth"])
+    phase("record", f"one flagship pass (262144 rays, d{f['depth']}, "
+                    f"resident): kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
+                    f"{1 - err:.4%} of indices equal; {int(st[0])} segments; "
+                    f"bound {b_ms:.4f} ms ({b_by})")
+    before = {k: v.detach().clone() for k, v in params.items()}
+    step = rtt.make_train_step(torch.optim.Adam(list(params.values()),
+                                                lr=1e-3), cfg,
+                               engine="recorded")
+    losses = [float(step(params, scene, cam, 100 + s, target)[1])
+              for s in range(2)]
+    moved = max(float((params[k].detach() - before[k]).abs().max())
+                for k in params if params[k].numel())
+    if not (all(np.isfinite(losses)) and moved > 0.0):
+        raise AssertionError(f"recorded train steps: losses {losses}, "
+                             f"moved {moved}")
+    phase("train-recorded", f"make_train_step x2 (engine recorded, Adam, lr "
+                            f"1e-3, spp {MICRO_SPP}): losses {losses}, "
+                            f"parameters moved by up to {moved:.3g}")
+    return launches["resident"], (err, k_ms, p_ms, b_ms, b_by)
+
+
+def large_train_phase(dev, smi: str) -> tuple:
+    """The recorded engine beyond one block's shared memory: one
+    value-and-gradient of pixel_loss(engine="recorded") on sphere_field
+    100k, 512x288, 16 spp, depth 8, through the streamed recorder (16
+    launches); recorded-pp refuses the scene. Then one 1-spp pass's record
+    launch held against its plain version. Returns the streamed record
+    launches and that launch's line."""
+    n = LARGE_NS[0]
+    scene, cam = rtt.scenes.sphere_field(n=n, width=LARGE["width"],
+                                         device=dev)
+    cfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
+    target = rtt.render_fast(scene, cam, 0, cfg)
+    try:
+        rtt.pixel_loss(train_params(scene), scene, cam, 1, target, cfg,
+                       "recorded-pp")
+    except ValueError as e:
+        if "'recorded'" not in str(e):
+            raise
+    else:
+        raise AssertionError("recorded-pp did not refuse the 100k scene")
+
+    def vg(seed):
+        return loss_and_grads(scene, cam, seed, target, cfg, "recorded")
+
+    for k in dk.LAUNCHES:
+        dk.LAUNCHES[k] = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (loss, _, grads), first_s = timed(lambda: vg(0))
+    launches = dict(dk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"resident": 0, "streamed": cfg.spp}:
+        raise AssertionError(f"train-large: record launches {launches}")
+    check_grads("train-large", loss, grads)
+    rays = cam.width * cam.height * cfg.spp
+    secs = [timed(lambda s=s: vg(s))[1] for s in range(1, TRAIN_RUNS + 1)]
+    mr = [rays / s / 1e6 for s in secs]
+    phase("train-large", f"sphere_field {n} {cam.width}x{cam.height} "
+                         f"{cfg.spp}spp d{cfg.max_depth}, pixel_loss("
+                         f"recorded) value and gradient: record launches "
+                         f"{launches} (chunk {dk.RECORD_STREAM_CHUNK}), "
+                         f"loss {float(loss):.6g}, gradients finite; "
+                         "recorded-pp refuses the scene; Mrays/s median "
+                         f"{statistics.median(mr):.4f} (runs "
+                         + ", ".join(f"{m:.4f}" for m in mr)
+                         + f"; first {first_s:.2f} s); peak {peak:.3f} GB "
+                         f"| {smi}")
+    phase("train-large", one_pass_split(scene, cam, target, 5, cfg))
+    err, k_ms, p_ms, b_ms, b_by, st = record_pass_kernel(
+        scene, cam, dev, cfg.max_depth, dk.RECORD_STREAM_CHUNK)
+    s = [int(x) for x in st.tolist()]
+    phase("record", f"one streamed pass at {cam.width}x{cam.height} on "
+                    f"{n} spheres ({cam.width * cam.height} rays, "
+                    f"d{cfg.max_depth}): kernel {k_ms:.3f} ms, plain "
+                    f"{p_ms:.1f} ms, {1 - err:.4%} of indices equal; {s[0]} "
+                    f"segments, {s[1] / max(s[0], 1):.1f} columns tested "
+                    f"per segment, chunk tests {s[3]}, "
+                    f"{1.0 - s[4] / max(s[3], 1):.4%} pruned; bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+    return launches["streamed"], (err, k_ms, p_ms, b_ms, b_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch sees no CUDA device: this smoke test runs "
@@ -1320,6 +1765,8 @@ def main() -> int:
     gather = gather_phase(dev)
     replay_err = replay_phase(dev)
     grad_phase(dev)
+    rec10_err = diff_record_phase(dev)
+    recorded_grad_phase(dev)
 
     # ---- 11. the gradient main path: the flagship recorded-pp step ----
     scene, cam = rtt.scenes.random_bouncing(width=f["width"],
@@ -1329,6 +1776,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     target = rtt.render_fast(scene, cam, 0, cfg)
     train = train_phase(scene, cam, target, smi)
+    torch.cuda.empty_cache()
+    rec_launches, rec10 = recorded_train_phase(scene, cam, target, smi,
+                                               train["mrays"])
     del target
     torch.cuda.empty_cache()
 
@@ -1340,6 +1790,8 @@ def main() -> int:
     engines_phase(dev)
     large_golden_phase(dev)
     large = large_phase(dev, smi)
+    torch.cuda.empty_cache()
+    streamed_launches, large_rec = large_train_phase(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
               bound_by, library_ms=None):
@@ -1373,6 +1825,12 @@ def main() -> int:
                 tl[name], max(small, replay[name][0]), *replay[name][1:])
           for name, line, small in (("replay_fwd", 1512, replay_err[0]),
                                     ("replay_bwd", 1565, replay_err[1]))),
+        entry("record", "record.cu", "rayz_tpu/ops/diffkernel.py:130",
+              rec_launches, max(rec10_err["resident"], rec10[0]),
+              *rec10[1:]),
+        entry("record_streamed", "record.cu",
+              "rayz_tpu/ops/diffkernel.py:285", streamed_launches,
+              max(rec10_err["streamed"], large_rec[0]), *large_rec[1:]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

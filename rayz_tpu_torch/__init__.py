@@ -11,8 +11,8 @@ from .io import read_ppm, to_u8, write_png, write_ppm
 from .models import (Camera, Scene, SceneBuilder, camera_from_numpy,
                      make_camera, scene_from_numpy)
 from .models import scenes
-from .ops import (RenderConfig, pick_engine, render_diff_pp, render_fast,
-                  render_megakernel, render_wavefront)
+from .ops import (RenderConfig, pick_engine, render_diff, render_diff_pp,
+                  render_fast, render_megakernel, render_wavefront)
 from .diff import (DEFAULT_TRAINABLE, extract_params, fit, inject_params,
                    make_train_step, params_from_numpy, pixel_loss)
 
@@ -30,6 +30,7 @@ __all__ = [
     "render_fast",
     "render_megakernel",
     "render_wavefront",
+    "render_diff",
     "render_diff_pp",
     "pick_engine",
     "DEFAULT_TRAINABLE",

@@ -249,16 +249,50 @@ struct Scatter {
   bool ok;
 };
 
+// The random numbers a scatter consumes, from one of two sources. Both give
+// the same three values: a uniform unit vector (draws 5-6), the cube root of
+// a uniform (draw 7, the diffuse ball radius) and the Schlick coin (draw 8).
+// KeyDraws hashes them from the slot's step key when the scatter asks, so a
+// material draws only what it uses (the dielectric draw 8, the metal 5-6,
+// the diffuse 5-7). GivenDraws hands back values the caller read from memory
+// (the bounce-indexed recorder's [depth, 5, R] block); the same values give
+// the same rounding downstream.
+struct KeyDraws {
+  uint32_t key;
+  __device__ __forceinline__ void unit(float& x, float& y, float& z) const {
+    unit3(uniform(draw_bits(key, 5)), uniform(draw_bits(key, 6)), x, y, z);
+  }
+  __device__ __forceinline__ float cube_root() const {
+    return expf(logf(clamp_min(uniform(draw_bits(key, 7)), 1e-24f)) *
+                (1.0f / 3.0f));
+  }
+  __device__ __forceinline__ float coin() const {
+    return uniform(draw_bits(key, 8));
+  }
+};
+
+struct GivenDraws {
+  float ux, uy, uz, cb, us;
+  __device__ __forceinline__ void unit(float& x, float& y, float& z) const {
+    x = ux;
+    y = uy;
+    z = uz;
+  }
+  __device__ __forceinline__ float cube_root() const { return cb; }
+  __device__ __forceinline__ float coin() const { return us; }
+};
+
 // Material scatter at hit point p with unit normal n (already flipped to
 // oppose the ray). `mat` points at the winner's packed-kind row in its
 // table (row stride `stride`): packed kind/method/fuzz, ior-or-scale, even
-// rgb, odd rgb. `key` is the slot's step key; draws 5-8.
+// rgb, odd rgb. `dr` supplies the random numbers (KeyDraws or GivenDraws).
+template <typename Draws>
 __device__ __forceinline__ Scatter scatter(const float* __restrict__ mat,
                                            int stride, const Ray& r,
                                            float dinv, float px, float py,
                                            float pz, float nx, float ny,
                                            float nz, bool front,
-                                           uint32_t key) {
+                                           const Draws& dr) {
   const float bpk = mat[0];
   const float bios = mat[stride];
   const float bkm = floorf(bpk * 0.25f);
@@ -280,7 +314,7 @@ __device__ __forceinline__ Scatter scatter(const float* __restrict__ mat,
     const float om = 1.0f - cos_t;
     const float om2 = om * om;
     const float refl_p = r0 + (1.0f - r0) * om2 * om2 * om;
-    if (cannot || refl_p > uniform(draw_bits(key, 8))) {
+    if (cannot || refl_p > dr.coin()) {
       // reflect uses the NON-unit incoming direction (reference quirk)
       const float two_ndd = 2.0f * (r.dx * nx + r.dy * ny + r.dz * nz);
       s.dx = r.dx - two_ndd * nx;
@@ -304,7 +338,7 @@ __device__ __forceinline__ Scatter scatter(const float* __restrict__ mat,
   }
 
   float ux, uy, uz;
-  unit3(uniform(draw_bits(key, 5)), uniform(draw_bits(key, 6)), ux, uy, uz);
+  dr.unit(ux, uy, uz);
 
   // checker albedo: floor-parity of p / scale picks even or odd (a solid
   // texture has even == odd and scale 1)
@@ -333,8 +367,7 @@ __device__ __forceinline__ Scatter scatter(const float* __restrict__ mat,
   }
 
   // diffuse: u^(1/3) via exp/log puts the sample inside the unit ball
-  const float cb =
-      expf(logf(clamp_min(uniform(draw_bits(key, 7)), 1e-24f)) * (1.0f / 3.0f));
+  const float cb = dr.cube_root();
   const float sx = ux * cb;
   const float sy = uy * cb;
   const float sz = uz * cb;
@@ -407,15 +440,15 @@ enum class Bounce { kMiss, kAbsorbed, kContinued };
 // One bounce after the nearest-hit sweep found (qb, best, is_tri) in the
 // tables `sph` [17, n_pad] and `tri` [20, m_pad]: on a miss the sky,
 // weighted by the throughput, joins the radiance; on a hit the hit point,
-// the unit normal turned against the ray and the material scatter (draws
-// 5-8 under `key`) give the next ray and throughput, unless the surface
+// the unit normal turned against the ray and the material scatter (random
+// numbers from `dr`) give the next ray and throughput, unless the surface
 // absorbs the path. The caller applies its depth rule to kContinued.
-template <bool kMotion>
+template <bool kMotion, typename Draws>
 __device__ __forceinline__ Bounce shade(
     const float* __restrict__ sph, int n_pad, const float* __restrict__ tri,
     int m_pad, Ray& r, const RayTerms& t, float qb, int best, bool is_tri,
-    uint32_t key, float& thx, float& thy, float& thz, float& ar, float& ag,
-    float& ab) {
+    const Draws& dr, float& thx, float& thy, float& thz, float& ar,
+    float& ag, float& ab) {
   const float dinv = 1.0f / sqrtf(clamp_min(t.a, 1e-24f));
   if (!(qb < kBig)) {
     // miss: sky weighted by throughput, (white * (1 - t) + blue) * t
@@ -460,7 +493,7 @@ __device__ __forceinline__ Bounce shade(
   nz = nz * sgn;
 
   const Scatter s =
-      scatter(mat, stride, r, dinv, px, py, pz, nx, ny, nz, front, key);
+      scatter(mat, stride, r, dinv, px, py, pz, nx, ny, nz, front, dr);
   if (!s.ok) return Bounce::kAbsorbed;
   thx = thx * s.ar;
   thy = thy * s.ag;
@@ -492,6 +525,58 @@ __device__ __forceinline__ void flush_work(const Work& w,
   for (int k = 0; k < 5; ++k) {
     const unsigned int sum = __reduce_add_sync(mask, v[k]);
     if (lead && sum) atomicAdd(stats + k, static_cast<unsigned long long>(sum));
+  }
+}
+
+// Blocks [b0, b1) of one class, each swept only if the ray's own bound
+// test passes.
+template <bool kMotion, bool kTri>
+__device__ __forceinline__ void sweep_blocks(
+    const float* __restrict__ tab, int stride,
+    const float* __restrict__ brows, int nb, int blk, int b0, int b1,
+    const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
+    bool& is_tri, rz::Work& w) {
+  for (int b = b0; b < b1; ++b) {
+    ++w.bounds;
+    if (!rz::bound_possible(brows, nb, b, r, t, qb)) continue;
+    w.prims += blk;
+    if (kTri)
+      rz::sweep_triangles(tab, stride, b * blk, (b + 1) * blk, r, t, qb, best,
+                          is_tri);
+    else
+      rz::sweep_spheres<kMotion>(tab, stride, b * blk, (b + 1) * blk, r, t,
+                                 qb, best);
+  }
+}
+
+// One class of a streamed table: the chunk bound first (rows in shared
+// memory), then the chunk's blocks, or all its columns when blk = 0.
+template <bool kMotion, bool kTri>
+__device__ __forceinline__ void sweep_chunks(
+    const float* __restrict__ tab, int n, const float* __restrict__ cb,
+    const float* __restrict__ brows, int stream, int blk, bool cull,
+    const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
+    bool& is_tri, rz::Work& w) {
+  const int nc = n / stream;
+  for (int c = 0; c < nc; ++c) {
+    if (cull) {
+      ++w.votes;
+      if (!rz::bound_possible(cb, nc, c, r, t, qb)) continue;
+      ++w.passed;
+    }
+    if (blk) {
+      const int per = stream / blk;
+      sweep_blocks<kMotion, kTri>(tab, n, brows, n / blk, blk, c * per,
+                                  (c + 1) * per, r, t, qb, best, is_tri, w);
+    } else {
+      w.prims += stream;
+      if (kTri)
+        rz::sweep_triangles(tab, n, c * stream, (c + 1) * stream, r, t, qb,
+                            best, is_tri);
+      else
+        rz::sweep_spheres<kMotion>(tab, n, c * stream, (c + 1) * stream, r,
+                                   t, qb, best);
+    }
   }
 }
 

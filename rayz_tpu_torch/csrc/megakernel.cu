@@ -153,7 +153,7 @@ __device__ __forceinline__ void trace_slot(Params p, int slot,
     bool is_tri = false;
     sweep(r, t, qb, best, is_tri);
     if (rz::shade<kMotion>(sph, p.n_pad, tri, p.m_pad, r, t, qb, best, is_tri,
-                           key, thx, thy, thz, ar, ag,
+                           rz::KeyDraws{key}, thx, thy, thz, ar, ag,
                            ab) == rz::Bounce::kContinued) {
       depth -= 1;
       active = depth > 0;  // depth exhausted -> black
@@ -224,58 +224,6 @@ struct ModeParams : Params {
 
 enum : int { kCulled = 1, kStreamed = 2 };
 
-// Blocks [b0, b1) of one class, each swept only if the ray's own bound
-// test passes.
-template <bool kMotion, bool kTri>
-__device__ __forceinline__ void sweep_blocks(
-    const float* __restrict__ tab, int stride,
-    const float* __restrict__ brows, int nb, int blk, int b0, int b1,
-    const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
-    bool& is_tri, rz::Work& w) {
-  for (int b = b0; b < b1; ++b) {
-    ++w.bounds;
-    if (!rz::bound_possible(brows, nb, b, r, t, qb)) continue;
-    w.prims += blk;
-    if (kTri)
-      rz::sweep_triangles(tab, stride, b * blk, (b + 1) * blk, r, t, qb, best,
-                          is_tri);
-    else
-      rz::sweep_spheres<kMotion>(tab, stride, b * blk, (b + 1) * blk, r, t,
-                                 qb, best);
-  }
-}
-
-// One class of a streamed table: the chunk bound first (rows in shared
-// memory), then the chunk's blocks, or all its columns when blk = 0.
-template <bool kMotion, bool kTri>
-__device__ __forceinline__ void sweep_chunks(
-    const float* __restrict__ tab, int n, const float* __restrict__ cb,
-    const float* __restrict__ brows, int stream, int blk, bool cull,
-    const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
-    bool& is_tri, rz::Work& w) {
-  const int nc = n / stream;
-  for (int c = 0; c < nc; ++c) {
-    if (cull) {
-      ++w.votes;
-      if (!rz::bound_possible(cb, nc, c, r, t, qb)) continue;
-      ++w.passed;
-    }
-    if (blk) {
-      const int per = stream / blk;
-      sweep_blocks<kMotion, kTri>(tab, n, brows, n / blk, blk, c * per,
-                                  (c + 1) * per, r, t, qb, best, is_tri, w);
-    } else {
-      w.prims += stream;
-      if (kTri)
-        rz::sweep_triangles(tab, n, c * stream, (c + 1) * stream, r, t, qb,
-                            best, is_tri);
-      else
-        rz::sweep_spheres<kMotion>(tab, n, c * stream, (c + 1) * stream, r,
-                                   t, qb, best);
-    }
-  }
-}
-
 // The culled (kCulled) and streamed (kStreamed) modes: trace_slot with the
 // sweep behind bound tests, counting its work.
 template <bool kMotion, int kMode>
@@ -327,15 +275,16 @@ __global__ void __launch_bounds__(128) megakernel_culled(ModeParams p) {
           bool& is_tri) {
         ++w.segments;
         if constexpr (kMode == kCulled) {
-          sweep_blocks<kMotion, false>(sph, n, sbl, n / blk, blk, 0, n / blk,
-                                       r, t, qb, best, is_tri, w);
-          sweep_blocks<kMotion, true>(tri, m, tbl, m / blk, blk, 0, m / blk,
-                                      r, t, qb, best, is_tri, w);
+          rz::sweep_blocks<kMotion, false>(sph, n, sbl, n / blk, blk, 0,
+                                           n / blk, r, t, qb, best, is_tri,
+                                           w);
+          rz::sweep_blocks<kMotion, true>(tri, m, tbl, m / blk, blk, 0,
+                                          m / blk, r, t, qb, best, is_tri, w);
         } else {
-          sweep_chunks<kMotion, false>(sph, n, scb, sbl, stream, blk, cull, r,
-                                       t, qb, best, is_tri, w);
-          sweep_chunks<kMotion, true>(tri, m, tcb, tbl, stream, blk, cull, r,
-                                      t, qb, best, is_tri, w);
+          rz::sweep_chunks<kMotion, false>(sph, n, scb, sbl, stream, blk,
+                                           cull, r, t, qb, best, is_tri, w);
+          rz::sweep_chunks<kMotion, true>(tri, m, tcb, tbl, stream, blk,
+                                          cull, r, t, qb, best, is_tri, w);
         }
       });
   if (p.stats) rz::flush_work(w, p.stats);

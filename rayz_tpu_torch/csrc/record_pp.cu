@@ -215,7 +215,7 @@ __global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
       ny = ny * sgn;
       nz = nz * sgn;
       const rz::Scatter s = rz::scatter(mat, stride, r, dinv, px, py, pz, nx,
-                                        ny, nz, front, key);
+                                        ny, nz, front, rz::KeyDraws{key});
       // the last bounce of a path is recorded as not continuing: it would
       // leave depth 0, which ends the path with no radiance
       if (s.ok && depth > 1) {

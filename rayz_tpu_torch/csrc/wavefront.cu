@@ -411,8 +411,9 @@ __global__ void __launch_bounds__(kBlock) wavefront_kernel(WfParams p) {
     }
     if (active) {
       active = rz::shade<kMotion>(sph, p.n_pad, tri, p.m_pad, r, t, h.qb,
-                                  h.best, h.is_tri, key, thx, thy, thz, ar,
-                                  ag, ab) == rz::Bounce::kContinued;
+                                  h.best, h.is_tri, rz::KeyDraws{key}, thx,
+                                  thy, thz, ar, ag,
+                                  ab) == rz::Bounce::kContinued;
     }
   }
 

@@ -1,19 +1,22 @@
 """Inverse rendering: recover scene parameters by gradient descent on pixels.
 
-PyTorch counterpart of :mod:`rayz_tpu.diff.inverse` for its
-``engine="recorded-pp"`` path: :func:`pixel_loss` (inverse.py:147),
-:func:`make_train_step` (:188) without a mesh, and :func:`fit` (:312), with
-``torch.optim.Adam`` in place of optax. Parameters are a dict of leaf
-tensors keyed by scene field (:data:`DEFAULT_TRAINABLE`); autograd reaches
-them through :func:`rayz_tpu_torch.ops.pathrec.render_diff_pp`.
+PyTorch counterpart of :mod:`rayz_tpu.diff.inverse` for its two recorded
+engines: :func:`pixel_loss` (inverse.py:147), :func:`make_train_step`
+(:188) without a mesh, and :func:`fit` (:312), with ``torch.optim.Adam`` in
+place of optax. Parameters are a dict of leaf tensors keyed by scene field
+(:data:`DEFAULT_TRAINABLE`); autograd reaches them through
+:func:`rayz_tpu_torch.ops.pathrec.render_diff_pp` (``"recorded-pp"``, the
+persistent-path estimator) or :func:`rayz_tpu_torch.ops.diffkernel.render_diff`
+(``"recorded"``, the bounce-indexed one, whose recorder streams scenes
+beyond one block's shared memory).
 
 Not ported yet, and raising ``NotImplementedError`` rather than degrading:
-the ``"dense"`` engine (ROADMAP queue 1 item 4), the ``"recorded"`` engine
-(item 7), the mesh path (item 9) and checkpoints (item 10). The render
-under ``"recorded-pp"`` replays a float32 scene through the fused replay
-kernels and a float64 scene through the eager replay, as the JAX package
-does (the ``fused=None`` default of
-:func:`rayz_tpu_torch.ops.pathrec.render_diff_pp_flat`).
+the ``"dense"`` engine (ROADMAP queue 1 item 4), the mesh path (item 9) and
+checkpoints (item 10). The render under ``"recorded-pp"`` replays a float32
+scene through the fused replay kernels and a float64 scene through the
+eager replay, as the JAX package does (the ``fused=None`` default of
+:func:`rayz_tpu_torch.ops.pathrec.render_diff_pp_flat`); ``"recorded"``
+replays eagerly in the scene's dtype, as the JAX package replays in XLA.
 
 Seeds are ints; :func:`fit` draws each step's seed from an explicit
 ``torch.Generator``.
@@ -33,10 +36,10 @@ import torch
 
 from ..models.camera import Camera
 from ..models.scene import Scene
-from ..ops.diffkernel import supports_diff
+from ..ops.diffkernel import RECORD_STREAM_CHUNK, render_diff, supports_diff
 from ..ops.integrator import RenderConfig
 from ..ops.pathrec import render_diff_pp
-from ..ops.tables import SHARED_LIMIT, fits_shared
+from ..ops.tables import SHARED_LIMIT, fits_record_stream, fits_shared
 
 __all__ = [
     "DEFAULT_TRAINABLE",
@@ -62,11 +65,7 @@ DEFAULT_TRAINABLE = (
 )
 
 _ENGINES = ("dense", "recorded", "recorded-pp")
-_NOT_PORTED = {
-    "dense": "the dense engine is ROADMAP queue 1 item 4",
-    "recorded": "the bounce-indexed 'recorded' engine is ROADMAP queue 1 "
-                "item 7",
-}
+_NOT_PORTED = {"dense": "the dense engine is ROADMAP queue 1 item 4"}
 
 
 def extract_params(scene: Scene,
@@ -97,20 +96,30 @@ def _check_engine(engine: str) -> None:
 
 
 def _check_recordable(scene: Scene, engine: str) -> None:
-    """Gate of the recorded engine (inverse.py:97): RAISES unless the
-    recorder can run ``scene``. The JAX package's ``allow_dense=True``
-    degrade to the dense integrator has no counterpart until that engine
-    is ported (ROADMAP queue 1 item 4)."""
+    """Gate of the recorded engines (inverse.py:97): RAISES unless the
+    engine's recorder can run ``scene``. ``"recorded"`` takes every scene
+    :func:`supports_diff` covers whose tables fit one block's shared memory
+    or whose chunk bounds do (:func:`fits_record_stream`: streamed);
+    ``"recorded-pp"`` only the first. The JAX package's one-hot replay
+    budget has no counterpart (the port gathers rows), and its
+    ``allow_dense=True`` degrade to the dense integrator none until that
+    engine is ported (ROADMAP queue 1 item 4)."""
     _check_engine(engine)
-    if supports_diff(scene) and fits_shared(scene):
-        return
     if not supports_diff(scene):
         why = ("the scene is empty or nests checker textures, which the "
                "record/replay estimator does not shade exactly")
+    elif fits_shared(scene):
+        return
+    elif engine == "recorded":
+        if fits_record_stream(scene, RECORD_STREAM_CHUNK):
+            return
+        why = (f"the bounds of its chunks of {RECORD_STREAM_CHUNK} columns "
+               f"exceed one block's {SHARED_LIMIT} bytes of shared memory")
     else:
         why = (f"its tables exceed one block's {SHARED_LIMIT} bytes of "
-               "shared memory on an H100 (streamed tables are ROADMAP "
-               "queue 1 item 8)")
+               "shared memory on an H100, and the persistent-path recorder "
+               "keeps them there (it cannot stream); use engine='recorded', "
+               "whose recorder streams")
     raise ValueError(f"engine={engine!r} cannot record this scene: {why}")
 
 
@@ -121,17 +130,23 @@ def pixel_loss(params: Dict[str, torch.Tensor], scene: Scene,
     """Mean squared pixel error of a fresh stochastic render against
     ``target``, differentiable in ``params``.
 
+    ``engine="recorded"`` renders by bounce-indexed record/replay
+    (:func:`render_diff`), which never truncates: its leftover is 0.
     ``engine="recorded-pp"`` renders by persistent-path record/replay; its
     default budget completes every sample through straggler compaction,
     ``iters`` overrides the recording budget, and ``return_leftover=True``
     returns ``(loss, leftover)``: a nonzero leftover counts truncated
     samples, so loss AND gradients are biased low (:func:`fit` raises on
-    it). A scene the recorder cannot run raises (see
+    it). A scene the engine's recorder cannot run raises (see
     :func:`_check_recordable`)."""
     _check_recordable(scene, engine)
-    img, leftover = render_diff_pp(inject_params(scene, params), camera,
-                                   seed, config, iters=iters,
-                                   return_leftover=True)
+    fitted = inject_params(scene, params)
+    if engine == "recorded":
+        img = render_diff(fitted, camera, seed, config)
+        leftover = torch.zeros((), dtype=torch.int64, device=img.device)
+    else:
+        img, leftover = render_diff_pp(fitted, camera, seed, config,
+                                       iters=iters, return_leftover=True)
     loss = torch.mean((img - target.reshape(img.shape)) ** 2)
     if return_leftover:
         return loss, leftover
@@ -148,9 +163,10 @@ def make_train_step(optimizer: torch.optim.Optimizer, config: RenderConfig,
     zeroes the gradients, differentiates :func:`pixel_loss` and applies
     one optimizer update to ``params`` in place (the JAX step returns new
     params and optimizer state; here the optimizer holds its state).
-    ``iters`` overrides the recording budget; ``strict=True`` forces the
-    exhaustive single-pass ``spp * max_depth``, which never truncates.
-    ``mesh`` (pixel-sharded data parallelism) is ROADMAP queue 1 item 9."""
+    ``iters`` overrides the ``"recorded-pp"`` recording budget;
+    ``strict=True`` forces the exhaustive single-pass ``spp * max_depth``,
+    which never truncates. ``mesh`` (pixel-sharded data parallelism) is
+    ROADMAP queue 1 item 9."""
     _check_engine(engine)
     if mesh is not None:
         raise NotImplementedError("the mesh path of make_train_step is "

@@ -3,6 +3,7 @@ from .integrator import RenderConfig
 from .megakernel import render_megakernel
 from .pathrec import (gather_rows, gather_rows_T, record_pp, render_diff_pp,
                       render_diff_pp_flat, replay_pp, supports_pp)
+from .diffkernel import record_paths, render_diff, replay_paths
 from .tables import (fits_shared, fits_stream, scene_tables, supports_scene,
                      tri_tables)
 from .wavefront import render_wavefront
@@ -15,6 +16,9 @@ __all__ = [
     "pick_engine",
     "render_diff_pp",
     "render_diff_pp_flat",
+    "render_diff",
+    "record_paths",
+    "replay_paths",
     "record_pp",
     "replay_pp",
     "gather_rows",

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 ``nvcc`` compiles the kernel sources of ``csrc/`` (``megakernel.cu``,
-``record_pp.cu``, ``gather.cu``, ``replay_pp.cu``, ``wavefront.cu``) into
-one shared library
+``record_pp.cu``, ``gather.cu``, ``replay_pp.cu``, ``wavefront.cu``,
+``record.cu``) into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes), under ``build/kernels/<hash>/`` at the repository root: one
 ``nvcc -c`` per source, all started together, then one link. The hash
@@ -33,7 +33,7 @@ __all__ = ["load", "check", "build_dir", "BuildInfo"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("megakernel.cu", "record_pp.cu", "gather.cu", "replay_pp.cu",
-            "wavefront.cu")
+            "wavefront.cu", "record.cu")
 _HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
@@ -104,6 +104,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    i, i, i, p, p, p, p, p, p, p, i, i, i, i,
                                    i, i, f, i, i, u, i, p, p]
     lib.rayz_wavefront.restype = i
+    lib.rayz_record.argtypes = [p, i, p, i, p, p, i, i, p, p, i, i, f, i, p,
+                                p, p]
+    lib.rayz_record.restype = i
     lib.rayz_error_string.argtypes = [i]
     lib.rayz_error_string.restype = ctypes.c_char_p
 

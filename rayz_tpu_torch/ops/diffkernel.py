@@ -1,25 +1,72 @@
-"""The differentiable parameter table of the record/replay estimators.
+"""Bounce-indexed record/replay: the ``"recorded"`` gradient engine.
 
-PyTorch counterpart of the part of :mod:`rayz_tpu.ops.diffkernel` that the
-persistent-path estimator (:mod:`rayz_tpu_torch.ops.pathrec`) needs:
-``supports_diff`` (diffkernel.py:100), ``_diff_material_cols`` (:607) and
-``_diff_tables`` (:633). The bounce-indexed recorder, ``record_paths``,
-``replay_paths`` and ``render_diff`` join in a later slice (ROADMAP queue 1
-item 7).
+PyTorch counterpart of :mod:`rayz_tpu.ops.diffkernel`: ``supports_diff``
+(diffkernel.py:100), the differentiable parameter table
+(``_diff_material_cols`` :607, ``_diff_tables`` :633) that both record/replay
+estimators gather from, and the bounce-indexed estimator itself:
 
-The residency rule of the JAX module, ``fits_smem_record`` (:111), is sized
-for the 1 MiB SMEM of a TPU v5e. The port's recorder keeps the same tables
-as the megakernel in one block's shared memory, so its rule is
-:func:`rayz_tpu_torch.ops.tables.fits_shared`.
+* **Record** (CUDA, non-differentiable): :func:`record_paths` (:464) over
+  ``csrc/record.cu``, which replaces ``_record_kernel`` (:130). It traces
+  given rays for ``max_depth`` bounces with host-supplied randoms and
+  writes each bounce's winning primitive index [depth, R] (-1 on a miss or
+  a dead path; spheres [0, N_pad), triangles N_pad + j). Scenes within one
+  block's shared memory (:func:`rayz_tpu_torch.ops.tables.fits_shared`)
+  record from shared memory; larger ones stream their tables from device
+  memory in chunks of :data:`RECORD_STREAM_CHUNK` columns in original order
+  (:func:`rayz_tpu_torch.ops.tables.fits_record_stream`).
+  :func:`_record_reference` is its plain torch version.
+* **Replay** (torch autograd): :func:`replay_paths` (:666) re-derives each
+  bounce from the winner's row of :func:`_diff_tables`, gathered through
+  :func:`rayz_tpu_torch.ops.pathrec.gather_rows` (the CUDA gathers, in
+  place of the TPU's one-hot matmul), with the recorded randoms; unlike
+  the persistent-path replay it recomputes whether a path continues.
+* **Render**: :func:`render_diff_flat` (:868) and :func:`render_diff`
+  (:945): one recording per sample pass, each pass checkpointed keeping
+  only its indices.
+
+Departures from the JAX package: the randoms and the camera rays are the
+megakernel's counter-keyed draws (:mod:`.rng`; :func:`_make_rand`,
+:func:`_camera_rays`), not ``jax.random``'s, so a recorded path is the path
+the megakernel traces for the same seed; seeds are ints; there is no
+``interpret``/``tile_sublanes`` plumbing (CPU tensors run the plain
+versions, and any ray count is taken); the residency rules are the
+H100's, not ``fits_smem_record``'s (sized for the TPU's SMEM); and the
+replay-size gate of the JAX training API (``REPLAY_ONEHOT_BUDGET``) has no
+counterpart, since no [R, P] one-hot is built.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..models.scene import TEX_SOLID, Scene
+from ..models.camera import Camera
+from ..models.scene import TEX_SOLID, Scene, _round_up
+# pathrec imports this module for _diff_tables; its gathers and replay
+# shading are used here at call time only, so the import order of
+# ops/__init__.py (pathrec first) resolves the cycle.
+from . import _build, pathrec, rng
+from .integrator import RenderConfig, _pixel_grid
+from .megakernel import _hit_frame, _key_draws, _nearest, _scatter, _spawn
+from .tables import (_BIG, _NROWS, _TNROWS, SHARED_LIMIT, _block_rows,
+                     _camera_vector, _class_parts, _empty, _pad_poison,
+                     _padded_counts, fits_record_stream, fits_shared)
 
-__all__ = ["supports_diff"]
+__all__ = ["supports_diff", "record_paths", "replay_paths", "render_diff",
+           "render_diff_flat", "RECORD_STREAM_CHUNK", "LAUNCHES"]
+
+#: Columns per chunk of the streamed recorder (H100): the forward engines'
+#: chunk, 16 bytes of bound rows in shared memory per 512 columns. Chunks
+#: of 256 to 2,048 columns record a 100k-sphere scene equally fast, since
+#: in original order almost every chunk bound passes (PERF.md).
+RECORD_STREAM_CHUNK = 512
+
+#: Launches of the record kernel in this process, per table mode (never
+#: counted by the plain version).
+LAUNCHES = {"resident": 0, "streamed": 0}
 
 
 def supports_diff(scene: Scene) -> bool:
@@ -66,7 +113,7 @@ def _diff_tables(scene: Scene) -> torch.Tensor:
     derives its plane from the raw vertices. Material (columns 9:20): see
     :func:`_diff_material_cols`. An absent class contributes no rows, so a
     triangle's row is the sphere count (0 without spheres) plus its
-    column, the index the recorder writes."""
+    column, the index the recorders write."""
     parts = []
     if scene.n_spheres > 0:
         zeros = torch.zeros_like(scene.sphere_radius[:, None])
@@ -79,3 +126,368 @@ def _diff_tables(scene: Scene) -> torch.Tensor:
             scene.tri_v0, scene.tri_v1, scene.tri_v2,
             _diff_material_cols(scene, scene.tri_material)], dim=1))
     return torch.cat(parts, dim=0)
+
+
+# --------------------------------------------------------------------------
+# record: plain torch version, kernel wrapper, host function
+# --------------------------------------------------------------------------
+
+def _record_reference(stab, ttab, rays, rand, *, depth: int, t_min: float,
+                      has_motion: bool, tri_base: int, bounds=None,
+                      stats=None) -> torch.Tensor:
+    """Plain torch version of the recorder (same arguments as
+    :func:`_record`; ``bounds`` and ``stats`` change only what the kernel
+    skips or counts, so they are not read here). Bounce by bounce over the
+    live rays: the megakernel's nearest hit (``_nearest``, every column of
+    the tables it is given, so a streamed layout's original order and
+    poisoned padding give the same winners), hit frame and scatter from the
+    given randoms. Returns idx [depth, R] int32."""
+    o = [x.clone() for x in rays[0:3]]
+    d = [x.clone() for x in rays[3:6]]
+    tau = rays[6]
+    r = rays.shape[1]
+    idx = torch.full((depth, r), -1, dtype=torch.int32, device=rays.device)
+    live = torch.arange(r, device=rays.device)
+    for b in range(depth):
+        if live.numel() == 0:
+            break
+        ol = tuple(x[live] for x in o)
+        dl = tuple(x[live] for x in d)
+        tl = tau[live]
+        qb, best, is_tri, a, tau2 = _nearest(stab, ttab, ol, dl, tl, t_min,
+                                             has_motion)
+        hit = qb < _BIG
+        dinv = 1.0 / torch.sqrt(torch.clamp_min(a, 1e-24))
+        p, nrm, front, mat = _hit_frame(stab, ttab, ol, dl, tl, tau2, a, qb,
+                                        best, is_tri, has_motion)
+        draws = tuple(rand[b, k, live] for k in range(5))
+        ndir, _, scattered = _scatter(mat, dl, dinv, p, nrm, front, draws)
+        winner = torch.where(is_tri, best + tri_base, best)
+        idx[b, live] = torch.where(hit, winner, -1).to(torch.int32)
+        cont = hit & scattered
+        for x, new, old in zip(o + d, p + tuple(ndir), ol + dl):
+            x[live] = torch.where(cont, new, old)
+        live = live[cont]
+    return idx
+
+
+def _check_record(stab, ttab, rays, rand, depth: int, bounds) -> None:
+    dev = rays.device
+    tensors = [("stab", stab), ("ttab", ttab), ("rays", rays), ("rand", rand)]
+    if bounds is not None:
+        tensors += [("scb", bounds[0]), ("tcb", bounds[1])]
+    for name, t in tensors:
+        if t.device != dev or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 tensor on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+    if stab.dim() != 2 or stab.shape[0] != _NROWS:
+        raise ValueError(f"stab must be [17, N], got {tuple(stab.shape)}")
+    if ttab.dim() != 2 or ttab.shape[0] != _TNROWS:
+        raise ValueError(f"ttab must be [20, M], got {tuple(ttab.shape)}")
+    r = rays.shape[1] if rays.dim() == 2 else 0
+    if rays.dim() != 2 or rays.shape[0] != 7 or r == 0:
+        raise ValueError(f"rays must be a non-empty [7, R], got "
+                         f"{tuple(rays.shape)}")
+    if depth < 1 or tuple(rand.shape) != (depth, 5, r):
+        raise ValueError(f"rand must be [{depth}, 5, {r}] with depth >= 1, "
+                         f"got {tuple(rand.shape)}")
+    n, m = stab.shape[1], ttab.shape[1]
+    if bounds is None:
+        smem = 4 * (_NROWS * n + _TNROWS * m)
+    else:
+        scb, tcb, stream = bounds
+        if stream <= 0 or n % stream or m % stream:
+            raise ValueError("streamed tables must be chunk multiples")
+        for t, cols in ((scb, n // stream), (tcb, m // stream)):
+            if tuple(t.shape) != (4, cols):
+                raise ValueError(f"chunk bounds must be [4, {cols}], got "
+                                 f"{tuple(t.shape)}")
+        smem = 16 * (n // stream + m // stream)
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"the record launch needs {smem} bytes of shared "
+                         f"memory (> {SHARED_LIMIT} per block on an H100)")
+
+
+def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
+            has_motion: bool, tri_base: int, bounds=None,
+            stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Record ``depth`` bounces of the rays ``rays`` [7, R] (origin,
+    direction, time) with the randoms ``rand`` [depth, 5, R] through the
+    sphere table ``stab`` [17, N] and triangle table ``ttab`` [20, M];
+    a triangle winner is written as ``tri_base`` + its column. ``bounds``
+    None keeps the tables in shared memory; ``(scb, tcb, stream)`` streams
+    them from device memory in chunks of ``stream`` columns behind the
+    chunk bound rows ``scb`` [4, N/stream] and ``tcb`` [4, M/stream].
+    ``stats``, an int64 [8] tensor on the device, receives the kernel's
+    work counters (segments, primitive columns tested, -, chunk tests,
+    chunk tests passed).
+
+    CUDA tensors launch the kernel on the current stream (or raise); CPU
+    tensors run the plain version. Returns idx [depth, R] int32."""
+    _check_record(stab, ttab, rays, rand, depth, bounds)
+    kw = dict(depth=depth, t_min=t_min, has_motion=has_motion,
+              tri_base=tri_base)
+    if rays.device.type == "cpu":
+        return _record_reference(stab, ttab, rays, rand, **kw)
+    if rays.device.type != "cuda":
+        raise ValueError(f"no record kernel for device {rays.device}")
+    if stats is not None and (stats.device != rays.device
+                              or stats.dtype != torch.int64
+                              or stats.shape != (8,)):
+        raise ValueError("stats must be an int64 [8] tensor on the rays' "
+                         "device")
+    lib, _ = _build.load()
+    r = rays.shape[1]
+    idx = torch.empty((depth, r), dtype=torch.int32, device=rays.device)
+    scb, tcb, stream = bounds if bounds is not None else (None, None, 0)
+    with torch.cuda.device(rays.device):
+        err = lib.rayz_record(
+            stab.data_ptr(), stab.shape[1], ttab.data_ptr(), ttab.shape[1],
+            pathrec._ptr(scb), pathrec._ptr(tcb), stream, tri_base,
+            rays.data_ptr(), rand.data_ptr(), r, depth, t_min,
+            int(has_motion), idx.data_ptr(), pathrec._ptr(stats),
+            torch.cuda.current_stream(rays.device).cuda_stream)
+    _build.check(lib, err, "record")
+    LAUNCHES["streamed" if stream else "resident"] += 1
+    return idx
+
+
+def _record_inputs(scene: Scene, stream: int):
+    """The record kernel's tables for ``stream`` (0: resident), as f32
+    without autograd: (stab, ttab, bounds). Streamed, each class is padded
+    to a chunk multiple with poisoned columns, in original order, with the
+    chunk bound rows of :func:`_block_rows` over its AABBs."""
+    pad = torch.nn.functional.pad
+    parts = []
+    for tri, rows, present in ((False, _NROWS, scene.n_spheres > 0),
+                               (True, _TNROWS, scene.n_triangles > 0)):
+        if not present:
+            parts.append((_empty(rows, scene.device),
+                          _empty(4, scene.device)))
+            continue
+        tab, lo, hi, valid, poison = _class_parts(scene, tri)
+        if not stream:
+            parts.append((tab.contiguous(), None))
+            continue
+        cols = _round_up(tab.shape[1], stream)
+        k = cols - tab.shape[1]
+        parts.append((_pad_poison(tab, cols, poison).contiguous(),
+                      _block_rows(pad(lo, (0, 0, 0, k)), pad(hi, (0, 0, 0, k)),
+                                  pad(valid, (0, k)), stream).contiguous()))
+    (stab, scb), (ttab, tcb) = parts
+    return stab, ttab, ((scb, tcb, stream) if stream else None)
+
+
+def record_paths(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
+                 time: torch.Tensor, rand: torch.Tensor, *, max_depth: int,
+                 t_min: float, stream: Optional[int] = None,
+                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Trace the rays ``origin``/``direction`` [R, 3] at ``time`` [R]
+    through the scene (diffkernel.py:464), returning per-bounce winner
+    indices [max_depth, R] int32: -1 on a miss or a dead path, spheres in
+    [0, N_pad), triangles at N_pad + j (the rows of :func:`_diff_tables`).
+    ``rand`` [max_depth, 5, R]: a unit vector, the cube-root radius factor
+    u^(1/3), the Schlick uniform. Non-differentiable: the inputs are
+    detached, and the recording runs in f32 whatever the scene's dtype.
+
+    ``stream=None`` keeps the tables in shared memory where they fit
+    (:func:`fits_shared`) and streams them in chunks of
+    :data:`RECORD_STREAM_CHUNK` otherwise; ``0`` forces shared memory
+    (raising if the tables do not fit), an int forces that chunk.
+    ``stats`` as :func:`_record`."""
+    if stream is None:
+        stream = 0 if fits_shared(scene) else RECORD_STREAM_CHUNK
+    if stream and not fits_record_stream(scene, stream):
+        raise ValueError(
+            f"streamed recorder: the chunk bounds of "
+            f"{sum(_padded_counts(scene, 1))} columns in chunks of {stream} "
+            f"exceed {SHARED_LIMIT} bytes of shared memory; use a larger "
+            "chunk")
+    with torch.no_grad():
+        stab, ttab, bounds = _record_inputs(scene, stream)
+        f32 = torch.float32
+        rays = torch.cat([origin.T.to(f32), direction.T.to(f32),
+                          time[None].to(f32)]).contiguous()
+        rand = rand.detach().to(f32).contiguous()
+        return _record(stab, ttab, rays, rand, depth=max_depth, t_min=t_min,
+                       has_motion=scene.has_motion,
+                       tri_base=_padded_counts(scene, 1)[0], bounds=bounds,
+                       stats=stats)
+
+
+# --------------------------------------------------------------------------
+# replay (eager autograd, one checkpointed step per bounce)
+# --------------------------------------------------------------------------
+
+def _replay_bounce(o, d, tau, thr, out, act, row, idx_b, rand_b, **kw):
+    """One replayed bounce (the scan body of diffkernel.py:683-831): shade
+    the recorded winner (:func:`pathrec._replay_shade`), add the sky on a
+    miss of a live path, and continue where the path hit and scattered
+    (recomputed, not recorded)."""
+    p, ndir, att, scattered, sky = pathrec._replay_shade(
+        o, d, tau, row, idx_b, rand_b[0:3].T, rand_b[3], rand_b[4], **kw)
+    hit = idx_b >= 0
+    miss = act & ~hit
+    out = out + torch.where(miss[:, None], thr * sky, 0.0)
+    cont = act & hit & scattered
+    c3 = cont[:, None]
+    thr = torch.where(c3, thr * att, thr)
+    o = torch.where(c3, p, o)
+    d = torch.where(c3, ndir, d)
+    return o, d, thr, out, cont
+
+
+def _bounces_to_replay(idx: torch.Tensor) -> int:
+    """Bounces that can change the radiance: up to the one after the last
+    bounce with a recorded hit (a path is live at bounce b only if it hit
+    at b - 1), at least one."""
+    hits = torch.nonzero((idx >= 0).any(dim=1)).flatten()
+    return min(idx.shape[0], int(hits[-1]) + 2) if hits.numel() else 1
+
+
+def _replay(scene: Scene, tab, origin, direction, time, rand, idx, *,
+            t_min: float, remat: bool) -> torch.Tensor:
+    """:func:`replay_paths` over a given differentiable table ``tab``."""
+    dt = tab.dtype
+    o, d, tau, rand = (x.to(dt) for x in (origin, direction, time, rand))
+    r = o.shape[0]
+    thr = torch.ones((r, 3), dtype=dt, device=o.device)
+    out = torch.zeros((r, 3), dtype=dt, device=o.device)
+    act = torch.ones(r, dtype=torch.bool, device=o.device)
+    step = functools.partial(
+        _replay_bounce, t_min=t_min, n_sph_pad=_padded_counts(scene, 1)[0],
+        with_sph=scene.n_spheres > 0, with_tri=scene.n_triangles > 0,
+        has_motion=scene.has_motion,
+        blue=torch.tensor([0.5, 0.7, 1.0], dtype=dt, device=o.device))
+    for b in range(_bounces_to_replay(idx)):
+        idx_b = idx[b]
+        row = pathrec.gather_rows(tab, torch.clamp_min(idx_b, 0))
+        args = (o, d, tau, thr, out, act, row, idx_b, rand[b])
+        if remat:
+            o, d, thr, out, act = checkpoint(step, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+        else:
+            o, d, thr, out, act = step(*args)
+    return out
+
+
+def replay_paths(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
+                 time: torch.Tensor, rand: torch.Tensor, idx: torch.Tensor,
+                 *, t_min: float, remat: bool = True) -> torch.Tensor:
+    """Re-trace recorded paths differentiably (diffkernel.py:666); returns
+    radiance [R, 3] in the scene's dtype.
+
+    Each bounce gathers only the winner's row of :func:`_diff_tables`
+    (misses read row 0, whose values stay under the selects) and re-derives
+    distance, normal, scatter and attenuation with the recorder's formulas
+    and randoms; whether a path continues is recomputed from that scatter.
+    Gradients reach centers, radii, velocities, triangle vertices, colors,
+    fuzz and IOR with O(R) work per bounce. ``remat=True`` runs each bounce
+    under ``torch.utils.checkpoint`` with its gathered rows computed
+    outside, so the backward keeps the rows and the carry per bounce and
+    its recompute launches no gather. Bounces after the last recorded hit
+    but one change nothing and are skipped."""
+    return _replay(scene, _diff_tables(scene), origin, direction, time, rand,
+                   idx, t_min=t_min, remat=remat)
+
+
+# --------------------------------------------------------------------------
+# the sample passes and the image-level entry point
+# --------------------------------------------------------------------------
+
+def _make_rand(seed: int, pix: torch.Tensor, sample: int,
+               max_depth: int) -> torch.Tensor:
+    """[max_depth, 5, R] f32 randoms of sample ``sample`` (from 0) of the
+    flat pixel ids ``pix``: bounce b draws 5-8 under the megakernel's key
+    ``step_key(slot_key(seed, pixel), sample + 1, b)`` (megakernel.py:375
+    counts samples from 1 and bounces from 0), through :func:`_key_draws`:
+    the unit vector (draws 5-6), u^(1/3) by exp/log (7), the Schlick
+    uniform (8)."""
+    key0 = rng.slot_key(seed, pix)[None, :]
+    bounce = torch.arange(max_depth, device=pix.device)[:, None]
+    key = rng.step_key(key0, torch.full_like(key0, sample + 1), bounce)
+    return torch.stack(_key_draws(key, rng.draw_bits), dim=1)
+
+
+def _camera_rays(camera: Camera, seed: int, pix: torch.Tensor, sample: int,
+                 jitter: bool):
+    """The megakernel's camera ray of sample ``sample`` (from 0) of the
+    pixels ``pix``: ``_spawn`` with draws 0-4 under bounce 0's key, in the
+    camera's dtype (an f64 camera spawns in f64 from the f32 draws, so with
+    jitter off the rays are JAX's ``generate_rays`` bit for bit; the
+    recorder takes them rounded to f32). Returns (origin [R, 3], direction
+    [R, 3], time [R])."""
+    cam = _camera_vector(camera, camera.dtype)
+    key0 = rng.slot_key(seed, pix)
+    key = rng.step_key(key0, torch.full_like(key0, sample + 1),
+                       torch.zeros_like(key0))
+    pxf = (pix % camera.width).to(camera.dtype)
+    pyf = (pix // camera.width).to(camera.dtype)
+    o, d, tau = _spawn(cam, pxf, pyf, key, jitter, rng.draw_bits)
+    return torch.stack(o, dim=1), torch.stack(d, dim=1), tau
+
+
+def render_diff_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
+                     spp: int, max_depth: int, t_min: float,
+                     jitter: bool) -> torch.Tensor:
+    """Record+replay radiance of the flat pixel list (int32 coordinates
+    ``px``/``py`` [n]) -> [n, 3], spp-averaged (diffkernel.py:868).
+
+    One recording per sample pass, replayed, the passes summed in order and
+    divided by ``spp``. Each pass is checkpointed keeping only its indices
+    [max_depth, n] int32: the backward regenerates its rays and randoms
+    (cheap, counter-keyed) and replays it again, so the record kernel runs
+    once per pass. The recorder keeps the tables in shared memory where
+    they fit and streams them otherwise (:func:`record_paths`)."""
+    pix = (py.long() * camera.width + px.long()).to(torch.int32)
+    tab = _diff_tables(scene)
+
+    def inputs(s):
+        o, d, tm = _camera_rays(camera, seed, pix, s, jitter)
+        return o, d, tm, _make_rand(seed, pix, s, max_depth)
+
+    def replay_pass(tab, idx, s):
+        return _replay(scene, tab, *inputs(s), idx, t_min=t_min, remat=True)
+
+    acc = None
+    for s in range(spp):
+        idx = record_paths(scene, *inputs(s), max_depth=max_depth,
+                           t_min=t_min)
+        rad = checkpoint(replay_pass, tab, idx, s, use_reentrant=False,
+                         preserve_rng_state=False)
+        acc = rad if acc is None else acc + rad
+    return acc.to(camera.dtype) / float(spp)
+
+
+def render_diff(scene: Scene, camera: Camera, seed: int,
+                config: RenderConfig = RenderConfig()) -> torch.Tensor:
+    """Differentiable [H, W, 3] render by bounce-indexed record/replay
+    (diffkernel.py:945): the forward megakernel's estimator, composing with
+    autograd in the scene's float leaves, at any scene size
+    :func:`record_paths` can record (streamed beyond one block's shared
+    memory).
+
+    It records the paths the megakernel traces for the same seed (the same
+    camera rays and draws). The replay re-derives each bounce in its own
+    rounding, so a near-tie there (a glass coin, a grazing hit or
+    reflection) can part from the recorded path: such a pixel differs from
+    the megakernel's while its block means agree. The share of such
+    channels grows with the samples per pixel, in the plain versions as in
+    the kernels, and the persistent-path replay shows it too (PERF.md)."""
+    if not supports_diff(scene):
+        if scene.deep_checker:
+            raise ValueError(
+                "record/replay resolves only ONE level of checker nesting; "
+                "nested-checker scenes need the dense engine (ROADMAP queue "
+                "1 item 4)")
+        raise ValueError("record/replay needs a non-empty scene (spheres "
+                         "and/or triangles)")
+    if camera.device != scene.device:
+        raise ValueError(f"camera is on {camera.device}, scene on "
+                         f"{scene.device}")
+    px, py = _pixel_grid(camera)
+    flat = render_diff_flat(scene, camera, seed, px, py, spp=config.spp,
+                            max_depth=config.max_depth, t_min=config.t_min,
+                            jitter=config.jitter)
+    return flat.reshape(camera.height, camera.width, 3)

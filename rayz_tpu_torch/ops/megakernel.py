@@ -152,17 +152,29 @@ def _sweep(stab, ttab, o, d, tau, a, d_dot_o, o2, tmin_a, tau2, has_motion):
     return qb, best, is_tri
 
 
-def _scatter(mat, d, dinv, p, n, front, key, bits: Bits):
+def _key_draws(key, bits: Bits):
+    """The random numbers a scatter consumes under the step keys ``key``:
+    a unit vector (draws 5-6), the cube root of a uniform by exp/log (draw
+    7) and the Schlick uniform (draw 8), as ``rz::KeyDraws`` gives them.
+    Returns (ux, uy, uz, cb, us)."""
+    def uniform(k):
+        return rng.uniform(bits(key, k))
+
+    ux, uy, uz = rng.unit3(uniform(5), uniform(6))
+    cb = torch.exp(torch.log(torch.clamp_min(uniform(7), 1e-24)) * (1.0 / 3.0))
+    return ux, uy, uz, cb, uniform(8)
+
+
+def _scatter(mat, d, dinv, p, n, front, draws):
     """Material scatter, every material evaluated and the winner's selected
     (the kernel evaluates only the winner's; same values). ``mat`` holds the
-    winner's 8 material rows [8, S]. Returns (new direction, attenuation,
-    scattered)."""
+    winner's 8 material rows [8, S]; ``draws`` the random numbers (ux, uy,
+    uz, cb, us), from :func:`_key_draws` or given by the caller. Returns
+    (new direction, attenuation, scattered)."""
     dx, dy, dz = d
     px, py, pz = p
     nx, ny, nz = n
-
-    def uniform(k):
-        return rng.uniform(bits(key, k))
+    ux, uy, uz, cb, us = draws
 
     bpk, bios = mat[0], mat[1]
     bkm = torch.floor(bpk * 0.25)
@@ -183,7 +195,7 @@ def _scatter(mat, d, dinv, p, n, front, key, bits: Bits):
     om = 1.0 - cos_t
     om2 = om * om
     refl_p = r0 + (1.0 - r0) * om2 * om2 * om
-    do_refl = cannot | (refl_p > uniform(8))
+    do_refl = cannot | (refl_p > us)
     two_ndd = 2.0 * (dx * nx + dy * ny + dz * nz)
     rfx = dx - two_ndd * nx
     rfy = dy - two_ndd * ny
@@ -195,8 +207,6 @@ def _scatter(mat, d, dinv, p, n, front, key, bits: Bits):
         1.0 - (ppx * ppx + ppy * ppy + ppz * ppz), 0.0))
     dl = [torch.where(do_refl, rf, pp + parm * nn)
           for rf, pp, nn in ((rfx, ppx, nx), (rfy, ppy, ny), (rfz, ppz, nz))]
-
-    ux, uy, uz = rng.unit3(uniform(5), uniform(6))
 
     # checker albedo (solid textures have even == odd and scale 1)
     isc = 1.0 / bios
@@ -212,8 +222,7 @@ def _scatter(mat, d, dinv, p, n, front, key, bits: Bits):
     me = [rf * rinv + fz * uu for rf, uu in ((rfx, ux), (rfy, uy), (rfz, uz))]
     metal_ok = me[0] * nx + me[1] * ny + me[2] * nz > 0.0
 
-    # diffuse: three methods; u^(1/3) via exp/log
-    cb = torch.exp(torch.log(torch.clamp_min(uniform(7), 1e-24)) * (1.0 / 3.0))
+    # diffuse: three methods
     sx, sy, sz = ux * cb, uy * cb, uz * cb
     flip = torch.where(sx * nx + sy * ny + sz * nz > 0.0, 1.0, -1.0)
     m0 = method == 0.0  # UNIT_SPHERE
@@ -405,7 +414,7 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
         (px, py, pz), nrm, front, mat = _hit_frame(
             stab, ttab, o, d, tau, tau2, a, qb, best, is_tri, has_motion)
         ndir, att, scattered = _scatter(mat, d, dinv, (px, py, pz), nrm,
-                                        front, key, bits)
+                                        front, _key_draws(key, bits))
 
         # ---- continue or die ----
         cont = active & hit & scattered

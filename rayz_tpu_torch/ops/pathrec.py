@@ -58,7 +58,8 @@ from ..models.scene import (DIFFUSE_UNIT_SPHERE, DIFFUSE_UNIT_SPHERE_SURFACE,
 from . import _build, rng
 from .diffkernel import _diff_tables, supports_diff
 from .integrator import RenderConfig, _pixel_grid
-from .megakernel import Bits, _BIG, _hit_frame, _nearest, _scatter, _spawn
+from .megakernel import (Bits, _BIG, _hit_frame, _key_draws, _nearest,
+                         _scatter, _spawn)
 from .tables import (_NROWS, _TNROWS, SHARED_LIMIT, _camera_vector,
                      fits_shared, scene_tables, shared_bytes, tri_tables)
 
@@ -201,12 +202,8 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
             aux[k, row] = torch.where(spawn, v, zero)
 
         # the scatter randoms the replay consumes (draws 5-8)
-        ux, uy, uz = rng.unit3(rng.uniform(bits(key, 5)),
-                               rng.uniform(bits(key, 6)))
-        cb = torch.exp(torch.log(torch.clamp_min(
-            rng.uniform(bits(key, 7)), 1e-24)) * (1.0 / 3.0))
-        us = rng.uniform(bits(key, 8))
-        for row, v in zip(range(_AUX_UX, _AUX_US + 1), (ux, uy, uz, cb, us)):
+        draws = _key_draws(key, bits)
+        for row, v in zip(range(_AUX_UX, _AUX_US + 1), draws):
             aux[k, row] = torch.where(work, v, zero)
 
         o, d = (ox, oy, oz), (dx, dy, dz)
@@ -216,7 +213,7 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
         dinv = 1.0 / torch.sqrt(torch.clamp_min(a, 1e-24))
         p, nrm, front, mat = _hit_frame(stab, ttab, o, d, tau, tau2, a, qb,
                                         best, is_tri, has_motion)
-        ndir, _, scattered = _scatter(mat, d, dinv, p, nrm, front, key, bits)
+        ndir, _, scattered = _scatter(mat, d, dinv, p, nrm, front, draws)
         # the last bounce of a path is recorded as not continuing
         cont = work & hit & scattered & (depth > 1)
         winner = torch.where(is_tri, best + n, best)
@@ -341,8 +338,9 @@ def record_pp(scene: Scene, camera: Camera, seed: int, pix: torch.Tensor, *,
     if not fits_shared(scene):
         raise ValueError(
             f"persistent-path recorder: scene tables exceed one block's "
-            f"{SHARED_LIMIT} bytes of shared memory on an H100; streamed "
-            "tables are ROADMAP queue 1 item 8")
+            f"{SHARED_LIMIT} bytes of shared memory on an H100, and this "
+            "recorder does not stream; engine='recorded' (the bounce-indexed "
+            "recorder, ops/diffkernel.py) streams such scenes")
     n_pad = int(scene.sphere_radius.shape[0]) if scene.n_spheres > 0 else 0
     m_pad = int(scene.tri_material.shape[0]) if scene.n_triangles > 0 else 0
     dev, f32 = scene.device, torch.float32
@@ -516,24 +514,16 @@ def _vmax(x, c: float):
     return torch.maximum(x, torch.full((), c, dtype=x.dtype, device=x.device))
 
 
-def _replay_step(o, d, tau, thr, out, row, idx_t, aux_t, *, t_min: float,
-                 n_sph_pad: int, with_sph: bool, with_tri: bool,
-                 has_motion: bool, blue: torch.Tensor):
-    """One replay iteration (the scan body of pathrec.py:690-830, term for
-    term): respawn from the recorded ray, re-derive the hit distance,
-    normal, scatter direction and attenuation from the winner ``row``
-    [R, 20] and the recorded randoms, add the sky on a recorded miss, and
-    advance the carry under the recorded continue flag."""
-    flg = aux_t[_AUX_FLG]
-    spawn = (flg == 1.0) | (flg == 3.0)
-    cont = flg >= 2.0
-    sp3 = spawn[:, None]
-    o = torch.where(sp3, aux_t[_AUX_OX:_AUX_OZ + 1].T, o)
-    d = torch.where(sp3, aux_t[_AUX_DX:_AUX_DZ + 1].T, d)
-    tau = torch.where(spawn, aux_t[_AUX_TAU], tau)
-    thr = torch.where(sp3, 1.0, thr)
-
-    active = idx_t >= -1
+def _replay_shade(o, d, tau, row, idx_t, u3, cb, us, *, t_min: float,
+                  n_sph_pad: int, with_sph: bool, with_tri: bool,
+                  has_motion: bool, blue: torch.Tensor):
+    """The shading of one replayed bounce, shared by the two eager replays
+    (the scan bodies of pathrec.py:690-830 and diffkernel.py:700-818, term
+    for term): re-derive the hit distance, point and facing normal from the
+    winner ``row`` [R, 20] (``idx_t`` the recorded indices, -1 a miss), then
+    the material scatter from the recorded randoms ``u3`` [R, 3], ``cb``
+    and ``us``. Returns (hit point, new direction, attenuation, scattered,
+    sky colour along ``d``)."""
     hit = idx_t >= 0
     a = (d * d).sum(-1)
 
@@ -581,10 +571,6 @@ def _replay_step(o, d, tau, thr, out, row, idx_t, aux_t, *, t_min: float,
     even_par = par - 2.0 * torch.floor(par * 0.5) < 0.5
     albedo = torch.where(even_par[:, None], row[:, 14:17], row[:, 17:20])
 
-    u3 = aux_t[_AUX_UX:_AUX_UZ + 1].T
-    cb = aux_t[_AUX_CB]
-    us = aux_t[_AUX_US]
-
     # ---- diffuse ----
     s = u3 * cb[:, None]
     flip = torch.where((s * nrm).sum(-1) > 0.0, 1.0, -1.0)
@@ -603,6 +589,7 @@ def _replay_step(o, d, tau, thr, out, row, idx_t, aux_t, *, t_min: float,
     rinv = torch.rsqrt(torch.clamp_min((rf * rf).sum(-1), 1e-24))
     # jnp.minimum's tie rule: d/d fuzz is 0.5 at fuzz == 1 (clamp_max: 1)
     met = rf * rinv[:, None] + _vmin(fuzz, 1.0)[:, None] * u3
+    metal_ok = (met * nrm).sum(-1) > 0.0
 
     # ---- dielectric ----
     eta = torch.where(front, 1.0 / ior, ior)
@@ -626,11 +613,35 @@ def _replay_step(o, d, tau, thr, out, row, idx_t, aux_t, *, t_min: float,
     ndir = torch.where(is_d[:, None], diel,
                        torch.where(is_m[:, None], met, dif))
     att = torch.where(is_d[:, None], 1.0, albedo)
+    scattered = (~is_m | metal_ok) & ((ndir * ndir).sum(-1) > 1e-20)
 
-    # ---- recorded miss -> sky (the reference's exact formula) ----
+    # ---- the sky along d (the reference's exact formula) ----
     sky_t = 0.5 * (d[:, 1] * dinv + 1.0)
     sky = (1.0 - sky_t[:, None] + blue) * sky_t[:, None]
-    miss = active & ~hit
+    return p, ndir, att, scattered, sky
+
+
+def _replay_step(o, d, tau, thr, out, row, idx_t, aux_t, *, t_min: float,
+                 n_sph_pad: int, with_sph: bool, with_tri: bool,
+                 has_motion: bool, blue: torch.Tensor):
+    """One replay iteration (the scan body of pathrec.py:690-830): respawn
+    from the recorded ray, shade the recorded winner ``row`` [R, 20] with
+    the recorded randoms (:func:`_replay_shade`), add the sky on a recorded
+    miss, and advance the carry under the recorded continue flag."""
+    flg = aux_t[_AUX_FLG]
+    spawn = (flg == 1.0) | (flg == 3.0)
+    cont = flg >= 2.0
+    sp3 = spawn[:, None]
+    o = torch.where(sp3, aux_t[_AUX_OX:_AUX_OZ + 1].T, o)
+    d = torch.where(sp3, aux_t[_AUX_DX:_AUX_DZ + 1].T, d)
+    tau = torch.where(spawn, aux_t[_AUX_TAU], tau)
+    thr = torch.where(sp3, 1.0, thr)
+
+    p, ndir, att, _, sky = _replay_shade(
+        o, d, tau, row, idx_t, aux_t[_AUX_UX:_AUX_UZ + 1].T, aux_t[_AUX_CB],
+        aux_t[_AUX_US], t_min=t_min, n_sph_pad=n_sph_pad, with_sph=with_sph,
+        with_tri=with_tri, has_motion=has_motion, blue=blue)
+    miss = idx_t == -1  # active (>= -1) and no winner
     out = out + torch.where(miss[:, None], thr * sky, 0.0)
 
     # state updates gated by the RECORDED continue flag

@@ -19,6 +19,9 @@ The residency rules are re-derived for the H100, whose blocks hold at most
   reduction scratch and the chunk and supercluster bound rows in shared
   memory; the tables and block rows stay in device memory and are read
   through L1/L2. About 7 M primitives at the default chunk.
+* :func:`fits_record_stream`: the bounce-indexed recorder's streamed
+  launch keeps only the chunk bound rows in shared memory. Its resident
+  rule is :func:`fits_shared` (culling off).
 
 They replace the JAX package's ``fits_smem``/``fits_stream``/
 ``SMEM_BUDGET``, which are sized for the 1 MiB SMEM of a TPU v5e.
@@ -47,7 +50,7 @@ from ..models.camera import Camera
 from ..models.scene import MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
 
 __all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
-           "fits_stream", "shared_bytes", "stream_shared_bytes",
+           "fits_stream", "fits_record_stream", "shared_bytes", "stream_shared_bytes",
            "wavefront_shared_bytes", "SHARED_LIMIT", "CAM_WORDS",
            "WF_HEAD_WORDS", "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
            "DEFAULT_STREAM_CHUNK", "STREAM_BLOCK", "Tables", "StreamTables"]
@@ -227,13 +230,13 @@ def _pad_poison(tab: torch.Tensor, n: int, poison_row: int) -> torch.Tensor:
     return tab
 
 
-def _camera_vector(camera: Camera) -> torch.Tensor:
-    """[18] f32: look_from, px_du, px_dv, px_origin, defocus_u, defocus_v."""
-    f32 = torch.float32
+def _camera_vector(camera: Camera, dtype=torch.float32) -> torch.Tensor:
+    """[18] (f32 unless ``dtype``): look_from, px_du, px_dv, px_origin,
+    defocus_u, defocus_v."""
     return torch.cat([
-        camera.look_from.to(f32), camera.px_du.to(f32),
-        camera.px_dv.to(f32), camera.px_origin.to(f32),
-        camera.defocus_u.to(f32), camera.defocus_v.to(f32),
+        camera.look_from.to(dtype), camera.px_du.to(dtype),
+        camera.px_dv.to(dtype), camera.px_origin.to(dtype),
+        camera.defocus_u.to(dtype), camera.defocus_v.to(dtype),
     ])
 
 
@@ -564,6 +567,16 @@ def fits_shared(scene: Scene, culling=None,
     unroll = _resolve_tiling(scene)
     return shared_bytes(*_padded_counts(scene, unroll, blk),
                         blk) <= SHARED_LIMIT
+
+
+def fits_record_stream(scene: Scene, stream: int) -> bool:
+    """Whether the bounce-indexed recorder can stream the scene in chunks
+    of ``stream`` columns: its streamed launch keeps only the chunk bound
+    rows of both classes (4 words per chunk) in shared memory, the tables
+    (in original order) stay in device memory. About 7.4 M columns at a
+    chunk of 512."""
+    n_r, m_r = _padded_counts(scene, 1, stream)
+    return 16 * (n_r // stream + m_r // stream) <= SHARED_LIMIT
 
 
 def fits_stream(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:

@@ -43,7 +43,8 @@ from ..models.camera import Camera
 from ..models.scene import Scene, _round_up
 from . import _build, rng
 from .integrator import RenderConfig
-from .megakernel import Bits, _hit_frame, _mode, _nearest, _scatter, _spawn
+from .megakernel import (Bits, _hit_frame, _key_draws, _mode, _nearest,
+                         _scatter, _spawn)
 from .tables import (_BIG, DEFAULT_BLOCK, DEFAULT_STREAM_CHUNK, SHARED_LIMIT,
                      STREAM_BLOCK, StreamTables, _camera_vector,
                      _padded_counts, _patch_inverse, _resolve_blk,
@@ -149,8 +150,8 @@ def _wf_bounce_reference(tabs, rays: _Rays, st: Optional[torch.Tensor],
         # ---- hit: frame, scatter, continue or die ----
         p, nrm, front, mat = _hit_frame(tabs.stab, tabs.ttab, o, d, tau, tau2,
                                         a, qb, best, is_tri, has_motion)
-        ndir, att, scattered = _scatter(mat, d, dinv, p, nrm, front, key,
-                                        bits)
+        ndir, att, scattered = _scatter(mat, d, dinv, p, nrm, front,
+                                        _key_draws(key, bits))
         cont = active & hit & scattered
         thx = torch.where(cont, thx * att[0], thx)
         thy = torch.where(cont, thy * att[1], thy)

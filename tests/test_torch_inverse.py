@@ -199,7 +199,7 @@ def test_check_recordable_raises():
         inverse._check_recordable(nested, "recorded-pp")
     big, cam = rtt.scenes.sphere_field(n=14_000, width=8, device="cpu")
     assert not rtt.ops.fits_shared(big) and not tpr.supports_pp(big)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory.*'recorded'"):
         inverse._check_recordable(big, "recorded-pp")
     with pytest.raises(ValueError, match="shared memory"):
         tpr.record_pp(big, cam, 0, torch.zeros(64, dtype=torch.int32),
@@ -216,11 +216,10 @@ def test_unported_paths_raise():
     cfg = rtt.RenderConfig(spp=1, max_depth=2, jitter=False)
     params = rtt.extract_params(scene)
     target = torch.zeros((16, 16, 3))
-    for engine, item in (("dense", "item 4"), ("recorded", "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            rtt.pixel_loss(params, scene, cam, 0, target, cfg, engine)
-        with pytest.raises(NotImplementedError, match=item):
-            rtt.make_train_step(None, cfg, engine=engine)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        rtt.pixel_loss(params, scene, cam, 0, target, cfg, "dense")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        rtt.make_train_step(None, cfg, engine="dense")
     with pytest.raises(ValueError, match="unknown engine"):
         rtt.make_train_step(None, cfg, engine="fused")
     with pytest.raises(NotImplementedError, match="item 9"):
