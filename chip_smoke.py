@@ -51,6 +51,8 @@ from rayz_tpu_torch.io.image import read_ppm, write_ppm
 from rayz_tpu_torch.ops import _build, diffkernel as dk
 from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, rng
 from rayz_tpu_torch.ops import tables as tb, wavefront as wf
+# the gather backward's shapes and synthetic indices, shared with tune ab
+from rayz_tpu_torch.tune import GATHER_BWD_SHAPES, gather_indices
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden_deterministic.ppm")
@@ -281,21 +283,57 @@ def record_phase(dev) -> float:
     return err
 
 
+def gather_bwd_shape(r: int, p: int, dev, g) -> tuple:
+    """The backward at one shape in both layouts: bit-identical across two
+    launches, within GATHER_BWD_RTOL of the f64 sum. Returns (max abs err,
+    kernel ms, plain ms, bound ms, bound by, index_add_ ms, relative err)
+    in the [C, R] layout the fused replay uses."""
+    c = 20
+    idx = gather_indices(r, p, dev, g)
+    tgt = torch.where((idx >= 0) & (idx < p), idx.long(), p)
+    grc = torch.randn((r, c), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(r))
+    worst = 0.0
+    for transposed in (False, True):
+        gin = grc.T.contiguous() if transposed else grc
+        d1 = pr._gather_bwd(gin, idx, p, transposed)
+        d2 = pr._gather_bwd(gin, idx, p, transposed)
+        if not torch.equal(d1, d2):
+            raise AssertionError(f"gather backward R={r} P={p} is not "
+                                 "deterministic")
+        ref = torch.zeros((p + 1, c), dtype=torch.float64, device=dev)
+        ref.index_add_(0, tgt, grc.double())
+        mag = torch.zeros_like(ref).index_add_(0, tgt, grc.double().abs())
+        rel = float(((d1.double() - ref[:p]).abs()
+                     / mag[:p].clamp_min(1e-30)).max())
+        if rel > GATHER_BWD_RTOL:
+            raise AssertionError(f"gather backward R={r} P={p} off the f64 "
+                                 f"sum by {rel} of the row's sum of |g|")
+        worst = max(worst, rel)
+        err = float((d1.double() - ref[:p]).abs().max())
+        del ref, mag
+    acc = torch.zeros((p + 1, c), dtype=torch.float32, device=dev)
+    out = (err, event_ms(lambda: pr._gather_bwd(gin, idx, p, True), 10),
+           event_ms(lambda: pr._gather_bwd_reference(gin, idx, p, True), 3),
+           *bound(nbytes(gin, idx, d1), 0.0),
+           event_ms(lambda: acc.index_add_(0, tgt, grc), 10), worst)
+    del gin, grc
+    torch.cuda.empty_cache()
+    return out
+
+
 def gather_phase(dev):
-    """Gather kernels vs plain versions at a flagship replay step's shape;
-    returns {name: (max_abs_err, kernel ms, plain ms, bound ms, bound by,
-    library ms)}: the library call computes the same function in one
-    PyTorch call (index_select over the table with a zero row appended,
-    index_add_ into the table and a spare row), on indices mapped outside
-    the timing."""
-    r, p, c = 262144, 512, 20
+    """Gather kernels vs plain versions: the forward at a flagship replay
+    step's shape, the backward at GATHER_BWD_SHAPES; returns {name:
+    (max_abs_err, kernel ms, plain ms, bound ms, bound by, library ms)},
+    the backward's at the recorded-pp flagship pass's shape (the main
+    path's). The library call computes the same function in one PyTorch
+    call (index_select over the table with a zero row appended, index_add_
+    into the table and a spare row), on indices mapped outside the
+    timing."""
+    r, p, c = GATHER_BWD_SHAPES[0][0], 512, 20
     g = np.random.default_rng(0)
-    u = g.random(r)
-    idx = np.where(u < 0.4, 0, np.where(u < 0.55, g.integers(1, 4, r),
-                                        g.integers(4, p, r)))
-    idx[g.integers(0, r, 512)] = -1   # no row: zero rows, no cotangent
-    idx[g.integers(0, r, 64)] = p + 3
-    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    idx = gather_indices(r, p, dev, g)
     tab = torch.from_numpy(g.standard_normal((p, c)).astype(np.float32))
     tab = tab.to(dev)
     for transposed in (False, True):
@@ -304,8 +342,7 @@ def gather_phase(dev):
                                                           transposed)):
             raise AssertionError(f"gather forward (transposed={transposed}) "
                                  "differs from plain")
-    ok = ((idx >= 0) & (idx < p)).long()
-    tgt = torch.where(ok > 0, idx.long(), p)
+    tgt = torch.where((idx >= 0) & (idx < p), idx.long(), p)
     tab_z = torch.cat([tab, torch.zeros((1, c), device=dev)])
     out = pr._gather_fwd(tab, idx, False)
     if not torch.equal(torch.index_select(tab_z, 0, tgt), out):
@@ -315,41 +352,19 @@ def gather_phase(dev):
         lambda: pr._gather_fwd_reference(tab, idx, False), 20),
         *bound(nbytes(tab, idx, out), 0.0),
         event_ms(lambda: torch.index_select(tab_z, 0, tgt), 20))}
-    worst = 0.0
-    for transposed in (False, True):
-        grc = torch.from_numpy(g.standard_normal((r, c)).astype(np.float32)
-                               ).to(dev)
-        gin = grc.T.contiguous() if transposed else grc
-        d1 = pr._gather_bwd(gin, idx, p, transposed)
-        d2 = pr._gather_bwd(gin, idx, p, transposed)
-        if not torch.equal(d1, d2):
-            raise AssertionError("gather backward is not deterministic")
-        ref = torch.zeros((p + 1, c), dtype=torch.float64, device=dev)
-        ref.index_add_(0, tgt, grc.double())
-        mag = torch.zeros_like(ref).index_add_(0, tgt, grc.double().abs())
-        rel = float(((d1.double() - ref[:p]).abs()
-                     / mag[:p].clamp_min(1e-30)).max())
-        if rel > GATHER_BWD_RTOL:
-            raise AssertionError(f"gather backward off the f64 sum by {rel} "
-                                 "of the row's sum of |g|")
-        worst = max(worst, rel)
-    err = float((d1.double() - ref[:p]).abs().max())
-    acc = torch.zeros((p + 1, c), dtype=torch.float32, device=dev)
-    res["gather_bwd"] = (err, event_ms(
-        lambda: pr._gather_bwd(gin, idx, p, True), 20), event_ms(
-        lambda: pr._gather_bwd_reference(gin, idx, p, True), 20),
-        *bound(nbytes(gin, idx, d1), 0.0),
-        event_ms(lambda: acc.index_add_(0, tgt, grc), 20))
+    bwd = [gather_bwd_shape(r, p, dev, g) for r, p in GATHER_BWD_SHAPES]
+    res["gather_bwd"] = bwd[1][:6]
     phase("gather", f"R={r} P={p} ({int((idx == 0).sum())} rays on row 0): "
-                    "forward bit-identical to plain in both layouts; "
-                    f"backward within {worst:.3g} of each row's sum of |g| "
-                    "(f64 plain sum), bit-identical across launches; fwd "
+                    "forward bit-identical to plain in both layouts, "
                     f"{res['gather_fwd'][1]:.4f} ms vs plain "
-                    f"{res['gather_fwd'][2]:.4f}, bwd "
-                    f"{res['gather_bwd'][1]:.4f} ms vs plain "
-                    f"{res['gather_bwd'][2]:.4f}; index_select "
-                    f"{res['gather_fwd'][5]:.4f} ms, index_add_ "
-                    f"{res['gather_bwd'][5]:.4f} ms")
+                    f"{res['gather_fwd'][2]:.4f}, index_select "
+                    f"{res['gather_fwd'][5]:.4f} ms")
+    for (r, p), b in zip(GATHER_BWD_SHAPES, bwd):
+        phase("gather", f"backward R={r} P={p}, both layouts: bit-identical "
+                        f"across launches, within {b[6]:.3g} of each row's "
+                        f"sum of |g| (f64 plain sum); [C, R] layout "
+                        f"{b[1]:.4f} ms vs plain {b[2]:.4f}, index_add_ "
+                        f"{b[5]:.4f} ms, bound {b[3]:.4f} ms ({b[4]})")
     return res
 
 
@@ -719,6 +734,16 @@ def train_phase(scene, cam, target, smi: str) -> dict:
                    + f"; {TRAIN_RUNS} after 1 warm-up; seconds "
                    + ", ".join(f"{s:.3f}" for s in secs)
                    + f") | peak {peak_gb:.3f} GB | {smi}")
+    sp = kernel_split(lambda: micro_batches(params, scene, cam, target, cfg,
+                                            "recorded-pp", 1, 7),
+                      (("recorder", ("record_pp",)), ("gathers", ("gather",)),
+                       ("replay pair", ("replay_",))), "glue")
+    dev_ms = sum(v for k, v in sp.items() if k != "wall")
+    phase("train", f"one micro-batch (value and gradient, {MICRO_SPP} spp): "
+                   f"device time {dev_ms:.2f} ms in {sp['wall']:.2f} ms of "
+                   f"host clock (idle {1 - dev_ms / sp['wall']:.3f}): "
+                   + ", ".join(f"{k} {v:.2f} ms" for k, v in sp.items()
+                               if k != "wall"))
     with eager_replay():
         torch.cuda.reset_peak_memory_stats()
         _, eager_s = timed(lambda: fwdbwd(TRAIN_RUNS + 1))
@@ -1159,7 +1184,9 @@ def large_phase(dev, smi: str) -> dict:
 
 # ---- the bounce-indexed "recorded" engine (ops/diffkernel.py) ----
 
-RECORD_MATCH = 0.9999  # record kernel vs plain: share of equal indices
+# record kernel vs plain version on the same tables: every index equal (the
+# streamed layout's kernel and plain version sweep the same sorted columns)
+RECORD_MATCH = 1.0
 # render_diff vs the megakernel, per channel: STOCHASTIC_MAX_FRAC is the CPU
 # tests' bound at 4 spp; a pixel of 16 spp averages four times as many
 # paths, each as likely to part from the recorded one in the replay
@@ -1255,6 +1282,26 @@ def record_compare(scene, inputs, depth: int, stream=None):
     return float((k == p).double().mean()), k, stats
 
 
+def scene_order_split(scene, inputs, depth: int, k) -> tuple:
+    """A streamed (sorted) recording ``k`` against the plain recorder over
+    the tables in the scene's own order: (indices that differ, rays that
+    differ, of them those that part at an exact f32 tie). Raises unless
+    every differing ray parts at a tie."""
+    stab, ttab, _ = dk._record_inputs(scene, 0)
+    o, d, tm, rand = inputs
+    rays = torch.cat([o.T, d.T, tm[None]]).float().contiguous()
+    rand = rand.float().contiguous()
+    want = dk._record_reference(stab, ttab, rays, rand, depth=depth,
+                                t_min=1e-3, has_motion=scene.has_motion,
+                                tri_base=tb._padded_counts(scene, 1)[0])
+    tie = dk._exact_ties(scene, rays, rand, k, want, depth=depth, t_min=1e-3)
+    if not bool(tie.all()):
+        raise AssertionError(f"streamed record: {int((~tie).sum())} of "
+                             f"{tie.numel()} rays part from the scene order "
+                             "at no tie")
+    return int((k != want).sum()), tie.numel(), int(tie.sum())
+
+
 def diff_record_phase(dev) -> dict:
     """The record kernel against its plain version with real draws
     (render_diff's rays and randoms), resident and streamed; render_diff
@@ -1284,10 +1331,19 @@ def diff_record_phase(dev) -> dict:
                                  f"{before})")
         worst[mode] = max(worst[mode], 1.0 - share)
         s = [int(x) for x in st.tolist()]
+        split = ""
+        if stream:
+            n_idx, n_rays, n_tie = scene_order_split(
+                scene, record_inputs(scene, cam, 5, 8, dev), 8, k)
+            split = (f"; vs the scene-order plain recorder {n_idx} indices "
+                     f"on {n_rays} rays differ, {n_tie} of them parting at "
+                     "an exact f32 tie")
         phase("record", f"{label} ({mode}): indices equal to plain on "
                         f"{share:.4%}; {s[0]} segments, "
-                        f"{s[1] / max(s[0], 1):.1f} columns tested per "
-                        f"segment, chunk tests {s[3]} ({s[4]} passed)")
+                        f"{s[1] / max(s[0], 1):.1f} columns and "
+                        f"{s[2] / max(s[0], 1):.1f} block bounds tested per "
+                        f"segment, chunk tests {s[3]} ({s[4]} passed)"
+                        + split)
     # the given-draw scatter: render_diff records the megakernel's paths
     # for the same seed, as the persistent-path recorder (hashed draws)
     # does. A pixel parts from the megakernel's where the replay, which
@@ -1368,26 +1424,29 @@ def recorded_grad_phase(dev) -> float:
     return worst
 
 
-def kernel_split(fn) -> dict:
-    """Device time (ms) of the kernels ``fn`` launches, by torch.profiler:
-    the record kernel, the gathers with their sort glue, and the rest (the
-    eager replay), and the run's host-clock ms."""
+def kernel_split(fn, buckets=(("record", ("record_kernel", "sort")),
+                               ("gathers", ("gather",))),
+                 rest: str = "replay") -> dict:
+    """Device time (ms) of the kernels ``fn`` launches, by torch.profiler,
+    in ``buckets`` (the first whose name fragments a kernel's name holds;
+    by default the record kernel with its table prep, the streamed
+    layout's sorts, and the gathers) and ``rest`` (by default the eager
+    replay); and the run's host-clock ms."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, secs = timed(fn)
-    split = dict(record=0.0, gathers=0.0, replay=0.0)
+    split = {k: 0.0 for k, _ in buckets}
+    split[rest] = 0.0
     for ev in prof.key_averages():
         ms = getattr(ev, "device_time_total", None)
         ms = (ev.cuda_time_total if ms is None else ms) / 1e3
         name = ev.key
-        if "record_kernel" in name:
-            split["record"] += ms
-        elif "gather" in name or "sort" in name.lower() or \
-                "searchsorted" in name.lower():
-            split["gathers"] += ms
-        elif not name.startswith("ProfilerStep"):
-            split["replay"] += ms
+        if name.startswith("ProfilerStep"):
+            continue
+        key = next((k for k, frags in buckets
+                    if any(f in name.lower() for f in frags)), rest)
+        split[key] += ms
     split["wall"] = secs * 1e3
     return split
 
@@ -1397,8 +1456,8 @@ def split_line(fwd: dict, bwd: dict) -> str:
     wall = fwd["wall"] + bwd["wall"]
     return (f"device time of one pass {tot:.1f} ms in {wall:.1f} ms of "
             f"host clock (idle {1 - tot / wall:.3f}): recorder "
-            f"{fwd['record'] + bwd['record']:.2f} ms, gathers "
-            f"{fwd['gathers'] + bwd['gathers']:.2f} (sort glue included), "
+            f"{fwd['record'] + bwd['record']:.2f} ms (table sorts included), "
+            f"gathers {fwd['gathers'] + bwd['gathers']:.2f}, "
             f"replay forward {fwd['replay']:.1f}, replay backward "
             f"{bwd['replay']:.1f} ({bwd['replay'] / max(tot, 1e-9):.1%})")
 
@@ -1422,26 +1481,32 @@ def one_pass_split(scene, cam, target, seed: int, cfg) -> str:
 
 def record_pass_kernel(scene, cam, dev, depth: int, stream=None) -> tuple:
     """One sample pass's record launch over the whole image, kernel (CUDA
-    events) vs plain (host clock), with its bound, one rule for both table
-    modes: bytes read and written once, and one primitive test per live
-    segment (:func:`floor_ops`). Returns (share unequal, ms, plain ms,
-    bound ms, bound by, stats)."""
+    events, the tables built beforehand as render_diff builds them once
+    per render) vs plain (host clock), with its bound, one rule for both
+    table modes: bytes read and written once, and one primitive test per
+    live segment (:func:`floor_ops`). Streamed, it is also held against the
+    scene-order plain recorder. Returns (share unequal, ms, plain ms, bound
+    ms, bound by, stats, table prep ms, the scene-order split)."""
     inputs = record_inputs(scene, cam, 1, depth, dev)
     share, k, st = record_compare(scene, inputs, depth, stream)
     if share < RECORD_MATCH:
         raise AssertionError(f"record pass at full width: {share:.6%}")
-    k_ms = event_ms(lambda: dk.record_paths(scene, *inputs, max_depth=depth,
-                                            t_min=1e-3, stream=stream), 3)
+    tabs, prep_s = timed(lambda: dk._record_setup(scene, stream,
+                                                  inputs[0][0]))
+    k_ms = event_ms(lambda: dk._record_rays(scene, tabs, *inputs,
+                                            max_depth=depth, t_min=1e-3), 3)
     with plain_recorded():
         _, p_s = timed(lambda: dk.record_paths(scene, *inputs,
                                                max_depth=depth, t_min=1e-3,
                                                stream=stream))
-    stab, ttab, bounds = dk._record_inputs(scene, 0 if stream is None
-                                           else stream)
-    rows = () if bounds is None else bounds[:2]
+    stab, ttab, bounds = tabs
+    rows = () if bounds is None else (bounds.scb, bounds.tcb, bounds.sblk,
+                                      bounds.tblk, bounds.sperm, bounds.tperm)
     b_ms, b_by = bound(nbytes(stab, ttab, *rows, *inputs, k),
                        floor_ops(scene, st))
-    return 1.0 - share, k_ms, p_s * 1e3, b_ms, b_by, st
+    split = (scene_order_split(scene, inputs, depth, k) if bounds is not None
+             else None)
+    return 1.0 - share, k_ms, p_s * 1e3, b_ms, b_by, st, prep_s * 1e3, split
 
 
 def recorded_train_phase(scene, cam, target, smi: str, pp_mrays: float):
@@ -1501,7 +1566,7 @@ def recorded_train_phase(scene, cam, target, smi: str, pp_mrays: float):
                             + f"); recorded-pp in this run "
                             f"{pp_mrays:.4f} | peak {peak_gb:.3f} GB | {smi}")
     phase("train-recorded", one_pass_split(scene, cam, target, 5, cfg))
-    err, k_ms, p_ms, b_ms, b_by, st = record_pass_kernel(
+    err, k_ms, p_ms, b_ms, b_by, st, _, _ = record_pass_kernel(
         scene, cam, scene.device, f["depth"])
     phase("record", f"one flagship pass (262144 rays, d{f['depth']}, "
                     f"resident): kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
@@ -1572,17 +1637,27 @@ def large_train_phase(dev, smi: str) -> tuple:
                          + f"; first {first_s:.2f} s); peak {peak:.3f} GB "
                          f"| {smi}")
     phase("train-large", one_pass_split(scene, cam, target, 5, cfg))
-    err, k_ms, p_ms, b_ms, b_by, st = record_pass_kernel(
+    err, k_ms, p_ms, b_ms, b_by, st, prep_ms, split = record_pass_kernel(
         scene, cam, dev, cfg.max_depth, dk.RECORD_STREAM_CHUNK)
     s = [int(x) for x in st.tolist()]
+    cols = sum(tb._padded_counts(scene, 1, dk.RECORD_STREAM_CHUNK))
+    if s[1] > 0.05 * cols * s[0]:
+        raise AssertionError(f"streamed record: {s[1] / s[0]:.1f} of {cols} "
+                             "columns tested per segment (more than 5%)")
     phase("record", f"one streamed pass at {cam.width}x{cam.height} on "
                     f"{n} spheres ({cam.width * cam.height} rays, "
-                    f"d{cfg.max_depth}): kernel {k_ms:.3f} ms, plain "
-                    f"{p_ms:.1f} ms, {1 - err:.4%} of indices equal; {s[0]} "
-                    f"segments, {s[1] / max(s[0], 1):.1f} columns tested "
-                    f"per segment, chunk tests {s[3]}, "
-                    f"{1.0 - s[4] / max(s[3], 1):.4%} pruned; bound "
-                    f"{b_ms:.4f} ms ({b_by})")
+                    f"d{cfg.max_depth}; chunk {dk.RECORD_STREAM_CHUNK}, "
+                    f"blocks of {dk.RECORD_STREAM_BLOCK}): kernel "
+                    f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, {1 - err:.4%} of "
+                    f"indices equal; table prep {prep_ms:.2f} ms (host "
+                    f"clock, once per render); {s[0]} segments, "
+                    f"{s[1] / max(s[0], 1):.1f} of {cols} columns and "
+                    f"{s[2] / max(s[0], 1):.1f} block bounds tested per "
+                    f"segment, chunk tests {s[3]}, "
+                    f"{1.0 - s[4] / max(s[3], 1):.4%} pruned; vs the "
+                    f"scene-order plain recorder {split[0]} indices on "
+                    f"{split[1]} rays differ, {split[2]} parting at an exact "
+                    f"f32 tie; bound {b_ms:.4f} ms ({b_by})")
     return launches["streamed"], (err, k_ms, p_ms, b_ms, b_by)
 
 

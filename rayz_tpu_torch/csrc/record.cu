@@ -14,7 +14,7 @@
 // megakernel's path.
 //
 // What bounds it on the H100: the FP32 sweep, every live ray segment
-// against every column (resident), or against the columns of the chunks
+// against every column (resident), or against the columns of the blocks
 // whose bound it may enter (streamed). The reads and writes (7 words per
 // ray, 5 per ray and bounce in, 1 out) are coalesced, rays fastest.
 //
@@ -30,21 +30,27 @@
 //    layout without the camera words, >48 KB opt-in), every column swept
 //    with the megakernel's sweeps (IEEE 1/ndd in the triangle test, so the
 //    winners are the megakernel's, not the TPU's approximate reciprocal's).
-//  * streamed: the tables stay in device memory in ORIGINAL order (an
-//    index must name its _diff_tables row, so there is no Morton sort),
-//    padded to a chunk multiple with poisoned columns; the chunk bound rows
-//    [4, columns / chunk] sit in shared memory. Each ray tests a chunk's
-//    bound itself and sweeps the chunk's columns only if it passes
-//    (rz::sweep_chunks, no blocks); the TPU tests the bound tile-wide, and
-//    since the bounds are conservative both find the same winner. Chunks
-//    are read through L1/L2, not staged in shared memory: a sweep reads
-//    each column once per ray, and the threads of a warp read the same
-//    column at once, so one cached line serves 32 columns of a row.
-//    Original order prunes little on a scene whose primitives are in random
-//    order (sphere_field): a chunk's bound spans most of the scene.
+//  * streamed: the streamed megakernel's layout. Each class is
+//    Morton-sorted, padded to a chunk multiple with poisoned columns, its
+//    chunks ordered near to far from the camera and its blocks near to far
+//    inside each chunk; the tables and block rows stay in device memory
+//    (read through L1/L2: the threads of a warp read the same column at
+//    once), the chunk bound rows [4, columns / chunk] sit in shared memory.
+//    Each ray enters a chunk only if its bound passes, then each block of
+//    `blk` columns only if its bound passes (rz::sweep_chunks, the streamed
+//    megakernel's sweep); the TPU tests the bounds tile-wide, and since
+//    they are conservative both find the same winner. The sweep finds the
+//    winner's SORTED column; before it is written, sperm/tperm map it back
+//    to the scene's own column, so the index still names a _diff_tables row
+//    (rz::shade reads the sorted column, which holds the same values).
+//    Sorting changes which of two columns at exactly the same f32 distance
+//    comes first, so only at such a tie can a winner differ from an
+//    original-order sweep. Padding never wins, and a miss (-1) is never
+//    remapped.
 //
 // `stats` (optional, [8] uint64, rz::Work): ray segments traced, primitive
-// columns tested, -, chunk bound tests, chunk bound tests passed.
+// columns tested, block bound tests, chunk bound tests, chunk bound tests
+// passed.
 //
 // C interface for ctypes (see ops/_build.py): returns the launch's
 // cudaError_t.
@@ -62,13 +68,17 @@ struct Params {
   const float* ttab;  // [20, m] triangles
   const float* scb;   // streamed: [4, n / stream] chunk bounds
   const float* tcb;   // streamed: [4, m / stream]
+  const float* sbl;   // streamed: [4, n / blk] block bounds
+  const float* tbl;   // streamed: [4, m / blk]
+  const int* sperm;   // streamed: [n] sorted sphere column -> scene column
+  const int* tperm;   // streamed: [m]
   const float* rays;  // [7, r] origin, direction, time
   const float* rand;  // [depth, 5, r]
   int* idx;           // [depth, r]
   unsigned long long* stats;  // [8] or null
   int n, m;           // table columns (chunk multiples when streamed)
   int tri_base;       // index of triangle column 0
-  int r, depth, stream;
+  int r, depth, stream, blk;
   float t_min;
 };
 
@@ -122,9 +132,9 @@ __global__ void __launch_bounds__(kBlock) record_kernel(Params p) {
     int best = -1;
     bool is_tri = false;
     if constexpr (kStreamed) {
-      rz::sweep_chunks<kMotion, false>(sph, p.n, scb, nullptr, p.stream, 0,
+      rz::sweep_chunks<kMotion, false>(sph, p.n, scb, p.sbl, p.stream, p.blk,
                                        true, ray, t, qb, best, is_tri, w);
-      rz::sweep_chunks<kMotion, true>(tri, p.m, tcb, nullptr, p.stream, 0,
+      rz::sweep_chunks<kMotion, true>(tri, p.m, tcb, p.tbl, p.stream, p.blk,
                                       true, ray, t, qb, best, is_tri, w);
     } else {
       w.prims += p.n + p.m;
@@ -136,7 +146,10 @@ __global__ void __launch_bounds__(kBlock) record_kernel(Params p) {
       alive = false;
       continue;
     }
-    *out = is_tri ? p.tri_base + best : best;
+    if constexpr (kStreamed)
+      *out = is_tri ? p.tri_base + p.tperm[best] : p.sperm[best];
+    else
+      *out = is_tri ? p.tri_base + best : best;
     const float* u = p.rand + static_cast<size_t>(b) * 5 * r + i;
     const rz::GivenDraws dr{u[0], u[r], u[2 * r], u[3 * r], u[4 * r]};
     // the throughput and radiance are the replay's business: unused here
@@ -163,20 +176,29 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// stream_cols = 0: resident (stab/ttab copied into shared memory; scb/tcb
-// unused); > 0: streamed in chunks of stream_cols columns (n and m are
-// multiples of it). stats: null or [8] uint64 counters.
+// stream_cols = 0: resident (stab/ttab copied into shared memory; the
+// streamed arguments unused); > 0: streamed in chunks of stream_cols
+// columns behind blocks of blk columns (n and m are multiples of
+// stream_cols, stream_cols of blk): scb/tcb chunk bounds, sbl/tbl block
+// bounds, sperm/tperm the sorted -> scene column maps. stats: null or [8]
+// uint64 counters.
 extern "C" int rayz_record(const float* stab, int n, const float* ttab,
                            int m, const float* scb, const float* tcb,
-                           int stream_cols, int tri_base, const float* rays,
-                           const float* rand, int r, int depth, float t_min,
-                           int has_motion, int* idx, void* stats,
-                           void* stream) {
+                           const float* sbl, const float* tbl,
+                           const int* sperm, const int* tperm,
+                           int stream_cols, int blk, int tri_base,
+                           const float* rays, const float* rand, int r,
+                           int depth, float t_min, int has_motion, int* idx,
+                           void* stats, void* stream) {
   Params p;
   p.stab = stab;
   p.ttab = ttab;
   p.scb = scb;
   p.tcb = tcb;
+  p.sbl = sbl;
+  p.tbl = tbl;
+  p.sperm = sperm;
+  p.tperm = tperm;
   p.rays = rays;
   p.rand = rand;
   p.idx = idx;
@@ -187,11 +209,13 @@ extern "C" int rayz_record(const float* stab, int n, const float* ttab,
   p.r = r;
   p.depth = depth;
   p.stream = stream_cols;
+  p.blk = blk;
   p.t_min = t_min;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool motion = has_motion != 0;
   cudaError_t e;
   if (stream_cols > 0) {
+    if (blk <= 0 || stream_cols % blk) return cudaErrorInvalidValue;
     const size_t smem = sizeof(float) * 4 *
                         static_cast<size_t>(n / stream_cols + m / stream_cols);
     e = motion ? launch<true, true>(p, smem, s)

@@ -92,8 +92,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rayz_gather_fwd.argtypes = [p, i, i, p, i, i, p, p]
     lib.rayz_gather_fwd.restype = i
     ll = ctypes.c_longlong
-    lib.rayz_gather_bwd.argtypes = [p, ll, ll, p, p, i, i, p, p]
+    lib.rayz_gather_bwd.argtypes = [p, ll, ll, p, i, i, i, i, ll, p, p, p,
+                                    p]
     lib.rayz_gather_bwd.restype = i
+    lib.rayz_gather_bwd_work.argtypes = [i, i]
+    lib.rayz_gather_bwd_work.restype = ll
     lib.rayz_replay_fwd.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, i, f,
                                     p]
     lib.rayz_replay_fwd.restype = i
@@ -104,8 +107,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    i, i, i, p, p, p, p, p, p, p, i, i, i, i,
                                    i, i, f, i, i, u, i, p, p]
     lib.rayz_wavefront.restype = i
-    lib.rayz_record.argtypes = [p, i, p, i, p, p, i, i, p, p, i, i, f, i, p,
-                                p, p]
+    lib.rayz_record.argtypes = [p, i, p, i, p, p, p, p, p, p, i, i, i, p, p,
+                                i, i, f, i, p, p, p]
     lib.rayz_record.restype = i
     lib.rayz_error_string.argtypes = [i]
     lib.rayz_error_string.restype = ctypes.c_char_p

@@ -12,8 +12,11 @@ estimators gather from, and the bounce-indexed estimator itself:
   a dead path; spheres [0, N_pad), triangles N_pad + j). Scenes within one
   block's shared memory (:func:`rayz_tpu_torch.ops.tables.fits_shared`)
   record from shared memory; larger ones stream their tables from device
-  memory in chunks of :data:`RECORD_STREAM_CHUNK` columns in original order
-  (:func:`rayz_tpu_torch.ops.tables.fits_record_stream`).
+  memory in the streamed megakernel's layout (Morton-sorted, chunks of
+  :data:`RECORD_STREAM_CHUNK` columns and blocks of
+  :data:`RECORD_STREAM_BLOCK`, near to far;
+  :func:`rayz_tpu_torch.ops.tables.fits_record_stream`), each winner mapped
+  back to its column in the scene's order.
   :func:`_record_reference` is its plain torch version.
 * **Replay** (torch autograd): :func:`replay_paths` (:666) re-derives each
   bounce from the winner's row of :func:`_diff_tables`, gathered through
@@ -44,25 +47,27 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.camera import Camera
-from ..models.scene import TEX_SOLID, Scene, _round_up
+from ..models.scene import TEX_SOLID, Scene
 # pathrec imports this module for _diff_tables; its gathers and replay
 # shading are used here at call time only, so the import order of
 # ops/__init__.py (pathrec first) resolves the cycle.
 from . import _build, pathrec, rng
 from .integrator import RenderConfig, _pixel_grid
 from .megakernel import _hit_frame, _key_draws, _nearest, _scatter, _spawn
-from .tables import (_BIG, _NROWS, _TNROWS, SHARED_LIMIT, _block_rows,
-                     _camera_vector, _class_parts, _empty, _pad_poison,
-                     _padded_counts, fits_record_stream, fits_shared)
+from .tables import (_BIG, _NROWS, _TNROWS, SHARED_LIMIT, STREAM_BLOCK,
+                     StreamTables, _camera_vector, _class_parts, _empty,
+                     _padded_counts, _stream_scene_inputs,
+                     fits_record_stream, fits_shared)
 
 __all__ = ["supports_diff", "record_paths", "replay_paths", "render_diff",
            "render_diff_flat", "RECORD_STREAM_CHUNK", "LAUNCHES"]
 
 #: Columns per chunk of the streamed recorder (H100): the forward engines'
-#: chunk, 16 bytes of bound rows in shared memory per 512 columns. Chunks
-#: of 256 to 2,048 columns record a 100k-sphere scene equally fast, since
-#: in original order almost every chunk bound passes (PERF.md).
+#: chunk, 16 bytes of bound rows in shared memory per 512 columns.
 RECORD_STREAM_CHUNK = 512
+#: Columns per culling block inside a streamed chunk (the forward engines';
+#: ``python -m rayz_tpu_torch.tune record`` times chunk x block, PERF.md).
+RECORD_STREAM_BLOCK = STREAM_BLOCK
 
 #: Launches of the record kernel in this process, per table mode (never
 #: counted by the plain version).
@@ -132,50 +137,105 @@ def _diff_tables(scene: Scene) -> torch.Tensor:
 # record: plain torch version, kernel wrapper, host function
 # --------------------------------------------------------------------------
 
-def _record_reference(stab, ttab, rays, rand, *, depth: int, t_min: float,
-                      has_motion: bool, tri_base: int, bounds=None,
-                      stats=None) -> torch.Tensor:
-    """Plain torch version of the recorder (same arguments as
-    :func:`_record`; ``bounds`` and ``stats`` change only what the kernel
-    skips or counts, so they are not read here). Bounce by bounce over the
-    live rays: the megakernel's nearest hit (``_nearest``, every column of
-    the tables it is given, so a streamed layout's original order and
-    poisoned padding give the same winners), hit frame and scatter from the
-    given randoms. Returns idx [depth, R] int32."""
+def _reference_bounces(stab, ttab, rays, rand, *, depth: int, t_min: float,
+                       has_motion: bool):
+    """The plain recorder's bounces over the live rays: yields per bounce
+    (bounce, live ray ids, their (origin, direction, time), and their
+    nearest hit (q, column of the tables given, is_triangle)), then moves
+    them on by the megakernel's hit frame and scatter from the given
+    randoms."""
     o = [x.clone() for x in rays[0:3]]
     d = [x.clone() for x in rays[3:6]]
     tau = rays[6]
-    r = rays.shape[1]
-    idx = torch.full((depth, r), -1, dtype=torch.int32, device=rays.device)
-    live = torch.arange(r, device=rays.device)
+    live = torch.arange(rays.shape[1], device=rays.device)
     for b in range(depth):
         if live.numel() == 0:
-            break
+            return
         ol = tuple(x[live] for x in o)
         dl = tuple(x[live] for x in d)
         tl = tau[live]
         qb, best, is_tri, a, tau2 = _nearest(stab, ttab, ol, dl, tl, t_min,
                                              has_motion)
+        yield b, live, (ol, dl, tl), qb, best, is_tri
         hit = qb < _BIG
         dinv = 1.0 / torch.sqrt(torch.clamp_min(a, 1e-24))
         p, nrm, front, mat = _hit_frame(stab, ttab, ol, dl, tl, tau2, a, qb,
                                         best, is_tri, has_motion)
         draws = tuple(rand[b, k, live] for k in range(5))
         ndir, _, scattered = _scatter(mat, dl, dinv, p, nrm, front, draws)
-        winner = torch.where(is_tri, best + tri_base, best)
-        idx[b, live] = torch.where(hit, winner, -1).to(torch.int32)
         cont = hit & scattered
         for x, new, old in zip(o + d, p + tuple(ndir), ol + dl):
             x[live] = torch.where(cont, new, old)
         live = live[cont]
+
+
+def _record_reference(stab, ttab, rays, rand, *, depth: int, t_min: float,
+                      has_motion: bool, tri_base: int,
+                      bounds: Optional[StreamTables] = None,
+                      stats=None) -> torch.Tensor:
+    """Plain torch version of the recorder (same arguments as
+    :func:`_record`; of ``bounds`` it reads only the column maps: the bound
+    rows and ``stats`` change only what the kernel skips or counts).
+    :func:`_reference_bounces` over every column of the tables it is given,
+    in their order; a streamed layout's winner is written as its column in
+    the scene's order. Returns idx [depth, R] int32."""
+    idx = torch.full((depth, rays.shape[1]), -1, dtype=torch.int32,
+                     device=rays.device)
+    for b, live, _, qb, best, is_tri in _reference_bounces(
+            stab, ttab, rays, rand, depth=depth, t_min=t_min,
+            has_motion=has_motion):
+        if bounds is not None:  # sorted column -> the scene's column
+            col = torch.clamp_min(best, 0)
+            for tri, perm in ((False, bounds.sperm), (True, bounds.tperm)):
+                if perm.numel():
+                    best = torch.where(is_tri == tri, perm[torch.clamp_max(
+                        col, perm.numel() - 1)].long(), best)
+        winner = torch.where(is_tri, best + tri_base, best)
+        idx[b, live] = torch.where(qb < _BIG, winner, -1).to(torch.int32)
     return idx
+
+
+def _exact_ties(scene: Scene, rays, rand, got, want, *, depth: int,
+                t_min: float) -> torch.Tensor:
+    """Where two recordings of the rays ``rays`` [7, R] differ, ``want``
+    the plain recording over the scene-order tables and ``got`` one over a
+    sorted layout: for each ray that differs, in ray order, whether at the
+    first bounce where the two part both winners lie at the same f32
+    distance q from the ray there, as the sweep computes it. Such a tie is
+    broken by column order, which the sort changes; any other difference
+    is a fault. Returns bool [rays that differ]."""
+    stab, ttab, _ = _record_inputs(scene, 0)
+    tri_base = _padded_counts(scene, 1)[0]
+    part = got != want
+    rid = torch.nonzero(part.any(dim=0)).flatten()
+    first = part[:, rid].int().argmax(dim=0)
+    tie = torch.zeros(rid.numel(), dtype=torch.bool)
+
+    def q_of(row, ray):
+        if row < 0:
+            return _BIG
+        st, tt = ((stab[:, :0], ttab[:, row - tri_base:row - tri_base + 1])
+                  if row >= tri_base else (stab[:, row:row + 1], ttab[:, :0]))
+        return float(_nearest(st, tt, *ray, t_min, scene.has_motion)[0])
+
+    for b, live, (ol, dl, tl), *_ in _reference_bounces(
+            stab, ttab, rays[:, rid], rand[:, :, rid], depth=depth,
+            t_min=t_min, has_motion=scene.has_motion):
+        for j in torch.nonzero(first[live] == b).flatten().tolist():
+            k = int(live[j])
+            ray = (tuple(x[j:j + 1] for x in ol),
+                   tuple(x[j:j + 1] for x in dl), tl[j:j + 1])
+            qa = q_of(int(want[b, rid[k]]), ray)
+            tie[k] = qa < _BIG and qa == q_of(int(got[b, rid[k]]), ray)
+    return tie
 
 
 def _check_record(stab, ttab, rays, rand, depth: int, bounds) -> None:
     dev = rays.device
     tensors = [("stab", stab), ("ttab", ttab), ("rays", rays), ("rand", rand)]
     if bounds is not None:
-        tensors += [("scb", bounds[0]), ("tcb", bounds[1])]
+        tensors += [(k, getattr(bounds, k))
+                    for k in ("scb", "tcb", "sblk", "tblk")]
     for name, t in tensors:
         if t.device != dev or t.dtype != torch.float32 or \
                 not t.is_contiguous():
@@ -196,13 +256,23 @@ def _check_record(stab, ttab, rays, rand, depth: int, bounds) -> None:
     if bounds is None:
         smem = 4 * (_NROWS * n + _TNROWS * m)
     else:
-        scb, tcb, stream = bounds
-        if stream <= 0 or n % stream or m % stream:
-            raise ValueError("streamed tables must be chunk multiples")
-        for t, cols in ((scb, n // stream), (tcb, m // stream)):
+        stream, blk = bounds.stream, bounds.blk
+        if blk <= 0 or stream <= 0 or stream % blk or n % stream or \
+                m % stream:
+            raise ValueError("streamed tables must be chunk multiples, "
+                             "chunks block multiples")
+        for what, t, cols in (("chunk", bounds.scb, n // stream),
+                              ("chunk", bounds.tcb, m // stream),
+                              ("block", bounds.sblk, n // blk),
+                              ("block", bounds.tblk, m // blk)):
             if tuple(t.shape) != (4, cols):
-                raise ValueError(f"chunk bounds must be [4, {cols}], got "
+                raise ValueError(f"{what} bounds must be [4, {cols}], got "
                                  f"{tuple(t.shape)}")
+        for t, cols in ((bounds.sperm, n), (bounds.tperm, m)):
+            if t.dtype != torch.int32 or tuple(t.shape) != (cols,) or \
+                    t.device != dev or not t.is_contiguous():
+                raise ValueError(f"column maps must be contiguous int32 "
+                                 f"[{cols}] on {dev}")
         smem = 16 * (n // stream + m // stream)
     if smem > SHARED_LIMIT:
         raise ValueError(f"the record launch needs {smem} bytes of shared "
@@ -210,18 +280,21 @@ def _check_record(stab, ttab, rays, rand, depth: int, bounds) -> None:
 
 
 def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
-            has_motion: bool, tri_base: int, bounds=None,
+            has_motion: bool, tri_base: int,
+            bounds: Optional[StreamTables] = None,
             stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Record ``depth`` bounces of the rays ``rays`` [7, R] (origin,
     direction, time) with the randoms ``rand`` [depth, 5, R] through the
     sphere table ``stab`` [17, N] and triangle table ``ttab`` [20, M];
     a triangle winner is written as ``tri_base`` + its column. ``bounds``
-    None keeps the tables in shared memory; ``(scb, tcb, stream)`` streams
-    them from device memory in chunks of ``stream`` columns behind the
-    chunk bound rows ``scb`` [4, N/stream] and ``tcb`` [4, M/stream].
+    None keeps the tables in shared memory; the :class:`StreamTables` the
+    tables come from (sorted, the streamed megakernel's layout without
+    superclusters) streams them from device memory behind its chunk and
+    block bounds and writes each winner's column through its column maps
+    ``sperm``/``tperm``.
     ``stats``, an int64 [8] tensor on the device, receives the kernel's
-    work counters (segments, primitive columns tested, -, chunk tests,
-    chunk tests passed).
+    work counters (segments, primitive columns tested, block tests, chunk
+    tests, chunk tests passed).
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns idx [depth, R] int32."""
@@ -229,7 +302,7 @@ def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
     kw = dict(depth=depth, t_min=t_min, has_motion=has_motion,
               tri_base=tri_base)
     if rays.device.type == "cpu":
-        return _record_reference(stab, ttab, rays, rand, **kw)
+        return _record_reference(stab, ttab, rays, rand, bounds=bounds, **kw)
     if rays.device.type != "cuda":
         raise ValueError(f"no record kernel for device {rays.device}")
     if stats is not None and (stats.device != rays.device
@@ -240,43 +313,78 @@ def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
     lib, _ = _build.load()
     r = rays.shape[1]
     idx = torch.empty((depth, r), dtype=torch.int32, device=rays.device)
-    scb, tcb, stream = bounds if bounds is not None else (None, None, 0)
+    b = bounds
+    ptrs = ([None] * 6 if b is None else
+            [b.scb, b.tcb, b.sblk, b.tblk, b.sperm, b.tperm])
     with torch.cuda.device(rays.device):
         err = lib.rayz_record(
             stab.data_ptr(), stab.shape[1], ttab.data_ptr(), ttab.shape[1],
-            pathrec._ptr(scb), pathrec._ptr(tcb), stream, tri_base,
-            rays.data_ptr(), rand.data_ptr(), r, depth, t_min,
-            int(has_motion), idx.data_ptr(), pathrec._ptr(stats),
+            *map(pathrec._ptr, ptrs), 0 if b is None else b.stream,
+            0 if b is None else b.blk, tri_base, rays.data_ptr(),
+            rand.data_ptr(), r, depth, t_min, int(has_motion),
+            idx.data_ptr(), pathrec._ptr(stats),
             torch.cuda.current_stream(rays.device).cuda_stream)
     _build.check(lib, err, "record")
-    LAUNCHES["streamed" if stream else "resident"] += 1
+    LAUNCHES["resident" if b is None else "streamed"] += 1
     return idx
 
 
-def _record_inputs(scene: Scene, stream: int):
+def _record_inputs(scene: Scene, stream: int,
+                   origin: Optional[torch.Tensor] = None):
     """The record kernel's tables for ``stream`` (0: resident), as f32
-    without autograd: (stab, ttab, bounds). Streamed, each class is padded
-    to a chunk multiple with poisoned columns, in original order, with the
-    chunk bound rows of :func:`_block_rows` over its AABBs."""
-    pad = torch.nn.functional.pad
-    parts = []
-    for tri, rows, present in ((False, _NROWS, scene.n_spheres > 0),
-                               (True, _TNROWS, scene.n_triangles > 0)):
-        if not present:
-            parts.append((_empty(rows, scene.device),
-                          _empty(4, scene.device)))
-            continue
-        tab, lo, hi, valid, poison = _class_parts(scene, tri)
-        if not stream:
-            parts.append((tab.contiguous(), None))
-            continue
-        cols = _round_up(tab.shape[1], stream)
-        k = cols - tab.shape[1]
-        parts.append((_pad_poison(tab, cols, poison).contiguous(),
-                      _block_rows(pad(lo, (0, 0, 0, k)), pad(hi, (0, 0, 0, k)),
-                                  pad(valid, (0, k)), stream).contiguous()))
-    (stab, scb), (ttab, tcb) = parts
-    return stab, ttab, ((scb, tcb, stream) if stream else None)
+    without autograd: (stab, ttab, bounds). Resident, each class in its own
+    order (``bounds`` None). Streamed, the streamed megakernel's layout
+    (:func:`_stream_scene_inputs`: Morton-sorted, padded to a chunk
+    multiple with poisoned columns, chunks near to far from ``origin`` and
+    blocks of :data:`RECORD_STREAM_BLOCK` near to far inside each, or one
+    block per chunk where the chunk is no multiple of it) and the
+    :class:`StreamTables` as ``bounds``. The order changes which columns
+    the kernel may skip, never a winner but at an exact tie."""
+    if not stream:
+        parts = []
+        for tri, rows, present in ((False, _NROWS, scene.n_spheres > 0),
+                                   (True, _TNROWS, scene.n_triangles > 0)):
+            parts.append(_class_parts(scene, tri)[0].contiguous() if present
+                         else _empty(rows, scene.device))
+        return parts[0], parts[1], None
+    blk = (RECORD_STREAM_BLOCK if stream % RECORD_STREAM_BLOCK == 0
+           else stream)
+    tabs = _stream_scene_inputs(scene, stream, blk,
+                                origin.to(torch.float32))
+    return tabs.stab, tabs.ttab, tabs
+
+
+def _record_setup(scene: Scene, stream: Optional[int],
+                  origin: torch.Tensor):
+    """Resolve the table mode as :func:`record_paths` documents and build
+    its tables once (``origin``, a point [3], orders a streamed layout near
+    to far)."""
+    if stream is None:
+        stream = 0 if fits_shared(scene) else RECORD_STREAM_CHUNK
+    if stream and not fits_record_stream(scene, stream):
+        raise ValueError(
+            f"streamed recorder: the chunk bounds of "
+            f"{sum(_padded_counts(scene, 1))} columns in chunks of {stream} "
+            f"exceed {SHARED_LIMIT} bytes of shared memory; use a larger "
+            "chunk")
+    with torch.no_grad():
+        return _record_inputs(scene, stream, origin.detach())
+
+
+def _record_rays(scene: Scene, tables, origin, direction, time, rand, *,
+                 max_depth: int, t_min: float,
+                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`record_paths` over tables :func:`_record_setup` built."""
+    stab, ttab, bounds = tables
+    with torch.no_grad():
+        f32 = torch.float32
+        rays = torch.cat([origin.T.to(f32), direction.T.to(f32),
+                          time[None].to(f32)]).contiguous()
+        rand = rand.detach().to(f32).contiguous()
+        return _record(stab, ttab, rays, rand, depth=max_depth, t_min=t_min,
+                       has_motion=scene.has_motion,
+                       tri_base=_padded_counts(scene, 1)[0], bounds=bounds,
+                       stats=stats)
 
 
 def record_paths(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
@@ -294,26 +402,12 @@ def record_paths(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
     ``stream=None`` keeps the tables in shared memory where they fit
     (:func:`fits_shared`) and streams them in chunks of
     :data:`RECORD_STREAM_CHUNK` otherwise; ``0`` forces shared memory
-    (raising if the tables do not fit), an int forces that chunk.
+    (raising if the tables do not fit), an int forces that chunk. A
+    streamed layout is ordered near to far from the first ray's origin.
     ``stats`` as :func:`_record`."""
-    if stream is None:
-        stream = 0 if fits_shared(scene) else RECORD_STREAM_CHUNK
-    if stream and not fits_record_stream(scene, stream):
-        raise ValueError(
-            f"streamed recorder: the chunk bounds of "
-            f"{sum(_padded_counts(scene, 1))} columns in chunks of {stream} "
-            f"exceed {SHARED_LIMIT} bytes of shared memory; use a larger "
-            "chunk")
-    with torch.no_grad():
-        stab, ttab, bounds = _record_inputs(scene, stream)
-        f32 = torch.float32
-        rays = torch.cat([origin.T.to(f32), direction.T.to(f32),
-                          time[None].to(f32)]).contiguous()
-        rand = rand.detach().to(f32).contiguous()
-        return _record(stab, ttab, rays, rand, depth=max_depth, t_min=t_min,
-                       has_motion=scene.has_motion,
-                       tri_base=_padded_counts(scene, 1)[0], bounds=bounds,
-                       stats=stats)
+    tables = _record_setup(scene, stream, origin[0])
+    return _record_rays(scene, tables, origin, direction, time, rand,
+                        max_depth=max_depth, t_min=t_min, stats=stats)
 
 
 # --------------------------------------------------------------------------
@@ -439,9 +533,12 @@ def render_diff_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
     [max_depth, n] int32: the backward regenerates its rays and randoms
     (cheap, counter-keyed) and replays it again, so the record kernel runs
     once per pass. The recorder keeps the tables in shared memory where
-    they fit and streams them otherwise (:func:`record_paths`)."""
+    they fit and streams them otherwise (:func:`record_paths`), ordered
+    near to far from the camera; its tables are built once for all
+    passes."""
     pix = (py.long() * camera.width + px.long()).to(torch.int32)
     tab = _diff_tables(scene)
+    tables = _record_setup(scene, None, camera.look_from)
 
     def inputs(s):
         o, d, tm = _camera_rays(camera, seed, pix, s, jitter)
@@ -452,7 +549,7 @@ def render_diff_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
 
     acc = None
     for s in range(spp):
-        idx = record_paths(scene, *inputs(s), max_depth=max_depth,
+        idx = _record_rays(scene, tables, *inputs(s), max_depth=max_depth,
                            t_min=t_min)
         rad = checkpoint(replay_pass, tab, idx, s, use_reentrant=False,
                          preserve_rng_state=False)

@@ -424,10 +424,38 @@ def _gather_fwd(tab, idx, transposed: bool):
     return out
 
 
+#: The backward kernel's shape (csrc/gather.cu): warps per block, table
+#: rows and columns per block, sorted positions per block where the table
+#: has more than one row block; the blocks per SM the one-row-block plan
+#: aims for (three fit one SM's shared memory, two waves of them); and the
+#: most rays one warp sums there, so that a row most rays hit (a ground
+#: sphere) is spread over many warps.
+_BWD_WARPS, _BWD_ROWS, _BWD_COLS, _BWD_PIECE = 8, 512, 4, 4096
+_BWD_BLOCKS_PER_SM = 6
+_BWD_WARP_RAYS = 4096
+
+
+def _bwd_plan(r: int, c: int, sms: int):
+    """(tiles, span) of the backward launch on a table of one row block: R
+    rays cut into ``tiles`` contiguous tiles of ``span`` rays (a multiple
+    of one block's lanes, the last tile maybe short): enough for the
+    (tile, column group) blocks to fill ``sms`` SMs about twice over, with
+    at least 8 chunks of 32 rays per warp, and for no warp to sum more
+    than :data:`_BWD_WARP_RAYS` rays. One tile needs no second pass."""
+    unit = 32 * _BWD_WARPS
+    groups = -(-c // _BWD_COLS)
+    tiles = max(1, min(-(-_BWD_BLOCKS_PER_SM * sms // groups),
+                       r // (8 * unit)),
+                -(-r // (_BWD_WARPS * _BWD_WARP_RAYS)))
+    span = -(-r // (tiles * unit)) * unit
+    return -(-r // span), span
+
+
 def _gather_bwd(g, idx, p: int, transposed: bool):
-    """Backward wrapper (deterministic): a stable sort of the ray ids by
-    index and each row's segment bounds (torch glue), then the CUDA kernel's
-    fixed-order segment sums; the plain version for CPU tensors."""
+    """Backward wrapper (deterministic): the CUDA kernel's fixed-order
+    partial tables, added in order, over contiguous ray tiles for a table
+    of one row block and over pieces of a stable counting sort by row
+    block for a larger one; the plain version for CPU tensors."""
     if idx.device.type == "cpu":
         return _gather_bwd_reference(g, idx, p, transposed)
     if idx.device.type != "cuda":
@@ -435,21 +463,32 @@ def _gather_bwd(g, idx, p: int, transposed: bool):
     if g.dtype != torch.float32:
         raise ValueError(f"the gather kernel takes f32 cotangents, got "
                          f"{g.dtype}")
-    g = g.contiguous()
+    g, idx = g.contiguous(), idx.contiguous()
     r = idx.shape[0]
     c = g.shape[0] if transposed else g.shape[1]
     d_tab = torch.empty((p, c), dtype=torch.float32, device=g.device)
     if r == 0:
         return d_tab.zero_()
-    order = torch.argsort(idx, stable=True)
-    bounds = torch.searchsorted(
-        idx[order], torch.arange(p + 1, dtype=torch.int32, device=g.device))
-    stride_r, stride_c = (1, r) if transposed else (c, 1)
     lib, _ = _build.load()
-    with torch.cuda.device(g.device):
+    dev = g.device
+    if p <= _BWD_ROWS:
+        tiles, span = _bwd_plan(r, c, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        partial = (torch.empty((tiles, p, c), dtype=torch.float32,
+                               device=dev) if tiles > 1 else None)
+        work = None
+    else:
+        tiles, span = 0, 0
+        pieces = -(-r // _BWD_PIECE) + -(-p // _BWD_ROWS)
+        partial = torch.empty((pieces, _BWD_ROWS, c), dtype=torch.float32,
+                              device=dev)
+        work = torch.empty(lib.rayz_gather_bwd_work(r, p), dtype=torch.int32,
+                           device=dev)
+    stride_r, stride_c = (1, r) if transposed else (c, 1)
+    with torch.cuda.device(dev):
         err = lib.rayz_gather_bwd(
-            g.data_ptr(), stride_r, stride_c, order.data_ptr(),
-            bounds.data_ptr(), p, c, d_tab.data_ptr(),
+            g.data_ptr(), stride_r, stride_c, idx.data_ptr(), r, p, c, tiles,
+            span, _ptr(partial), _ptr(work), d_tab.data_ptr(),
             torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(lib, err, "gather_bwd")
     LAUNCHES["gather_bwd"] += 1
@@ -1190,10 +1229,17 @@ def render_diff_pp(scene: Scene, camera: Camera, seed: int,
                    iters: Optional[int] = None, return_leftover: bool = False,
                    compact: Optional[bool] = None):
     """Differentiable [H, W, 3] render by persistent-path record/replay
-    (pathrec.py:1020): the forward megakernel's estimator, with the same
-    paths for the same seed, composing with autograd in the scene's float
-    leaves. Options as :func:`render_diff_pp_flat`; with
-    ``return_leftover=True`` returns ``(image, leftover)``."""
+    (pathrec.py:1020): the forward megakernel's estimator, composing with
+    autograd in the scene's float leaves. Options as
+    :func:`render_diff_pp_flat`; with ``return_leftover=True`` returns
+    ``(image, leftover)``.
+
+    It records the paths the megakernel traces for the same seed. The
+    replay re-derives each bounce in its own rounding, so a near-tie there
+    (a glass coin, a grazing hit or reflection) can part from the recorded
+    path: such a pixel differs from the megakernel's while its block means
+    agree, as with :func:`rayz_tpu_torch.ops.diffkernel.render_diff`
+    (PERF.md)."""
     if not supports_diff(scene):
         if scene.deep_checker:
             raise ValueError(

@@ -327,6 +327,13 @@ def _near_to_far(tab, lo, hi, valid, group: int, origin: torch.Tensor,
     group's nearest valid member. With ``within`` > 0 the groups are
     reordered only inside each ``within``-sized segment (blocks inside a
     chunk), keeping the segments' order."""
+    col = _near_to_far_order(lo, hi, valid, group, origin, within)
+    return tab[:, col], lo[col], hi[col], valid[col]
+
+
+def _near_to_far_order(lo, hi, valid, group: int, origin: torch.Tensor,
+                       within: int = 0) -> torch.Tensor:
+    """The column order :func:`_near_to_far` applies: new column -> old."""
     ng = valid.shape[0] // group
     diff = 0.5 * (lo + hi) - origin[None, :]
     d2 = torch.where(valid, _sum3(diff * diff), float("inf"))
@@ -338,9 +345,8 @@ def _near_to_far(tab, lo, hi, valid, group: int, origin: torch.Tensor,
         order = (base + inner).reshape(-1)
     else:
         order = torch.argsort(gd, stable=True)
-    col = (order[:, None] * group
-           + torch.arange(group, device=gd.device)[None, :]).reshape(-1)
-    return tab[:, col], lo[col], hi[col], valid[col]
+    return (order[:, None] * group
+            + torch.arange(group, device=gd.device)[None, :]).reshape(-1)
 
 
 def _sc_enabled(n_items: int, stream: int, sc_group: int) -> bool:
@@ -412,7 +418,10 @@ class StreamTables(NamedTuple):
     chunks ordered near to far from the camera and blocks near to far
     inside each chunk; chunk bounds [4, n_pad/stream], supercluster bounds
     [4, n_pad/(stream*sc_group)] where :func:`_sc_enabled` holds ([4, 0]
-    otherwise) and block rows [4, n_pad/blk] ([4, 0] for ``blk = 0``)."""
+    otherwise) and block rows [4, n_pad/blk] ([4, 0] for ``blk = 0``);
+    ``sperm``/``tperm`` [n_pad]/[m_pad] int32 map each column back to its
+    column in the scene's own order (the bounce-indexed recorder writes
+    that index)."""
 
     stab: torch.Tensor
     ttab: torch.Tensor
@@ -427,6 +436,8 @@ class StreamTables(NamedTuple):
     stream: int
     blk: int
     sc_group: int
+    sperm: torch.Tensor
+    tperm: torch.Tensor
 
 
 def _class_parts(scene: Scene, tri: bool):
@@ -441,6 +452,13 @@ def _class_parts(scene: Scene, tri: bool):
 def _sorted_padded(scene: Scene, tri: bool, multiple: int):
     """One class Morton-sorted and padded to ``multiple`` columns (poisoned
     table columns, invalid AABBs)."""
+    return _sorted_padded_perm(scene, tri, multiple)[:5]
+
+
+def _sorted_padded_perm(scene: Scene, tri: bool, multiple: int):
+    """:func:`_sorted_padded` and its permutation (sorted column -> raw
+    column, int64): a padding column k past the raw count keeps its own
+    index, so the permutation is one of all the padded columns."""
     tab, lo, hi, valid, poison = _class_parts(scene, tri)
     perm = _morton_perm(lo, hi, valid)
     n = _round_up(perm.shape[0], multiple)
@@ -449,7 +467,9 @@ def _sorted_padded(scene: Scene, tri: bool, multiple: int):
     valid = torch.nn.functional.pad(valid[perm], (0, pad))
     lo = torch.nn.functional.pad(lo[perm], (0, 0, 0, pad))
     hi = torch.nn.functional.pad(hi[perm], (0, 0, 0, pad))
-    return tab, lo, hi, valid, poison
+    perm = torch.cat([perm, torch.arange(perm.shape[0], n,
+                                         device=perm.device)])
+    return tab, lo, hi, valid, poison, perm
 
 
 def _empty(rows: int, dev) -> torch.Tensor:
@@ -488,30 +508,33 @@ def _stream_scene_inputs(scene: Scene, stream: int, blk: int,
     """Streamed table prep shared by the megakernel and the wavefront
     kernel: Morton sort, padding to a chunk multiple, chunks near to far
     from ``origin`` and blocks near to far inside each chunk, then the
-    chunk, supercluster and block bound rows. ``sc_group = 0`` gives no
-    superclusters."""
+    chunk, supercluster and block bound rows, and each class's column
+    permutation. ``sc_group = 0`` gives no superclusters."""
     dev = scene.device
     parts = []
     for tri, rows, present in ((False, _NROWS, scene.n_spheres > 0),
                                (True, _TNROWS, scene.n_triangles > 0)):
         if not present:
-            parts.append((_empty(rows, dev), 0) + (_empty(4, dev),) * 3)
+            parts.append((_empty(rows, dev), 0) + (_empty(4, dev),) * 3
+                         + (torch.zeros(0, dtype=torch.int32, device=dev),))
             continue
-        tab, lo, hi, valid, _ = _sorted_padded(scene, tri, stream)
-        tab, lo, hi, valid = _near_to_far(tab, lo, hi, valid, stream, origin)
-        if blk:
-            tab, lo, hi, valid = _near_to_far(tab, lo, hi, valid, blk, origin,
-                                              within=stream)
+        tab, lo, hi, valid, _, perm = _sorted_padded_perm(scene, tri, stream)
+        for group, within in ((stream, 0), (blk, stream))[:2 if blk else 1]:
+            col = _near_to_far_order(lo, hi, valid, group, origin, within)
+            tab, lo, hi, valid, perm = (tab[:, col], lo[col], hi[col],
+                                        valid[col], perm[col])
         n = tab.shape[1]
         sc = (_block_rows(lo, hi, valid, stream * sc_group)
               if _sc_enabled(n, stream, sc_group) else _empty(4, dev))
         brows = _block_rows(lo, hi, valid, blk) if blk else _empty(4, dev)
         parts.append((tab.contiguous(), n,
                       _block_rows(lo, hi, valid, stream).contiguous(),
-                      sc.contiguous(), brows.contiguous()))
-    (stab, n_pad, scb, ssc, sblk), (ttab, m_pad, tcb, tsc, tblk) = parts
+                      sc.contiguous(), brows.contiguous(),
+                      perm.to(torch.int32).contiguous()))
+    ((stab, n_pad, scb, ssc, sblk, sperm),
+     (ttab, m_pad, tcb, tsc, tblk, tperm)) = parts
     return StreamTables(stab, ttab, n_pad, m_pad, scb, tcb, ssc, tsc, sblk,
-                        tblk, stream, blk, sc_group)
+                        tblk, stream, blk, sc_group, sperm, tperm)
 
 
 def _stream_counts(scene: Scene, stream: int):
@@ -572,9 +595,9 @@ def fits_shared(scene: Scene, culling=None,
 def fits_record_stream(scene: Scene, stream: int) -> bool:
     """Whether the bounce-indexed recorder can stream the scene in chunks
     of ``stream`` columns: its streamed launch keeps only the chunk bound
-    rows of both classes (4 words per chunk) in shared memory, the tables
-    (in original order) stay in device memory. About 7.4 M columns at a
-    chunk of 512."""
+    rows of both classes (4 words per chunk) in shared memory; the sorted
+    tables, their block rows and the column permutations stay in device
+    memory. About 7.4 M columns at a chunk of 512."""
     n_r, m_r = _padded_counts(scene, 1, stream)
     return 16 * (n_r // stream + m_r // stream) <= SHARED_LIMIT
 

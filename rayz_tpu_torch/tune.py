@@ -2,6 +2,8 @@
 
     python -m rayz_tpu_torch.tune tiling [--ns 10000,100000]
         [--chunks 512,1024,2048] [--blocks 32,64,128]
+    python -m rayz_tpu_torch.tune record [--n 100000] [--chunks 256,512,1024]
+        [--blocks 16,32,64]
     python -m rayz_tpu_torch.tune ab TREE [TREE ...] [--rounds 4]
 
 ``tiling`` sweeps the streamed layout's chunk and block sizes on
@@ -12,14 +14,29 @@ warm-up, synced), the wavefront's work counters and the share of pixels
 equal to the default layout's image. The block inside a chunk is set by
 rebinding ``STREAM_BLOCK`` in the two engine modules for the sweep.
 
+``record`` times the bounce-indexed recorder's streamed launch on one
+1-spp pass of ``sphere_field`` (512x288, depth 8: one sample pass of
+``chip_smoke.py``'s large recorded step) for every chunk x block: the
+kernel's CUDA-event milliseconds (mean of 5 after a warm-up, tables built
+beforehand), the table prep's host-clock milliseconds, its work counters
+and the share of indices equal to the first setting's (they differ only at
+exact ties).
+
 ``ab`` times the megakernel of several checkouts of this package against
 each other in one process tree: every TREE is a directory holding a
 ``rayz_tpu_torch`` package; each round runs one child process per tree, in
 alternating order, which builds that tree's kernels (once, into
 ``TREE/build/kernels``) and prints the flagship forward (``random_bouncing``
 512x512, 64 spp, depth 32, compacted and single launch) and the streamed
-megakernel on ``sphere_field`` 100k, with a digest of each image. Lines
-start with ``[tiling]`` or ``[ab]``; each names the card and its power
+megakernel and ``render_fast`` (the wavefront) on ``sphere_field`` 100k,
+with a digest of each image; the ``"recorded"`` engine's value and
+gradient of ``pixel_loss`` on the flagship at 2 spp (host clock, Mrays/s,
+median of 3 after a warm-up); then the bounce-indexed recorder's streamed
+pass on the 100k scene (``record_paths``, 1 spp, depth 8, its tables built
+in the call) and the gather backward at :data:`GATHER_BWD_SHAPES` in the
+[C, R] layout, each in CUDA-event milliseconds. The child runs this file's code against the tree's package,
+so trees that predate a measurement are measured too. Lines start with
+``[tiling]``, ``[record]`` or ``[ab]``; each names the card and its power
 limit.
 """
 
@@ -34,10 +51,29 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 RUNS = 5
 LARGE = dict(width=512, spp=16, depth=8)  # scripts/bench_culling.py:58-60
+#: The gather backward's shapes (rays R, table rows P), here and in
+#: chip_smoke.py: a synthetic replay step, the recorded-pp flagship pass's
+#: K*R rows (112 iterations x 262,144 slots) and the large recorded step's
+#: pass (sphere_field 100k at 512x288: 147,456 rays, 100,352 rows).
+GATHER_BWD_SHAPES = ((262_144, 512), (29_360_128, 512), (147_456, 100_352))
+
+
+def gather_indices(r: int, p: int, dev, g) -> torch.Tensor:
+    """R synthetic winner rows of a table of P rows from the numpy
+    generator ``g``: 40% on row 0 (as a ground sphere takes them), 15% on
+    rows 1-3, the rest uniform, 512 with no row (-1) and 64 past the
+    table (P + 3). Returns int32 [R] on ``dev``."""
+    u = g.random(r)
+    idx = np.where(u < 0.4, 0, np.where(u < 0.55, g.integers(1, 4, r),
+                                        g.integers(4, p, r)))
+    idx[g.integers(0, r, 512)] = -1
+    idx[g.integers(0, r, 64)] = p + 3
+    return torch.from_numpy(idx.astype(np.int32)).to(dev)
 
 
 def _card() -> str:
@@ -109,9 +145,62 @@ def tiling(ns, chunks, blocks) -> None:
                   f"pruned) | {card}", flush=True)
 
 
+def _event_ms(fn, n: int = 5) -> float:
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def record(n, chunks, blocks) -> None:
+    import rayz_tpu_torch as rtt
+    from rayz_tpu_torch.ops import diffkernel as dk
+
+    card = _card()
+    depth = LARGE["depth"]
+    scene, cam = rtt.scenes.sphere_field(n=n, width=LARGE["width"])
+    pix = torch.arange(cam.width * cam.height, dtype=torch.int32,
+                       device="cuda")
+    inputs = (*dk._camera_rays(cam, 1, pix, 0, True),
+              dk._make_rand(1, pix, 0, depth))
+    default = dk.RECORD_STREAM_BLOCK
+    ref = None
+    for chunk in chunks:
+        for blk in blocks:
+            if chunk % blk:
+                continue
+            dk.RECORD_STREAM_BLOCK = blk
+            try:
+                t0 = time.perf_counter()
+                tabs = dk._record_setup(scene, chunk, cam.look_from)
+                torch.cuda.synchronize()
+                prep = (time.perf_counter() - t0) * 1e3
+                stats = torch.zeros(8, dtype=torch.int64, device="cuda")
+                idx = dk._record_rays(scene, tabs, *inputs, max_depth=depth,
+                                      t_min=1e-3, stats=stats)
+                ms = _event_ms(lambda: dk._record_rays(
+                    scene, tabs, *inputs, max_depth=depth, t_min=1e-3))
+            finally:
+                dk.RECORD_STREAM_BLOCK = default
+            ref = idx if ref is None else ref
+            st = [int(x) for x in stats.tolist()]
+            print(f"[record] sphere_field {n} chunk {chunk} block {blk}: "
+                  f"kernel {ms:.3f} ms, table prep {prep:.2f} ms; {st[0]} "
+                  f"segments, {st[1] / max(st[0], 1):.1f} columns and "
+                  f"{st[2] / max(st[0], 1):.1f} block bounds per segment, "
+                  f"chunk tests {1 - st[4] / max(st[3], 1):.2%} pruned; "
+                  f"{float((idx == ref).double().mean()):.6%} of indices as "
+                  f"the first | {card}", flush=True)
+
+
 def render() -> None:
-    """One A/B child: this tree's megakernel on the flagship and on the
-    100k field; prints one JSON line."""
+    """One A/B child: the measurements the module docstring lists, on
+    this tree's package; prints one JSON line."""
     import rayz_tpu_torch as rtt
 
     scene, cam = rtt.scenes.random_bouncing(width=512, height=512)
@@ -125,16 +214,47 @@ def render() -> None:
     field, fcam = rtt.scenes.sphere_field(n=100_000, width=LARGE["width"])
     fcfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
 
-    def frun(s):
-        return rtt.render_megakernel(field, fcam, s, fcfg)
-    out["streamed"] = _mrays(fcam.width * fcam.height * fcfg.spp, frun)
-    out["streamed_digest"] = _digest(frun(1))
+    for label, fn in (("streamed", rtt.render_megakernel),
+                      ("wavefront", rtt.render_fast)):
+        def frun(s, fn=fn):
+            return fn(field, fcam, s, fcfg)
+        out[label] = _mrays(fcam.width * fcam.height * fcfg.spp, frun)
+        out[label + "_digest"] = _digest(frun(1))
+
+    rcfg = rtt.RenderConfig(spp=2, max_depth=32)
+    target = rtt.render_fast(scene, cam, 0, rcfg)
+
+    def vg(s):
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in rtt.extract_params(scene).items()}
+        loss = rtt.pixel_loss(params, scene, cam, s, target, rcfg,
+                              "recorded")
+        torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    vg(0)
+    out["recorded_step"] = [512 * 512 * rcfg.spp / _timed(lambda s=s: vg(s))
+                            / 1e6 for s in range(1, 4)]
+
+    from rayz_tpu_torch.ops import diffkernel as dk, pathrec as pr
+    pix = torch.arange(fcam.width * fcam.height, dtype=torch.int32,
+                       device="cuda")
+    inputs = (*dk._camera_rays(fcam, 1, pix, 0, True),
+              dk._make_rand(1, pix, 0, LARGE["depth"]))
+    out["record_streamed"] = _event_ms(lambda: dk.record_paths(
+        field, *inputs, max_depth=LARGE["depth"], t_min=1e-3), 3)
+    g = np.random.default_rng(0)
+    out["gather_bwd"] = []
+    for r, p in GATHER_BWD_SHAPES:
+        idx = gather_indices(r, p, "cuda", g)
+        cot = torch.randn((20, r), device="cuda")
+        out["gather_bwd"].append(_event_ms(
+            lambda: pr._gather_bwd(cot, idx, p, True), 10))
+        del cot
     print(json.dumps(out), flush=True)
 
 
 def _child(tree: str, what: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    return subprocess.run([sys.executable, "-m", "rayz_tpu_torch.tune", what],
+    return subprocess.run([sys.executable, os.path.abspath(__file__), what],
                           cwd=tree, env=env, capture_output=True, text=True,
                           timeout=900)
 
@@ -167,15 +287,30 @@ def ab(trees, rounds: int) -> None:
             print(f"[ab] round {k} {t}: compact "
                   f"{statistics.median(res['compact']):.3f}, single "
                   f"{statistics.median(res['single']):.3f}, streamed 100k "
-                  f"{statistics.median(res['streamed']):.3f} Mrays/s "
+                  f"{statistics.median(res['streamed']):.3f}, wavefront "
+                  f"100k {statistics.median(res['wavefront']):.3f}, "
+                  f"recorded step "
+                  f"{statistics.median(res['recorded_step']):.4f} Mrays/s "
                   f"(digests {res['compact_digest']} {res['single_digest']} "
-                  f"{res['streamed_digest']}) | {card}", flush=True)
+                  f"{res['streamed_digest']} {res['wavefront_digest']}); "
+                  f"streamed record pass "
+                  f"{res['record_streamed']:.3f} ms; gather backward "
+                  + ", ".join(f"{ms:.4f}" for ms in res["gather_bwd"])
+                  + f" ms | {card}", flush=True)
     for t in trees:
         line = []
-        for key in ("compact", "single", "streamed"):
+        for key in ("compact", "single", "streamed", "wavefront",
+                    "recorded_step"):
             meds = [statistics.median(r[key]) for r in runs[t]]
             line.append(f"{key} median {statistics.median(meds):.3f} "
                         f"(rounds {min(meds):.3f}-{max(meds):.3f})")
+        line.append("record pass ms median {:.3f}".format(statistics.median(
+            r["record_streamed"] for r in runs[t])))
+        for i, (r_, p_) in enumerate(GATHER_BWD_SHAPES):
+            ms = [r["gather_bwd"][i] for r in runs[t]]
+            line.append(f"gather backward R={r_} P={p_} ms median "
+                        f"{statistics.median(ms):.4f} (rounds "
+                        f"{min(ms):.4f}-{max(ms):.4f})")
         print(f"[ab] {t}: " + "; ".join(line) + f" | {card}", flush=True)
 
 
@@ -186,6 +321,10 @@ def main(argv=None) -> int:
     t.add_argument("--ns", default="10000,100000")
     t.add_argument("--chunks", default="512,1024,2048")
     t.add_argument("--blocks", default="32,64,128")
+    rc = sub.add_parser("record")
+    rc.add_argument("--n", type=int, default=100_000)
+    rc.add_argument("--chunks", default="256,512,1024")
+    rc.add_argument("--blocks", default="16,32,64")
     a = sub.add_parser("ab")
     a.add_argument("trees", nargs="+")
     a.add_argument("--rounds", type=int, default=4)
@@ -197,6 +336,9 @@ def main(argv=None) -> int:
         ints = [[int(x) for x in s.split(",")]
                 for s in (args.ns, args.chunks, args.blocks)]
         tiling(*ints)
+    elif args.cmd == "record":
+        record(args.n, *([int(x) for x in s.split(",")]
+                         for s in (args.chunks, args.blocks)))
     elif args.cmd == "ab":
         ab(args.trees, args.rounds)
     else:

@@ -302,11 +302,98 @@ def test_streamed_equals_resident_mixed():
     kw = dict(max_depth=4, t_min=T_MIN)
     ref = tdk.record_paths(scene, o, d, tm, rand, stream=0, **kw)
     for stream in (128, tdk.RECORD_STREAM_CHUNK):
-        stab, ttab, (scb, tcb, s) = tdk._record_inputs(scene, stream)
-        assert stab.shape[1] % stream == 0 and scb.shape == (4, 1)
+        stab, ttab, b = tdk._record_inputs(scene, stream, o[0])
+        assert stab.shape[1] % stream == 0 and b.scb.shape == (4, 1)
         got = tdk.record_paths(scene, o, d, tm, rand, stream=stream, **kw)
         assert torch.equal(got, ref)
     assert int((ref >= int(scene.sphere_radius.shape[0])).sum()) > 0
+
+
+def _raw_record(scene, o, d, tm, rand, t_min):
+    """The plain recorder over the tables in the scene's own order."""
+    stab, ttab, _ = tdk._record_inputs(scene, 0)
+    rays = torch.cat([o.T, d.T, tm[None]]).float().contiguous()
+    return rays, tdk._record_reference(
+        stab, ttab, rays, rand, depth=rand.shape[0], t_min=t_min,
+        has_motion=scene.has_motion, tri_base=tables._padded_counts(scene, 1)[0])
+
+
+@pytest.mark.parametrize("name,stream", [("mixed", 128), ("field", 128),
+                                         ("field", 512)])
+def test_sorted_recorder_parts_only_at_ties(name, stream):
+    """The streamed recorder's Morton-sorted, near-to-far layout against
+    the scene-order plain recorder and, on the field at chunk 128, JAX
+    record_paths (original order; the mixed scene's streamed recording
+    meets JAX in test_recorder_matches_jax): every ray that differs from
+    the scene order parts from it at an exact f32 tie, and every ray that
+    differs from JAX differs from it in the scene order too or parts there
+    at such a tie. Then a replay
+    of the sorted recording equals the scene order's on every ray whose
+    indices agree (the indices name _diff_tables rows)."""
+    if name == "mixed":
+        jscene, jcam = _mixed_scene(rt, jnp.float32)
+        t_min = T_MIN
+    else:
+        jscene, jcam = rt.scenes.sphere_field(n=600, width=16, height=16)
+        t_min = 1e-2
+    r = 256
+    scene, cam = _port(jscene, jcam)
+    depth = 4
+    o, d, tm = _rays(cam, r)
+    rand = torch.from_numpy(_rand(r, depth))
+    got = tdk.record_paths(scene, o, d, tm, rand, max_depth=depth,
+                           t_min=t_min, stream=stream)
+    stab, _, b = tdk._record_inputs(scene, stream, o[0])
+    if name == "field":  # the sort moved the columns
+        assert not torch.equal(b.sperm, torch.arange(stab.shape[1],
+                                                     dtype=torch.int32))
+    rays, want = _raw_record(scene, o, d, tm, rand, t_min)
+    tie = tdk._exact_ties(scene, rays, rand, got, want, depth=depth,
+                          t_min=t_min)
+    print(f"{name} stream={stream}: {tie.numel()} rays differ from the "
+          "scene order")
+    assert tie.all()
+    assert (got[0] >= 0).float().mean() > 0.3
+    if name == "field" and stream == 128:
+        jax_idx = _jax_record(jscene, o, d, tm, rand.numpy(), depth, t_min,
+                              128)
+        off = (got.numpy() != jax_idx).any(axis=0)
+        off_raw = (want.numpy() != jax_idx).any(axis=0)
+        parted = (got != want).any(dim=0).numpy()
+        assert not (off & ~off_raw & ~parted).any()
+        assert float((got.numpy() == jax_idx).mean()) >= 0.99
+
+    same = ~(got != want).any(dim=0)
+    a = tdk.replay_paths(scene, o, d, tm, rand, got, t_min=t_min)
+    b = tdk.replay_paths(scene, o, d, tm, rand, want, t_min=t_min)
+    assert torch.equal(a[same], b[same]) and float(a.std()) > 0.01
+
+
+def test_exact_ties_tells_a_tie_from_a_fault():
+    """The tie witness on a made-up split: a scene with one sphere twice
+    (two columns at the same f32 distance from any ray) recorded once; a
+    copy that names the twin at the first bounce parts at an exact tie, a
+    copy that names another sphere there does not."""
+    b = rtt.SceneBuilder()
+    b.add_sphere((0, -100.5, -2), 100.0, b.add_diffuse(color=(0.5, 0.5, 0.5)))
+    m = b.add_diffuse(color=(0.8, 0.3, 0.2))
+    for _ in range(2):
+        b.add_sphere((0, 0, -2), 0.5, m)
+    b.add_sphere((1.2, 0, -2), 0.5, m)
+    scene = b.build(device="cpu")
+    cam = rtt.make_camera(width=16, height=16, vfov=60.0, focus_dist=1.0,
+                          look_from=(0, 0, 0), look_at=(0, 0, -1),
+                          device="cpu")
+    o, d, tm = _rays(cam, 256)
+    rand = torch.from_numpy(_rand(256, 3))
+    rays, want = _raw_record(scene, o, d, tm, rand, T_MIN)
+    hit = want[0] == 1  # the first twin wins its ties
+    assert hit.sum() > 10 and not (want == 2).any()
+    twin, other = want.clone(), want.clone()
+    twin[0, hit], other[0, hit] = 2, 3
+    kw = dict(depth=3, t_min=T_MIN)
+    assert tdk._exact_ties(scene, rays, rand, twin, want, **kw).all()
+    assert not tdk._exact_ties(scene, rays, rand, other, want, **kw).any()
 
 
 def test_streamed_beyond_shared_memory():
@@ -369,7 +456,8 @@ def test_golden(stream, monkeypatch):
     modes = []
     record_inputs = tdk._record_inputs
     monkeypatch.setattr(tdk, "_record_inputs",
-                        lambda sc, s: modes.append(s) or record_inputs(sc, s))
+                        lambda sc, s, o: modes.append(s)
+                        or record_inputs(sc, s, o))
     if stream:
         monkeypatch.setattr(tdk, "fits_shared", lambda sc: False)
         monkeypatch.setattr(tdk, "RECORD_STREAM_CHUNK", stream)

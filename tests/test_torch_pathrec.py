@@ -370,6 +370,68 @@ def test_gathers_match_jax(transposed):
     assert not d_miss.numpy().any()
 
 
+def _bwd_indices(case: str, p: int, r: int, g) -> np.ndarray:
+    if case == "out_of_range":  # -3..-1 and P..P+2: no row, no cotangent
+        return g.integers(-3, p + 3, r)
+    if case == "empty_row":     # row 5 gets no ray
+        idx = g.integers(0, p, r)
+        return np.where(idx == 5, 6, idx)
+    return np.where(g.random(r) < 0.6, 2, g.integers(-1, p, r))  # hot row
+
+
+@pytest.mark.parametrize("case", ["out_of_range", "empty_row", "hot_row"])
+@pytest.mark.parametrize("transposed", [False, True], ids=["rows", "rows_T"])
+def test_gather_backward_cases_match_jax(case, transposed):
+    """The table cotangent against the f64 sum and JAX's VJP of gather_rows
+    / gather_rows_T, within 1e-5 of each row's sum of |g| (the module
+    docstring's bound): indices outside [0, P) add nothing, an empty row
+    gets zeros, and a row holding more than half the rays sums them all."""
+    g = np.random.default_rng(1)
+    p, c, r = 41, 20, 400
+    tab = g.standard_normal((p, c)).astype(np.float32)
+    idx = _bwd_indices(case, p, r, g).astype(np.int32)
+    cot = g.standard_normal((c, r) if transposed else (r, c)).astype(
+        np.float32)
+    rows = cot.T if transposed else cot
+    ok = (idx >= 0) & (idx < p)
+    want, mag = np.zeros((p, c)), np.zeros((p, c))
+    np.add.at(want, idx[ok], rows[ok].astype(np.float64))
+    np.add.at(mag, idx[ok], np.abs(rows[ok]))
+    jfn = ((lambda t: jpr.gather_rows_T(t, jnp.asarray(idx), True)[:, :r])
+           if transposed else
+           (lambda t: jpr.gather_rows(t, jnp.asarray(idx), True)))
+    want_j = np.asarray(jax.grad(lambda t: jnp.sum(jfn(t) * cot))(
+        jnp.asarray(tab)))
+    tt = torch.from_numpy(tab).requires_grad_(True)
+    fn = tpr.gather_rows_T if transposed else tpr.gather_rows
+    (got,) = torch.autograd.grad(
+        (fn(tt, torch.from_numpy(idx)) * torch.from_numpy(cot)).sum(), tt)
+    got = got.numpy()
+    for ref in (want, want_j):
+        assert (np.abs(got - ref) <= 1e-5 * mag + 1e-12).all()
+    if case == "empty_row":
+        assert not got[5].any() and not (idx == 5).any()
+    if case == "hot_row":
+        assert (idx == 2).mean() > 0.5 and np.abs(got[2]).sum() > 0
+    if case == "out_of_range":
+        assert (~ok).sum() > 20
+
+
+def test_gather_backward_plan_covers_the_rays():
+    """The backward kernel's launch plan on a table of one row block: tiles
+    of a multiple of one block's 256 lanes that cover the rays, no empty
+    tile, and no warp's share of a tile past the rays per warp; a replay
+    pass's K*R rows take many tiles."""
+    cap = tpr._BWD_WARP_RAYS
+    for r in (1, 255, 256, 257, 4097, 147_456, 262_144, 29_360_128):
+        for c in (1, 20):
+            tiles, span = tpr._bwd_plan(r, c, 132)
+            assert tiles >= 1 and span % 256 == 0
+            assert (tiles - 1) * span < r <= tiles * span
+            assert span // tpr._BWD_WARPS <= cap + 32
+    assert tpr._bwd_plan(29_360_128, 20, 132)[0] > 100
+
+
 def test_gather_rows_f64_takes_plain_indexing():
     tab = torch.randn(9, 20, dtype=torch.float64, requires_grad=True)
     idx = torch.tensor([0, 3, 3, 8], dtype=torch.int32)
@@ -608,15 +670,19 @@ def test_record_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_gather_kernels_match_plain_on_card(cuda_device):
+@pytest.mark.parametrize("p", [512, 5000])  # one row block; a counting sort
+def test_gather_kernels_match_plain_on_card(cuda_device, p):
     g = torch.Generator().manual_seed(0)
-    tab = torch.randn(512, 20, generator=g)
-    idx = torch.randint(-1, 512, (8192,), generator=g, dtype=torch.int32)
+    tab = torch.randn(p, 20, generator=g)
+    idx = torch.randint(-1, p + 2, (8192,), generator=g, dtype=torch.int32)
+    idx[:3000] = 7  # a row most rays hit
     cot = torch.randn(8192, 20, generator=g)
     tc, ic, cc = (t.to(cuda_device) for t in (tab, idx, cot))
     assert torch.equal(tpr._gather_fwd(tc, ic, False).cpu(),
                        tpr._gather_fwd_reference(tab, idx, False))
-    d1 = tpr._gather_bwd(cc, ic, 512, False)
-    assert torch.equal(d1, tpr._gather_bwd(cc, ic, 512, False))
-    torch.testing.assert_close(d1.cpu(), tpr._gather_bwd_reference(
-        cot, idx, 512, False), rtol=0, atol=1e-4)
+    for transposed in (False, True):
+        cg = cc.T.contiguous() if transposed else cc
+        d1 = tpr._gather_bwd(cg, ic, p, transposed)
+        assert torch.equal(d1, tpr._gather_bwd(cg, ic, p, transposed))
+        torch.testing.assert_close(d1.cpu(), tpr._gather_bwd_reference(
+            cot, idx, p, False), rtol=0, atol=1e-4)

@@ -208,3 +208,35 @@ def test_streamed_residency_rule():
     field, _ = rtt.scenes.sphere_field(n=3500, width=8, device="cpu")
     assert tables.fits_stream(field) and not tables.fits_shared(field)
     assert tables.fits_shared(field, culling=False, block_size=64) is False
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_streamed_permutations_invert_the_sort(name):
+    """_stream_scene_inputs' column maps: each a permutation of the padded
+    columns through which the scene-order table (padded with poisoned
+    columns) reads as the sorted one; and the layout is still what the
+    Morton sort and the two near-to-far passes give (_sorted_padded,
+    _near_to_far, _block_rows)."""
+    _, (ts, tc) = _pair(name)
+    origin = tc.look_from.to(torch.float32)
+    for stream, blk in ((128, 16), (256, 32)):
+        got = tables._stream_scene_inputs(ts, stream, blk, origin)
+        for tri, tab, perm, cb, bl in (
+                (False, got.stab, got.sperm, got.scb, got.sblk),
+                (True, got.ttab, got.tperm, got.tcb, got.tblk)):
+            n = tab.shape[1]
+            assert perm.dtype == torch.int32 and perm.shape == (n,)
+            if not n:
+                continue
+            assert torch.equal(perm.sort().values,
+                               torch.arange(n, dtype=torch.int32))
+            raw, _, _, _, poison = tables._class_parts(ts, tri)
+            raw = tables._pad_poison(raw, n, poison)
+            assert torch.equal(tab, raw[:, perm.long()])
+            t2, lo, hi, v, _ = tables._sorted_padded(ts, tri, stream)
+            t2, lo, hi, v = tables._near_to_far(t2, lo, hi, v, stream, origin)
+            t2, lo, hi, v = tables._near_to_far(t2, lo, hi, v, blk, origin,
+                                                within=stream)
+            assert torch.equal(tab, t2)
+            assert torch.equal(cb, tables._block_rows(lo, hi, v, stream))
+            assert torch.equal(bl, tables._block_rows(lo, hi, v, blk))
