@@ -2,10 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout (nvcc, sm_90a), checks each
-against its plain torch version on the card, and drives the port's main
-paths: on the flagship ``random_bouncing`` scene at 512x512, depth 32, the
-forward render (64 spp through ``render_fast(engine="auto")``), the
+Builds the port's CUDA kernels from this checkout (nvcc, sm_90a), prints
+the resident sphere sweep's registers and SASS instructions per column,
+checks each kernel against its plain torch version on the card (the
+resident megakernel and the recorder, whose packed FMA sweep may part from
+the plain arithmetic at a near tie, on at least 99.9% of pixels and
+lane-iterations, every difference explained by ``ops/sweep.py``'s rule),
+and drives the port's main paths: on the flagship ``random_bouncing``
+scene at 512x512, depth 32, the forward render (64 spp through
+``render_fast(engine="auto")``: one queue launch and its fold, with the
+queue's idle lanes, re-sweeps and atomics per item), the
 ``recorded-pp`` train step (bench.py's ``fwdbwd`` shape: two value-and-
 gradient micro-batches of 32 spp through the recorder, the gathers and the
 fused replay kernels, then two ``make_train_step`` steps) and the same step
@@ -50,16 +56,18 @@ import rayz_tpu_torch as rtt
 from rayz_tpu_torch.io.image import read_ppm, write_ppm
 from rayz_tpu_torch.ops import _build, diffkernel as dk
 from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, rng
+from rayz_tpu_torch.ops import sweep as sw
 from rayz_tpu_torch.ops import tables as tb, wavefront as wf
-# the gather backward's shapes and synthetic indices, shared with tune ab
-from rayz_tpu_torch.tune import GATHER_BWD_SHAPES, gather_indices
+# shared with tune ab: the gather backward's shapes and synthetic indices,
+# the sweep's ptxas and SASS facts
+from rayz_tpu_torch.tune import (GATHER_BWD_SHAPES, gather_indices,
+                                 ptxas_facts, sass_sweep)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden_deterministic.ppm")
 
 # tolerances (see PERF.md "Port on H100" for the measured values)
 GOLDEN_MAX_STEP, GOLDEN_MAX_FRAC = 1, 0.005  # tests/test_golden.py allowance
-DETERMINISTIC_ATOL = 1e-5   # kernel vs plain version, no random draws
 STOCHASTIC_ATOL = 1e-4      # per channel, real random draws ...
 STOCHASTIC_MAX_FRAC = 0.01  # ... on all but this share of channels
 BLOCK_MEAN_ATOL = 0.01      # 8x8 block means, real random draws
@@ -106,6 +114,12 @@ WF_STATE_MATCH = 0.9999
 # Two table modes, or the two engines, for the same seed: the share of
 # pixels that are identical (the same paths, up to exact ties).
 PIXEL_MATCH = 0.999
+# The queue kernel (the packed FMA sweep) against the plain full-table
+# render of sphere_field 3,000 (coordinates to 55, radii 0.08: its float32
+# c_term is at the rounding level of the small spheres, so near ties are
+# common): the share of identical pixels, between the sound reading
+# (99.67% on the H100) and what a wrong sweep gives.
+FIELD_PIXEL_MATCH = 0.99
 
 # The H100 SXM's published peaks (NVIDIA's data sheet): FP32 outside
 # the tensor cores, and device memory.
@@ -120,7 +134,6 @@ LARGE = dict(width=512, spp=16, depth=8)  # scripts/bench_culling.py:58-60
 LARGE_NS = (100_000, 10_000, 64_000)     # the first is the main path
 
 FLAGSHIP = dict(width=512, height=512, spp=64, depth=32)
-PLAIN_SPP = 4  # the plain version's spp cut at the flagship size
 RUNS = 5
 MICRO_SPP = 32   # the train step's micro-batch (bench.py MICRO)
 TRAIN_RUNS = 3
@@ -132,14 +145,18 @@ def phase(name: str, msg: str) -> None:
 
 @contextlib.contextmanager
 def plain_version():
-    """Route the megakernel's launches to its plain torch version (on the
-    same CUDA tensors) for a comparison run."""
-    kernel = mk._trace_slots
-    mk._trace_slots = mk._trace_slots_reference
+    """Route the megakernel's launches (the culled and streamed kernel, the
+    queue and its fold) to their plain torch versions (on the same CUDA
+    tensors) for a comparison run."""
+    names = ("_trace_slots", "_queue", "_fold")
+    kernels = [getattr(mk, n) for n in names]
+    for n in names:
+        setattr(mk, n, getattr(mk, n + "_reference"))
     try:
         yield
     finally:
-        mk._trace_slots = kernel
+        for n, k in zip(names, kernels):
+            setattr(mk, n, k)
 
 
 @contextlib.contextmanager
@@ -216,6 +233,73 @@ def active_match(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a == b)[act].double().mean())
 
 
+def record_agreement(k, p, scene, cam, seed, pix, what: str, **kw) -> dict:
+    """The recorder kernel's recording ``k`` against the plain recorder's
+    ``p`` of the same slots, both fresh or both resumed from the
+    ``init_state`` in ``kw`` (record_pp's idx, aux, leftover, state):
+    the share of active lane-iterations with equal indices (at least
+    MATCH_FRAC); every slot whose indices differ explained by the near-tie
+    rule (``sweep.explain``) at its first difference; the aux rows equal
+    within RECORD_AUX_ATOL on every iteration before a slot's first
+    difference; leftover and state equal on the slots that never differ."""
+    frac = active_match(k[0], p[0])
+    part = k[0] != p[0]
+    differ = part.any(dim=0)
+    first = torch.where(differ, part.int().argmax(dim=0), part.shape[0])
+    before = (torch.arange(part.shape[0], device=part.device)[:, None]
+              < first[None, :])
+    err = float(((k[1] - p[1]).abs().amax(dim=1) * before).max())
+    same = ~differ
+    rest = torch.equal(k[2][same], p[2][same])
+    if len(k) > 3 and k[3] is not None:
+        rest = rest and all(torch.equal(a[..., same], b[..., same])
+                            for a, b in zip(k[3], p[3]))
+    ex = sw.explain(scene, cam, seed, pix, k[0], p[0], p[1], **kw)
+    n_diff = int(differ.sum())
+    explained = ex is None or bool(ex.all())
+    if frac < MATCH_FRAC or not explained or err > RECORD_AUX_ATOL or not rest:
+        raise AssertionError(
+            f"{what}: idx agree on {frac:.6%} of active lane-iterations, "
+            f"{n_diff} slots differ ({0 if ex is None else int(ex.sum())} "
+            f"explained), aux max abs {err:.3g} before the first difference, "
+            f"leftover/state of the other slots equal: {rest}")
+    return dict(frac=frac, slots=n_diff, err=err)
+
+
+def explain_pixels(scene, cam, seed: int, cfg, img, ref, what: str,
+                   min_share: float = PIXEL_MATCH) -> dict:
+    """The resident megakernel's image ``img`` against ``ref`` (its plain
+    version's, or another schedule's) for the same seed: the share of
+    pixels bit-identical (at least ``min_share``), and for each pixel that
+    differs, its samples recorded by the recorder kernel (the same sweep
+    and draws, so the same paths) and the plain recorder: the two
+    recordings must differ for that pixel, and the near-tie rule must
+    accept the first difference."""
+    same = (img == ref).all(dim=-1).flatten()
+    share = float(same.double().mean())
+    pix = torch.nonzero(~same).flatten().to(torch.int32)
+    out = dict(share=share, pixels=int(pix.numel()),
+               max_abs=float((img - ref).abs().max()))
+    if share < min_share:
+        raise AssertionError(f"{what}: {share:.5%} of pixels identical")
+    if pix.numel() == 0:
+        return out
+    kw = dict(spp=cfg.spp, max_depth=cfg.max_depth, t_min=cfg.t_min,
+              jitter=cfg.jitter)
+    iters = -(-cfg.spp * cfg.max_depth // 8) * 8
+    k, p = record_both(scene, cam, seed, pix, iters=iters, **kw)
+    differ = (k[0] != p[0]).any(dim=0)
+    ex = sw.explain(scene, cam, seed, pix, k[0], p[0], p[1], **kw)
+    if (int(k[2].sum()) or int(p[2].sum()) or not bool(differ.all())
+            or ex is None or not bool(ex.all())):
+        raise AssertionError(
+            f"{what}: {int(pix.numel())} pixels differ; their recordings "
+            f"differ on {int(differ.sum())}, explained "
+            f"{0 if ex is None else int(ex.sum())}; leftover "
+            f"{int(k[2].sum())}, {int(p[2].sum())}")
+    return out
+
+
 def train_params(scene) -> dict:
     return {k: v.detach().clone().requires_grad_(True)
             for k, v in rtt.extract_params(scene).items()}
@@ -233,54 +317,50 @@ def loss_and_grads(scene, cam, seed, target, cfg, engine="recorded-pp"):
 
 
 def record_phase(dev) -> float:
-    """Recorder kernel vs plain version with real draws; returns the
-    largest aux difference."""
+    """Recorder kernel vs plain version with real draws (the near-tie rule
+    for the indices that differ, ``record_agreement``); returns the largest
+    aux difference before a slot's first difference."""
     scene, cam = rtt.scenes.random_bouncing(width=64, height=36, device=dev)
     n = cam.width * cam.height
     pix = slot_pix(n, 4096, dev)
     kw = dict(spp=8, max_depth=8, t_min=1e-3, jitter=True)
     k, p = record_both(scene, cam, 5, pix, iters=32, want_state=True, **kw)
-    if not torch.equal(k[0], p[0]):
-        raise AssertionError(f"record idx: {int((k[0] != p[0]).sum())} "
-                             "lane-iterations differ from the plain version")
-    err = float((k[1] - p[1]).abs().max())
-    if err > RECORD_AUX_ATOL or not torch.equal(k[1][:, pr._AUX_FLG],
-                                                p[1][:, pr._AUX_FLG]):
-        raise AssertionError(f"record aux: max abs {err}, flags equal "
-                             f"{torch.equal(k[1][:, 12], p[1][:, 12])}")
-    if not (torch.equal(k[2], p[2]) and torch.equal(k[3][0], p[3][0])
-            and torch.equal(k[3][1], p[3][1])):
-        raise AssertionError("record leftover or saved state differs")
+    agr = record_agreement(k, p, scene, cam, 5, pix, "record", **kw)
+    err = agr["err"]
     # one resumed pass: 8 iterations, then 24 more from the saved state,
     # equal to the 32-iteration recording (draws are keyed by counters)
     a = pr.record_pp(scene, cam, 5, pix, iters=8, want_state=True, **kw)
     rk, rp = record_both(scene, cam, 5, pix, iters=24, init_state=a[3],
-                         **kw)
-    if not (torch.equal(rk[0], rp[0]) and torch.equal(rk[2], rp[2])):
-        raise AssertionError("resumed record differs from the plain version")
-    err = max(err, float((rk[1] - rp[1]).abs().max()))
+                         want_state=True, **kw)
+    resumed = record_agreement(rk, rp, scene, cam, 5, pix, "resumed record",
+                               init_state=a[3], **kw)
+    err = max(err, resumed["err"])
     if not torch.equal(torch.cat([a[0], rk[0]]), k[0]):
         raise AssertionError("8 + 24 resumed iterations != 32 in one pass")
     phase("record", f"random_bouncing 64x36 8spp d8, 32 iterations: idx "
-                    f"bit-identical to plain, aux max abs {err:.3g}, "
-                    f"leftover {int(k[2].sum())} and state equal; resumed "
-                    "8+24 == 32 in one pass")
+                    f"agree on {agr['frac']:.6%} of active lane-iterations "
+                    f"({agr['slots']} slots differ, each a near tie or a "
+                    f"grazing root by the rule), aux max abs {err:.3g} "
+                    f"before a first difference, leftover "
+                    f"{int(k[2].sum())}; resumed 8+24 == 32 in one pass, "
+                    f"the resumed 24 vs plain from the same state: "
+                    f"{resumed['frac']:.6%} ({resumed['slots']} slots "
+                    "differ, all explained)")
 
     scene, cam = rtt.scenes.cornell_box(width=48, device=dev)
     pix = slot_pix(cam.width * cam.height, 4096, dev)
-    k, p = record_both(scene, cam, 6, pix, iters=32, spp=4, max_depth=8,
-                       t_min=1e-3, jitter=True)
-    frac = active_match(k[0], p[0])
+    kw = dict(spp=4, max_depth=8, t_min=1e-3, jitter=True)
+    k, p = record_both(scene, cam, 6, pix, iters=32, **kw)
+    agr = record_agreement(k, p, scene, cam, 6, pix, "cornell record", **kw)
     n_sph = int(scene.sphere_radius.shape[0])
     tri_hits = int((k[0] >= n_sph).sum())
-    if frac < MATCH_FRAC or tri_hits == 0:
-        raise AssertionError(f"cornell record: idx agree on {frac:.5f} of "
-                             f"active lane-iterations, {tri_hits} triangle "
-                             "winners")
+    if tri_hits == 0:
+        raise AssertionError("cornell record: no triangle winners")
     phase("record", f"cornell_box 48x48 4spp d8 ({n_sph} sphere rows, "
                     f"{tri_hits} triangle winners): idx agree on "
-                    f"{frac:.5%} of active lane-iterations")
-    return err
+                    f"{agr['frac']:.5%} of active lane-iterations "
+                    f"({agr['slots']} slots differ, all explained)")
+    return max(err, agr["err"])
 
 
 def gather_bwd_shape(r: int, p: int, dev, g) -> tuple:
@@ -626,31 +706,121 @@ def grad_phase(dev) -> float:
     return worst
 
 
+def smi_clocks() -> str:
+    """The card's name, power limit, SM clock and power draw now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
+    """Kernel 1 as the main path runs it: the flagship's one queue launch
+    (all 64 samples) and its fold, each against its plain version on the
+    same inputs; the queue's counters (segments, the warps' lane-trips,
+    re-sweeps, atomics); the bounds over this render's segments."""
+    n = cam.width * cam.height
+    args, kw = mk._launch_args(scene, cam, 1, spp=cfg.spp,
+                               max_depth=cfg.max_depth, t_min=cfg.t_min,
+                               jitter=cfg.jitter,
+                               unroll=tb._resolve_tiling(scene))
+    for k in ("bounds", "cull", "spp"):
+        del kw[k]
+    stats = torch.zeros(8, dtype=torch.int64, device=dev)
+    out = mk._queue(*args, n, 0, cfg.spp, stats=stats, **kw)
+    q_ms = event_ms(lambda: mk._queue(*args, n, 0, cfg.spp, **kw), 3)
+    out_p, p_s = timed(lambda: mk._queue_reference(*args, n, 0, cfg.spp,
+                                                   **kw))
+    items = float((out == out_p).all(dim=1).double().mean())
+    queue_err = float((out - out_p).abs().max())
+
+    def zeros():
+        return torch.zeros((3, n), dtype=torch.float32, device=dev)
+
+    acc = mk._fold(out, zeros())
+    f_ms = event_ms(lambda: mk._fold(out, zeros()), 5)
+    acc_p, fp_s = timed(lambda: mk._fold_reference(out, zeros()))
+    fold_err = float((acc - acc_p).abs().max())
+    lib_ms = event_ms(lambda: out.sum(dim=0), 5)
+    kimg = (acc.T.reshape(img.shape) / float(cfg.spp)).to(img.dtype)
+    pimg = (mk._fold_reference(out_p, zeros()).T.reshape(img.shape)
+            / float(cfg.spp)).to(img.dtype)
+    if fold_err != 0.0 or not torch.equal(kimg, img):
+        raise AssertionError(f"flagship fold: kernel vs plain {fold_err}, "
+                             "queue + fold image == render_fast's: "
+                             f"{torch.equal(kimg, img)}")
+    ex = explain_pixels(scene, cam, 1, cfg, kimg, pimg,
+                        "flagship queue vs plain")
+    st = [int(x) for x in stats.tolist()]
+    seg, resweeps, lane_trips, claimed = st[0], st[5], st[6], st[7]
+    q_bound = bound(nbytes(*args, out), seg * args[1].shape[1]
+                    * prim_ops(scene))
+    f_bound = bound(nbytes(out) + 2 * nbytes(acc), out.numel())
+    r_bound = bound(nbytes(*args, acc), seg * args[1].shape[1]
+                    * prim_ops(scene))
+    phase("flagship", f"queue launch (512x512 {cfg.spp}spp d"
+                      f"{cfg.max_depth}, one launch, grid {mk.QUEUE_GRID} "
+                      f"blocks): kernel {q_ms:.3f} ms, plain {p_s * 1e3:.1f} "
+                      f"ms; {items:.4%} of the {out.shape[0] * n} items' "
+                      f"radiance bit-identical to plain, image "
+                      f"{ex['share']:.4%} of pixels ({ex['pixels']} differ, "
+                      f"all explained by the near-tie rule); fold {f_ms:.4f} "
+                      f"ms (plain {fp_s * 1e3:.3f}, torch.sum {lib_ms:.4f}), "
+                      f"bit-identical to plain")
+    phase("flagship", f"queue counters: {seg} segments in {lane_trips} "
+                      f"lane-trips of the warps that ran (idle lanes "
+                      f"{1 - seg / lane_trips:.4f}); {resweeps} re-sweeps in "
+                      f"today's arithmetic ({resweeps / seg:.3g} of "
+                      f"segments); {claimed // mk.QUEUE_RUN} atomics for "
+                      f"{out.shape[0] * n} items "
+                      f"({claimed / mk.QUEUE_RUN / (out.shape[0] * n):.4f} "
+                      f"per item)")
+    phase("flagship", f"row 1 as the main path runs it: {2} launches, "
+                      f"{q_ms + f_ms:.3f} ms of kernel time; bound "
+                      f"{r_bound[0]:.4f} ms ({r_bound[1]}: {seg} segments x "
+                      f"{args[1].shape[1]} columns x {prim_ops(scene)} ops), "
+                      f"{r_bound[0] / (q_ms + f_ms):.1%} of the time; "
+                      f"{tb.shared_bytes(args[1].shape[1], args[2].shape[1])} "
+                      "B of shared memory admitted per block "
+                      f"({4 * (20 + 9 * args[1].shape[1])} B used)")
+    return dict(queue_err=queue_err,
+                queue=(q_ms, p_s * 1e3, *q_bound),
+                fold=(fold_err, f_ms, fp_s * 1e3, *f_bound, lib_ms))
+
+
 def record_flagship(scene, cam, dev):
     """The recorder at the train step's first pass (262,144 slots, spp 32,
-    112 iterations): kernel ms, plain ms, idx agreement, aux error."""
+    112 iterations): kernel ms, plain ms, idx agreement by the near-tie
+    rule, aux error, re-sweeps."""
     n = cam.width * cam.height
     pix = slot_pix(n, -(-n // 2048) * 2048, dev)
     kw = dict(spp=MICRO_SPP, max_depth=FLAGSHIP["depth"], t_min=1e-3,
-              jitter=True, iters=pr.default_k1(MICRO_SPP))
-    k_ms = event_ms(lambda: pr.record_pp(scene, cam, 1, pix, **kw), 3)
-    k = pr.record_pp(scene, cam, 1, pix, **kw)
+              jitter=True)
+    iters = pr.default_k1(MICRO_SPP)
+    k_ms = event_ms(lambda: pr.record_pp(scene, cam, 1, pix, iters=iters,
+                                         **kw), 3)
+    k = pr.record_pp(scene, cam, 1, pix, iters=iters, **kw)
+    stats = torch.zeros(8, dtype=torch.int64, device=dev)
+    pr._record_slots(*pr._scene_record_inputs(scene, cam), pix,
+                     width=cam.width, has_motion=scene.has_motion, seed=1,
+                     iters=iters, stats=stats, **kw)
     with plain_pathrec():
-        p, p_s = timed(lambda: pr.record_pp(scene, cam, 1, pix, **kw))
-    frac = active_match(k[0], p[0])
-    same = k[0] == p[0]
-    err = float((k[1] - p[1]).abs().amax(dim=1)[same].max())
-    if frac < MATCH_FRAC:
-        raise AssertionError(f"flagship record: idx agree on {frac}")
-    phase("record", f"flagship pass 1 (262144 slots, 112 iterations): "
-                    f"kernel {k_ms:.3f} ms, plain {p_s * 1e3:.2f} ms; idx "
-                    f"agree on {frac:.6%} of active lane-iterations"
-                    f"{' (bit-identical)' if bool(same.all()) else ''}, aux "
-                    f"max abs {err:.3g} where they agree")
+        p, p_s = timed(lambda: pr.record_pp(scene, cam, 1, pix, iters=iters,
+                                            **kw))
+    agr = record_agreement(k, p, scene, cam, 1, pix, "flagship record", **kw)
     live = int((k[0] >= -1).sum())
+    resweeps = int(stats[5])
+    phase("record", f"flagship pass 1 (262144 slots, {iters} iterations): "
+                    f"kernel {k_ms:.3f} ms, plain {p_s * 1e3:.2f} ms; idx "
+                    f"agree on {agr['frac']:.6%} of active lane-iterations "
+                    f"({agr['slots']} slots differ, all explained by the "
+                    f"near-tie rule), aux max abs {agr['err']:.3g} before a "
+                    f"first difference; {resweeps} re-sweeps in today's "
+                    f"arithmetic ({resweeps / live:.3g} of {live} live "
+                    "lane-iterations)")
     stab = tb._smem_scene_inputs(scene, tb._resolve_tiling(scene)).stab
     per = SPHERE_OPS + (MOTION_OPS if scene.has_motion else 0)
-    return (err, k_ms, p_s * 1e3,
+    return (agr["err"], k_ms, p_s * 1e3,
             *bound(nbytes(stab, pix, *k), live * stab.shape[1] * per))
 
 
@@ -981,15 +1151,26 @@ def mk_compare(scene, cam, cfg, seed, dev, label: str, **layout) -> tuple:
     return err, k_ms, p_s * 1e3, b_ms, b_by
 
 
+def field_reference(scene, cam, cfg, seed: int):
+    """The full-table render of the plain version (today's arithmetic,
+    every column swept), which the culled and streamed megakernel and the
+    wavefront equal up to exact ties."""
+    with plain_version():
+        return rtt.render_megakernel(scene, cam, seed, cfg, culling=False)
+
+
 def megakernel_modes_phase(dev) -> tuple:
-    """The culled and streamed megakernel against the full-table
-    megakernel (same seed, the default schedules); then the culled kernel
-    against its plain version on one launch at its path's shape (one
-    launch runs all 16 samples). Returns the culled render's launches and
-    the culled launch's ``mk_compare``."""
+    """The culled and streamed megakernel against the plain full-table
+    render (same seed, the default schedules); the resident megakernel
+    (the queue, the packed FMA sweep) against it, every differing pixel
+    explained by the near-tie rule (this scene's float32 c_term is
+    rounding-level at its small spheres: coordinates reach 55, radii 0.08);
+    then the culled kernel against its plain version on one launch at its
+    path's shape (one launch runs all 16 samples). Returns the culled
+    render's launches and the culled launch's ``mk_compare``."""
     scene, cam = rtt.scenes.sphere_field(n=3000, width=128, device=dev)
     cfg = rtt.RenderConfig(spp=16, max_depth=8)
-    ref = rtt.render_megakernel(scene, cam, 5, cfg, culling=False)
+    ref = field_reference(scene, cam, cfg, 5)
     launches = {}
     for mode, kw in (("culled", dict(culling=True)),
                      ("streamed", dict(stream=tb.DEFAULT_STREAM_CHUNK))):
@@ -1001,28 +1182,37 @@ def megakernel_modes_phase(dev) -> tuple:
         if share < PIXEL_MATCH or launches[mode] != (10 if mode == "culled"
                                                      else 1):
             raise AssertionError(f"megakernel {mode}: {share:.5%} of pixels "
-                                 f"as the full-table render, "
+                                 f"as the plain full-table render, "
                                  f"{launches[mode]} launches")
         phase("megakernel", f"{mode}: sphere_field 3000 128x72 16spp d8, "
                             f"{launches[mode]} launch(es), {share:.4%} of "
-                            "pixels identical to the full-table render")
+                            "pixels identical to the plain full-table render")
+    img = rtt.render_megakernel(scene, cam, 5, cfg, culling=False)
+    ex = explain_pixels(scene, cam, 5, cfg, img, ref, "sphere_field queue",
+                        min_share=FIELD_PIXEL_MATCH)
+    phase("megakernel", f"resident (queue): sphere_field 3000 128x72 16spp "
+                        f"d8, {ex['share']:.4%} of pixels identical to the "
+                        f"plain full-table render, the {ex['pixels']} others "
+                        "each explained by the near-tie rule")
     return launches["culled"], mk_compare(scene, cam, cfg, 5, dev, "culled",
                                           blk=tb.DEFAULT_BLOCK)
 
 
 def engines_phase(dev) -> None:
-    """The wavefront against the megakernel, same seed: the same paths."""
+    """The wavefront against the plain full-table megakernel, same seed:
+    the same paths; and against the resident megakernel."""
     scene, cam = rtt.scenes.sphere_field(n=3000, width=128, device=dev)
     cfg = rtt.RenderConfig(spp=16, max_depth=8)
     a = wf.render_wavefront(scene, cam, 11, cfg)
-    b = rtt.render_megakernel(scene, cam, 11, cfg)
-    share = same_pixels(a, b)
+    share = same_pixels(a, field_reference(scene, cam, cfg, 11))
     if share < PIXEL_MATCH:
-        raise AssertionError(f"wavefront vs megakernel: {share:.5%} of "
-                             "pixels identical")
+        raise AssertionError(f"wavefront vs the plain megakernel: "
+                             f"{share:.5%} of pixels identical")
+    b = rtt.render_megakernel(scene, cam, 11, cfg)
     phase("engines", f"sphere_field 3000 128x72 16spp d8, seed 11: wavefront "
-                     f"(resident-culled) vs megakernel (full table, "
-                     f"compacted): {share:.4%} of pixels identical, max abs "
+                     f"(resident-culled) vs the plain full-table megakernel "
+                     f"{share:.4%} of pixels identical; vs the resident "
+                     f"kernel (queue) {same_pixels(a, b):.4%}, max abs "
                      f"{float((a - b).abs().max()):.3g}")
 
 
@@ -1685,6 +1875,16 @@ def main() -> int:
                    f"{', '.join(_build._SOURCES)} into {info.path.name} in "
                    f"{info.seconds:.2f} s; " + " | ".join(regs))
 
+    # the sphere sweep of rows 1 and 5: registers and spills, and the
+    # instructions a column issues in the sweep loop (SASS)
+    for name, regs in ptxas_facts(info.log).items():
+        phase("sweep", f"{name}<true> ptxas: {regs}")
+    for name, ops in sass_sweep(info.path).items():
+        phase("sweep", f"{name}<true> sweep loop, per column: "
+                       f"{ops['total']:.3f} instructions ("
+                       + ", ".join(f"{k} {v:g}" for k, v in ops.items()
+                                   if k != "total") + ")")
+
     # ---- 3. RNG: CUDA hash against ops/rng.py on 2^20 counters ----
     r = np.random.default_rng(0)
     n = 1 << 20
@@ -1708,40 +1908,35 @@ def main() -> int:
                              "ops/rng.py")
     phase("rng", f"{n} counters: CUDA hash == torch hash bit for bit")
 
-    # ---- 4. golden scene: kernel (single + compact) vs golden and plain ----
+    # ---- 4. golden scene: the queue vs golden and vs the plain version ----
     scene, cam, cfg = golden_scene(dev)
-    max_err = 0.0
-    for label, sched in (("single", dict(passes=0)),
-                         ("compact", dict(budget=2, passes=3))):
-        img = rtt.render_megakernel(scene, cam, 0, cfg, **sched)
-        torch.cuda.synchronize()
-        step, frac = golden_check(img)
-        with plain_version():
-            ref = rtt.render_megakernel(scene, cam, 0, cfg, **sched)
-        err = float((img - ref).abs().max())
-        if err > DETERMINISTIC_ATOL:
-            raise AssertionError(f"golden {label}: kernel vs plain max abs "
-                                 f"{err} > {DETERMINISTIC_ATOL}")
-        max_err = max(max_err, err)
-        phase("golden", f"{label}: max step {step}, {frac:.4%} channels off "
-                        f"golden; kernel vs plain max abs {err:.3g}")
+    img = rtt.render_megakernel(scene, cam, 0, cfg)
+    torch.cuda.synchronize()
+    step, frac = golden_check(img)
+    with plain_version():
+        ref = rtt.render_megakernel(scene, cam, 0, cfg)
+    ex = explain_pixels(scene, cam, 0, cfg, img, ref, "golden")
+    max_err = ex["max_abs"]
+    phase("golden", f"queue: max step {step}, {frac:.4%} channels off "
+                    f"golden; kernel vs plain {ex['share']:.4%} of pixels "
+                    f"identical ({ex['pixels']} explained), max abs "
+                    f"{ex['max_abs']:.3g}")
 
     # ---- 5. random_bouncing 64x36, 16 spp, depth 8, real random bits ----
     scene, cam = rtt.scenes.random_bouncing(width=64, height=36, device=dev)
     cfg = rtt.RenderConfig(spp=16, max_depth=8)
-    compact = rtt.render_fast(scene, cam, 3, cfg)
-    single = rtt.render_megakernel(scene, cam, 3, cfg, passes=0)
+    queue = rtt.render_fast(scene, cam, 3, cfg)
     with plain_version():
-        ref = rtt.render_megakernel(scene, cam, 3, cfg, passes=0)
+        ref = rtt.render_fast(scene, cam, 3, cfg)
     torch.cuda.synchronize()
-    if not torch.equal(compact, single):
-        raise AssertionError("compact != single launch on a stochastic config")
-    agr = agreement(single, ref)
+    agr = agreement(queue, ref)
     if agr["frac"] >= STOCHASTIC_MAX_FRAC or agr["block"] > BLOCK_MEAN_ATOL:
         raise AssertionError(f"random_bouncing kernel vs plain: {agr}")
+    ex = explain_pixels(scene, cam, 3, cfg, queue, ref, "random_bouncing")
     max_err = max(max_err, agr["max_abs"])
-    phase("stochastic", "random_bouncing 64x36 16spp d8: compact == single "
-                        f"bit for bit; kernel vs plain: {agr['frac']:.4%} "
+    phase("stochastic", "random_bouncing 64x36 16spp d8, the queue vs "
+                        f"plain: {ex['share']:.4%} of pixels identical "
+                        f"({ex['pixels']} explained), {agr['frac']:.4%} "
                         f"channels > {STOCHASTIC_ATOL}, max abs "
                         f"{agr['max_abs']:.3g}, 8x8 block means within "
                         f"{agr['block']:.3g}")
@@ -1749,18 +1944,22 @@ def main() -> int:
     # the triangle sweep with tables above 48 KB (the shared-memory opt-in)
     scene, cam = rtt.scenes.cornell_box(width=48, device=dev)
     cfg = rtt.RenderConfig(spp=4, max_depth=8)
-    kimg = rtt.render_megakernel(scene, cam, 4, cfg, passes=0)
+    kimg = rtt.render_megakernel(scene, cam, 4, cfg)
     with plain_version():
-        ref = rtt.render_megakernel(scene, cam, 4, cfg, passes=0)
+        ref = rtt.render_megakernel(scene, cam, 4, cfg)
     agr = agreement(kimg, ref)
     if agr["frac"] >= STOCHASTIC_MAX_FRAC or agr["block"] > BLOCK_MEAN_ATOL:
         raise AssertionError(f"cornell_box kernel vs plain: {agr}")
+    ex = explain_pixels(scene, cam, 4, cfg, kimg, ref, "cornell_box")
     max_err = max(max_err, agr["max_abs"])
     n_pad, m_pad = rtt.ops.tables._smem_scene_inputs(scene, 16)[2:4]
     phase("stochastic", f"cornell_box 48x48 4spp d8 "
                         f"({rtt.ops.tables.shared_bytes(n_pad, m_pad)} B of "
-                        f"tables): kernel vs plain {agr['frac']:.4%} channels "
-                        f"> {STOCHASTIC_ATOL}, max abs {agr['max_abs']:.3g}")
+                        f"tables): the queue vs plain "
+                        f"{ex['share']:.4%} of pixels identical "
+                        f"({ex['pixels']} explained), {agr['frac']:.4%} "
+                        f"channels > {STOCHASTIC_ATOL}, max abs "
+                        f"{agr['max_abs']:.3g}")
 
     # ---- 6. the main path: flagship through render_fast(engine="auto") ----
     f = FLAGSHIP
@@ -1769,71 +1968,34 @@ def main() -> int:
     cfg = rtt.RenderConfig(spp=f["spp"], max_depth=f["depth"])
     rays = f["width"] * f["height"] * f["spp"]
     mk.LAUNCHES = 0
+    for k in mk.MODE_LAUNCHES:
+        mk.MODE_LAUNCHES[k] = 0
     img = rtt.render_fast(scene, cam, 1, cfg, engine="auto")
     torch.cuda.synchronize()
-    launches = mk.LAUNCHES
-    if launches != 10:
-        raise AssertionError(f"main path made {launches} kernel launches, "
-                             "expected the 10 compact passes")
+    launches, modes = mk.LAUNCHES, dict(mk.MODE_LAUNCHES)
+    if launches != 2 or modes["queue"] != 1 or modes["fold"] != 1:
+        raise AssertionError(f"main path made {launches} kernel launches "
+                             f"({modes}), expected one queue launch and one "
+                             "fold")
     if not (bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
             and img.shape == (f["height"], f["width"], 3)):
         raise AssertionError("flagship image not finite/non-negative/shaped")
-    phase("flagship", f"render_fast(auto): {launches} kernel launches, image "
-                      f"{tuple(img.shape)} finite, mean {float(img.mean()):.4f}")
+    phase("flagship", f"render_fast(auto): {launches} kernel launches "
+                      f"({modes['queue']} queue, {modes['fold']} fold, "
+                      f"persistent grid of {mk.QUEUE_GRID} blocks), image "
+                      f"{tuple(img.shape)} finite, mean "
+                      f"{float(img.mean()):.4f}")
 
-    mrays = {}
-    for label, sched in (("compact", {}), ("single", dict(passes=0))):
-        def run(seed, sched=sched):
-            return rtt.render_fast(scene, cam, seed, cfg, **sched)
-        timed(lambda: run(0))  # warm-up
-        secs = [timed(lambda s=s: run(s))[1] for s in range(1, RUNS + 1)]
-        mrays[label] = [rays / s / 1e6 for s in secs]
-        phase("flagship", f"{label}: Mrays/s median "
-                          f"{statistics.median(mrays[label]):.3f} (runs "
-                          + ", ".join(f"{m:.3f}" for m in mrays[label])
-                          + f"; {RUNS} after 1 warm-up) | {smi}")
-
-    # kernel against the plain version at the flagship size, spp cut
-    pcfg = rtt.RenderConfig(spp=PLAIN_SPP, max_depth=f["depth"])
-    prays = f["width"] * f["height"] * PLAIN_SPP
-
-    def kernel_run():
-        return rtt.render_megakernel(scene, cam, 1, pcfg, passes=0)
-
-    def plain_run():
-        with plain_version():
-            return rtt.render_megakernel(scene, cam, 1, pcfg, passes=0)
-
-    kernel_run()
-    kimg, k_s = timed(kernel_run)
-    pimg, p_s = timed(plain_run)
-    agr = agreement(kimg, pimg)
-    # the work this launch needed: its ray segments (the wavefront traces
-    # the same paths and counts them) against every sphere column, the
-    # full-table sweep this kernel is
-    seg = torch.zeros(8, dtype=torch.int64, device=dev)
-    wimg = wf.render_wavefront(scene, cam, 1, pcfg, stats=seg)
-    inputs = mk_launch(scene, cam, pcfg, 1)[2]
-    mk_bound = bound(nbytes(*inputs) + 3 * 4 * inputs[3].shape[0],
-                     int(seg[1]) * prim_ops(scene))
-    phase("plain", f"512x512 {PLAIN_SPP}spp d{f['depth']} single launch: "
-                   f"kernel {k_s * 1e3:.2f} ms ({prays / k_s / 1e6:.3f} "
-                   f"Mrays/s), plain torch {p_s * 1e3:.2f} ms "
-                   f"({prays / p_s / 1e6:.3f} Mrays/s); kernel vs plain "
-                   f"{agr['frac']:.4%} channels > {STOCHASTIC_ATOL}, 8x8 "
-                   f"block means within {agr['block']:.3g}, max abs "
-                   f"{agr['max_abs']:.3g}; {int(seg[0])} ray segments "
-                   f"(counted by the wavefront, whose image has "
-                   f"{same_pixels(wimg, kimg):.4%} of its pixels), bound "
-                   f"{mk_bound[0]:.4f} ms ({mk_bound[1]})")
-    if agr["frac"] >= STOCHASTIC_MAX_FRAC or agr["block"] > BLOCK_MEAN_ATOL:
-        raise AssertionError(f"flagship kernel vs plain: {agr}")
-    max_err = max(max_err, agr["max_abs"])
-
-    tables = rtt.ops.tables
-    n_pad, m_pad = tables._smem_scene_inputs(scene, 8)[2:4]
-    phase("shared", f"flagship tables in shared memory: "
-                    f"{tables.shared_bytes(n_pad, m_pad)} bytes per block")
+    def run(seed):
+        return rtt.render_fast(scene, cam, seed, cfg)
+    timed(lambda: run(0))  # warm-up
+    mrays = [rays / timed(lambda s=s: run(s))[1] / 1e6
+             for s in range(1, RUNS + 1)]
+    phase("flagship", f"queue: Mrays/s median {statistics.median(mrays):.3f} "
+                      "(runs " + ", ".join(f"{m:.3f}" for m in mrays)
+                      + f"; {RUNS} after 1 warm-up) | {smi_clocks()}")
+    flag = flagship_kernels(scene, cam, cfg, img, dev)
+    max_err = max(max_err, flag["queue_err"])
 
     # ---- 7-10. recorder, gathers, fused replay, small gradient ----
     rec_err = record_phase(dev)
@@ -1882,7 +2044,9 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [
         entry("megakernel", "megakernel.cu", "rayz_tpu/ops/megakernel.py:459",
-              launches, max_err, k_s * 1e3, p_s * 1e3, *mk_bound),
+              modes["queue"], max_err, *flag["queue"]),
+        entry("fold", "megakernel.cu", "rayz_tpu/ops/megakernel.py:459",
+              modes["fold"], *flag["fold"]),
         entry("megakernel_culled", "megakernel.cu",
               "rayz_tpu/ops/megakernel.py:767", culled_launches, *culled),
         entry("megakernel_streamed", "megakernel.cu",

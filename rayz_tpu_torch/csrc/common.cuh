@@ -6,7 +6,10 @@
 // Numerics: the functions compute exactly what the plain torch version in
 // rayz_tpu_torch/ops/megakernel.py computes, operation for operation and in
 // the same association, and the build passes -fmad=false so that no
-// multiply-add is contracted. Square roots and divisions are IEEE (no
+// multiply-add is contracted. The one exception is sweep_packed, the
+// coefficient-form sweep of the resident megakernel and the recorder,
+// whose fused multiply-adds are written out; its winner is settled in the
+// plain version's arithmetic (below). Square roots and divisions are IEEE (no
 // fast-math): the poisoned padding columns (|c|^2 - r^2 = 3e38) reject
 // themselves because their discriminant is -inf, and sqrt(-inf) = NaN
 // compares false.
@@ -173,6 +176,342 @@ __device__ __forceinline__ void sweep_spheres(const float* __restrict__ tab,
                                               int& best) {
   sweep_spheres<kMotion>(tab, n, 0, n, r, t, qb, best);
 }
+
+// ---- the packed coefficient-form sweep (megakernel.cu resident, and
+// record_pp.cu) ----
+//
+// sweep_spheres issues, per column and lane, 9 broadcast loads of one word
+// (with motion), 27 unfused FP32 operations, the compare, the branch and
+// its convergence barrier: 40 issue slots in the SASS (PERF.md §6), and
+// the SM issues 4 warp instructions a clock. This sweep loads less and
+// fuses its arithmetic: the block stages each sphere's geometry once as
+// 16-byte records (one LDS.128 a column without motion, two LDS.128 and an
+// LDS.32 with it), and the ray's side of the quadratic is folded once per
+// segment into coefficient vectors, so a column costs 9 (17 with motion)
+// fused multiply-adds (__fmaf_rn, written out: the build's -fmad=false
+// keeps every other expression unfused):
+//   half_b = d.c + tau d.v - d.o
+//   c_term = |c|^2 - r^2 + tau (2 c.v) + tau^2 |v|^2 - 2 o.c - 2 tau o.v
+//            + |o|^2
+//   disc   = half_b^2 - |d|^2 c_term
+// the terms of sweep_spheres' quadratic with the motion folded in (the JAX
+// dense integrator's form, rayz_tpu/ops/intersect.py), then the same root
+// and range rule with an approximate square root (below). Only the
+// geometry sits in shared memory (9 words a column with motion, 4
+// without): shading reads the winner's centre and material once per
+// segment from the row-major table in device memory (L1-resident).
+//
+// The winner is then settled in today's arithmetic (settle_winner): its q
+// is recomputed by sweep_spheres' expressions, so the hit point, and all
+// that follows from it, is what sweep_spheres would give for that column;
+// the runner-up, the sphere the ray leaves and the grazing column contest
+// the winner in today's arithmetic. If today's arithmetic rejects
+// the winner, or takes its other root, the ray is swept again in today's
+// form over the packed records (sweep_today; counted by the kernels as a
+// re-sweep). Paths therefore differ from sweep_spheres' only where the
+// forms rank otherwise columns beyond those: a near tie among three, or
+// one of two grazing columns. Poisoned padding columns (|c|^2 - r^2 = 3e38, c = v =
+// 0) give c_term = 3e38 and a negative or -inf discriminant in this form
+// too, and never graze.
+
+// The sphere geometry in shared memory, as staged by stage_spheres: the
+// shared-space byte addresses of its record arrays, read by explicit
+// ld.shared (lds128, lds32). Generic pointers to the staged arrays, passed
+// through the kernels' sweep functors, were compiled into global loads of
+// the shared offsets.
+struct PackedSpheres {
+  uint32_t c;   // [n] float4 (cx, cy, cz, |c|^2 - r^2)
+  uint32_t v;   // [n] float4 (vx, vy, vz, 2 c.v), with motion
+  uint32_t vv;  // [n] float |v|^2, with motion
+};
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 r;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+               : "r"(addr));
+  return r;
+}
+
+__device__ __forceinline__ float lds32(uint32_t addr) {
+  float r;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(r) : "r"(addr));
+  return r;
+}
+
+// f32 words of shared memory stage_spheres fills for n columns.
+template <bool kMotion>
+__host__ __device__ constexpr int packed_words(int n) {
+  return (kMotion ? 9 : 4) * n;
+}
+
+// Stage the geometry rows of the row-major sphere table `tab` [17, n] into
+// `smem` (16-byte aligned, packed_words<kMotion>(n) words) as records.
+template <bool kMotion>
+__device__ __forceinline__ PackedSpheres stage_spheres(
+    const float* __restrict__ tab, int n, float* smem) {
+  float4* c = reinterpret_cast<float4*>(smem);
+  float4* v = c + n;
+  float* vv = reinterpret_cast<float*>(v + n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    c[i] = make_float4(tab[kCX * n + i], tab[kCY * n + i], tab[kCZ * n + i],
+                       tab[kCCMR2 * n + i]);
+    if (kMotion) {
+      v[i] = make_float4(tab[kVX * n + i], tab[kVY * n + i],
+                         tab[kVZ * n + i], tab[kCV2 * n + i]);
+      vv[i] = tab[kVV * n + i];
+    }
+  }
+  return PackedSpheres{static_cast<uint32_t>(__cvta_generic_to_shared(c)),
+                       static_cast<uint32_t>(__cvta_generic_to_shared(v)),
+                       static_cast<uint32_t>(__cvta_generic_to_shared(vv))};
+}
+
+// The ray's coefficient vectors: alpha = (d, tau d) against (c, v) gives
+// half_b; beta = (-2 o, -2 tau o, tau, tau^2) against (c, v, 2 c.v, |v|^2)
+// gives c_term, each started from its ray-only term (-d.o, |o|^2).
+struct RayCoef {
+  float dx, dy, dz, tdx, tdy, tdz;
+  float mox, moy, moz, mtox, mtoy, mtoz;
+  float tau, tau2;
+  float ndo, o2, a, tmin_a;
+};
+
+__device__ __forceinline__ RayCoef ray_coef(const Ray& r, const RayTerms& t) {
+  RayCoef c;
+  c.dx = r.dx;
+  c.dy = r.dy;
+  c.dz = r.dz;
+  c.tdx = r.tau * r.dx;
+  c.tdy = r.tau * r.dy;
+  c.tdz = r.tau * r.dz;
+  c.mox = -2.0f * r.ox;
+  c.moy = -2.0f * r.oy;
+  c.moz = -2.0f * r.oz;
+  c.mtox = -2.0f * (r.tau * r.ox);
+  c.mtoy = -2.0f * (r.tau * r.oy);
+  c.mtoz = -2.0f * (r.tau * r.oz);
+  c.tau = r.tau;
+  c.tau2 = t.tau2;
+  c.ndo = -t.d_dot_o;
+  c.o2 = t.o2;
+  c.a = t.a;
+  c.tmin_a = t.tmin_a;
+  return c;
+}
+
+// The sweep's square root: sqrt.approx (one MUFU.SQRT). The compiler then
+// predicates the whole root test into every column instead of branching
+// around it: more instructions a column, but no divergent branch and no
+// convergence barrier, which measured faster on the card than the IEEE
+// sqrtf, whose slow-path call keeps the root test behind a branch (PERF.md).
+// The sweep only ranks columns; settle_winner recomputes the winner's q
+// with IEEE sqrtf.
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A column whose discriminant lies within kGraze |d|^2 c_term of zero is a
+// grazing root (there half_b^2 and |d|^2 c_term cancel), which the two
+// forms' rounding may accept or reject: the camera's rays past a sphere's
+// silhouette were most of the rays whose winner the coefficient form
+// changed. 2^-14 is about 1,000 float32 roundings of |d|^2 c_term, well
+// above the two forms' difference for the camera's rays and for most
+// secondary ones.
+constexpr float kGraze = 1.0f / 16384.0f;
+
+// Column j's discriminant in the coefficient form, its half_b, and whether
+// the column is grazing.
+template <bool kMotion>
+__device__ __forceinline__ float coef_disc(const PackedSpheres& s, int j,
+                                           const RayCoef& c, float& half_b,
+                                           bool& grazing) {
+  const float4 g = lds128(s.c + 16u * j);
+  float hb = __fmaf_rn(c.dx, g.x, c.ndo);
+  hb = __fmaf_rn(c.dy, g.y, hb);
+  hb = __fmaf_rn(c.dz, g.z, hb);
+  float ct = __fadd_rn(g.w, c.o2);
+  ct = __fmaf_rn(c.mox, g.x, ct);
+  ct = __fmaf_rn(c.moy, g.y, ct);
+  ct = __fmaf_rn(c.moz, g.z, ct);
+  if (kMotion) {
+    const float4 v = lds128(s.v + 16u * j);
+    const float vv = lds32(s.vv + 4u * j);
+    hb = __fmaf_rn(c.tdx, v.x, hb);
+    hb = __fmaf_rn(c.tdy, v.y, hb);
+    hb = __fmaf_rn(c.tdz, v.z, hb);
+    ct = __fmaf_rn(c.mtox, v.x, ct);
+    ct = __fmaf_rn(c.mtoy, v.y, ct);
+    ct = __fmaf_rn(c.mtoz, v.z, ct);
+    ct = __fmaf_rn(c.tau, v.w, ct);
+    ct = __fmaf_rn(c.tau2, vv, ct);
+  }
+  half_b = hb;
+  const float act = c.a * ct;
+  const float disc = __fmaf_rn(hb, hb, -act);
+  grazing = fabsf(disc) < kGraze * act;  // false where act overflows
+  return disc;
+}
+
+// Nearest-hit sweep over the n packed columns: sweep_spheres' loop (a
+// shrinking q_best, ties keep the earlier column) in the coefficient form,
+// also keeping the runner-up (`second`, the column of the second smallest
+// accepted q) and the last grazing column (`graze`), -1 where none, which
+// settle_winner tests in today's arithmetic.
+template <bool kMotion>
+__device__ __forceinline__ void sweep_packed(const PackedSpheres& s, int n,
+                                             const RayCoef& c, float& qb,
+                                             int& best, int& second,
+                                             int& graze) {
+  float q2 = kBig;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    float hb;
+    bool grazing;
+    const float disc = coef_disc<kMotion>(s, j, c, hb, grazing);
+    if (grazing) graze = j;
+    if (disc >= 0.0f) {
+      const float rt = sqrt_approx(disc);
+      const float q1 = hb - rt;
+      const float qv = (q1 >= c.tmin_a) ? q1 : hb + rt;
+      if (qv >= c.tmin_a && qv < q2) {
+        if (qv < qb) {
+          q2 = qb;
+          second = best;
+          qb = qv;
+          best = j;
+        } else {
+          q2 = qv;
+          second = j;
+        }
+      }
+    }
+  }
+}
+
+// Sphere j's centre at the ray's time and |c|^2 - r^2, from the packed
+// records with sphere_at's expressions (the same values, so the same bits).
+template <bool kMotion>
+__device__ __forceinline__ void packed_at(const PackedSpheres& s, int j,
+                                          const Ray& r, const RayTerms& t,
+                                          float& cx, float& cy, float& cz,
+                                          float& ccmr2) {
+  const float4 g = lds128(s.c + 16u * j);
+  cx = g.x;
+  cy = g.y;
+  cz = g.z;
+  ccmr2 = g.w;
+  if (kMotion) {
+    const float4 v = lds128(s.v + 16u * j);
+    const float vv = lds32(s.vv + 4u * j);
+    cx = cx + r.tau * v.x;
+    cy = cy + r.tau * v.y;
+    cz = cz + r.tau * v.z;
+    ccmr2 = ccmr2 + v.w * r.tau + vv * t.tau2;
+  }
+}
+
+// sweep_spheres' root test of packed column j: whether it accepts the
+// column, the root q it takes and whether that is the first.
+template <bool kMotion>
+__device__ __forceinline__ bool sphere_root(const PackedSpheres& s, int j,
+                                            const Ray& r, const RayTerms& t,
+                                            float& q, bool& first) {
+  float cx, cy, cz, ccmr2;
+  packed_at<kMotion>(s, j, r, t, cx, cy, cz, ccmr2);
+  const float half_b = r.dx * cx + r.dy * cy + r.dz * cz - t.d_dot_o;
+  const float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
+  const float c_term = ccmr2 - 2.0f * o_dot_c + t.o2;
+  const float disc = half_b * half_b - t.a * c_term;
+  if (!(disc >= 0.0f)) return false;
+  const float rt = sqrtf(disc);
+  const float q1 = half_b - rt;
+  first = q1 >= t.tmin_a;
+  q = first ? q1 : half_b + rt;
+  return q >= t.tmin_a;
+}
+
+// sweep_spheres over the packed columns: its expressions, order and tie
+// rule, so its winner and q are sweep_spheres' bit for bit.
+template <bool kMotion>
+__device__ __forceinline__ void sweep_today(const PackedSpheres& s, int n,
+                                            const Ray& r, const RayTerms& t,
+                                            float& qb, int& best) {
+  for (int j = 0; j < n; ++j) {
+    float q;
+    bool first;
+    if (sphere_root<kMotion>(s, j, r, t, q, first) && q < qb) {
+      qb = q;
+      best = j;
+    }
+  }
+}
+
+// Column j against the winner (q_best, best) in today's arithmetic: it
+// wins where sweep_spheres would have preferred it (a smaller q, or the
+// same q and an earlier column).
+template <bool kMotion>
+__device__ __forceinline__ void contest(const PackedSpheres& s, int j,
+                                        const Ray& r, const RayTerms& t,
+                                        float& qb, int& best) {
+  float q;
+  bool first;
+  if (j >= 0 && j != best && sphere_root<kMotion>(s, j, r, t, q, first) &&
+      (q < qb || (q == qb && j < best))) {
+    qb = q;
+    best = j;
+  }
+}
+
+// Settle sweep_packed's winner in today's arithmetic (see above): q_best
+// becomes sweep_spheres' q of the same column; where today's arithmetic
+// rejects the column or takes its other root, the ray is swept again by
+// sweep_today. Then three columns contest the winner in today's
+// arithmetic: the runner-up (where the two are within rounding of each
+// other, a near tie, the forms may rank them otherwise: where two
+// overlapping spheres' surfaces cross, or the ground meets a sphere resting
+// on it), the grazing column (`graze`; a column the forms' rounding may
+// accept or reject), and `from`, the sphere the ray's origin lies on (-1
+// if none): whether a ray re-hits the sphere it leaves (its self root lies
+// at the rounding level of |c|^2 - r^2 - 2 o.c + |o|^2, near t_min at
+// grazing exits) is decided by that rounding, which differs between the two
+// forms; without this test the coefficient form changed a few percent of
+// the flagship's recorded lane-iterations. Returns whether it swept again.
+template <bool kMotion>
+__device__ __forceinline__ bool settle_winner(const PackedSpheres& s, int n,
+                                              int from, const Ray& r,
+                                              const RayTerms& t,
+                                              const RayCoef& c, float& qb,
+                                              int& best, int second,
+                                              int graze) {
+  if (best >= 0) {
+    float hb, q;
+    bool first;
+    bool grazing;
+    const float disc = coef_disc<kMotion>(s, best, c, hb, grazing);
+    const bool first_c = hb - sqrt_approx(disc) >= c.tmin_a;
+    if (!(sphere_root<kMotion>(s, best, r, t, q, first) &&
+          first == first_c)) {
+      qb = kBig;
+      best = -1;
+      sweep_today<kMotion>(s, n, r, t, qb, best);
+      return true;
+    }
+    qb = q;
+  }
+  contest<kMotion>(s, second, r, t, qb, best);
+  contest<kMotion>(s, graze, r, t, qb, best);
+  contest<kMotion>(s, from, r, t, qb, best);
+  return false;
+}
+
+// Work-counter slots beyond rz::Work's five (the [8] stats array): the
+// re-sweeps of settle_winner, and the lane-trips of the queue megakernel's
+// warps (32 per loop trip of a warp that ran).
+constexpr int kStatResweeps = 5;
+constexpr int kStatLaneTrips = 6;
 
 // Triangle sweep over columns [j0, j1) after the spheres, sharing q_best:
 // plane test, then dual-basis barycentrics on the hit point. Double-sided;

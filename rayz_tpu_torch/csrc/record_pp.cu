@@ -9,7 +9,7 @@
 // randoms, the spawned camera ray and time, and the spawn + 2 * continue
 // flag). After the last iteration it writes each slot's leftover (samples
 // not yet spawned plus the path in flight) and, on request, its state for a
-// resumed pass.
+// resumed pass (ray, counters, and the sphere column the ray leaves).
 //
 // Draws are the megakernel's: keyed by (seed, pixel, sample, bounce) with
 // draw numbers 0-8 (ops/rng.py), so a recorded path is exactly the path
@@ -17,15 +17,22 @@
 // slot's counters with the same seed (the JAX package re-seeds each pass
 // because its hardware stream would repeat).
 //
-// What bounds it on the H100: the same per-sphere sweep as the megakernel
-// (FP32 issue, one broadcast shared-memory read per table word), plus the
-// recording itself: 14 words per slot and iteration (1.6 GB for the first
-// pass of a flagship micro-batch), written coalesced ([k, row, slot], slots
-// fastest).
-// The design is the megakernel's: one thread per slot in 128-thread blocks,
-// the tables staged once per block in dynamic shared memory (with the >48
-// KB opt-in), the winner carried as a (q_best, column) pair. An idle
-// iteration costs only its 14 stores.
+// What bounds it on the H100: instruction issue in the per-sphere sweep,
+// the megakernel's loop, plus the recording itself: 14 words per slot and
+// iteration (1.6 GB for the first pass of a flagship micro-batch), written
+// coalesced ([k, row, slot], slots fastest). rz::sweep_spheres issues 40
+// slots a column (9 one-word shared loads, 27 unfused FP32 operations, the
+// compare, branch and convergence barrier; PERF.md §6) and ran at ~0.64
+// of that issue ceiling. The design: rz::sweep_packed (common.cuh), the
+// geometry staged as 16-byte records and the quadratic as fused
+// multiply-adds in the coefficient form, its winner settled in today's
+// arithmetic (the sphere a ray leaves and the grazing column contesting
+// it), so a recorded index is today's except at rare near ties; the winner's
+// centre and material are read from the row-major table in device memory
+// (L1). One thread per slot in 128-thread blocks, the tables staged once
+// per block in dynamic shared memory (with the >48 KB opt-in), the winner
+// carried as a (q_best, column) pair. An idle iteration costs only its 14
+// stores.
 //
 // C interface for ctypes (see ops/_build.py): returns the launch's
 // cudaError_t.
@@ -50,11 +57,14 @@ struct Params {
   const int* pix;      // [cap] flat pixel ids, -1 = no pixel
   const float* st_in;  // [7, cap] o, d, tau, or null
   const int* cnt_in;   // [3, cap] depth left, samples left, active
+  const int* from_in;  // [cap] sphere column the ray leaves (-1 none)
   int* idx;            // [iters, cap]
   float* aux;          // [iters, 13, cap]
   int* left;           // [cap]
   float* st_out;       // [7, cap] or null
   int* cnt_out;        // [3, cap] or null
+  int* from_out;       // [cap] or null
+  unsigned long long* stats;  // [8] (re-sweeps at rz::kStatResweeps) or null
   int n, m, cap, iters;
   int width, spp, max_depth;
   float t_min;
@@ -63,14 +73,14 @@ struct Params {
 };
 
 template <bool kMotion>
-__global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(128, 8) record_pp_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   float* s_cam = smem;
-  float* s_sph = smem + rz::kCamWords;
-  float* s_tri = s_sph + rz::kSRows * p.n;
   for (int i = threadIdx.x; i < 18; i += blockDim.x) s_cam[i] = p.cam[i];
-  for (int i = threadIdx.x; i < rz::kSRows * p.n; i += blockDim.x)
-    s_sph[i] = p.stab[i];
+  const rz::PackedSpheres ps =
+      rz::stage_spheres<kMotion>(p.stab, p.n, smem + rz::kCamWords);
+  float* s_tri = smem + rz::kCamWords + rz::packed_words<kMotion>(p.n);
   for (int i = threadIdx.x; i < rz::kTRows * p.m; i += blockDim.x)
     s_tri[i] = p.ttab[i];
   __syncthreads();
@@ -84,7 +94,7 @@ __global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
   const float pyf = static_cast<float>(pp / p.width);
 
   rz::Ray r;
-  int depth, samples;
+  int depth, samples, from = -1;
   bool active;
   if (p.st_in) {
     r.ox = p.st_in[0 * cap + slot];
@@ -97,6 +107,7 @@ __global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
     depth = p.cnt_in[0 * cap + slot];
     samples = p.cnt_in[1 * cap + slot];
     active = p.cnt_in[2 * cap + slot] > 0;
+    from = p.from_in[slot];
   } else {
     r.ox = r.oy = r.oz = 0.0f;
     r.dx = r.dy = r.dz = 0.0f;
@@ -175,7 +186,13 @@ __global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
     float qb = rz::kBig;
     int best = -1;
     bool is_tri = false;
-    rz::sweep_spheres<kMotion>(s_sph, p.n, r, t, qb, best);
+    const rz::RayCoef c = rz::ray_coef(r, t);
+    int second = -1, graze = -1;
+    rz::sweep_packed<kMotion>(ps, p.n, c, qb, best, second, graze);
+    if (rz::settle_winner<kMotion>(ps, p.n, from, r, t, c, qb, best, second,
+                                   graze) &&
+        p.stats)
+      atomicAdd(p.stats + rz::kStatResweeps, 1ull);
     rz::sweep_triangles(s_tri, p.m, r, t, qb, best, is_tri);
 
     bool cont = false;
@@ -197,11 +214,11 @@ __global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
         stride = p.m;
       } else {
         float cx, cy, cz, ccmr2;
-        rz::sphere_at<kMotion>(s_sph, p.n, best, r, t, cx, cy, cz, ccmr2);
+        rz::sphere_at<kMotion>(p.stab, p.n, best, r, t, cx, cy, cz, ccmr2);
         nx = px - cx;
         ny = py - cy;
         nz = pz - cz;
-        mat = s_sph + rz::kPKF * p.n + best;
+        mat = p.stab + rz::kPKF * p.n + best;
         stride = p.n;
       }
       const float ninv =
@@ -233,6 +250,7 @@ __global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
     }
     aux_k[kAuxFlg * cap] = (spawn ? 1.0f : 0.0f) + (cont ? 2.0f : 0.0f);
     active = cont;
+    from = cont && !is_tri ? best : -1;
   }
 
   p.left[slot] = samples + (active ? 1 : 0);
@@ -247,6 +265,7 @@ __global__ void __launch_bounds__(128) record_pp_kernel(Params p) {
     p.cnt_out[0 * cap + slot] = depth;
     p.cnt_out[1 * cap + slot] = samples;
     p.cnt_out[2 * cap + slot] = active ? 1 : 0;
+    p.from_out[slot] = from;
   }
 }
 
@@ -269,11 +288,13 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 extern "C" int rayz_record_pp(const float* cam, const float* stab, int n,
                               const float* ttab, int m, const int* pix,
                               int cap, const float* st_in, const int* cnt_in,
+                              const int* from_in,
                               int* idx, float* aux, int* left, float* st_out,
-                              int* cnt_out, int iters, int width, int spp,
+                              int* cnt_out, int* from_out, int iters,
+                              int width, int spp,
                               int max_depth, float t_min, int jitter,
                               int has_motion, unsigned int seed,
-                              void* stream) {
+                              void* stats, void* stream) {
   Params p;
   p.cam = cam;
   p.stab = stab;
@@ -281,11 +302,13 @@ extern "C" int rayz_record_pp(const float* cam, const float* stab, int n,
   p.pix = pix;
   p.st_in = st_in;
   p.cnt_in = cnt_in;
+  p.from_in = from_in;
   p.idx = idx;
   p.aux = aux;
   p.left = left;
   p.st_out = st_out;
   p.cnt_out = cnt_out;
+  p.from_out = from_out;
   p.n = n;
   p.m = m;
   p.cap = cap;
@@ -296,9 +319,13 @@ extern "C" int rayz_record_pp(const float* cam, const float* stab, int n,
   p.t_min = t_min;
   p.seed = seed;
   p.jitter = jitter != 0;
+  p.stats = static_cast<unsigned long long*>(stats);
   const size_t smem =
-      sizeof(float) * (rz::kCamWords + rz::kSRows * static_cast<size_t>(n) +
-                       rz::kTRows * static_cast<size_t>(m));
+      sizeof(float) *
+      (rz::kCamWords +
+       static_cast<size_t>(has_motion ? rz::packed_words<true>(n)
+                                      : rz::packed_words<false>(n)) +
+       rz::kTRows * static_cast<size_t>(m));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = has_motion ? launch<true>(p, smem, s)
                                    : launch<false>(p, smem, s);

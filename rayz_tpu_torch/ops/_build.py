@@ -86,8 +86,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rayz_megakernel.restype = i
     lib.rayz_rng_bits.argtypes = [u, p, p, p, p, i, p, p]
     lib.rayz_rng_bits.restype = i
+    lib.rayz_megakernel_queue.argtypes = [p, p, i, p, i, i, i, i, f, i, i,
+                                          u, i, i, p, p, p, p, p]
+    lib.rayz_megakernel_queue.restype = i
+    lib.rayz_fold.argtypes = [p, i, ctypes.c_longlong, p, p]
+    lib.rayz_fold.restype = i
     lib.rayz_record_pp.argtypes = [p, p, i, p, i, p, i, p, p, p, p, p, p, p,
-                                   i, i, i, i, f, i, i, u, p]
+                                   p, p, i, i, i, i, f, i, i, u, p, p]
     lib.rayz_record_pp.restype = i
     lib.rayz_gather_fwd.argtypes = [p, i, i, p, i, i, p, p]
     lib.rayz_gather_fwd.restype = i

@@ -2,40 +2,51 @@
 
 PyTorch counterpart of :mod:`rayz_tpu.ops.megakernel`: ``_kernel`` in its
 three table modes, as launched by ``_trace_shard``, the straggler-compacted
-``_trace_shard_compact`` (the default at spp >= 16) and
-``_trace_shard_streamed``:
+``_trace_shard_compact`` and ``_trace_shard_streamed``:
 
 * resident, culling off (the flagship's mode): the full tables in shared
-  memory;
+  memory, swept in the packed coefficient form (``rz::sweep_packed``, its
+  winner settled in the plain version's arithmetic) by the queue kernel;
 * resident, culled (``culling=True``): Morton-sorted tables and per-block
-  bound rows in shared memory;
+  bound rows in shared memory, one thread per slot, compacted at spp >= 16;
 * streamed (a scene beyond one block's shared memory): the tables in device
   memory behind chunk and block bound tests; single launch, no compaction.
 
-The kernel itself is ``csrc/megakernel.cu`` (hand-written CUDA for
-sm_90a); the per-ray device code is in ``csrc/common.cuh``.
+The kernels are ``csrc/megakernel.cu`` (hand-written CUDA for sm_90a); the
+per-ray device code is in ``csrc/common.cuh``.
 
-* :func:`_trace_slots_reference` is the plain torch version of the kernel:
-  the same algorithm in eager torch, vectorized over slots, with a lockstep
-  loop like the TPU tile. It runs for CPU tensors and is what the kernel is
-  held against. It sweeps every column of the tables it is given: the
-  culled and streamed modes test bounds that are conservative, so over the
-  same (sorted) tables they find the same winners, up to exact ties.
-* :func:`_trace_slots` is the kernel wrapper. For a CUDA tensor it launches
-  the kernel (counting the launch in :data:`LAUNCHES`) or raises; only CPU
-  tensors take the plain version.
-* :func:`_trace_shard` (one launch) and :func:`_trace_shard_compact`
+* :func:`_trace_slots_reference` is the plain torch version of the
+  one-thread-per-slot algorithm in any table mode: vectorized over slots,
+  with a lockstep loop like the TPU tile. It runs for CPU tensors and is
+  what the kernels are held against. It sweeps every column of the tables
+  it is given: the culled and streamed modes test bounds that are
+  conservative, so over the same (sorted) tables they find the same
+  winners, up to exact ties; the queue kernel's coefficient-form sweep
+  finds the same winners up to near ties and grazing roots
+  (:mod:`rayz_tpu_torch.ops.sweep`).
+* :func:`_trace_slots` is the culled and streamed kernel's wrapper. For a
+  CUDA tensor it launches the kernel (counting the launch in
+  :data:`LAUNCHES`) or raises; only CPU tensors take the plain version.
+* :func:`_trace_queue` runs the resident mode's two kernels through their
+  wrappers: :func:`_queue`, the queue kernel, whose persistent lanes take
+  (sample, pixel) items from a counter on the card, and :func:`_fold`,
+  which adds each pixel's samples in sample order. Their plain versions
+  are :func:`_queue_reference` (each item through
+  :func:`_trace_items_reference`) and :func:`_fold_reference`.
+* :func:`_trace_shard_queue` (every resident unculled render),
+  :func:`_trace_shard` (one launch) and :func:`_trace_shard_compact`
   (budgeted passes with a stable partition of unfinished slots in between,
-  then the slot -> pixel scatter-back) are the two launch schedules, and
-  :func:`render_megakernel` picks between them as ``render_pallas`` does.
+  then the slot -> pixel scatter-back) are the launch schedules, and
+  :func:`render_megakernel` picks among them.
 
 Random draws are keyed by (seed, pixel, sample, bounce, draw number)
-(:mod:`rayz_tpu_torch.ops.rng`), so compaction reproduces the single launch
-bit for bit even on stochastic configs.
+(:mod:`rayz_tpu_torch.ops.rng`), so every schedule reproduces the single
+launch bit for bit even on stochastic configs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional
 
 import torch
@@ -56,7 +67,8 @@ from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
 __all__ = ["render_megakernel", "LAUNCHES", "MODE_LAUNCHES", "STATE_PLANES",
            "BLOCK", "MODES"]
 
-#: Kernel launches made by :func:`_trace_slots` in this process (never by
+#: Kernel launches made by :func:`_trace_slots`, :func:`_queue` and
+#: :func:`_fold` in this process (never by
 #: the plain version). A run that resets it and reads it back shows which
 #: path it took.
 LAUNCHES = 0
@@ -64,8 +76,9 @@ LAUNCHES = 0
 #: Table modes of the kernel, in the order of its ``mode`` argument.
 MODES = ("resident", "culled", "streamed")
 
-#: The same launches, counted per table mode.
-MODE_LAUNCHES = dict.fromkeys(MODES, 0)
+#: The same launches: the culled and streamed modes', and the resident
+#: mode's queue launches and their folds (:func:`_trace_queue`).
+MODE_LAUNCHES = dict.fromkeys(MODES[1:] + ("queue", "fold"), 0)
 
 #: Saved per-slot state: origin xyz, direction xyz, time, throughput rgb,
 #: radiance rgb, depth left, samples left, active (integers as f32).
@@ -73,6 +86,19 @@ STATE_PLANES = 16
 
 #: Threads per block of the kernel; slot capacity rounds up to whole blocks.
 BLOCK = 128
+
+#: Items a warp of the queue kernel claims with one atomicAdd (``kRun`` in
+#: csrc/megakernel.cu): the queue's counter ends at this many times its
+#: atomics.
+QUEUE_RUN = 64
+
+#: Most bytes of the queue's per-(sample, pixel) radiance buffer; a render
+#: that needs more runs its samples in groups, folded in order.
+QUEUE_BYTES = 1 << 28
+
+#: Blocks of the last queue launch's persistent grid (the card's occupancy
+#: at the launch's shared memory, or fewer for a small render).
+QUEUE_GRID = 0
 
 _TWO_PI = 6.283185307179586
 # Bound on the [slots, primitives] temporaries of the plain sweep.
@@ -439,6 +465,64 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
     return rgb, state
 
 
+def _trace_items_reference(cam: torch.Tensor, stab: torch.Tensor,
+                           ttab: torch.Tensor, pix: torch.Tensor,
+                           sample: torch.Tensor, *, width: int,
+                           max_depth: int, t_min: float, jitter: bool,
+                           has_motion: bool, seed: int,
+                           bits: Optional[Bits] = None) -> torch.Tensor:
+    """Plain torch version of one queue item: the camera sample numbered
+    ``sample`` [I] (1-based, as :func:`_trace_slots_reference` numbers a
+    pixel's samples) of pixel ``pix`` [I], traced to its end with the
+    kernel's keys. Returns the radiance [3, I] it adds to its pixel: the
+    sky term of its miss, or 0 where it is absorbed or runs out of depth."""
+    bits = rng.draw_bits if bits is None else bits
+    f32 = torch.float32
+    pxf = (pix % width).to(f32)
+    pyf = (pix // width).to(f32)
+    key0 = rng.slot_key(seed, pix)
+    o, d, tau = _spawn(cam, pxf, pyf,
+                       rng.step_key(key0, sample, torch.zeros_like(sample)),
+                       jitter, bits)
+    o, d = list(o), list(d)
+    th = [torch.ones_like(pxf) for _ in range(3)]
+    rad = torch.zeros((3, pix.shape[0]), dtype=f32, device=pix.device)
+    live = torch.arange(pix.shape[0], device=pix.device)
+    for b in range(max_depth):
+        if live.numel() == 0:
+            break
+        key = rng.step_key(key0[live], sample[live],
+                           torch.full_like(live, b))
+        qb, best, is_tri, a, tau2 = _nearest(stab, ttab, o, d, tau, t_min,
+                                             has_motion)
+        hit = qb < _BIG
+        dinv = 1.0 / torch.sqrt(torch.clamp_min(a, 1e-24))
+        sky_t = 0.5 * (d[1] * dinv + 1.0)
+        miss = ~hit
+        for c, w in enumerate((0.5, 0.7, 1.0)):
+            rad[c, live[miss]] = (th[c] * ((1.0 - sky_t + w) * sky_t))[miss]
+        p, nrm, front, mat = _hit_frame(stab, ttab, o, d, tau, tau2, a, qb,
+                                        best, is_tri, has_motion)
+        ndir, att, scattered = _scatter(mat, d, dinv, p, nrm, front,
+                                        _key_draws(key, bits))
+        cont = hit & scattered
+        o = [x[cont] for x in p]
+        d = [x[cont] for x in ndir]
+        th = [(t * at)[cont] for t, at in zip(th, att)]
+        tau = tau[cont]
+        live = live[cont]
+    return rad
+
+
+def _fold_reference(out: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the fold kernel: ``acc`` [3, n] plus the
+    samples of ``out`` [s, 3, n], one after another in sample order (the
+    association of :func:`_trace_slots_reference`'s running sums)."""
+    for s in range(out.shape[0]):
+        acc = acc + out[s]
+    return acc
+
+
 # --------------------------------------------------------------------------
 # kernel wrapper
 # --------------------------------------------------------------------------
@@ -482,16 +566,12 @@ def _mode_shared_bytes(mode: int, n_pad: int, m_pad: int, bounds) -> int:
     return shared_bytes(n_pad, m_pad, bounds.blk if mode else 0)
 
 
-def _check_inputs(cam, stab, ttab, pix, resume, bounds=None):
-    dev = pix.device
-    for name, t, dtype in (("cam", cam, torch.float32),
-                           ("stab", stab, torch.float32),
-                           ("ttab", ttab, torch.float32),
-                           ("pix", pix, torch.int32)):
+def _check_tables(cam, stab, ttab, dev, what: str = "pix"):
+    for name, t in (("cam", cam), ("stab", stab), ("ttab", ttab)):
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, pix on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+            raise ValueError(f"{name} is on {t.device}, {what} on {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {torch.float32}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if cam.shape != (18,):
@@ -500,14 +580,23 @@ def _check_inputs(cam, stab, ttab, pix, resume, bounds=None):
         raise ValueError(f"stab must be [17, 8k], got {tuple(stab.shape)}")
     if ttab.dim() != 2 or ttab.shape[0] != 20 or ttab.shape[1] % 8:
         raise ValueError(f"ttab must be [20, 8k], got {tuple(ttab.shape)}")
+
+
+def _check_inputs(cam, stab, ttab, pix, resume, bounds=None):
+    dev = pix.device
+    if pix.dtype != torch.int32:
+        raise ValueError(f"pix must be {torch.int32}, got {pix.dtype}")
+    if not pix.is_contiguous():
+        raise ValueError("pix must be contiguous")
+    _check_tables(cam, stab, ttab, dev)
     if pix.dim() != 1 or pix.shape[0] == 0:
         raise ValueError(f"pix must be a non-empty [cap], got {tuple(pix.shape)}")
     if resume is not None:
         if (resume.device != dev or resume.dtype != torch.float32
                 or not resume.is_contiguous()
                 or resume.shape != (STATE_PLANES, pix.shape[0])):
-            raise ValueError("resume must be a contiguous f32 [16, cap] "
-                             "tensor on pix's device")
+            raise ValueError(f"resume must be a contiguous f32 "
+                             f"[{STATE_PLANES}, cap] tensor on pix's device")
     mode = _mode(bounds)
     if mode:
         _check_bounds(bounds, stab.shape[1], ttab.shape[1], dev)
@@ -525,16 +614,17 @@ def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
                  save_state: bool = False, bounds=None, cull: bool = True,
                  stats: Optional[torch.Tensor] = None):
     """Trace the slots ``pix`` (flat pixel ids, -1 = retired) through the
-    megakernel: camera vector ``cam`` [18], sphere table ``stab`` [17, N]
-    and triangle table ``ttab`` [20, M] (N, M multiples of 8, 0 for an
-    absent class). ``budget`` caps each slot's loop trips (0 = no cap),
-    ``resume`` [16, cap] continues from a saved state, ``save_state`` also
-    returns the state after this launch.
+    culled or streamed megakernel: camera vector ``cam`` [18], sphere table
+    ``stab`` [17, N] and triangle table ``ttab`` [20, M] (N, M multiples of
+    8, 0 for an absent class). ``budget`` caps each slot's loop trips (0 =
+    no cap), ``resume`` [16, cap] continues from a saved state,
+    ``save_state`` also returns the state after this launch.
 
-    ``bounds`` selects the table mode: None (resident, every column), the
-    culled :class:`Tables` the tables came from (block rows), or the
-    :class:`StreamTables` (chunk and block rows, tables read from device
-    memory; ``cull=False`` sweeps every chunk untested). ``stats``, an int64
+    ``bounds`` selects the table mode: the culled :class:`Tables` the
+    tables came from (block rows), or the :class:`StreamTables` (chunk and
+    block rows, tables read from device memory; ``cull=False`` sweeps every
+    chunk untested); None (the resident mode) raises, as that mode is the
+    queue kernel's. ``stats``, an int64
     [8] tensor on the device, receives the culled and streamed modes' work
     counters (segments, primitive tests, bound tests, chunk tests, chunk
     tests passed; see ``rz::Work``).
@@ -543,6 +633,9 @@ def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     tensors run the plain version. Returns (rgb [3, cap], state or None)."""
     global LAUNCHES
     mode = _check_inputs(cam, stab, ttab, pix, resume, bounds)
+    if mode == 0:
+        raise ValueError("the resident mode runs through the queue kernel "
+                         "(_trace_queue); pass culled or streamed bounds")
     kw = dict(width=width, spp=spp, max_depth=max_depth, t_min=t_min,
               jitter=jitter, has_motion=has_motion, seed=seed, budget=budget,
               resume=resume, save_state=save_state)
@@ -559,7 +652,7 @@ def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     rgb = torch.empty((3, cap), dtype=torch.float32, device=pix.device)
     save = (torch.empty((STATE_PLANES, cap), dtype=torch.float32,
                         device=pix.device) if save_state else None)
-    rows = ([bounds.sblk, bounds.tblk] if mode else [None, None]) + (
+    rows = [bounds.sblk, bounds.tblk] + (
         [bounds.scb, bounds.tcb] if mode == 2 else [None, None])
     with torch.cuda.device(pix.device):
         err = lib.rayz_megakernel(
@@ -570,13 +663,149 @@ def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
             width, spp, max_depth, t_min, int(jitter), int(has_motion),
             seed & rng.MASK, budget, mode,
             *(None if t is None else t.data_ptr() for t in rows),
-            bounds.blk if mode else 0, bounds.stream if mode == 2 else 0,
+            bounds.blk, bounds.stream if mode == 2 else 0,
             int(cull), None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream(pix.device).cuda_stream)
     _build.check(lib, err, "megakernel")
     LAUNCHES += 1
     MODE_LAUNCHES[MODES[mode]] += 1
     return rgb, save
+
+
+def _queue_group(spp: int, n_pix: int) -> int:
+    """Samples per queue launch: all ``spp`` unless their radiance buffer
+    [samples, 3, n_pix] would pass :data:`QUEUE_BYTES`."""
+    return max(1, min(spp, QUEUE_BYTES // (12 * n_pix)))
+
+
+def _queue_reference(cam, stab, ttab, n_pix: int, s0: int, n_samples: int,
+                     *, width: int, max_depth: int, t_min: float,
+                     jitter: bool, has_motion: bool, seed: int,
+                     bits: Optional[Bits] = None, stats=None) -> torch.Tensor:
+    """Plain torch version of one queue launch (same arguments as
+    :func:`_queue`; ``stats`` counts what only the kernel does, so it is
+    not read here): every (sample, pixel) item of samples [s0, s0 +
+    n_samples) through :func:`_trace_items_reference`. Returns the
+    radiance [n_samples, 3, n_pix]."""
+    dev = cam.device
+    pix = torch.arange(n_pix, dtype=torch.int32, device=dev)
+    sample = torch.arange(s0 + 1, s0 + n_samples + 1, dtype=torch.int32,
+                          device=dev)
+    rad = _trace_items_reference(
+        cam, stab, ttab, pix.repeat(n_samples),
+        sample.repeat_interleave(n_pix), width=width, max_depth=max_depth,
+        t_min=t_min, jitter=jitter, has_motion=has_motion, seed=seed,
+        bits=bits)
+    return rad.reshape(3, n_samples, n_pix).transpose(0, 1).contiguous()
+
+
+def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
+           n_pix: int, s0: int, n_samples: int, *, width: int,
+           max_depth: int, t_min: float, jitter: bool, has_motion: bool,
+           seed: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the queue kernel over samples [s0, s0 + n_samples) of
+    pixels [0, n_pix), resident tables (camera vector ``cam`` [18], sphere
+    table ``stab`` [17, N], triangle table ``ttab`` [20, M]): a persistent
+    grid whose lanes take (sample, pixel) items from a counter on the card
+    and trace each to its end. ``stats``, an int64 [8] tensor on the
+    device, receives the ray segments (0), the re-sweeps in today's
+    arithmetic (5), the lane-trips of the warps that ran (6) and the items
+    claimed from the counter (7; :data:`QUEUE_RUN` per atomic).
+
+    CUDA tensors launch the kernel on the current stream (or raise); CPU
+    tensors run the plain version. Returns the radiance [n_samples, 3,
+    n_pix] each item adds to its pixel."""
+    global LAUNCHES, QUEUE_GRID
+    dev = cam.device
+    _check_tables(cam, stab, ttab, dev, "cam")
+    if n_pix <= 0 or n_samples <= 0 or s0 < 0:
+        raise ValueError(f"nothing to trace: {n_pix} pixels, samples "
+                         f"[{s0}, {s0 + n_samples})")
+    smem = shared_bytes(stab.shape[1], ttab.shape[1])
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"scene tables need {smem} bytes of shared memory "
+                         f"(> {SHARED_LIMIT} per block on an H100)")
+    kw = dict(width=width, max_depth=max_depth, t_min=t_min, jitter=jitter,
+              has_motion=has_motion, seed=seed)
+    if dev.type == "cpu":
+        return _queue_reference(cam, stab, ttab, n_pix, s0, n_samples, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"no megakernel for device {dev}")
+    if stats is not None and (stats.device != dev
+                              or stats.dtype != torch.int64
+                              or stats.shape != (8,)):
+        raise ValueError("stats must be an int64 [8] tensor on cam's device")
+    lib, _ = _build.load()
+    out = torch.empty((n_samples, 3, n_pix), dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.rayz_megakernel_queue(
+            cam.data_ptr(), stab.data_ptr(), stab.shape[1], ttab.data_ptr(),
+            ttab.shape[1], n_pix, width, max_depth, t_min, int(jitter),
+            int(has_motion), seed & rng.MASK, s0, n_samples,
+            counter.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            ctypes.addressof(grid), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "megakernel_queue")
+    LAUNCHES += 1
+    MODE_LAUNCHES["queue"] += 1
+    QUEUE_GRID = grid.value
+    if stats is not None:
+        stats[7] += counter[0]
+    return out
+
+
+def _fold(out: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Add the samples of ``out`` [s, 3, n] to the sums ``acc`` [3, n]
+    (float32, contiguous, one device) one after another, in sample order,
+    through the fold kernel (in place on ``acc``, which is returned) or, for
+    CPU tensors, its plain version (a new tensor)."""
+    global LAUNCHES
+    if (out.dim() != 3 or acc.shape != out.shape[1:]
+            or out.dtype != torch.float32 or acc.dtype != torch.float32
+            or out.device != acc.device or not out.is_contiguous()
+            or not acc.is_contiguous()):
+        raise ValueError(f"fold: out [s, 3, n] and acc [3, n], contiguous "
+                         f"f32 on one device; got {tuple(out.shape)} "
+                         f"{out.dtype}, {tuple(acc.shape)} {acc.dtype}")
+    if out.device.type == "cpu":
+        return _fold_reference(out, acc)
+    if out.device.type != "cuda":
+        raise ValueError(f"no fold kernel for device {out.device}")
+    lib, _ = _build.load()
+    with torch.cuda.device(out.device):
+        err = lib.rayz_fold(out.data_ptr(), out.shape[0], acc.numel(),
+                            acc.data_ptr(),
+                            torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(lib, err, "fold")
+    LAUNCHES += 1
+    MODE_LAUNCHES["fold"] += 1
+    return acc
+
+
+def _trace_queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
+                 n_pix: int, *, width: int, spp: int, max_depth: int,
+                 t_min: float, jitter: bool, has_motion: bool, seed: int,
+                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Trace the ``spp`` samples of pixels [0, n_pix) through the queue
+    kernel and fold them: per sample group (:func:`_queue_group`) one
+    :func:`_queue` launch, then one :func:`_fold` adding the group's
+    samples to each pixel in sample order. Keys, sample numbers and the
+    order of the sums are :func:`_trace_slots_reference`'s. ``stats`` as :func:`_queue`'s, summed over the groups.
+    Returns rgb [3, n_pix] radiance sums."""
+    if spp <= 0:
+        raise ValueError(f"nothing to trace: {spp} spp")
+    acc = torch.zeros((3, max(n_pix, 0)), dtype=torch.float32,
+                      device=cam.device)
+    group = _queue_group(spp, max(n_pix, 1))
+    for s0 in range(0, spp, group):
+        out = _queue(cam, stab, ttab, n_pix, s0, min(group, spp - s0),
+                     width=width, max_depth=max_depth, t_min=t_min,
+                     jitter=jitter, has_motion=has_motion, seed=seed,
+                     stats=stats)
+        acc = _fold(out, acc)
+    return acc
 
 
 # --------------------------------------------------------------------------
@@ -612,8 +841,8 @@ def _trace_shard(scene: Scene, camera: Camera, seed: int, n_local: int, *,
                  spp: int, max_depth: int, t_min: float, jitter: bool,
                  unroll: int, blk: int = 0, stream: int = 0,
                  cull: bool = True) -> torch.Tensor:
-    """Trace pixels [0, n_local) in one launch, in the table mode that
-    ``blk``/``stream`` select (streamed, it is JAX's
+    """Trace pixels [0, n_local) in one launch, in the culled or streamed
+    table mode that ``blk``/``stream`` select (streamed, it is JAX's
     ``_trace_shard_streamed``); returns flat [n_local, 3] radiance sums
     (divide by spp for the image)."""
     args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
@@ -624,11 +853,25 @@ def _trace_shard(scene: Scene, camera: Camera, seed: int, n_local: int, *,
     return rgb[:, :n_local].T
 
 
+def _trace_shard_queue(scene: Scene, camera: Camera, seed: int,
+                       n_local: int, *, spp: int, max_depth: int,
+                       t_min: float, jitter: bool, unroll: int,
+                       stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Trace pixels [0, n_local) through the queue kernel and its fold
+    (resident tables, culling off): JAX's resident ``_trace_shard`` and
+    ``_trace_shard_compact``. Returns flat [n_local, 3] radiance sums."""
+    (cam, stab, ttab), kw = _launch_args(
+        scene, camera, seed, spp=spp, max_depth=max_depth, t_min=t_min,
+        jitter=jitter, unroll=unroll)
+    del kw["bounds"], kw["cull"]
+    return _trace_queue(cam, stab, ttab, n_local, stats=stats, **kw).T
+
+
 def _trace_shard_compact(scene: Scene, camera: Camera, seed: int,
                          n_local: int, *, spp: int, max_depth: int,
                          t_min: float, jitter: bool, unroll: int,
                          budget: int = 32, passes: int = 26,
-                         blk: int = 0) -> torch.Tensor:
+                         blk: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Straggler-compacted respawn: the budgeted multi-pass variant of
     :func:`_trace_shard`. A single launch runs each block until its last
     slot finishes all spp samples, and per-pixel path cost varies widely
@@ -637,7 +880,7 @@ def _trace_shard_compact(scene: Scene, camera: Camera, seed: int,
     are stable-partitioned so unfinished ones pack densely at the front;
     the last pass runs unbounded, so every sample is traced to the end.
     Draws depend only on each slot's own state, so the result is the single
-    launch's, bit for bit. Resident modes only (culled with ``blk > 0``)."""
+    launch's, bit for bit. Culled tables only (``blk > 0``)."""
     args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
                             t_min=t_min, jitter=jitter, unroll=unroll,
                             blk=blk)
@@ -685,10 +928,14 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
       mode); ``True`` Morton-sorts them into blocks of ``block_size`` behind
       bound tests. Streamed scenes always test chunk and block bounds
       (blocks of :data:`STREAM_BLOCK`) unless ``culling=False``.
-    * ``budget``/``passes``: the straggler-compacted schedule. Defaults: 10
-      passes of ``budget=spp`` trips for resident scenes at spp >= 16, a
-      single launch below; ``passes=0`` forces the single launch. Streamed
-      renders take one launch. Any schedule renders the same bits."""
+    * ``budget``/``passes``: the culled mode's schedule, straggler-
+      compacted passes of ``budget`` trips (defaults: 10 passes of ``spp``
+      trips at spp >= 16, a single launch below; ``passes=0`` forces the
+      single launch). Resident renders without culling always take the
+      queue (:func:`_trace_shard_queue`: a persistent grid whose lanes take
+      (sample, pixel) items from a counter on the card, then an in-order
+      fold), which leaves no straggler tail to compact; streamed renders
+      take one launch. Every schedule renders the same bits."""
     if not supports_scene(scene):
         if scene.deep_checker:
             raise ValueError(
@@ -722,13 +969,17 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
             raise ValueError(
                 f"scene tables exceed one block's {SHARED_LIMIT} bytes of "
                 "shared memory; stream them (stream=None picks that)")
+    h, w = camera.height, camera.width
+    kw = dict(spp=config.spp, max_depth=config.max_depth, t_min=config.t_min,
+              jitter=config.jitter, unroll=unroll)
+    if not (stream or blk):
+        flat = _trace_shard_queue(scene, camera, seed, h * w, **kw)
+        return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)
     if passes is None:
         passes = 10 if config.spp >= 16 else 0
     if budget is None:
         budget = config.spp
-    h, w = camera.height, camera.width
-    kw = dict(spp=config.spp, max_depth=config.max_depth, t_min=config.t_min,
-              jitter=config.jitter, unroll=unroll, blk=blk)
+    kw["blk"] = blk
     if passes > 1:
         flat = _trace_shard_compact(scene, camera, seed, h * w,
                                     budget=budget, passes=passes, **kw)

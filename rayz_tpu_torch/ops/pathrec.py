@@ -156,9 +156,10 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
                             max_depth: int, t_min: float, jitter: bool,
                             has_motion: bool, seed: int, iters: int,
                             init_state=None, want_state: bool = False,
-                            bits: Optional[Bits] = None):
+                            bits: Optional[Bits] = None, stats=None):
     """Plain torch version of the recorder (same arguments as
-    :func:`_record_slots`), lockstep over all slots like the TPU tile.
+    :func:`_record_slots`; ``stats`` counts what only the kernel does, so
+    it is not read here), lockstep over all slots like the TPU tile.
     ``bits(key, n)`` supplies draw ``n`` under the per-step keys (default
     :func:`rng.draw_bits`); returning zeros reproduces what the JAX Pallas
     interpreter draws. A slot with no work writes index -2 and zero aux."""
@@ -169,7 +170,7 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
     pxf = (pp % width).to(f32)
     pyf = (pp // width).to(f32)
     if init_state is not None:
-        st, cnt = init_state
+        st, cnt, frm = init_state
         ox, oy, oz, dx, dy, dz, tau = st.unbind()
         depth, samples, active = cnt[0], cnt[1], cnt[2] > 0
     else:
@@ -178,6 +179,7 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
         depth = torch.zeros(cap, dtype=i32, device=dev)
         samples = torch.where(pix >= 0, spp, 0).to(i32)
         active = torch.zeros(cap, dtype=torch.bool, device=dev)
+        frm = torch.full((cap,), -1, dtype=i32, device=dev)
     key0 = rng.slot_key(seed, pix)
     idx = torch.full((iters, cap), -2, dtype=i32, device=dev)
     aux = torch.zeros((iters, _AUX_ROWS, cap), dtype=f32, device=dev)
@@ -225,12 +227,14 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
                       for new, old in zip(ndir, d))
         depth = depth - cont.to(i32)
         active = cont
+        frm = torch.where(cont & ~is_tri, best, -1).to(i32)
 
     left = samples + active.to(i32)
     if not want_state:
         return idx, aux, left, None
     return idx, aux, left, (torch.stack([ox, oy, oz, dx, dy, dz, tau]),
-                            torch.stack([depth, samples, active.to(i32)]))
+                            torch.stack([depth, samples, active.to(i32)]),
+                            frm)
 
 
 def _check_record_inputs(cam, stab, ttab, pix, iters, init_state):
@@ -258,12 +262,17 @@ def _check_record_inputs(cam, stab, ttab, pix, iters, init_state):
         raise ValueError(f"iters must be >= 1, got {iters}")
     if init_state is not None:
         cap = pix.shape[0]
-        for name, t, dtype, rows in (("st", init_state[0], torch.float32, 7),
-                                     ("cnt", init_state[1], torch.int32, 3)):
+        if len(init_state) != 3:
+            raise ValueError("init_state must be the (st, cnt, from) a "
+                             "recording returned")
+        for name, t, dtype, shape in (
+                ("st", init_state[0], torch.float32, (7, cap)),
+                ("cnt", init_state[1], torch.int32, (3, cap)),
+                ("from", init_state[2], torch.int32, (cap,))):
             if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
-                    or t.shape != (rows, cap)):
+                    or t.shape != shape):
                 raise ValueError(f"init_state {name} must be a contiguous "
-                                 f"{dtype} [{rows}, {cap}] tensor on {dev}")
+                                 f"{dtype} {list(shape)} tensor on {dev}")
     smem = shared_bytes(stab.shape[1], ttab.shape[1])
     if smem > SHARED_LIMIT:
         raise ValueError(f"scene tables need {smem} bytes of shared memory "
@@ -277,11 +286,17 @@ def _ptr(t: Optional[torch.Tensor]):
 def _record_slots(cam, stab, ttab, pix, *, width: int, spp: int,
                   max_depth: int, t_min: float, jitter: bool,
                   has_motion: bool, seed: int, iters: int, init_state=None,
-                  want_state: bool = False):
+                  want_state: bool = False,
+                  stats: Optional[torch.Tensor] = None):
     """Record ``iters`` iterations of the slots ``pix`` (flat pixel ids, -1
     = no pixel): camera vector ``cam`` [18], sphere table ``stab`` [17, N],
     triangle table ``ttab`` [20, M] (0 columns for an absent class),
-    ``init_state`` = (st [7, cap] f32, cnt [3, cap] i32) to resume.
+    ``init_state`` = (st [7, cap] f32, cnt [3, cap] i32, from [cap] i32)
+    to resume (``from``: the sphere column each slot's ray leaves, -1 if
+    none, which the kernel tests in the plain version's arithmetic).
+    ``stats``, an int64 [8] tensor on the device, counts the kernel's
+    re-sweeps in today's arithmetic at index 5 (``rz::settle_winner``; the
+    plain version sweeps in that arithmetic only and counts nothing).
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns (idx [iters, cap] i32, aux
@@ -294,6 +309,10 @@ def _record_slots(cam, stab, ttab, pix, *, width: int, spp: int,
         return _record_slots_reference(cam, stab, ttab, pix, **kw)
     if pix.device.type != "cuda":
         raise ValueError(f"no record kernel for device {pix.device}")
+    if stats is not None and (stats.device != pix.device
+                              or stats.dtype != torch.int64
+                              or stats.shape != (8,)):
+        raise ValueError("stats must be an int64 [8] tensor on pix's device")
     lib, _ = _build.load()
     dev, cap = pix.device, pix.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -301,21 +320,40 @@ def _record_slots(cam, stab, ttab, pix, *, width: int, spp: int,
     aux = torch.empty((iters, _AUX_ROWS, cap), dtype=f32, device=dev)
     left = torch.empty(cap, dtype=i32, device=dev)
     state = ((torch.empty((7, cap), dtype=f32, device=dev),
-              torch.empty((3, cap), dtype=i32, device=dev))
+              torch.empty((3, cap), dtype=i32, device=dev),
+              torch.empty(cap, dtype=i32, device=dev))
              if want_state else None)
-    st_in, cnt_in = init_state if init_state is not None else (None, None)
-    st_out, cnt_out = state if state is not None else (None, None)
+    st_in, cnt_in, from_in = (init_state if init_state is not None
+                              else (None, None, None))
+    st_out, cnt_out, from_out = state if state is not None else (None,) * 3
     with torch.cuda.device(dev):
         err = lib.rayz_record_pp(
             cam.data_ptr(), stab.data_ptr(), stab.shape[1], ttab.data_ptr(),
             ttab.shape[1], pix.data_ptr(), cap, _ptr(st_in), _ptr(cnt_in),
-            idx.data_ptr(), aux.data_ptr(), left.data_ptr(), _ptr(st_out),
-            _ptr(cnt_out), iters, width, spp, max_depth, t_min, int(jitter),
-            int(has_motion), seed & rng.MASK,
+            _ptr(from_in), idx.data_ptr(), aux.data_ptr(), left.data_ptr(),
+            _ptr(st_out), _ptr(cnt_out), _ptr(from_out), iters, width, spp,
+            max_depth, t_min, int(jitter),
+            int(has_motion), seed & rng.MASK, _ptr(stats),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "record_pp")
     LAUNCHES["record_pp"] += 1
     return idx, aux, left, state
+
+
+def _scene_record_inputs(scene: Scene, camera: Camera):
+    """The recorder's inputs: camera vector [18], sphere table [17, N] and
+    triangle table [20, M] (0 columns for an absent class, not padded),
+    contiguous, built without autograd."""
+    n_pad = int(scene.sphere_radius.shape[0]) if scene.n_spheres > 0 else 0
+    m_pad = int(scene.tri_material.shape[0]) if scene.n_triangles > 0 else 0
+    dev, f32 = scene.device, torch.float32
+    with torch.no_grad():
+        stab = (scene_tables(scene) if n_pad
+                else torch.zeros((_NROWS, 0), dtype=f32, device=dev))
+        ttab = (tri_tables(scene) if m_pad
+                else torch.zeros((_TNROWS, 0), dtype=f32, device=dev))
+        cam = _camera_vector(camera)
+    return cam.contiguous(), stab.contiguous(), ttab.contiguous()
 
 
 def record_pp(scene: Scene, camera: Camera, seed: int, pix: torch.Tensor, *,
@@ -326,8 +364,12 @@ def record_pp(scene: Scene, camera: Camera, seed: int, pix: torch.Tensor, *,
     multiple of 8 as in the JAX package. Returns (idx [iters, cap] i32,
     aux [iters, 13, cap] f32, leftover [cap] i32); with ``want_state=True``
     also the final state (st [7, cap] f32: o, d, tau; cnt [3, cap] i32:
-    depth left, samples left, active), which ``init_state`` takes back to
-    RESUME the recording where it stopped, with the same ``seed``.
+    depth left, samples left, active; from [cap] i32: the sphere column the
+    ray leaves, -1 if none), which ``init_state`` takes back to RESUME the
+    recording where it stopped, with the same ``seed``. ``init_state`` also
+    takes an (st, cnt) pair, as earlier versions returned: it resumes with
+    no sphere left (from = -1), so the kernel does not re-test that sphere
+    in the plain version's arithmetic.
     Non-differentiable: the tables are built without autograd.
 
     Triangle winners are recorded as the raw sphere count plus their
@@ -341,17 +383,11 @@ def record_pp(scene: Scene, camera: Camera, seed: int, pix: torch.Tensor, *,
             f"{SHARED_LIMIT} bytes of shared memory on an H100, and this "
             "recorder does not stream; engine='recorded' (the bounce-indexed "
             "recorder, ops/diffkernel.py) streams such scenes")
-    n_pad = int(scene.sphere_radius.shape[0]) if scene.n_spheres > 0 else 0
-    m_pad = int(scene.tri_material.shape[0]) if scene.n_triangles > 0 else 0
-    dev, f32 = scene.device, torch.float32
-    with torch.no_grad():
-        stab = (scene_tables(scene) if n_pad
-                else torch.zeros((_NROWS, 0), dtype=f32, device=dev))
-        ttab = (tri_tables(scene) if m_pad
-                else torch.zeros((_TNROWS, 0), dtype=f32, device=dev))
-        cam = _camera_vector(camera)
+    if init_state is not None and len(init_state) == 2:
+        init_state = (*init_state, torch.full_like(pix, -1))
+    cam, stab, ttab = _scene_record_inputs(scene, camera)
     idx, aux, left, state = _record_slots(
-        cam.contiguous(), stab.contiguous(), ttab.contiguous(), pix,
+        cam, stab, ttab, pix,
         width=camera.width, spp=spp, max_depth=max_depth, t_min=t_min,
         jitter=jitter, has_motion=scene.has_motion, seed=int(seed),
         iters=iters, init_state=init_state, want_state=want_state)
@@ -1183,7 +1219,7 @@ def render_diff_pp_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
         # assert on out-of-range indices, where JAX's drop them)
         rad, fin_cur = _replay(idx, aux, return_final=True)
         rad = torch.cat([rad, rad.new_zeros((1, 3))])
-        st_cur, cnt_cur = rec[3]
+        st_cur, cnt_cur, from_cur = rec[3]
         left_cur, pix_cur, map_cur = left, pix, None
         overflow = torch.zeros((), dtype=torch.int64, device=dev)
         for j, (kj, capj) in enumerate(schedule[1:]):
@@ -1201,10 +1237,12 @@ def render_diff_pp_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
             cst = torch.where(valid_c, st_cur[:, safe], 0.0).contiguous()
             # invalid compact slots: zero counters -> idle from iteration 0
             ccnt = torch.where(valid_c, cnt_cur[:, safe], 0).to(torch.int32)
+            cfrom = torch.where(valid_c, from_cur[safe], -1).to(torch.int32)
             st0 = torch.where(valid_c, fin_cur[:, safe],
                               _default_carry(capj, fin_cur.dtype, dev))
             recj = record_pp(scene, camera, seed, cpix, iters=kj,
-                             init_state=(cst, ccnt.contiguous()),
+                             init_state=(cst, ccnt.contiguous(),
+                                         cfrom.contiguous()),
                              want_state=not last, **rec_kw)
             idxj, auxj, leftj = recj[:3]
             if last:
@@ -1212,7 +1250,7 @@ def render_diff_pp_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
             else:
                 radj, fin_cur = _replay(idxj, auxj, init_carry=st0,
                                         return_final=True)
-                st_cur, cnt_cur = recj[3]
+                st_cur, cnt_cur, from_cur = recj[3]
             rad = rad.index_add(0, torch.where(valid_c, orig, r_pad), radj)
             overflow = overflow + torch.where(strag & (pos >= capj),
                                               left_cur, 0).sum()

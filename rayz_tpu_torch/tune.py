@@ -22,22 +22,26 @@ beforehand), the table prep's host-clock milliseconds, its work counters
 and the share of indices equal to the first setting's (they differ only at
 exact ties).
 
-``ab`` times the megakernel of several checkouts of this package against
-each other in one process tree: every TREE is a directory holding a
-``rayz_tpu_torch`` package; each round runs one child process per tree, in
-alternating order, which builds that tree's kernels (once, into
-``TREE/build/kernels``) and prints the flagship forward (``random_bouncing``
-512x512, 64 spp, depth 32, compacted and single launch) and the streamed
-megakernel and ``render_fast`` (the wavefront) on ``sphere_field`` 100k,
-with a digest of each image; the ``"recorded"`` engine's value and
-gradient of ``pixel_loss`` on the flagship at 2 spp (host clock, Mrays/s,
-median of 3 after a warm-up); then the bounce-indexed recorder's streamed
-pass on the 100k scene (``record_paths``, 1 spp, depth 8, its tables built
-in the call) and the gather backward at :data:`GATHER_BWD_SHAPES` in the
-[C, R] layout, each in CUDA-event milliseconds. The child runs this file's code against the tree's package,
-so trees that predate a measurement are measured too. Lines start with
-``[tiling]``, ``[record]`` or ``[ab]``; each names the card and its power
-limit.
+``ab`` times several checkouts of this package against each other in one
+process tree: every TREE is a directory holding a ``rayz_tpu_torch``
+package; each round runs one child process per tree, in alternating order,
+which builds that tree's kernels (once, into ``TREE/build/kernels``) and
+prints the flagship forward (``random_bouncing`` 512x512, 64 spp, depth 32,
+through ``render_fast``: the tree's default schedule) and the streamed megakernel and ``render_fast`` (the
+wavefront) on ``sphere_field`` 100k, with a digest of each image; the
+``recorded-pp`` train step at bench.py's ``fwdbwd`` shape (two
+value-and-gradient micro-batches of 32 spp on the flagship, gradients
+summed) and the ``"recorded"`` engine's value and gradient at 2 spp (host
+clock, Mrays/s, median of 3 after a warm-up); then the recorder's first
+flagship pass (``record_pp``, 262,144 slots, 112 iterations), the
+bounce-indexed recorder's streamed pass on the 100k scene
+(``record_paths``, 1 spp, depth 8, its tables built in the call) and the
+gather backward at :data:`GATHER_BWD_SHAPES` in the [C, R] layout, each
+in CUDA-event milliseconds; and once per tree the sphere sweep's ptxas
+report and SASS instructions per column (``sass_sweep``). The child runs
+this file's code against the tree's package, so trees that predate a
+measurement are measured too. Lines start with ``[tiling]``, ``[record]``
+or ``[ab]``; each names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -74,6 +78,81 @@ def gather_indices(r: int, p: int, dev, g) -> torch.Tensor:
     idx[g.integers(0, r, 512)] = -1
     idx[g.integers(0, r, 64)] = p + 3
     return torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+#: Kernels whose sphere sweep ``sass_sweep`` dissects, by a fragment of
+#: their mangled names (a tree has one of the two resident kernels: the
+#: one-thread-per-slot ``megakernel`` of earlier trees, or the queue).
+SWEEP_KERNELS = (("record_pp", "record_pp_kernelILb1"),
+                 ("megakernel", "10megakernelILb1"),
+                 ("megakernel_queue", "megakernel_queueILb1"))
+#: The sphere sweep loops' #pragma unroll.
+SWEEP_UNROLL = 8
+
+
+def ptxas_facts(log: str) -> dict:
+    """Registers, stack and spills ptxas reported for SWEEP_KERNELS."""
+    lines = log.splitlines()
+    out = {}
+    for name, frag in SWEEP_KERNELS:
+        for i, ln in enumerate(lines):
+            if "Function properties for" in ln and frag in ln:
+                out[name] = " ".join(x.split(":", 1)[-1].strip()
+                                     for x in lines[i + 1:i + 3])
+    return out
+
+
+def sass_sweep(lib_path) -> dict:
+    """Instructions per column of each SWEEP_KERNELS sphere sweep, from
+    ``cuobjdump -sass`` of a built kernel library: the loop (a backward
+    branch, under 1,500 instructions) that reads shared memory and takes
+    square roots (``MUFU.RSQ``/``MUFU.SQRT``; the triangle sweep takes
+    reciprocals), its opcodes counted and divided by the unroll. Predicated
+    instructions issue whether their predicate holds or not; a branch's
+    target block issues only when taken."""
+    import collections
+    import re
+    from rayz_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :")[1].strip()
+            funcs[cur] = []
+        elif cur is not None:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+            if m:
+                funcs[cur].append((int(m.group(1), 16), m.group(2).strip()))
+
+    def opcode(t):
+        return re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+
+    out = {}
+    for name, frag in SWEEP_KERNELS:
+        ins = next((v for k, v in funcs.items() if frag in k), None)
+        if ins is None:
+            continue
+        best = None
+        for addr, t in ins:
+            m = re.search(r"BRA.*?0x([0-9a-f]+)", t)
+            if not (m and int(m.group(1), 16) < addr):
+                continue
+            lo = int(m.group(1), 16)
+            body = [opcode(x) for a, x in ins if lo <= a <= addr]
+            roots = sum(o in ("MUFU.RSQ", "MUFU.SQRT") for o in body)
+            lds = sum(o.startswith("LDS") for o in body)
+            if roots >= SWEEP_UNROLL and lds and len(body) < 1500 and (
+                    best is None or len(body) < len(best)):
+                best = body
+        if best is None:
+            continue
+        ops = collections.Counter(o.split(".")[0] if not o.startswith("LD")
+                                  else o for o in best)
+        out[name] = {k: v / SWEEP_UNROLL for k, v in ops.most_common()}
+        out[name]["total"] = len(best) / SWEEP_UNROLL
+    return out
 
 
 def _card() -> str:
@@ -203,14 +282,17 @@ def render() -> None:
     this tree's package; prints one JSON line."""
     import rayz_tpu_torch as rtt
 
+    from rayz_tpu_torch.ops import _build
+
     scene, cam = rtt.scenes.random_bouncing(width=512, height=512)
     cfg = rtt.RenderConfig(spp=64, max_depth=32)
-    out = {}
-    for label, kw in (("compact", {}), ("single", dict(passes=0))):
-        def run(s, kw=kw):
-            return rtt.render_megakernel(scene, cam, s, cfg, **kw)
-        out[label] = _mrays(512 * 512 * 64, run)
-        out[label + "_digest"] = _digest(run(1))
+    _, info = _build.load()
+    out = {"ptxas": ptxas_facts(info.log), "sass": sass_sweep(info.path)}
+
+    def run(s):
+        return rtt.render_fast(scene, cam, s, cfg)
+    out["forward"] = _mrays(512 * 512 * 64, run)
+    out["forward_digest"] = _digest(run(1))
     field, fcam = rtt.scenes.sphere_field(n=100_000, width=LARGE["width"])
     fcfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
 
@@ -235,6 +317,25 @@ def render() -> None:
                             / 1e6 for s in range(1, 4)]
 
     from rayz_tpu_torch.ops import diffkernel as dk, pathrec as pr
+    # bench.py's fwdbwd: two value-and-gradient micro-batches of 32 spp
+    # through recorded-pp, gradients summed
+    mcfg = rtt.RenderConfig(spp=32, max_depth=32)
+    full = rtt.render_fast(scene, cam, 0, cfg)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in rtt.extract_params(scene).items()}
+
+    def fwdbwd(s):
+        for m in range(2):
+            loss = rtt.pixel_loss(params, scene, cam, 2 * s + m, full, mcfg,
+                                  "recorded-pp")
+            loss.backward()
+    fwdbwd(0)
+    out["recorded_pp_step"] = [512 * 512 * 64 / _timed(lambda s=s: fwdbwd(s))
+                               / 1e6 for s in range(1, 4)]
+    pix = torch.arange(512 * 512, dtype=torch.int32, device="cuda")
+    out["record_pp"] = _event_ms(lambda: pr.record_pp(
+        scene, cam, 1, pix, spp=32, max_depth=32, t_min=1e-3, jitter=True,
+        iters=pr.default_k1(32)), 3)
     pix = torch.arange(fcam.width * fcam.height, dtype=torch.int32,
                        device="cuda")
     inputs = (*dk._camera_rays(fcam, 1, pix, 0, True),
@@ -250,6 +351,12 @@ def render() -> None:
             lambda: pr._gather_bwd(cot, idx, p, True), 10))
         del cot
     print(json.dumps(out), flush=True)
+
+
+#: The forward measurements of ``render``: the flagship through
+#: ``render_fast`` (the main path), and the 100k-sphere scene through the
+#: streamed megakernel and ``render_fast`` (the wavefront).
+_FORWARD = ("forward", "streamed", "wavefront")
 
 
 def _child(tree: str, what: str) -> subprocess.CompletedProcess:
@@ -284,28 +391,38 @@ def ab(trees, rounds: int) -> None:
                 raise RuntimeError(f"{t} failed:\n{proc.stdout}{proc.stderr}")
             res = json.loads(proc.stdout.strip().splitlines()[-1])
             runs[t].append(res)
-            print(f"[ab] round {k} {t}: compact "
-                  f"{statistics.median(res['compact']):.3f}, single "
-                  f"{statistics.median(res['single']):.3f}, streamed 100k "
-                  f"{statistics.median(res['streamed']):.3f}, wavefront "
-                  f"100k {statistics.median(res['wavefront']):.3f}, "
+            print(f"[ab] round {k} {t}: "
+                  + ", ".join(f"{key} {statistics.median(res[key]):.3f} "
+                              f"(digest {res[key + '_digest']})"
+                              for key in _FORWARD)
+                  + " Mrays/s; recorded-pp step "
+                  f"{statistics.median(res['recorded_pp_step']):.4f}, "
                   f"recorded step "
-                  f"{statistics.median(res['recorded_step']):.4f} Mrays/s "
-                  f"(digests {res['compact_digest']} {res['single_digest']} "
-                  f"{res['streamed_digest']} {res['wavefront_digest']}); "
+                  f"{statistics.median(res['recorded_step']):.4f} Mrays/s; "
+                  f"record_pp first pass {res['record_pp']:.3f} ms; "
                   f"streamed record pass "
                   f"{res['record_streamed']:.3f} ms; gather backward "
                   + ", ".join(f"{ms:.4f}" for ms in res["gather_bwd"])
                   + f" ms | {card}", flush=True)
     for t in trees:
+        first = runs[t][0]
+
+        def ops(v):
+            return ", ".join(f"{o} {n:g}" for o, n in v.items()
+                             if o != "total")
+        print(f"[ab] {t}: ptxas {first['ptxas']}; sphere sweep per column "
+              + "; ".join(f"{k} {v['total']:.3f} instructions ({ops(v)})"
+                          for k, v in first["sass"].items())
+              + f" | {card}", flush=True)
         line = []
-        for key in ("compact", "single", "streamed", "wavefront",
-                    "recorded_step"):
+        for key in _FORWARD + ("recorded_pp_step", "recorded_step"):
             meds = [statistics.median(r[key]) for r in runs[t]]
             line.append(f"{key} median {statistics.median(meds):.3f} "
                         f"(rounds {min(meds):.3f}-{max(meds):.3f})")
-        line.append("record pass ms median {:.3f}".format(statistics.median(
-            r["record_streamed"] for r in runs[t])))
+        for key in ("record_pp", "record_streamed"):
+            ms = [r[key] for r in runs[t]]
+            line.append(f"{key} ms median {statistics.median(ms):.3f} "
+                        f"(rounds {min(ms):.3f}-{max(ms):.3f})")
         for i, (r_, p_) in enumerate(GATHER_BWD_SHAPES):
             ms = [r["gather_bwd"][i] for r in runs[t]]
             line.append(f"gather backward R={r_} P={p_} ms median "

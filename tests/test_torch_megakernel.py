@@ -146,8 +146,8 @@ def test_zero_bits_matches_jax_interpreter(recipe, monkeypatch):
         assert jscene.uniq_dielectric_mat == -2  # JAX full-table mode
     want = np.asarray(render_pallas(jscene, jcam, 0, rt.RenderConfig(**cfg),
                                     interpret=True))
-    monkeypatch.setattr(mk, "_trace_slots", functools.partial(
-        mk._trace_slots_reference, bits=_zero_bits))
+    monkeypatch.setattr(mk, "_queue", functools.partial(
+        mk._queue_reference, bits=_zero_bits))
     scene, cam, tcfg = _port(recipe)
     got = rtt.render_megakernel(scene, cam, 0, tcfg).numpy()
     assert got.shape == want.shape
@@ -158,21 +158,23 @@ def test_zero_bits_matches_jax_interpreter(recipe, monkeypatch):
 
 def test_compact_equals_single_launch_stochastic():
     """Real random bits, jitter, defocus, motion blur, glass: budgeted
-    passes with compaction in between reproduce the single launch bit for
-    bit, because every draw is keyed by the slot's own state."""
+    passes with compaction in between (the culled mode's schedule)
+    reproduce the single launch bit for bit, because every draw is keyed by
+    the slot's own state."""
     scene, cam = rtt.scenes.random_bouncing(width=24, height=14, seed=1,
                                             device="cpu")
     cfg = rtt.RenderConfig(spp=6, max_depth=6)
-    ref = rtt.render_megakernel(scene, cam, 5, cfg, passes=0)
+    ref = rtt.render_megakernel(scene, cam, 5, cfg, culling=True, passes=0)
     assert float(ref.std()) > 0.01
     for budget, passes in ((3, 4), (1, 7)):
-        img = rtt.render_megakernel(scene, cam, 5, cfg, budget=budget,
-                                    passes=passes)
+        img = rtt.render_megakernel(scene, cam, 5, cfg, culling=True,
+                                    budget=budget, passes=passes)
         assert torch.equal(img, ref), (budget, passes)
-    # the default schedule at spp >= 16 is the compact one
+    # the culled default at spp >= 16 is the compact one
     cfg16 = rtt.RenderConfig(spp=16, max_depth=3)
-    assert torch.equal(rtt.render_fast(scene, cam, 2, cfg16),
-                       rtt.render_megakernel(scene, cam, 2, cfg16, passes=0))
+    assert torch.equal(
+        rtt.render_megakernel(scene, cam, 2, cfg16, culling=True),
+        rtt.render_megakernel(scene, cam, 2, cfg16, culling=True, passes=0))
 
 
 def test_plain_version_matches_xla_render_in_distribution():
@@ -206,8 +208,9 @@ def test_retired_slots_do_not_overwrite_last_pixel():
                           device="cpu")
     cfg = rtt.RenderConfig(spp=2, max_depth=4, jitter=False)
     assert mk._slot_table(240, "cpu").tolist()[-17:] == [239] + [-1] * 16
-    ref = rtt.render_megakernel(scene, cam, 0, cfg, passes=0)
-    img = rtt.render_megakernel(scene, cam, 0, cfg, budget=1, passes=4)
+    ref = rtt.render_megakernel(scene, cam, 0, cfg, culling=True, passes=0)
+    img = rtt.render_megakernel(scene, cam, 0, cfg, culling=True, budget=1,
+                                passes=4)
     assert float(ref[-1, -1].min()) > 0.0
     assert torch.equal(img, ref)
 
@@ -242,7 +245,8 @@ def test_unsupported_scenes_raise():
 def test_wrapper_validates_inputs():
     scene, cam, cfg = _port(_golden_scene)
     args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
-                               t_min=1e-3, jitter=False, unroll=8)
+                               t_min=1e-3, jitter=False, unroll=8,
+                               blk=mk.DEFAULT_BLOCK)
     pix = mk._slot_table(64, "cpu")
     rgb, st = mk._trace_slots(*args, pix, save_state=True, **kw)
     assert rgb.shape == (3, 128) and st.shape == (mk.STATE_PLANES, 128)
@@ -253,8 +257,14 @@ def test_wrapper_validates_inputs():
                         **kw)
     with pytest.raises(ValueError, match="resume"):
         mk._trace_slots(*args, pix, resume=st[:, :64], **kw)
+    b = kw["bounds"]
+    meta = dict(kw, bounds=b._replace(sblk=b.sblk.to("meta"),
+                                      tblk=b.tblk.to("meta")))
     with pytest.raises(ValueError, match="no megakernel"):
-        mk._trace_slots(*(a.to("meta") for a in args), pix.to("meta"), **kw)
+        mk._trace_slots(*(a.to("meta") for a in args), pix.to("meta"),
+                        **meta)
+    with pytest.raises(ValueError, match="queue"):
+        mk._trace_slots(*args, pix, **dict(kw, bounds=None))
 
 
 MODES = [dict(culling=True), dict(culling=True, budget=2, passes=3),
@@ -307,21 +317,31 @@ def _mixed_primitives(b):
 
 
 def test_render_megakernel_resolves_modes(monkeypatch):
-    """Resident scenes stay unculled by default and stream only when asked;
-    a scene beyond shared memory streams; streamed renders take one launch
-    and no compaction."""
-    seen = []
-    real = mk._trace_slots
+    """Resident scenes stay unculled by default, take the queue whatever
+    ``passes`` asks, and stream only when asked; culled renders compact at
+    spp >= 16; a scene beyond shared memory streams; streamed renders take
+    one launch and no compaction."""
+    seen, queued = [], []
+    real, real_queue = mk._trace_slots, mk._trace_queue
 
     def spy(*args, **kw):
         seen.append((mk._mode(kw.get("bounds")), kw.get("budget", 0)))
         return real(*args, **kw)
 
+    def spy_queue(*args, **kw):
+        queued.append((args[3], kw["spp"]))
+        return real_queue(*args, **kw)
+
     monkeypatch.setattr(mk, "_trace_slots", spy)
+    monkeypatch.setattr(mk, "_trace_queue", spy_queue)
     scene, cam = rtt.scenes.random_bouncing(width=8, height=4, device="cpu")
     cfg = rtt.RenderConfig(spp=16, max_depth=2)
     rtt.render_megakernel(scene, cam, 0, cfg)
-    assert seen == [(0, 16)] * 9 + [(0, 0)]
+    assert seen == [] and queued == [(32, 16)]
+    rtt.render_megakernel(scene, cam, 0, cfg, passes=10)
+    assert seen == [] and len(queued) == 2
+    rtt.render_megakernel(scene, cam, 0, cfg, culling=True)
+    assert seen == [(1, 16)] * 9 + [(1, 0)] and len(queued) == 2
     seen.clear()
     rtt.render_megakernel(scene, cam, 0, cfg, culling=True, passes=0)
     rtt.render_megakernel(scene, cam, 0, cfg, stream=256)
@@ -335,15 +355,15 @@ def test_render_megakernel_resolves_modes(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernel_golden_on_card(cuda_device):
-    """The CUDA kernel itself (chip_smoke.py runs this and more on the
-    card): golden for single launch and compact, and the plain version on
-    the same device within 1e-5."""
+    """The CUDA kernels themselves (chip_smoke.py runs this and more on the
+    card): golden through the queue and its fold, whatever ``passes``
+    asks."""
     scene, cam, cfg = _port(_golden_scene)
     scene, cam = scene.to(cuda_device), cam.to(cuda_device)
     for schedule in (dict(passes=0), dict(budget=2, passes=3)):
         before = mk.LAUNCHES
         img = rtt.render_megakernel(scene, cam, 0, cfg, **schedule)
         torch.cuda.synchronize()
-        assert mk.LAUNCHES - before == max(1, schedule["passes"])
+        assert mk.LAUNCHES - before == 2
         step, frac = _golden_allowance(img)
         assert step <= 1 and frac < 0.005, (step, frac)

@@ -1,0 +1,274 @@
+"""The resident kernels' coefficient-form sweep and queue schedule
+(rayz_tpu_torch/ops/sweep.py, rayz_tpu_torch/ops/megakernel.py) on the CPU.
+The CUDA kernels themselves run only on the card (chip_smoke.py holds them
+against their plain versions there); these tests hold what surrounds them.
+
+Tolerances:
+* packing: ``half_b`` and ``c_term`` of the packed records and coefficient
+  vectors against sweep_spheres' formula, both evaluated in float64 from the
+  same float32 inputs, within 4 float32 roundings of the magnitudes summed
+  (the coefficients tau*d and -2*tau*o are rounded once in float32, the
+  formula's centre at the ray's time is not);
+* fold order: 0 (bit for bit);
+* near-tie rule: exact decisions on constructed rays.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import rayz_tpu_torch as rtt
+from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, sweep as sw
+from rayz_tpu_torch.ops.tables import _BIG, _pad_poison, _CCMR2
+
+torch.set_num_threads(2)
+
+U32 = 2.0 ** -24
+
+
+def _random_spheres(g, n: int) -> torch.Tensor:
+    """A [17, n + 8] sphere table of random centres, radii and velocities
+    (the material rows unused), with 8 poisoned padding columns."""
+    c = g.uniform(-20, 20, (n, 3))
+    v = g.uniform(-1, 1, (n, 3))
+    r = g.uniform(0.1, 3.0, n)
+    tab = np.zeros((17, n))
+    tab[0:3] = c.T
+    tab[3] = (c * c).sum(1) - r * r
+    tab[4:7] = v.T
+    tab[7] = 2.0 * (c * v).sum(1)
+    tab[8] = (v * v).sum(1)
+    return _pad_poison(torch.from_numpy(tab).float(), n + 8, _CCMR2)
+
+
+def _random_rays(g, r: int):
+    o = tuple(torch.from_numpy(g.uniform(-25, 25, r)).float()
+              for _ in range(3))
+    d = tuple(torch.from_numpy(g.standard_normal(r)).float()
+              for _ in range(3))
+    return o, d, torch.from_numpy(g.random(r)).float()
+
+
+@pytest.mark.parametrize("motion", [False, True], ids=["static", "motion"])
+def test_packed_records_reproduce_todays_terms(motion):
+    """The records and coefficient vectors, built as the kernel builds
+    them, give sweep_spheres' half_b and c_term (float64 evaluation of both
+    from the same float32 inputs, within 4 float32 roundings of the summed
+    magnitudes); the poisoned padding columns never have a real root, nor
+    graze, in the kernel's float32 chains."""
+    g = np.random.default_rng(3)
+    stab = _random_spheres(g, 120)
+    o, d, tau = _random_rays(g, 256)
+    if not motion:
+        tau = torch.zeros_like(tau)
+    packed = sw.pack_spheres(stab, motion)
+    assert packed[0].shape == (128, 4)
+    assert (packed[1] is None) == (not motion)
+    coef = sw.ray_coef(o, d, tau, 1e-3)
+    hb, ct = sw.coef_terms(packed, coef)
+    hb_t, ct_t = sw.today_terms(stab, o, d, tau, motion)
+    f64 = torch.float64
+    t = stab.to(f64)
+    od = torch.stack(o, 1).to(f64)
+    dd = torch.stack(d, 1).to(f64)
+    ta = tau.to(f64)[:, None]
+    span = [t[k][None, :].abs() + (ta * t[4 + k][None, :]).abs()
+            for k in range(3)]
+    mh = (sum(dd[:, k:k + 1].abs() * span[k] for k in range(3))
+          + (dd * od).abs().sum(1, keepdim=True))
+    mc = (t[3][None, :].abs() + (t[7][None, :] * ta).abs()
+          + t[8][None, :] * ta * ta
+          + 2.0 * sum(od[:, k:k + 1].abs() * span[k] for k in range(3))
+          + (od * od).sum(1, keepdim=True))
+    valid = stab[_CCMR2] < _BIG
+    assert ((hb - hb_t).abs() <= 4 * U32 * mh)[:, valid].all()
+    assert ((ct - ct_t).abs() <= 4 * U32 * mc)[:, valid].all()
+    disc, _, grazing = sw.coef_disc(packed, coef)
+    assert not (disc[:, ~valid] >= 0.0).any()
+    assert not grazing[:, ~valid].any()
+    assert (disc[:, valid] >= 0.0).any()  # some rays do hit
+
+
+def test_queue_fold_matches_slot_sums():
+    """The queue schedule's plain version, each (sample, pixel) item traced
+    alone and the samples folded in order from 0.0, equals the
+    one-thread-per-slot plain version's per-slot sums bit for bit
+    (random_bouncing 8x8, 4 spp, depth 4, real random bits); so does the
+    render, and the CPU launches no kernel."""
+    scene, cam = rtt.scenes.random_bouncing(width=8, height=8, device="cpu")
+    args, kw = mk._launch_args(scene, cam, 5, spp=4, max_depth=4,
+                               t_min=1e-3, jitter=True, unroll=8)
+    want, _ = mk._trace_slots_reference(*args, mk._slot_table(64, "cpu"),
+                                        **kw)
+    del kw["bounds"], kw["cull"]
+    before = (mk.LAUNCHES, dict(mk.MODE_LAUNCHES))
+    got = mk._trace_queue(*args, 64, **kw)
+    assert (mk.LAUNCHES, mk.MODE_LAUNCHES) == before
+    assert torch.equal(got, want[:, :64])
+    assert (got > 0).any()
+    # the fold's association: sample buffers added one by one from 0.0
+    pix = torch.arange(64, dtype=torch.int32)
+    items = [mk._trace_items_reference(
+        *args, pix, torch.full_like(pix, s), width=8, max_depth=4,
+        t_min=1e-3, jitter=True, has_motion=scene.has_motion, seed=5)
+        for s in range(1, 5)]
+    acc = torch.zeros((3, 64))
+    for rad in items:
+        acc = acc + rad
+    assert torch.equal(acc, got)
+    cfg = rtt.RenderConfig(spp=4, max_depth=4)
+    args, kw = mk._launch_args(scene, cam, 5, spp=4, max_depth=4,
+                               t_min=1e-3, jitter=True,
+                               unroll=mk._resolve_tiling(scene))
+    sums, _ = mk._trace_slots_reference(*args, mk._slot_table(64, "cpu"),
+                                        **kw)
+    img = rtt.render_megakernel(scene, cam, 5, cfg, passes=0)
+    assert torch.equal(img, (sums[:, :64].T.reshape(8, 8, 3) / 4.0))
+
+
+def test_queue_groups_keep_the_fold_order(monkeypatch):
+    """Samples run in groups when their buffer would be too large; the
+    fold carries each pixel's sum from group to group, so the sums do not
+    change."""
+    scene, cam = rtt.scenes.random_bouncing(width=6, height=4, device="cpu")
+    args, kw = mk._launch_args(scene, cam, 9, spp=5, max_depth=3,
+                               t_min=1e-3, jitter=True, unroll=8)
+    del kw["bounds"], kw["cull"]
+    whole = mk._trace_queue(*args, 24, **kw)
+    monkeypatch.setattr(mk, "QUEUE_BYTES", 2 * 12 * 24)
+    assert mk._queue_group(5, 24) == 2
+    assert torch.equal(mk._trace_queue(*args, 24, **kw), whole)
+
+
+def _tie_scene():
+    """Two spheres at the same place (an exact tie), one behind them."""
+    b = rtt.SceneBuilder()
+    m = b.add_diffuse(color=(0.5, 0.5, 0.5))
+    b.add_sphere((0, 0, -3), 1.0, m)
+    b.add_sphere((0, 0, -3), 1.0, m)
+    b.add_sphere((0, 0, -6), 1.0, m)
+    scene = b.build(device="cpu")
+    cam = rtt.make_camera(width=4, height=4, look_from=(0, 0, 0),
+                          look_at=(0, 0, -1), device="cpu")
+    return scene, cam
+
+
+def test_near_tie_rule():
+    """The rule accepts a duplicated sphere (an exact tie), a grazing ray
+    against a miss, and a farther column taken over a grazing nearer one;
+    it refuses a farther sphere, a miss against a clear hit, a hit where
+    the ray clearly misses, and a farther grazing column taken over a
+    clear nearer hit (either way round)."""
+    scene, cam = _tie_scene()
+    _, stab, ttab = pr._scene_record_inputs(scene, cam)
+    z = torch.zeros(8)
+    # rays 0-2 head straight at the spheres, 3 and 7 graze the silhouettes
+    # of both the first pair and the sphere behind (x = 1, tangent), 4
+    # passes far to the side; 5 and 6 cross the first pair clearly (0.5
+    # from its axis) and graze the sphere behind (d = (1/sqrt(35), 0, -1))
+    k = 35.0 ** -0.5
+    o = (torch.tensor([0.0, 0.0, 0.0, 1.0, 5.0, 0.0, 0.0, 1.0]), z, z)
+    d = (torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, k, k, 0.0]), z,
+         -torch.ones(8))
+    got = torch.tensor([1, 2, -1, 0, 0, 2, 0, 2])
+    want = torch.tensor([0, 0, 0, -1, -1, 0, 2, 0])
+    c = sw.candidates(stab, ttab, torch.tensor([2, 2, 0, 0]),
+                      (o[0][[5, 7, 5, 7]], z[:4], z[:4]),
+                      (d[0][[5, 7, 5, 7]], z[:4], -torch.ones(4)), z[:4],
+                      t_min=1e-3, has_motion=False)
+    assert c.sensitive.tolist() == [True, True, False, True]
+    ok = sw.near_ties(stab, ttab, o, d, z, got, want, t_min=1e-3,
+                      has_motion=False)
+    assert ok.tolist() == [True, False, False, True, False, False, False,
+                           True]
+
+
+def test_explain_recordings():
+    """explain re-derives each differing slot's ray at its first
+    difference: a swap of the duplicated sphere's column is accepted, a
+    jump to the farther sphere refused, and equal recordings give None."""
+    scene, cam = _tie_scene()
+    pix = torch.arange(16, dtype=torch.int32)
+    kw = dict(spp=2, max_depth=3, t_min=1e-3, jitter=False)
+    idx, aux, _ = pr.record_pp(scene, cam, 1, pix, iters=8, **kw)
+    assert sw.explain(scene, cam, 1, pix, idx, idx, aux, **kw) is None
+    hits = torch.nonzero(idx == 0)
+    k, s = (int(x) for x in hits[len(hits) // 2])
+    assert k > 0  # a later bounce or sample: the ray is re-derived
+    for col, want in ((1, True), (2, False)):
+        got = idx.clone()
+        got[k, s] = col
+        assert sw.explain(scene, cam, 1, pix, got, idx, aux,
+                          **kw).tolist() == [want]
+
+
+def test_render_megakernel_queue_stats_refuse_on_cpu():
+    """The queue's wrapper checks its inputs; a non-CPU, non-CUDA tensor
+    raises instead of falling back."""
+    scene, cam = rtt.scenes.random_bouncing(width=4, height=4, device="cpu")
+    args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
+                               t_min=1e-3, jitter=False, unroll=8)
+    del kw["bounds"], kw["cull"]
+    with pytest.raises(ValueError, match="nothing to trace"):
+        mk._trace_queue(*args, 0, **kw)
+    with pytest.raises(ValueError, match="8k"):
+        mk._trace_queue(args[0], args[1][:, :5].contiguous(), args[2], 16,
+                        **kw)
+    with pytest.raises(ValueError, match="no megakernel"):
+        mk._trace_queue(*(a.to("meta") for a in args), 16, **kw)
+
+
+def test_states_carry_the_sphere_left():
+    """The recorder's saved state carries the sphere column each ray
+    leaves (-1 if none), which the kernel tests in the plain version's
+    arithmetic: the winner of the last recorded iteration where the path
+    continued off a sphere; a resumed pass continues the one-pass
+    recording, and so does one resumed from an (st, cnt) pair, as earlier
+    versions returned (no sphere left)."""
+    scene, cam = rtt.scenes.random_bouncing(width=8, height=8, device="cpu")
+    pix = torch.arange(64, dtype=torch.int32)
+    kw = dict(spp=2, max_depth=8, t_min=1e-3, jitter=True)
+    idx, aux, _, (st, cnt, frm) = pr.record_pp(scene, cam, 2, pix, iters=1,
+                                               want_state=True, **kw)
+    cont = torch.remainder(torch.floor(aux[-1, pr._AUX_FLG] / 2), 2) == 1
+    n = int(scene.sphere_radius.shape[0])
+    want = torch.where(cont & (idx[-1] < n), idx[-1], -1)
+    assert torch.equal(frm, want) and bool((frm >= 0).any())
+    more = pr.record_pp(scene, cam, 2, pix, iters=7, init_state=(st, cnt, frm),
+                        **kw)
+    full = pr.record_pp(scene, cam, 2, pix, iters=8, **kw)
+    assert torch.equal(torch.cat([idx, more[0]]), full[0])
+    pair = pr.record_pp(scene, cam, 2, pix, iters=7, init_state=(st, cnt),
+                        want_state=True, **kw)
+    assert torch.equal(pair[0], more[0]) and len(pair[3]) == 3
+    with pytest.raises(ValueError, match="init_state"):
+        pr._record_slots(*pr._scene_record_inputs(scene, cam), pix,
+                         width=cam.width, has_motion=scene.has_motion,
+                         seed=2, iters=8, init_state=(st, cnt), **kw)
+
+
+def test_explain_resumed_recordings():
+    """explain on recordings resumed from a saved state re-derives each
+    differing slot's ray from that state: at the first resumed iteration
+    the rule sees the ray the state holds (not a fresh camera ray), so its
+    decisions are near_ties' on those rays."""
+    scene, cam = _tie_scene()
+    _, stab, ttab = pr._scene_record_inputs(scene, cam)
+    pix = torch.arange(16, dtype=torch.int32)
+    kw = dict(spp=2, max_depth=3, t_min=1e-3, jitter=False)
+    _, _, _, state = pr.record_pp(scene, cam, 1, pix, iters=1,
+                                  want_state=True, **kw)
+    idx, aux, _ = pr.record_pp(scene, cam, 1, pix, iters=8,
+                               init_state=state, **kw)
+    spawn = torch.remainder(aux[0, pr._AUX_FLG], 2.0) == 1.0
+    assert not bool(spawn.any())  # every slot resumes mid-path
+    st = state[0]
+    for col in (0, 1, 2):
+        got = idx.clone()
+        got[0] = torch.where(idx[0] == col, (col + 1) % 3, col)
+        want = sw.near_ties(stab, ttab, (st[0], st[1], st[2]),
+                            (st[3], st[4], st[5]), st[6], got[0], idx[0],
+                            t_min=1e-3, has_motion=False)
+        ex = sw.explain(scene, cam, 1, pix, got, idx, aux,
+                        init_state=state, **kw)
+        assert torch.equal(ex, want), col
