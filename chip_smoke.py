@@ -59,9 +59,9 @@ from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, rng
 from rayz_tpu_torch.ops import sweep as sw
 from rayz_tpu_torch.ops import tables as tb, wavefront as wf
 # shared with tune ab: the gather backward's shapes and synthetic indices,
-# the sweep's ptxas and SASS facts
+# the sweep's ptxas and SASS facts, the wavefront's per-launch times
 from rayz_tpu_torch.tune import (GATHER_BWD_SHAPES, gather_indices,
-                                 ptxas_facts, sass_sweep)
+                                 ptxas_facts, sass_sweep, wavefront_launches)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden_deterministic.ppm")
@@ -1026,14 +1026,15 @@ def state_match(k, p):
 def compare_wavefront(records: list):
     """Run every wavefront launch through the kernel and, on the same
     inputs, through its plain version; record (tail launch?, share of rays
-    bit-identical, largest difference). The render goes on with the
-    kernel's outputs."""
+    bit-identical, largest difference, the plain version's seconds). The
+    render goes on with the kernel's outputs."""
     kernel = wf._wf_bounce
 
     def both(tabs, rays, st, alive, rid, **kw):
         k = kernel(tabs, rays, st, alive, rid, **kw)
-        p = wf._wf_bounce_reference(tabs, rays, st, alive, rid, **kw)
-        records.append((kw["loop_bounces"] > 1, *state_match(k, p)))
+        p, p_s = timed(lambda: wf._wf_bounce_reference(tabs, rays, st, alive,
+                                                       rid, **kw))
+        records.append((kw["loop_bounces"] > 1, *state_match(k, p), p_s))
         return k
 
     wf._wf_bounce = both
@@ -1237,52 +1238,48 @@ def large_golden_phase(dev) -> None:
         phase("golden", f"{label}: max step {step}, {frac:.4%} channels off")
 
 
-def wavefront_full_width(scene, cam, dev) -> tuple:
-    """A render of the large main-path scene with the spp cut to 1
-    (147,456 rays, the main path's tables): every launch, the three
-    synchronous bounces and the tail, against its plain version on the
-    same inputs; then the bounce-1 launch timed, kernel (CUDA events) vs
-    plain version, with its bound (bytes read and written once; one
-    primitive test per ray segment, ``floor_ops``). Returns (err, ms, plain
-    ms, bound ms, bound by)."""
+def wavefront_main_path(scene, cam, cfg, dev) -> tuple:
+    """The large main path's render at its own shape (512x288, 16 spp:
+    2,359,296 rays): every launch, the three synchronous bounces and the
+    tail, against its plain version on the same inputs (host clock); then
+    the bounce-1 launch timed by CUDA events, with its bound (bytes read
+    and written once; one primitive test per ray segment, ``floor_ops``).
+    Returns (err, ms, plain ms, bound ms, bound by) of the bounce-1
+    launch."""
     calls, recs = [], []
     with capture_wavefront(calls), compare_wavefront(recs):
-        wf.render_wavefront(scene, cam, 1, rtt.RenderConfig(
-            spp=1, max_depth=LARGE["depth"]))
+        wf.render_wavefront(scene, cam, 1, cfg)
     torch.cuda.synchronize()
     if min(r[1] for r in recs) < WF_STATE_MATCH or len(recs) != 4 \
             or not recs[-1][0]:
-        raise AssertionError(f"wavefront at full width: launches {recs}")
-    phase("wavefront", f"{cam.width}x{cam.height} 1spp render on "
-                       f"{scene.n_spheres} spheres, "
-                       "3 synchronous launches and the tail: ray states "
-                       "bit-identical to plain on "
-                       + ", ".join(f"{r[1]:.4%}" for r in recs)
-                       + f"; max abs difference {max(r[2] for r in recs):.3g}")
+        raise AssertionError(f"wavefront at the main path's shape: "
+                             f"launches {recs}")
     args, kw = calls[1]
     stats = torch.zeros(8, dtype=torch.int64, device=dev)
     k = wf._wf_bounce(*args, **{**kw, "stats": stats})
     k_ms = event_ms(lambda: wf._wf_bounce(*args, **kw), 3)
-    p, p_s = timed(lambda: wf._wf_bounce_reference(*args, **kw))
-    share, err = state_match(k, p)
-    if share < WF_STATE_MATCH:
-        raise AssertionError(f"wavefront bounce 1 at full width: {share}")
     tabs, rays, st, alive, rid = args
     b_ms, b_by = bound(nbytes(tabs.stab, tabs.ttab, tabs.scb, tabs.tcb,
                               tabs.ssc, tabs.tsc, tabs.sblk, tabs.tblk,
                               rays.cam, rays.slot_pix, st, alive, rid, *k),
                        floor_ops(scene, stats))
     s = [int(x) for x in stats.tolist()]
-    phase("wavefront", f"bounce-1 launch at {cam.width}x{cam.height} 1spp on "
-                       f"{scene.n_spheres} spheres ({rid.shape[0]} rays, "
-                       f"{s[0]} live): kernel "
-                       f"{k_ms:.3f} ms, plain {p_s * 1e3:.1f} ms; states "
-                       f"bit-identical on {share:.4%}, max abs {err:.3g}; "
-                       f"{s[1]} primitive tests ({s[1] / max(s[0], 1):.1f} "
-                       f"per ray), {s[2] + s[3]} bound tests, chunk votes "
-                       f"{s[3]} of which {s[4]} passed; bound {b_ms:.4f} ms "
-                       f"({b_by})")
-    return err, k_ms, p_s * 1e3, b_ms, b_by
+    phase("wavefront", f"{cam.width}x{cam.height} {cfg.spp}spp render on "
+                       f"{scene.n_spheres} spheres, 3 synchronous launches "
+                       "and the tail (" + ", ".join(
+                           str(a[4].shape[0]) for a, _ in calls)
+                       + " rays): ray states bit-identical to plain on "
+                       + ", ".join(f"{r[1]:.4%}" for r in recs)
+                       + f"; max abs difference {max(r[2] for r in recs):.3g}"
+                       "; plain " + ", ".join(f"{r[3] * 1e3:.1f}"
+                                              for r in recs) + " ms")
+    phase("wavefront", f"bounce-1 launch of that render ({rid.shape[0]} "
+                       f"rays, {s[0]} live): kernel {k_ms:.3f} ms, plain "
+                       f"{recs[1][3] * 1e3:.1f} ms; {s[1]} primitive tests "
+                       f"({s[1] / max(s[0], 1):.1f} per ray), {s[2]} bound "
+                       f"tests, warp votes {s[3]} of which {s[4]} passed; "
+                       f"bound {b_ms:.4f} ms ({b_by})")
+    return (max(r[2] for r in recs), k_ms, recs[1][3] * 1e3, b_ms, b_by)
 
 
 def large_phase(dev, smi: str) -> dict:
@@ -1290,8 +1287,10 @@ def large_phase(dev, smi: str) -> dict:
     sphere_field at LARGE_NS spheres, 512x288, 16 spp, depth 8: resolves to
     the wavefront, 4 launches per render, image finite and not black;
     Mrays/s (median of 5 after a warm-up), peak memory, the share of chunk
-    votes that pruned. Then the streamed megakernel on the first scene,
-    timed the same way. Returns the main path's launch count, the kernel
+    votes that pruned. On the first scene, each launch of the render timed
+    and every launch of one render held against its plain version
+    (``wavefront_main_path``); then the streamed megakernel, timed the same
+    way. Returns the main path's launch count, the kernel
     timing of the wavefront and the streamed megakernel's launches."""
     cfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
     out = {}
@@ -1342,7 +1341,21 @@ def large_phase(dev, smi: str) -> dict:
                        f"{1.0 - st[4] / max(st[3], 1):.4%} pruned | {smi}")
         if i == 0:
             out["launches"] = launches
-            out["wavefront"] = wavefront_full_width(scene, cam, dev)
+            wl = wavefront_launches(scene, cam, cfg)
+            ws = wl["stats"]
+            phase("large", f"sphere_field {n} render_wavefront, each launch "
+                           "by CUDA events (median of 3 renders): "
+                           + ", ".join(f"{ms:.3f}" for ms in wl["launch_ms"])
+                           + f" ms (bounce 0, 1, 2, the tail; sum "
+                           f"{sum(wl['launch_ms']):.3f}); render span "
+                           f"{wl['span_ms']:.3f} ms, of it sorts, permutes "
+                           f"and scatter-back {wl['glue_ms']:.3f}; "
+                           f"{ws[1] / max(ws[0], 1):.1f} primitive and "
+                           f"{ws[2] / max(ws[0], 1):.1f} bound tests per "
+                           f"segment, warp votes {ws[3]} ({ws[4]} passed), "
+                           f"{1 - ws[1] / max(ws[6], 1):.4f} of the sweeps' "
+                           f"lane slots idle | {smi}")
+            out["wavefront"] = wavefront_main_path(scene, cam, cfg, dev)
             mk.MODE_LAUNCHES["streamed"] = 0
             mimg, m_first = timed(lambda: rtt.render_megakernel(scene, cam, 0,
                                                                 cfg))
@@ -1374,8 +1387,11 @@ def large_phase(dev, smi: str) -> dict:
 
 # ---- the bounce-indexed "recorded" engine (ops/diffkernel.py) ----
 
-# record kernel vs plain version on the same tables: every index equal (the
-# streamed layout's kernel and plain version sweep the same sorted columns)
+# record kernel vs plain version on the same tables, streamed: every index
+# equal (the streamed layout's kernel and plain version sweep the same
+# sorted columns). Resident (the packed FMA sweep) every index equal or
+# explained by ops/sweep.py's near-tie rule, and at least MATCH_FRAC of the
+# (bounce, ray) indices where either recording has a hit equal
 RECORD_MATCH = 1.0
 # render_diff vs the megakernel, per channel: STOCHASTIC_MAX_FRAC is the CPU
 # tests' bound at 4 spp; a pixel of 16 spp averages four times as many
@@ -1451,25 +1467,56 @@ def draws_off_host(cam, seed: int, cfg) -> tuple:
     return off, total, worst
 
 
-def record_inputs(scene, cam, seed: int, depth: int, dev, sample: int = 0):
-    """render_diff's inputs of one sample pass over the whole image: the
-    camera rays and the [depth, 5, R] randoms."""
+def record_inputs(scene, cam, seed: int, depth: int, dev, sample: int = 0,
+                  passes: int = 1):
+    """render_diff's inputs of ``passes`` sample passes from ``sample`` on
+    over the whole image, side by side as one record launch takes a group
+    of them: the camera rays and the [depth, 5, R] randoms."""
     pix = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
-    o, d, tm = dk._camera_rays(cam, seed, pix, sample, True)
-    return o, d, tm, dk._make_rand(seed, pix, sample, depth)
+    parts = [(*dk._camera_rays(cam, seed, pix, s, True),
+              dk._make_rand(seed, pix, s, depth))
+             for s in range(sample, sample + passes)]
+    return tuple(torch.cat([p[k] for p in parts], dim=-1 if k == 3 else 0)
+                 for k in range(4))
 
 
-def record_compare(scene, inputs, depth: int, stream=None):
-    """One record launch against its plain version on the same inputs:
-    (share of equal indices, kernel idx, stats)."""
+def record_compare(scene, inputs, depth: int, stream=None,
+                   what: str = "record"):
+    """One record launch against its plain version on the same inputs, by
+    its table mode's rule (RECORD_MATCH): streamed every index equal;
+    resident every index equal or explained by the near-tie rule
+    (``sweep.explain_paths``), at least MATCH_FRAC of the indices where
+    either recording has a hit equal. Returns (share of equal indices,
+    kernel idx, stats, share equal where either has a hit, rays that
+    differ)."""
     stats = torch.zeros(8, dtype=torch.int64, device=inputs[0].device)
+    before = dict(dk.LAUNCHES)
     k = dk.record_paths(scene, *inputs, max_depth=depth, t_min=1e-3,
                         stream=stream, stats=stats)
+    resident = dk.LAUNCHES["resident"] > before["resident"]
     with plain_recorded():
         p = dk.record_paths(scene, *inputs, max_depth=depth, t_min=1e-3,
                             stream=stream)
     torch.cuda.synchronize()
-    return float((k == p).double().mean()), k, stats
+    share = float((k == p).double().mean())
+    hit = (k >= 0) | (p >= 0)
+    live = float((k == p)[hit].double().mean())
+    if not resident:
+        if share < RECORD_MATCH:
+            raise AssertionError(f"{what}: {share:.6%} of indices as plain")
+        return share, k, stats, live, 0
+    o, d, tm, rand = inputs
+    rays = torch.cat([o.T, d.T, tm[None]]).float().contiguous()
+    ex = sw.explain_paths(scene, rays, rand.float().contiguous(), k, p,
+                          t_min=1e-3)
+    n_diff = 0 if ex is None else ex.numel()
+    n_ok = 0 if ex is None else int(ex.sum())
+    if live < MATCH_FRAC or n_ok != n_diff:
+        raise AssertionError(f"{what}: {share:.6%} of indices as plain "
+                             f"({live:.6%} where either has a hit), "
+                             f"{n_diff} rays differ, {n_ok} explained by the "
+                             "near-tie rule")
+    return share, k, stats, live, n_diff
 
 
 def scene_order_split(scene, inputs, depth: int, k) -> tuple:
@@ -1494,9 +1541,11 @@ def scene_order_split(scene, inputs, depth: int, k) -> tuple:
 
 def diff_record_phase(dev) -> dict:
     """The record kernel against its plain version with real draws
-    (render_diff's rays and randoms), resident and streamed; render_diff
-    against the megakernel; the golden. Returns the largest share of
-    unequal indices per table mode."""
+    (render_diff's rays and randoms), resident and streamed, and on one
+    flagship launch of diffkernel.RECORD_GROUP passes (512x512, d32,
+    resident); render_diff against the megakernel; the golden. Returns
+    the largest share of unequal indices per table mode, and the flagship
+    launch's (share unequal, ms, plain ms, bound ms, bound by)."""
     mixed, mcam = mixed_scene(dev)
     cases = [
         ("random_bouncing 64x36 d8",
@@ -1513,12 +1562,12 @@ def diff_record_phase(dev) -> dict:
     worst = dict(resident=0.0, streamed=0.0)
     for label, (scene, cam), stream, mode in cases:
         before = dict(dk.LAUNCHES)
-        share, k, st = record_compare(scene, record_inputs(scene, cam, 5, 8,
-                                                           dev), 8, stream)
-        if dk.LAUNCHES[mode] != before[mode] + 1 or share < RECORD_MATCH:
-            raise AssertionError(f"record {label}: {share:.6%} of indices "
-                                 f"as plain, launches {dk.LAUNCHES} (before "
-                                 f"{before})")
+        share, k, st, live, n_diff = record_compare(
+            scene, record_inputs(scene, cam, 5, 8, dev), 8, stream,
+            f"record {label}")
+        if dk.LAUNCHES[mode] != before[mode] + 1:
+            raise AssertionError(f"record {label}: launches {dk.LAUNCHES} "
+                                 f"(before {before})")
         worst[mode] = max(worst[mode], 1.0 - share)
         s = [int(x) for x in st.tolist()]
         split = ""
@@ -1528,12 +1577,37 @@ def diff_record_phase(dev) -> dict:
             split = (f"; vs the scene-order plain recorder {n_idx} indices "
                      f"on {n_rays} rays differ, {n_tie} of them parting at "
                      "an exact f32 tie")
+        else:
+            split = (f"; {live:.4%} where either has a hit, {n_diff} rays "
+                     "differ, all explained by the near-tie rule; "
+                     f"{s[5]} re-sweeps, idle lanes "
+                     f"{1 - s[0] / max(s[6], 1):.4f}")
         phase("record", f"{label} ({mode}): indices equal to plain on "
                         f"{share:.4%}; {s[0]} segments, "
                         f"{s[1] / max(s[0], 1):.1f} columns and "
                         f"{s[2] / max(s[0], 1):.1f} block bounds tested per "
                         f"segment, chunk tests {s[3]} ({s[4]} passed)"
                         + split)
+    # the flagship's pass at full width: the path of the recorded step
+    scene, cam = rtt.scenes.random_bouncing(width=FLAGSHIP["width"],
+                                            height=FLAGSHIP["height"],
+                                            device=dev)
+    g = dk.RECORD_GROUP
+    flag = record_pass_kernel(scene, cam, dev, FLAGSHIP["depth"], passes=g)
+    err, k_ms, p_ms, b_ms, b_by, st, _, _ = flag
+    s = [int(x) for x in st.tolist()]
+    worst["resident"] = max(worst["resident"], err)
+    phase("record", f"one flagship launch of {g} passes ({cam.width}x"
+                    f"{cam.height} = {cam.width * cam.height} rays each, "
+                    f"d{FLAGSHIP['depth']}, resident, the ray queue): "
+                    f"kernel {k_ms:.3f} ms ({k_ms / g:.3f} a pass), plain "
+                    f"{p_ms:.1f} ms, {1 - err:.4%} of indices equal to "
+                    f"plain, every difference explained; {s[0]} segments "
+                    f"in {s[6]} lane-trips (idle lanes "
+                    f"{1 - s[0] / max(s[6], 1):.4f}), {s[5]} re-sweeps, "
+                    f"{s[7] / 1e3:.1f} us from the ray counter's last claim "
+                    f"to the last warp's end; bound {b_ms:.4f} ms ({b_by}: "
+                    f"{s[0]} segments x every column)")
     # the given-draw scatter: render_diff records the megakernel's paths
     # for the same seed, as the persistent-path recorder (hashed draws)
     # does. A pixel parts from the megakernel's where the replay, which
@@ -1583,13 +1657,15 @@ def diff_record_phase(dev) -> dict:
                 gimg = rtt.render_diff(scene, cam, 0, cfg)
         else:
             gimg = rtt.render_diff(scene, cam, 0, cfg)
-        if dk.LAUNCHES[mode] != before[mode] + cfg.spp:
+        want = -(-cfg.spp // dk.RECORD_GROUP) if mode == "resident" \
+            else cfg.spp
+        if dk.LAUNCHES[mode] != before[mode] + want:
             raise AssertionError(f"golden render_diff {label}: launches "
                                  f"{dk.LAUNCHES} (before {before})")
         step, frac = golden_check(gimg)
         phase("golden", f"render_diff {label}: max step {step}, "
                         f"{frac:.4%} channels off")
-    return worst
+    return worst, flag[:5]
 
 
 def recorded_grad_phase(dev) -> float:
@@ -1614,7 +1690,8 @@ def recorded_grad_phase(dev) -> float:
     return worst
 
 
-def kernel_split(fn, buckets=(("record", ("record_kernel", "sort")),
+def kernel_split(fn, buckets=(("record", ("record_kernel", "record_queue",
+                                           "sort")),
                                ("gathers", ("gather",))),
                  rest: str = "replay") -> dict:
     """Device time (ms) of the kernels ``fn`` launches, by torch.profiler,
@@ -1669,18 +1746,21 @@ def one_pass_split(scene, cam, target, seed: int, cfg) -> str:
     return split_line(f, b)
 
 
-def record_pass_kernel(scene, cam, dev, depth: int, stream=None) -> tuple:
-    """One sample pass's record launch over the whole image, kernel (CUDA
-    events, the tables built beforehand as render_diff builds them once
-    per render) vs plain (host clock), with its bound, one rule for both
-    table modes: bytes read and written once, and one primitive test per
-    live segment (:func:`floor_ops`). Streamed, it is also held against the
-    scene-order plain recorder. Returns (share unequal, ms, plain ms, bound
-    ms, bound by, stats, table prep ms, the scene-order split)."""
-    inputs = record_inputs(scene, cam, 1, depth, dev)
-    share, k, st = record_compare(scene, inputs, depth, stream)
-    if share < RECORD_MATCH:
-        raise AssertionError(f"record pass at full width: {share:.6%}")
+def record_pass_kernel(scene, cam, dev, depth: int, stream=None,
+                       passes: int = 1) -> tuple:
+    """One record launch over the whole image for ``passes`` sample passes
+    (render_diff's group), kernel (CUDA events, the tables built
+    beforehand as render_diff builds them once per render) vs plain (host
+    clock), by its mode's rule (:func:`record_compare`), with its bound:
+    bytes read and written once, and resident every live segment against
+    every column (the rule of rows 1 and 5, which sweep the same tables),
+    streamed one primitive test per live segment (:func:`floor_ops`).
+    Streamed, it is also held against the scene-order plain recorder.
+    Returns (share unequal, ms, plain ms, bound ms, bound by, stats, table
+    prep ms, the scene-order split)."""
+    inputs = record_inputs(scene, cam, 1, depth, dev, passes=passes)
+    share, k, st, _, _ = record_compare(scene, inputs, depth, stream,
+                                        "record pass at full width")
     tabs, prep_s = timed(lambda: dk._record_setup(scene, stream,
                                                   inputs[0][0]))
     k_ms = event_ms(lambda: dk._record_rays(scene, tabs, *inputs,
@@ -1692,8 +1772,10 @@ def record_pass_kernel(scene, cam, dev, depth: int, stream=None) -> tuple:
     stab, ttab, bounds = tabs
     rows = () if bounds is None else (bounds.scb, bounds.tcb, bounds.sblk,
                                       bounds.tblk, bounds.sperm, bounds.tperm)
-    b_ms, b_by = bound(nbytes(stab, ttab, *rows, *inputs, k),
-                       floor_ops(scene, st))
+    per = SPHERE_OPS + (MOTION_OPS if scene.has_motion else 0)
+    ops = (floor_ops(scene, st) if bounds is not None else int(st[0]) * (
+        stab.shape[1] * per + ttab.shape[1] * TRI_OPS))
+    b_ms, b_by = bound(nbytes(stab, ttab, *rows, *inputs, k), ops)
     split = (scene_order_split(scene, inputs, depth, k) if bounds is not None
              else None)
     return 1.0 - share, k_ms, p_s * 1e3, b_ms, b_by, st, prep_s * 1e3, split
@@ -1703,8 +1785,7 @@ def recorded_train_phase(scene, cam, target, smi: str, pp_mrays: float):
     """The recorded engine's main path at full width: bench.py's fwdbwd
     shape through engine="recorded" (two value-and-gradient micro-batches of 32 spp,
     gradients summed), counted, checked and timed; then two
-    make_train_step steps. Returns the record launches, and the record
-    kernel's line at one pass (err, ms, plain ms, bound ms, bound by)."""
+    make_train_step steps. Returns the record launches."""
     f = FLAGSHIP
     cfg = rtt.RenderConfig(spp=MICRO_SPP, max_depth=f["depth"])
     params = train_params(scene)
@@ -1723,10 +1804,12 @@ def recorded_train_phase(scene, cam, target, smi: str, pp_mrays: float):
     launches = dict(dk.LAUNCHES)
     gathers = {k: pr.LAUNCHES[k] for k in ("gather_fwd", "gather_bwd")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # one record launch per pass; per replayed bounce one gather forward,
-    # one more in the pass's recompute, and one backward unless no
-    # gradient reaches its rows (a pass's last bounce adds only the sky)
-    if (launches != {"resident": MICRO_SPP * micro, "streamed": 0}
+    # one record launch per group of passes; per replayed bounce one
+    # gather forward, one more in the pass's recompute, and one backward
+    # unless no gradient reaches its rows (a pass's last bounce adds only
+    # the sky)
+    groups = -(-MICRO_SPP // dk.RECORD_GROUP) * micro
+    if (launches != {"resident": groups, "streamed": 0}
             or gathers["gather_fwd"] % 2
             or not 0 < gathers["gather_bwd"] <= gathers["gather_fwd"] // 2
             or gathers["gather_fwd"] > 2 * MICRO_SPP * micro * f["depth"]):
@@ -1756,12 +1839,6 @@ def recorded_train_phase(scene, cam, target, smi: str, pp_mrays: float):
                             + f"); recorded-pp in this run "
                             f"{pp_mrays:.4f} | peak {peak_gb:.3f} GB | {smi}")
     phase("train-recorded", one_pass_split(scene, cam, target, 5, cfg))
-    err, k_ms, p_ms, b_ms, b_by, st, _, _ = record_pass_kernel(
-        scene, cam, scene.device, f["depth"])
-    phase("record", f"one flagship pass (262144 rays, d{f['depth']}, "
-                    f"resident): kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
-                    f"{1 - err:.4%} of indices equal; {int(st[0])} segments; "
-                    f"bound {b_ms:.4f} ms ({b_by})")
     before = {k: v.detach().clone() for k, v in params.items()}
     step = rtt.make_train_step(torch.optim.Adam(list(params.values()),
                                                 lr=1e-3), cfg,
@@ -1776,7 +1853,7 @@ def recorded_train_phase(scene, cam, target, smi: str, pp_mrays: float):
     phase("train-recorded", f"make_train_step x2 (engine recorded, Adam, lr "
                             f"1e-3, spp {MICRO_SPP}): losses {losses}, "
                             f"parameters moved by up to {moved:.3g}")
-    return launches["resident"], (err, k_ms, p_ms, b_ms, b_by)
+    return launches["resident"]
 
 
 def large_train_phase(dev, smi: str) -> tuple:
@@ -1878,7 +1955,7 @@ def main() -> int:
     # the sphere sweep of rows 1 and 5: registers and spills, and the
     # instructions a column issues in the sweep loop (SASS)
     for name, regs in ptxas_facts(info.log).items():
-        phase("sweep", f"{name}<true> ptxas: {regs}")
+        phase("sweep", f"{name} ptxas: {regs}")
     for name, ops in sass_sweep(info.path).items():
         phase("sweep", f"{name}<true> sweep loop, per column: "
                        f"{ops['total']:.3f} instructions ("
@@ -2002,7 +2079,7 @@ def main() -> int:
     gather = gather_phase(dev)
     replay_err = replay_phase(dev)
     grad_phase(dev)
-    rec10_err = diff_record_phase(dev)
+    rec10_err, rec10 = diff_record_phase(dev)
     recorded_grad_phase(dev)
 
     # ---- 11. the gradient main path: the flagship recorded-pp step ----
@@ -2014,8 +2091,8 @@ def main() -> int:
     target = rtt.render_fast(scene, cam, 0, cfg)
     train = train_phase(scene, cam, target, smi)
     torch.cuda.empty_cache()
-    rec_launches, rec10 = recorded_train_phase(scene, cam, target, smi,
-                                               train["mrays"])
+    rec_launches = recorded_train_phase(scene, cam, target, smi,
+                                        train["mrays"])
     del target
     torch.cuda.empty_cache()
 

@@ -7,7 +7,7 @@
 // rayz_tpu_torch/ops/megakernel.py computes, operation for operation and in
 // the same association, and the build passes -fmad=false so that no
 // multiply-add is contracted. The one exception is sweep_packed, the
-// coefficient-form sweep of the resident megakernel and the recorder,
+// coefficient-form sweep of the resident megakernel and the recorders,
 // whose fused multiply-adds are written out; its winner is settled in the
 // plain version's arithmetic (below). Square roots and divisions are IEEE (no
 // fast-math): the poisoned padding columns (|c|^2 - r^2 = 3e38) reject
@@ -177,8 +177,8 @@ __device__ __forceinline__ void sweep_spheres(const float* __restrict__ tab,
   sweep_spheres<kMotion>(tab, n, 0, n, r, t, qb, best);
 }
 
-// ---- the packed coefficient-form sweep (megakernel.cu resident, and
-// record_pp.cu) ----
+// ---- the packed coefficient-form sweep (megakernel.cu and record.cu
+// resident, and record_pp.cu) ----
 //
 // sweep_spheres issues, per column and lane, 9 broadcast loads of one word
 // (with motion), 27 unfused FP32 operations, the compare, the branch and
@@ -508,8 +508,9 @@ __device__ __forceinline__ bool settle_winner(const PackedSpheres& s, int n,
 }
 
 // Work-counter slots beyond rz::Work's five (the [8] stats array): the
-// re-sweeps of settle_winner, and the lane-trips of the queue megakernel's
-// warps (32 per loop trip of a warp that ran).
+// re-sweeps of settle_winner, and the lane-trips of the queue kernels'
+// warps (32 per loop trip of a warp that ran; the megakernel's and the
+// resident bounce-indexed recorder's).
 constexpr int kStatResweeps = 5;
 constexpr int kStatLaneTrips = 6;
 

@@ -7,32 +7,47 @@
 // then the megakernel's shading (rz::shade: sky on a miss, hit frame,
 // material scatter), emitting each ray's new state, alive flag and the
 // radiance it added. The host sorts and partitions the rays between
-// launches (ops/wavefront.py), so a block's rays are coherent and its bound
+// launches (ops/wavefront.py), so a warp's rays are coherent and its bound
 // tests prune on every bounce.
 //
 // What bounds it on the H100: the same FP32 quadratic per primitive as the
-// megakernel, times the primitives that survive the bound tests. The design
-// keeps the TPU's tile-wide pruning: one CUDA block is one tile of 128 rays,
-// and every bound test is a block-uniform vote (__syncthreads_or): the
-// block enters a supercluster, chunk or block if ANY of its rays may hit it
-// nearer than that ray's current best (inside, each thread still skips what
-// its own test rejects). A vote is a barrier, so every thread reaches every
-// vote: no thread returns early, and a dead ray votes false. Superclusters
-// and chunks are visited twice, first those overlapping the tile's own
-// origin bound (a block reduction over its live rays), then the rest, so
-// the best distance collapses on the tile's neighbourhood before the
-// far-away geometry is tested ("local-first").
+// megakernel, times the primitives that survive the bound tests, and the
+// bound tests themselves (about two per primitive test at 100k spheres).
+// The design keeps the TPU's tile-wide pruning at the width of a warp: one
+// warp is one tile of 32 rays (a block holds four independent tiles), and
+// every bound test is a warp vote (__any_sync): the warp enters a
+// supercluster, chunk or block if ANY of its rays may hit it nearer than
+// that ray's current best. Inside, a lane tests the bounds below and sweeps
+// only where its own test passed: the bounds are conservative, so a ray
+// whose own test rejects a supercluster or chunk can hit nothing in it (a
+// tile vote alone made every live ray test every block of an entered
+// chunk, twice the bound tests of each ray's own tests). No block barrier
+// is taken after the tables are staged: a warp whose rays are all dead
+// leaves the loop, and a tile of 128 rays with one live ray no longer
+// holds four warps. The host's Morton sort makes 32
+// neighbouring rays coherent. Superclusters and chunks are visited twice,
+// first those overlapping the warp's own origin bound (a warp reduction
+// over its live rays), then the rest, so the best distance collapses on
+// the tile's neighbourhood before the far-away geometry is tested
+// ("local-first").
 //
 // Table modes (template parameter kMode):
 //  * kResident: the full tables in shared memory, every column swept.
 //  * kCulled: Morton-sorted tables and block rows in shared memory; blocks
 //    near the tile first, then the rest.
-//  * kStreamed: tables and block rows in device memory, read straight
-//    through L1/L2 (no staging: a sweep reads each column once per ray and
-//    the warp's threads read the same column, so one cached line serves 32
-//    columns of a row; staging would add a block-wide copy and barrier per
-//    chunk for no reuse); the chunk and supercluster bound rows sit in
-//    shared memory.
+//  * kStreamed: tables and block rows in device memory; the chunk and
+//    supercluster bound rows sit in shared memory. When a warp enters a
+//    block of columns, each lane loads one column's sweep words (the rows
+//    the sweep reads: coalesced, 32 consecutive floats of a row) into the
+//    warp's staging buffer in shared memory as 16-byte records. Where many
+//    of its rays entered the block, every lane whose own test passed sweeps
+//    the block from there; where few did (at most kColumnsUpTo; on 78% of
+//    the lane slots of the 100k scene's sweeps a ray per lane did no work),
+//    the warp takes those rays in turn, a column per lane, and keeps the
+//    nearest hit by a warp reduction. Both use sweep_spheres'
+//    (sweep_triangles') expressions and tie order, so the winners keep their
+//    bits. Each thread parks its throughput and radiance in shared memory
+//    through the sweep, and the warps keep their work counters there.
 //
 // Fault repaired against the reference: the TPU kernel's near pass enters a
 // supercluster only if it overlaps the tile bound and then takes its near
@@ -56,9 +71,24 @@
 
 namespace {
 
-constexpr int kBlock = 128;  // rays per tile
+constexpr int kBlock = 128;  // rays per block: four warp tiles
 constexpr int kWarps = kBlock / 32;
-constexpr int kHeadWords = 48;  // camera, reduction scratch (WF_HEAD_WORDS)
+// The head of shared memory (WF_HEAD_WORDS): the camera (20 words), then
+// each warp's work counters (kCount words, rz::Work's slots and the lane
+// slots at rz::kStatLaneTrips).
+constexpr int kCount = 8;
+constexpr int kHeadWords = 20 + kWarps * kCount;
+// Staging words per warp (WF_STAGE_WORDS / 4): 32 columns of 12 triangle
+// words, or of 9 sphere words with motion; then the warp's 32 rays and
+// their terms (12 words each), which the column-parallel sweep reads.
+constexpr int kStageWords = 32 * 12 + 32 * 12;
+// A staged block is swept a column per lane (sweep_columns) when at most
+// this many of the warp's rays enter it, else a ray per lane.
+constexpr int kColumnsUpTo = 16;
+// Streamed, each thread parks its throughput and radiance (6 words) in
+// shared memory while it sweeps (WF_PARK_WORDS / kBlock).
+constexpr int kParkWords = 6;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = 3.0e38f;
 
 enum : int { kResident = 0, kCulled = 1, kStreamed = 2 };
@@ -80,7 +110,7 @@ struct WfParams {
   float* st_out;        // [10, r_pad]
   int* alive_out;       // [r_pad]
   float* rad;           // [3, r_pad] radiance added by this launch
-  unsigned long long* stats;  // [8] work counters (rz::Work) or null
+  unsigned long long* stats;  // [8] work counters or null
   int n_pad, m_pad, blk, stream, sc_s, sc_t;  // sc_*: 0 = no superclusters
   int r_pad, n_rays, n_px, width;
   int bounce, loop_bounces;
@@ -96,61 +126,36 @@ struct Tile {
 
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-// Block reduction (all threads call it; all get the same result):
-// centre = midpoint of the live origins' min and max per axis, radius =
-// the largest distance of a live origin from it.
-__device__ __forceinline__ Tile tile_bound(const rz::Ray& r, bool active,
-                                           float* s_red) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float v[6] = {warp_min(active ? r.ox : kInf), warp_min(active ? r.oy : kInf),
-                warp_min(active ? r.oz : kInf),
-                warp_max(active ? r.ox : -kInf),
-                warp_max(active ? r.oy : -kInf),
-                warp_max(active ? r.oz : -kInf)};
-  if (lane == 0) {
-#pragma unroll
-    for (int q = 0; q < 6; ++q) s_red[q * kWarps + warp] = v[q];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < 6; ++q) {
-    float x = s_red[q * kWarps];
-    for (int k = 1; k < kWarps; ++k)
-      x = q < 3 ? fminf(x, s_red[q * kWarps + k])
-                : fmaxf(x, s_red[q * kWarps + k]);
-    v[q] = x;
-  }
+// Warp reduction (every lane calls it; all get the same result): centre =
+// midpoint of the live origins' min and max per axis, radius = the largest
+// distance of a live origin from it.
+__device__ __forceinline__ Tile tile_bound(const rz::Ray& r, bool active) {
   Tile t;
-  t.cx = 0.5f * (v[0] + v[3]);
-  t.cy = 0.5f * (v[1] + v[4]);
-  t.cz = 0.5f * (v[2] + v[5]);
+  t.cx = 0.5f * (warp_min(active ? r.ox : kInf) +
+                 warp_max(active ? r.ox : -kInf));
+  t.cy = 0.5f * (warp_min(active ? r.oy : kInf) +
+                 warp_max(active ? r.oy : -kInf));
+  t.cz = 0.5f * (warp_min(active ? r.oz : kInf) +
+                 warp_max(active ? r.oz : -kInf));
   const float ex = r.ox - t.cx;
   const float ey = r.oy - t.cy;
   const float ez = r.oz - t.cz;
-  const float d2 = warp_max(active ? ex * ex + ey * ey + ez * ez : 0.0f);
-  if (lane == 0) s_red[6 * kWarps + warp] = d2;
-  __syncthreads();
-  float m = s_red[6 * kWarps];
-  for (int k = 1; k < kWarps; ++k) m = fmaxf(m, s_red[6 * kWarps + k]);
-  t.r = sqrtf(m);
+  t.r = sqrtf(warp_max(active ? ex * ex + ey * ey + ez * ez : 0.0f));
   return t;
 }
 
 // Whether bound i of a [4, stride] bound table overlaps the tile's origin
-// bound (block-uniform: every thread computes it from the same values).
+// bound (warp-uniform: every lane computes it from the same values).
 __device__ __forceinline__ bool is_near(const float* rows, int stride, int i,
                                         const Tile& tile) {
   const float bx = rows[i];
@@ -173,90 +178,280 @@ struct Hit {
   bool is_tri = false;
 };
 
+// The warp's work counters in shared memory (null: not counting), kept by
+// lane 0 from the warp's ballots, so that no lane carries them in
+// registers through the sweeps.
+enum : int { kSegments = 0, kPrims = 1, kBounds = 2, kVotes = 3,
+             kPassed = 4 };
+
+__device__ __forceinline__ void count(unsigned int* cnt, int slot,
+                                      unsigned int n) {
+  if (cnt && (threadIdx.x & 31) == 0) cnt[slot] += n;
+}
+
+// Columns [j0, j1) of a table in shared memory (resident, culled): the
+// lane's own sweep.
 template <bool kMotion, bool kTri>
 __device__ __forceinline__ void sweep_cols(const float* tab, int stride,
                                            int j0, int j1, const rz::Ray& r,
-                                           const rz::RayTerms& t, Hit& h,
-                                           rz::Work& w) {
-  w.prims += j1 - j0;
+                                           const rz::RayTerms& t, Hit& h) {
   if (kTri)
     rz::sweep_triangles(tab, stride, j0, j1, r, t, h.qb, h.best, h.is_tri);
   else
     rz::sweep_spheres<kMotion>(tab, stride, j0, j1, r, t, h.qb, h.best);
 }
 
-// One voted bound: the ray's own test, then the tile's vote. Returns the
-// vote; `mine` is the ray's own result.
+// Staged column j (the records at shared-space address s0) against the
+// ray: rz::sweep_triangles' (rz::sweep_spheres') test with its
+// expressions, true where the column hits nearer than qb, its distance in
+// q.
+template <bool kMotion, bool kTri>
+__device__ __forceinline__ bool staged_hit(uint32_t s0, int j,
+                                           const rz::Ray& r,
+                                           const rz::RayTerms& t, float qb,
+                                           float& q) {
+  if constexpr (kTri) {
+    const float4 nv = rz::lds128(s0 + 16u * j);
+    const float ndd = r.dx * nv.x + r.dy * nv.y + r.dz * nv.z;
+    const float ndo = r.ox * nv.x + r.oy * nv.y + r.oz * nv.z;
+    const float rcp = 1.0f / ndd;
+    const float tt = (nv.w - ndo) * rcp;
+    q = tt * t.a;
+    if (!(q >= t.tmin_a && q < qb)) return false;
+    const float hx = r.ox + tt * r.dx;
+    const float hy = r.oy + tt * r.dy;
+    const float hz = r.oz + tt * r.dz;
+    const float4 g1 = rz::lds128(s0 + 16u * (32 + j));
+    const float4 g2 = rz::lds128(s0 + 16u * (64 + j));
+    const float u = g1.x * hx + g1.y * hy + g1.z * hz - g1.w;
+    const float v = g2.x * hx + g2.y * hy + g2.z * hz - g2.w;
+    return u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+  } else {
+    const rz::PackedSpheres ps{s0, s0 + 16u * 32, s0 + 16u * 64};
+    bool first;
+    return rz::sphere_root<kMotion>(ps, j, r, t, q, first) && q < qb;
+  }
+}
+
+// The staged columns (shared-space address s0; lane l's column base + l,
+// l < cols) against each ray of `sweepers` in turn, a column per lane: the
+// ray is read from the warp's ray stage (s0 + 16 * 96: its origin,
+// direction and time and rz::RayTerms, written each bounce), each lane
+// tests its own column with rz::sweep_spheres' (rz::sweep_triangles')
+// expressions against the ray's best distance, and where any lane accepts
+// one the warp takes the smallest distance, the lowest column at a tie:
+// the winner and bits of that ray's own sweep over the columns in order.
+// Warp-uniform call.
+template <bool kMotion, bool kTri>
+__device__ __forceinline__ void sweep_columns(uint32_t s0, int cols, int base,
+                                              unsigned int sweepers, Hit& h) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t rays = s0 + 16u * 96;
+  while (sweepers) {
+    const int src = __ffs(sweepers) - 1;
+    sweepers &= sweepers - 1;
+    const float qb = __shfl_sync(kFull, h.qb, src);
+    const float4 a = rz::lds128(rays + 16u * src);
+    const float4 b = rz::lds128(rays + 16u * (32 + src));
+    const float4 c = rz::lds128(rays + 16u * (64 + src));
+    const rz::Ray r{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+    const rz::RayTerms t{b.w, c.x, c.y, c.z, c.w};
+    float q = rz::kBig;
+    const bool ok =
+        lane < cols && staged_hit<kMotion, kTri>(s0, lane, r, t, qb, q);
+    if (!__any_sync(kFull, ok)) continue;
+    float qm = ok ? q : rz::kBig;
+    int jm = ok ? lane : 32;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float oq = __shfl_xor_sync(kFull, qm, o);
+      const int oj = __shfl_xor_sync(kFull, jm, o);
+      if (oq < qm || (oq == qm && oj < jm)) {
+        qm = oq;
+        jm = oj;
+      }
+    }
+    if (lane == src) {
+      h.qb = qm;
+      h.best = base + jm;
+      h.is_tri = kTri;
+    }
+  }
+}
+
+// Columns [j0, j1) of a table in device memory (streamed) for the rays
+// with `mine`, by the whole warp (warp-uniform call): 32 columns at a
+// time, each lane stages one column's sweep words as records (spheres:
+// (c, |c|^2 - r^2), with motion (v, 2 c.v) and |v|^2, as
+// rz::stage_spheres lays them out; triangles: (n, n.v0), (g1, g1.v0),
+// (g2, g2.v0)); then, where at most kColumnsUpTo rays sweep, a column per
+// lane (sweep_columns), else each of those lanes sweeps the staged columns
+// in order. Either way the winners and bits are rz::sweep_spheres'
+// (rz::sweep_triangles') on the same values.
+template <bool kMotion, bool kTri>
+__device__ __forceinline__ void sweep_staged(const float* __restrict__ tab,
+                                             int stride, int j0, int j1,
+                                             bool mine, float4* stage,
+                                             const rz::Ray& r,
+                                             const rz::RayTerms& t, Hit& h,
+                                             unsigned int* cnt) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(stage));
+  const unsigned int sweepers = __ballot_sync(kFull, mine);
+  if (!sweepers) return;
+  const bool by_columns = __popc(sweepers) <= kColumnsUpTo;
+  for (int base = j0; base < j1; base += 32) {
+    const int cols = min(32, j1 - base);
+    if (lane < cols) {
+      const int j = base + lane;
+      if constexpr (kTri) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          stage[32 * k + lane] = make_float4(
+              tab[(4 * k) * stride + j], tab[(4 * k + 1) * stride + j],
+              tab[(4 * k + 2) * stride + j], tab[(4 * k + 3) * stride + j]);
+      } else {
+        stage[lane] = make_float4(tab[rz::kCX * stride + j],
+                                  tab[rz::kCY * stride + j],
+                                  tab[rz::kCZ * stride + j],
+                                  tab[rz::kCCMR2 * stride + j]);
+        if (kMotion) {
+          stage[32 + lane] = make_float4(tab[rz::kVX * stride + j],
+                                         tab[rz::kVY * stride + j],
+                                         tab[rz::kVZ * stride + j],
+                                         tab[rz::kCV2 * stride + j]);
+          reinterpret_cast<float*>(stage + 64)[lane] =
+              tab[rz::kVV * stride + j];
+        }
+      }
+    }
+    __syncwarp();
+    count(cnt, kPrims, cols * __popc(sweepers));
+    if (by_columns) {
+      count(cnt, rz::kStatLaneTrips, 32 * __popc(sweepers));
+      sweep_columns<kMotion, kTri>(s0, cols, base, sweepers, h);
+    } else {
+      count(cnt, rz::kStatLaneTrips, 32 * cols);
+    }
+    if (!by_columns && mine) {
+#pragma unroll 8
+      for (int jj = 0; jj < cols; ++jj) {
+        float q;
+        if (staged_hit<kMotion, kTri>(s0, jj, r, t, h.qb, q)) {
+          h.qb = q;
+          h.best = base + jj;
+          h.is_tri = kTri;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Bound i of a [4, stride] bound table as one record (centre, |c|^2 -
+// r^2).
+__device__ __forceinline__ float4 bound_rec(const float* rows, int stride,
+                                            int i) {
+  return make_float4(rows[i], rows[stride + i], rows[2 * stride + i],
+                     rows[3 * stride + i]);
+}
+
+// rz::bound_possible on a bound record, with a miss decided before the
+// square root: a negative (or NaN) discriminant fails there as it fails
+// bound_possible's NaN compares after sqrtf, so every decision is
+// bound_possible's, without the IEEE square root's slow path, which a
+// negative argument takes (most bound tests miss).
+__device__ __forceinline__ bool bound_test(const float4& b, const rz::Ray& r,
+                                           const rz::RayTerms& t, float qb) {
+  const float hb = r.dx * b.x + r.dy * b.y + r.dz * b.z - t.d_dot_o;
+  const float ob = r.ox * b.x + r.oy * b.y + r.oz * b.z;
+  const float disc = hb * hb - t.a * (b.w - 2.0f * ob + t.o2);
+  if (!(disc >= 0.0f)) return false;
+  const float rtb = sqrtf(disc);
+  return b.w < rz::kBig && hb - rtb < qb && hb + rtb >= t.tmin_a;
+}
+
+// One voted bound (bound i of `rows`): each active ray's own test, then
+// the warp's vote. Returns the vote; `mine` is the ray's own result.
 __device__ __forceinline__ bool vote(const float* rows, int stride, int i,
                                      bool active, const rz::Ray& r,
                                      const rz::RayTerms& t, float qb,
-                                     bool& mine, rz::Work& w) {
-  mine = active && rz::bound_possible(rows, stride, i, r, t, qb);
-  if (active) ++w.bounds;
-  return __syncthreads_or(mine) != 0;
+                                     bool& mine, unsigned int* cnt) {
+  mine = active && bound_test(bound_rec(rows, stride, i), r, t, qb);
+  if (cnt) count(cnt, kBounds, __popc(__ballot_sync(kFull, active)));
+  return __any_sync(kFull, mine);
 }
 
 // Blocks [b0, b1) of one class behind voted bound tests. `pass` 0 takes
-// the blocks near the tile, 1 the rest, -1 all (one pass).
+// the blocks near the tile, 1 the rest, -1 all (one pass). Streamed
+// (`stage` set), an entered block is staged and swept by the warp.
 template <bool kMotion, bool kTri>
-__device__ void sweep_blocks(const float* tab, int stride, const float* brows,
-                             int nb, int blk, int b0, int b1, int pass,
-                             const Tile& tile, bool active, const rz::Ray& r,
-                             const rz::RayTerms& t, Hit& h, rz::Work& w,
-                             bool count_votes) {
+__device__ __forceinline__ void sweep_blocks(
+    const float* tab, int stride, const float* brows, int nb, int blk,
+    int b0, int b1, int pass, const Tile& tile, bool active, float4* stage,
+    const rz::Ray& r, const rz::RayTerms& t, Hit& h, unsigned int* cnt,
+    bool count_votes) {
   for (int b = b0; b < b1; ++b) {
     if (pass >= 0 && is_near(brows, nb, b, tile) != (pass == 0)) continue;
     bool mine;
-    const bool any = vote(brows, nb, b, active, r, t, h.qb, mine, w);
-    if (count_votes && threadIdx.x == 0) {
-      ++w.votes;
-      w.passed += any;
+    const bool any = vote(brows, nb, b, active, r, t, h.qb, mine, cnt);
+    if (count_votes) {
+      count(cnt, kVotes, 1);
+      count(cnt, kPassed, any);
     }
-    if (any && mine)
-      sweep_cols<kMotion, kTri>(tab, stride, b * blk, (b + 1) * blk, r, t, h,
-                                w);
+    if (!any) continue;
+    if (stage) {
+      sweep_staged<kMotion, kTri>(tab, stride, b * blk, (b + 1) * blk, mine,
+                                  stage, r, t, h, cnt);
+    } else {
+      const unsigned int sweepers = __ballot_sync(kFull, mine);
+      count(cnt, kPrims, blk * __popc(sweepers));
+      count(cnt, rz::kStatLaneTrips, 32 * blk);
+      if (mine)
+        sweep_cols<kMotion, kTri>(tab, stride, b * blk, (b + 1) * blk, r, t,
+                                  h);
+    }
   }
 }
 
 // Chunk c of a streamed class, if its near-ness (`sc_near` and its own
-// overlap with the tile) matches `want_near` and the tile votes for it.
+// overlap with the tile) matches `want_near` and the warp votes for it;
+// `active`: the lanes whose supercluster test passed.
 template <bool kMotion, bool kTri>
-__device__ void stream_chunk(const float* tab, int n, const float* cb,
-                             const float* brows, const WfParams& p, int c,
-                             bool want_near, bool sc_near, const Tile& tile,
-                             bool active, const rz::Ray& r,
-                             const rz::RayTerms& t, Hit& h, rz::Work& w) {
+__device__ __forceinline__ void stream_chunk(
+    const float* tab, int n, const float* cb, const float* brows,
+    const WfParams& p, int c, bool want_near, bool sc_near, const Tile& tile,
+    bool active, float4* stage, const rz::Ray& r, const rz::RayTerms& t,
+    Hit& h, unsigned int* cnt) {
   const int nc = n / p.stream;
   if ((sc_near && is_near(cb, nc, c, tile)) != want_near) return;
   bool mine;
-  const bool any = vote(cb, nc, c, active, r, t, h.qb, mine, w);
-  if (threadIdx.x == 0) {
-    ++w.votes;
-    w.passed += any;
-  }
+  const bool any = vote(cb, nc, c, active, r, t, h.qb, mine, cnt);
+  count(cnt, kVotes, 1);
+  count(cnt, kPassed, any);
   if (!any) return;
   if (p.blk) {
     const int per = p.stream / p.blk;
     sweep_blocks<kMotion, kTri>(tab, n, brows, n / p.blk, p.blk, c * per,
-                                (c + 1) * per, -1, tile, active, r, t, h, w,
-                                false);
-  } else if (mine) {
-    sweep_cols<kMotion, kTri>(tab, n, c * p.stream, (c + 1) * p.stream, r, t,
-                              h, w);
+                                (c + 1) * per, -1, tile, mine, stage, r, t, h,
+                                cnt, false);
+  } else {
+    sweep_staged<kMotion, kTri>(tab, n, c * p.stream, (c + 1) * p.stream,
+                                mine, stage, r, t, h, cnt);
   }
 }
 
 // One streamed class: superclusters (where enabled), chunks, blocks, with
 // the tile-local pass first.
 template <bool kMotion, bool kTri>
-__device__ void sweep_stream(const float* tab, int n, const float* cb,
-                             const float* sc, int g, const float* brows,
-                             const WfParams& p, const Tile& tile, bool active,
-                             const rz::Ray& r, const rz::RayTerms& t, Hit& h,
-                             rz::Work& w) {
+__device__ __forceinline__ void sweep_stream(
+    const float* tab, int n, const float* cb, const float* sc, int g,
+    const float* brows, const WfParams& p, const Tile& tile, bool active,
+    float4* stage, const rz::Ray& r, const rz::RayTerms& t, Hit& h,
+    unsigned int* cnt) {
   if (n == 0) return;
   if (!p.cull) {  // every chunk, untested
-    if (active) sweep_cols<kMotion, kTri>(tab, n, 0, n, r, t, h, w);
+    sweep_staged<kMotion, kTri>(tab, n, 0, n, active, stage, r, t, h, cnt);
     return;
   }
   const int nc = n / p.stream;
@@ -267,27 +462,37 @@ __device__ void sweep_stream(const float* tab, int n, const float* cb,
         const bool sc_near = is_near(sc, ns, s, tile);
         if (pass == 0 && !sc_near) continue;
         bool mine;
-        if (!vote(sc, ns, s, active, r, t, h.qb, mine, w)) continue;
+        if (!vote(sc, ns, s, active, r, t, h.qb, mine, cnt)) continue;
         for (int k = 0; k < g; ++k)
           stream_chunk<kMotion, kTri>(tab, n, cb, brows, p, s * g + k,
-                                      pass == 0, sc_near, tile, active, r, t,
-                                      h, w);
+                                      pass == 0, sc_near, tile, mine, stage,
+                                      r, t, h, cnt);
       }
     } else {
       for (int c = 0; c < nc; ++c)
         stream_chunk<kMotion, kTri>(tab, n, cb, brows, p, c, pass == 0, true,
-                                    tile, active, r, t, h, w);
+                                    tile, active, stage, r, t, h, cnt);
     }
   }
 }
 
+// At most 72 registers a thread (7 blocks of 128 an SM): the sweep waits on
+// its loads, square roots and shuffles, which resident warps hide; at 64
+// registers (8 blocks) the spills cost more than the eighth block gains
+// (PERF.md).
 template <bool kMotion, int kMode>
-__global__ void __launch_bounds__(kBlock) wavefront_kernel(WfParams p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kBlock, 7) wavefront_kernel(WfParams p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   float* s_cam = smem;
-  float* s_red = smem + rz::kCamWords;
   float* s_tab = smem + kHeadWords;
   for (int i = threadIdx.x; i < 18; i += kBlock) s_cam[i] = p.cam[i];
+  unsigned int* cnt = nullptr;
+  if (p.stats) {
+    cnt = reinterpret_cast<unsigned int*>(smem + 20) +
+          (threadIdx.x >> 5) * kCount;
+    if ((threadIdx.x & 31) < kCount) cnt[threadIdx.x & 31] = 0u;
+  }
   const float* sph;
   const float* tri;
   const float* sbl = nullptr;
@@ -296,13 +501,19 @@ __global__ void __launch_bounds__(kBlock) wavefront_kernel(WfParams p) {
   const float* tcb = nullptr;
   const float* ssc = nullptr;
   const float* tsc = nullptr;
+  float4* stage = nullptr;
+  float* park = nullptr;
   if constexpr (kMode == kStreamed) {
-    // bound rows of the chunks and superclusters, both classes
+    // the warps' staging buffers, the parked states, then the bound rows
+    // of the chunks and superclusters, both classes
+    stage = reinterpret_cast<float4*>(s_tab) +
+            (threadIdx.x >> 5) * (kStageWords / 4);
+    park = s_tab + kWarps * kStageWords + threadIdx.x;
     const int ncs = p.n_pad / p.stream;
     const int nct = p.m_pad / p.stream;
     const int nss = p.sc_s ? ncs / p.sc_s : 0;
     const int nst = p.sc_t ? nct / p.sc_t : 0;
-    float* s_scb = s_tab;
+    float* s_scb = s_tab + kWarps * kStageWords + kBlock * kParkWords;
     float* s_tcb = s_scb + 4 * ncs;
     float* s_ssc = s_tcb + 4 * nct;
     float* s_tsc = s_ssc + 4 * nss;
@@ -338,7 +549,7 @@ __global__ void __launch_bounds__(kBlock) wavefront_kernel(WfParams p) {
     sph = s_sph;
     tri = s_tri;
   }
-  __syncthreads();
+  __syncthreads();  // the last block barrier: the warps run on alone
 
   // r_pad is a multiple of the block: every thread owns a ray slot
   const size_t i = static_cast<size_t>(blockIdx.x) * kBlock + threadIdx.x;
@@ -374,42 +585,61 @@ __global__ void __launch_bounds__(kBlock) wavefront_kernel(WfParams p) {
   }
 
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
-  rz::Work w;
   // One bounce per trip; the tail launch runs up to loop_bounces. The
-  // condition is a block-wide vote: a tile with no live ray is done (the
-  // TPU's dead-tile skip and its tail-loop condition).
+  // condition is a warp vote: a tile with no live ray is done (the TPU's
+  // dead-tile skip and its tail-loop condition).
   for (int it = 0; it < p.loop_bounces; ++it) {
-    if (!__syncthreads_or(active)) break;
-    const uint32_t key = rz::step_key(key0, sample, p.bounce + it);
+    const unsigned int live = __ballot_sync(kFull, active);
+    if (!live) break;
+    count(cnt, kSegments, __popc(live));
     const rz::RayTerms t = rz::ray_terms(r, p.t_min);
     Hit h;
-    if (active) ++w.segments;
     if constexpr (kMode == kResident) {
       if (active) {
-        sweep_cols<kMotion, false>(sph, p.n_pad, 0, p.n_pad, r, t, h, w);
-        sweep_cols<kMotion, true>(tri, p.m_pad, 0, p.m_pad, r, t, h, w);
+        sweep_cols<kMotion, false>(sph, p.n_pad, 0, p.n_pad, r, t, h);
+        sweep_cols<kMotion, true>(tri, p.m_pad, 0, p.m_pad, r, t, h);
       }
+      count(cnt, kPrims, (p.n_pad + p.m_pad) * __popc(live));
     } else {
-      const Tile tile = tile_bound(r, active, s_red);
+      const Tile tile = tile_bound(r, active);
       if constexpr (kMode == kCulled) {
         for (int pass = 0; pass < 2; ++pass) {
           sweep_blocks<kMotion, false>(sph, p.n_pad, sbl, p.n_pad / p.blk,
                                        p.blk, 0, p.n_pad / p.blk, pass, tile,
-                                       active, r, t, h, w, true);
+                                       active, nullptr, r, t, h, cnt, true);
         }
         for (int pass = 0; pass < 2; ++pass) {
           sweep_blocks<kMotion, true>(tri, p.m_pad, tbl, p.m_pad / p.blk,
                                       p.blk, 0, p.m_pad / p.blk, pass, tile,
-                                      active, r, t, h, w, true);
+                                      active, nullptr, r, t, h, cnt, true);
         }
       } else {
+        // the warp's rays and their terms, for sweep_columns
+        float4* rs = stage + 96 + (threadIdx.x & 31);
+        rs[0] = make_float4(r.ox, r.oy, r.oz, r.dx);
+        rs[32] = make_float4(r.dy, r.dz, r.tau, t.a);
+        rs[64] = make_float4(t.d_dot_o, t.o2, t.tmin_a, t.tau2);
+        // cold through the sweep: parked in shared memory
+        park[0 * kBlock] = thx;
+        park[1 * kBlock] = thy;
+        park[2 * kBlock] = thz;
+        park[3 * kBlock] = ar;
+        park[4 * kBlock] = ag;
+        park[5 * kBlock] = ab;
         sweep_stream<kMotion, false>(sph, p.n_pad, scb, ssc, p.sc_s, sbl, p,
-                                     tile, active, r, t, h, w);
+                                     tile, active, stage, r, t, h, cnt);
         sweep_stream<kMotion, true>(tri, p.m_pad, tcb, tsc, p.sc_t, tbl, p,
-                                    tile, active, r, t, h, w);
+                                    tile, active, stage, r, t, h, cnt);
+        thx = park[0 * kBlock];
+        thy = park[1 * kBlock];
+        thz = park[2 * kBlock];
+        ar = park[3 * kBlock];
+        ag = park[4 * kBlock];
+        ab = park[5 * kBlock];
       }
     }
     if (active) {
+      const uint32_t key = rz::step_key(key0, sample, p.bounce + it);
       active = rz::shade<kMotion>(sph, p.n_pad, tri, p.m_pad, r, t, h.qb,
                                   h.best, h.is_tri, rz::KeyDraws{key}, thx,
                                   thy, thz, ar, ag,
@@ -432,7 +662,11 @@ __global__ void __launch_bounds__(kBlock) wavefront_kernel(WfParams p) {
   p.rad[0 * rp + i] = ar;
   p.rad[1 * rp + i] = ag;
   p.rad[2 * rp + i] = ab;
-  if (p.stats) rz::flush_work(w, p.stats);
+  if (cnt && (threadIdx.x & 31) == 0) {
+    for (int k = 0; k < kCount; ++k)
+      if (cnt[k])
+        atomicAdd(p.stats + k, static_cast<unsigned long long>(cnt[k]));
+  }
 }
 
 template <bool kMotion, int kMode>

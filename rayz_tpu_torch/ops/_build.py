@@ -113,7 +113,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    i, i, f, i, i, u, i, p, p]
     lib.rayz_wavefront.restype = i
     lib.rayz_record.argtypes = [p, i, p, i, p, p, p, p, p, p, i, i, i, p, p,
-                                i, i, f, i, p, p, p]
+                                i, i, f, i, p, p, p, p]
     lib.rayz_record.restype = i
     lib.rayz_error_string.argtypes = [i]
     lib.rayz_error_string.restype = ctypes.c_char_p

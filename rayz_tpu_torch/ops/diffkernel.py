@@ -11,7 +11,10 @@ estimators gather from, and the bounce-indexed estimator itself:
   writes each bounce's winning primitive index [depth, R] (-1 on a miss or
   a dead path; spheres [0, N_pad), triangles N_pad + j). Scenes within one
   block's shared memory (:func:`rayz_tpu_torch.ops.tables.fits_shared`)
-  record from shared memory; larger ones stream their tables from device
+  record from shared memory, through a persistent ray queue on the packed
+  coefficient-form sphere sweep (its paths are the plain recorder's but at
+  the near ties and grazing roots :mod:`.sweep`'s rule accepts); larger
+  ones stream their tables from device
   memory in the streamed megakernel's layout (Morton-sorted, chunks of
   :data:`RECORD_STREAM_CHUNK` columns and blocks of
   :data:`RECORD_STREAM_BLOCK`, near to far;
@@ -60,7 +63,8 @@ from .tables import (_BIG, _NROWS, _TNROWS, SHARED_LIMIT, STREAM_BLOCK,
                      fits_record_stream, fits_shared)
 
 __all__ = ["supports_diff", "record_paths", "replay_paths", "render_diff",
-           "render_diff_flat", "RECORD_STREAM_CHUNK", "LAUNCHES"]
+           "render_diff_flat", "RECORD_STREAM_CHUNK", "RECORD_GROUP",
+           "LAUNCHES"]
 
 #: Columns per chunk of the streamed recorder (H100): the forward engines'
 #: chunk, 16 bytes of bound rows in shared memory per 512 columns.
@@ -68,6 +72,15 @@ RECORD_STREAM_CHUNK = 512
 #: Columns per culling block inside a streamed chunk (the forward engines';
 #: ``python -m rayz_tpu_torch.tune record`` times chunk x block, PERF.md).
 RECORD_STREAM_BLOCK = STREAM_BLOCK
+
+#: Sample passes that one resident record launch traces (their rays side
+#: by side) in :func:`render_diff_flat`. A launch lasts as long as its
+#: longest chain of bounces (0.76% of the flagship's rays bounce 32 times,
+#: most 1-3), so a group of passes shares that tail: 2.77 ms a pass alone,
+#: 0.81 in groups of 8 on an H100 (PERF.md). The group's rays and randoms
+#: are held at once (8 x 168 MB of randoms at the flagship). The streamed
+#: recorder takes one pass per launch.
+RECORD_GROUP = 8
 
 #: Launches of the record kernel in this process, per table mode (never
 #: counted by the plain version).
@@ -230,7 +243,8 @@ def _exact_ties(scene: Scene, rays, rand, got, want, *, depth: int,
     return tie
 
 
-def _check_record(stab, ttab, rays, rand, depth: int, bounds) -> None:
+def _check_record(stab, ttab, rays, rand, depth: int, bounds,
+                  has_motion: bool) -> None:
     dev = rays.device
     tensors = [("stab", stab), ("ttab", ttab), ("rays", rays), ("rand", rand)]
     if bounds is not None:
@@ -253,8 +267,8 @@ def _check_record(stab, ttab, rays, rand, depth: int, bounds) -> None:
         raise ValueError(f"rand must be [{depth}, 5, {r}] with depth >= 1, "
                          f"got {tuple(rand.shape)}")
     n, m = stab.shape[1], ttab.shape[1]
-    if bounds is None:
-        smem = 4 * (_NROWS * n + _TNROWS * m)
+    if bounds is None:  # the packed sphere geometry and the triangle table
+        smem = 4 * ((9 if has_motion else 4) * n + _TNROWS * m)
     else:
         stream, blk = bounds.stream, bounds.blk
         if blk <= 0 or stream <= 0 or stream % blk or n % stream or \
@@ -279,6 +293,18 @@ def _check_record(stab, ttab, rays, rand, depth: int, bounds) -> None:
                          f"memory (> {SHARED_LIMIT} per block on an H100)")
 
 
+def _record_outputs(depth: int, r: int, dev, resident: bool):
+    """What a record launch writes: idx [depth, r] int32 and, resident, the
+    queue's ray counter [2] int64 (rays claimed, the clock of the last
+    claim), zeroed. The resident kernel writes only winners, so its idx
+    starts at -1 (a miss or a dead path); the streamed kernel writes every
+    index (counter None)."""
+    if not resident:
+        return torch.empty((depth, r), dtype=torch.int32, device=dev), None
+    return (torch.full((depth, r), -1, dtype=torch.int32, device=dev),
+            torch.zeros(2, dtype=torch.int64, device=dev))
+
+
 def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
             has_motion: bool, tri_base: int,
             bounds: Optional[StreamTables] = None,
@@ -294,11 +320,16 @@ def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
     ``sperm``/``tperm``.
     ``stats``, an int64 [8] tensor on the device, receives the kernel's
     work counters (segments, primitive columns tested, block tests, chunk
-    tests, chunk tests passed).
+    tests, chunk tests passed; resident also the re-sweeps in today's
+    arithmetic (5), the lane-trips of the queue's warps (6) and the
+    longest time in ns a warp ran after the ray counter drained (7)).
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
-    tensors run the plain version. Returns idx [depth, R] int32."""
-    _check_record(stab, ttab, rays, rand, depth, bounds)
+    tensors run the plain version. The resident kernel's winners are the
+    plain version's but at the near ties and grazing roots that
+    :func:`rayz_tpu_torch.ops.sweep.explain_paths` accepts; the streamed
+    kernel's equal them. Returns idx [depth, R] int32."""
+    _check_record(stab, ttab, rays, rand, depth, bounds, has_motion)
     kw = dict(depth=depth, t_min=t_min, has_motion=has_motion,
               tri_base=tri_base)
     if rays.device.type == "cpu":
@@ -312,18 +343,19 @@ def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
                          "device")
     lib, _ = _build.load()
     r = rays.shape[1]
-    idx = torch.empty((depth, r), dtype=torch.int32, device=rays.device)
     b = bounds
+    dev = rays.device
+    idx, counter = _record_outputs(depth, r, dev, b is None)
     ptrs = ([None] * 6 if b is None else
             [b.scb, b.tcb, b.sblk, b.tblk, b.sperm, b.tperm])
-    with torch.cuda.device(rays.device):
+    with torch.cuda.device(dev):
         err = lib.rayz_record(
             stab.data_ptr(), stab.shape[1], ttab.data_ptr(), ttab.shape[1],
             *map(pathrec._ptr, ptrs), 0 if b is None else b.stream,
             0 if b is None else b.blk, tri_base, rays.data_ptr(),
             rand.data_ptr(), r, depth, t_min, int(has_motion),
-            idx.data_ptr(), pathrec._ptr(stats),
-            torch.cuda.current_stream(rays.device).cuda_stream)
+            idx.data_ptr(), pathrec._ptr(counter), pathrec._ptr(stats),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "record")
     LAUNCHES["resident" if b is None else "streamed"] += 1
     return idx
@@ -529,31 +561,53 @@ def render_diff_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
     ``px``/``py`` [n]) -> [n, 3], spp-averaged (diffkernel.py:868).
 
     One recording per sample pass, replayed, the passes summed in order and
-    divided by ``spp``. Each pass is checkpointed keeping only its indices
-    [max_depth, n] int32: the backward regenerates its rays and randoms
-    (cheap, counter-keyed) and replays it again, so the record kernel runs
-    once per pass. The recorder keeps the tables in shared memory where
-    they fit and streams them otherwise (:func:`record_paths`), ordered
-    near to far from the camera; its tables are built once for all
-    passes."""
+    divided by ``spp``. Resident, the passes are recorded in groups of
+    :data:`RECORD_GROUP`, one launch over their rays side by side. Each
+    pass is checkpointed keeping only its indices [max_depth, n] int32:
+    the backward regenerates its rays and randoms (cheap, counter-keyed;
+    the group's are the passes' own, copied side by side, so the same
+    bits) and replays it again, so the record kernel runs once per group.
+    The recorder keeps the tables in shared memory where they fit and
+    streams them otherwise (:func:`record_paths`), ordered near to far
+    from the camera; its tables are built once for all passes."""
     pix = (py.long() * camera.width + px.long()).to(torch.int32)
+    n = pix.shape[0]
     tab = _diff_tables(scene)
     tables = _record_setup(scene, None, camera.look_from)
+    group = RECORD_GROUP if tables[2] is None else 1
 
     def inputs(s):
         o, d, tm = _camera_rays(camera, seed, pix, s, jitter)
         return o, d, tm, _make_rand(seed, pix, s, max_depth)
 
+    def group_inputs(s0, g):
+        """Passes s0 .. s0 + g - 1 side by side: origin and direction
+        [g n, 3], time [g n], randoms [depth, 5, g n]."""
+        if g == 1:
+            return inputs(s0)
+        out = None
+        for k in range(g):
+            o, d, tm, rand = inputs(s0 + k)
+            parts = (o.T, d.T, tm, rand)  # the ray index last
+            if out is None:
+                out = [x.new_empty((*x.shape[:-1], g * n)) for x in parts]
+            for buf, x in zip(out, parts):
+                buf[..., k * n:(k + 1) * n] = x
+        return out[0].T, out[1].T, out[2], out[3]
+
     def replay_pass(tab, idx, s):
         return _replay(scene, tab, *inputs(s), idx, t_min=t_min, remat=True)
 
     acc = None
-    for s in range(spp):
-        idx = _record_rays(scene, tables, *inputs(s), max_depth=max_depth,
-                           t_min=t_min)
-        rad = checkpoint(replay_pass, tab, idx, s, use_reentrant=False,
-                         preserve_rng_state=False)
-        acc = rad if acc is None else acc + rad
+    for s0 in range(0, spp, group):
+        g = min(group, spp - s0)
+        idx = _record_rays(scene, tables, *group_inputs(s0, g),
+                           max_depth=max_depth, t_min=t_min)
+        for k in range(g):
+            rad = checkpoint(replay_pass, tab, idx[:, k * n:(k + 1) * n],
+                             s0 + k, use_reentrant=False,
+                             preserve_rng_state=False)
+            acc = rad if acc is None else acc + rad
     return acc.to(camera.dtype) / float(spp)
 
 

@@ -10,17 +10,18 @@ PyTorch counterpart of :mod:`rayz_tpu.ops.engine`. Two engines are ported:
 
 ``"auto"`` follows the JAX rule with the H100's limits: the megakernel for
 scenes whose tables fit one block's shared memory (:func:`fits_shared`),
-the wavefront for the rest that the streamed layout takes
-(:func:`fits_stream`). Engines and scenes that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item; nothing falls back
-quietly.
+the wavefront for the rest that its streamed launch takes
+(:func:`fits_wavefront`), and the streamed megakernel for the few larger
+scenes whose chunk bounds still fit (:func:`fits_stream`). Engines and
+scenes that are not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item; nothing falls back quietly.
 """
 
 from __future__ import annotations
 
 from .integrator import RenderConfig
 from .megakernel import render_megakernel
-from .tables import fits_shared, fits_stream, supports_scene
+from .tables import fits_shared, fits_stream, fits_wavefront, supports_scene
 from .wavefront import render_wavefront
 
 __all__ = ["render_fast", "pick_engine", "ENGINES"]
@@ -54,8 +55,10 @@ def pick_engine(scene, engine: str = "auto") -> str:
                          "triangles")
     if fits_shared(scene):
         return "megakernel"
-    if fits_stream(scene):
+    if fits_wavefront(scene):
         return "wavefront"
+    if fits_stream(scene):
+        return "megakernel"
     raise NotImplementedError(
         "scene too large even for the streamed tables' chunk bounds in shared "
         "memory; the JAX package renders it with the dense integrator, ROADMAP "

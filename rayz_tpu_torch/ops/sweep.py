@@ -1,8 +1,9 @@
 """The resident kernels' coefficient-form sphere sweep, in plain torch, and
 the rule that explains where its winners part from the plain versions'.
 
-The resident megakernel (``csrc/megakernel.cu``) and the recorder
-(``csrc/record_pp.cu``) sweep spheres with ``rz::sweep_packed``
+The resident megakernel (``csrc/megakernel.cu``) and the recorders
+(``csrc/record_pp.cu``, and ``csrc/record.cu`` resident) sweep spheres with
+``rz::sweep_packed``
 (``csrc/common.cuh``): each block stages the sphere geometry as 16-byte
 column records, each ray folds its side of the quadratic into coefficient
 vectors once per segment, and a column costs fused multiply-adds. The
@@ -32,7 +33,10 @@ columns graze the ray.
   reject. Its model is :func:`diffkernel._exact_ties`.
 * :func:`explain` applies the rule to two recordings of the same slots
   (the kernel's and the plain recorder's), re-deriving each differing
-  slot's ray at its first difference with the plain recorder.
+  slot's ray at its first difference with the plain recorder;
+  :func:`explain_paths` does the same for two bounce-indexed recordings
+  (``diffkernel.record_paths``' idx [depth, R]) of the same rays and
+  randoms.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .diffkernel import _record_inputs, _reference_bounces
 from .pathrec import (_AUX_DX, _AUX_DY, _AUX_DZ, _AUX_FLG, _AUX_OX, _AUX_OY,
                       _AUX_OZ, _AUX_TAU, _record_slots_reference,
                       _scene_record_inputs)
@@ -49,8 +54,8 @@ from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _TG1V, _TG1X, _TG1Y,
                      _TNZ, _VV, _VX, _VY, _VZ)
 
 __all__ = ["pack_spheres", "ray_coef", "coef_terms", "coef_disc",
-           "today_terms", "candidates", "near_ties", "explain", "GRAZE",
-           "TIE_GAMMA"]
+           "today_terms", "candidates", "near_ties", "explain",
+           "explain_paths", "GRAZE", "TIE_GAMMA"]
 
 #: Unit roundoff of float32.
 _U = 2.0 ** -24
@@ -365,3 +370,38 @@ def explain(scene, camera, seed: int, pix: torch.Tensor, got: torch.Tensor,
     return near_ties(stab, ttab, o, d, tau, got[first, rows],
                      want[first, rows], t_min=t_min,
                      has_motion=scene.has_motion)
+
+
+def explain_paths(scene, rays: torch.Tensor, rand: torch.Tensor,
+                  got: torch.Tensor, want: torch.Tensor, *,
+                  t_min: float) -> Optional[torch.Tensor]:
+    """Apply :func:`near_ties` to two bounce-indexed recordings of the rays
+    ``rays`` [7, R] (origin, direction, time) with the randoms ``rand``
+    [depth, 5, R] (``diffkernel.record_paths``' idx [depth, R] over the
+    resident tables, ``got`` the kernel's and ``want`` the plain
+    recorder's): for every ray whose indices differ, at the first bounce
+    where they part, its ray there re-derived by the plain recorder (the
+    two agree on every bounce before, so they trace the same ray there).
+    An index is a row of ``diffkernel._diff_tables``: a sphere's column, or
+    the sphere count plus a triangle's column, as :func:`candidates`
+    numbers them. Returns bool [rays that differ] in ray order, or None if
+    none differs."""
+    part = got != want
+    rid = torch.nonzero(part.any(dim=0)).flatten()
+    if rid.numel() == 0:
+        return None
+    first = part[:, rid].int().argmax(dim=0)
+    stab, ttab, _ = _record_inputs(scene, 0)
+    ok = torch.zeros(rid.numel(), dtype=torch.bool, device=got.device)
+    kw = dict(t_min=t_min, has_motion=scene.has_motion)
+    for b, live, (o, d, tau), *_ in _reference_bounces(
+            stab, ttab, rays[:, rid], rand[:, :, rid], depth=got.shape[0],
+            **kw):
+        sel = torch.nonzero(first[live] == b).flatten()
+        if sel.numel() == 0:
+            continue
+        k = live[sel]
+        ok[k] = near_ties(stab, ttab, tuple(x[sel] for x in o),
+                          tuple(x[sel] for x in d), tau[sel],
+                          got[b, rid[k]].long(), want[b, rid[k]].long(), **kw)
+    return ok

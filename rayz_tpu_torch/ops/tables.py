@@ -15,10 +15,15 @@ The residency rules are re-derived for the H100, whose blocks hold at most
 * :func:`fits_shared`: the megakernel copies the camera vector and the
   whole tables (and, culled, 4 bound rows per block) into shared memory.
   It admits at most n_pad = 3,416 spheres or m_pad = 2,904 triangles.
-* :func:`fits_stream`: a streamed launch keeps only the camera vector, a
-  reduction scratch and the chunk and supercluster bound rows in shared
-  memory; the tables and block rows stay in device memory and are read
-  through L1/L2. About 7 M primitives at the default chunk.
+* :func:`fits_stream`: the streamed megakernel keeps only the camera
+  vector and the chunk bound rows in shared memory; the tables and block
+  rows stay in device memory and are read through L1/L2. About 7.4 M
+  primitives at the default chunk.
+* :func:`fits_wavefront`: the wavefront's streamed launch also keeps its
+  warps' counters, column and ray staging, parked ray states and the
+  supercluster bound rows there. About 6.9 M primitives at the default
+  chunk; ``render_fast`` sends larger scenes that :func:`fits_stream`
+  admits to the streamed megakernel.
 * :func:`fits_record_stream`: the bounce-indexed recorder's streamed
   launch keeps only the chunk bound rows in shared memory. Its resident
   rule is :func:`fits_shared` (culling off).
@@ -50,9 +55,11 @@ from ..models.camera import Camera
 from ..models.scene import MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
 
 __all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
-           "fits_stream", "fits_record_stream", "shared_bytes", "stream_shared_bytes",
+           "fits_stream", "fits_wavefront", "fits_record_stream",
+           "shared_bytes", "stream_shared_bytes",
            "wavefront_shared_bytes", "SHARED_LIMIT", "CAM_WORDS",
-           "WF_HEAD_WORDS", "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
+           "WF_HEAD_WORDS", "WF_STAGE_WORDS", "WF_PARK_WORDS",
+           "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
            "DEFAULT_STREAM_CHUNK", "STREAM_BLOCK", "Tables", "StreamTables"]
 
 # Sphere table rows (one f32 row per attribute, columns = spheres).
@@ -82,9 +89,17 @@ CAM_WORDS = 20
 SHARED_LIMIT = 232_448
 
 #: f32 words at the head of the wavefront kernel's shared memory: the
-#: camera vector (20) and the scratch of its tile-bound reduction (7 values
-#: for each of 4 warps), keeping the tables 16-byte aligned.
-WF_HEAD_WORDS = 48
+#: camera vector (20) and 8 work counters for each of its 4 warps, keeping
+#: what follows 16-byte aligned.
+WF_HEAD_WORDS = 52
+#: f32 words of the streamed wavefront's staging, after the head: for each
+#: of its 4 warps, 32 columns of 12 words (a triangle's sweep rows; a
+#: sphere's take 9 with motion, 4 without) and its 32 rays with their
+#: terms (12 words each).
+WF_STAGE_WORDS = 4 * 2 * 32 * 12
+#: f32 words in which each of the streamed wavefront's 128 threads parks
+#: its throughput and radiance (6 words) while it sweeps.
+WF_PARK_WORDS = 128 * 6
 
 #: Block culling switches on at or above this many primitives (both
 #: classes together) where the caller leaves ``culling`` to the default.
@@ -565,11 +580,13 @@ def stream_shared_bytes(n_r: int, m_r: int, stream: int) -> int:
 
 def wavefront_shared_bytes(n_pad: int, m_pad: int, *, blk: int = 0,
                            stream: int = 0, sc_group: int = 0) -> int:
-    """Dynamic shared memory of the wavefront kernel: its head (camera and
-    reduction scratch) and, resident, the tables and block rows; streamed,
-    the chunk and supercluster bound rows."""
+    """Dynamic shared memory of the wavefront kernel: its head (the camera
+    and the warps' work counters) and, resident, the tables and block rows;
+    streamed, the warps' column staging, the parked ray states and the
+    chunk and supercluster bound rows."""
     words = WF_HEAD_WORDS
     if stream:
+        words += WF_STAGE_WORDS + WF_PARK_WORDS
         for n in (n_pad, m_pad):
             words += 4 * (n // stream)
             if _sc_enabled(n, stream, sc_group):
@@ -603,10 +620,18 @@ def fits_record_stream(scene: Scene, stream: int) -> bool:
 
 
 def fits_stream(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:
-    """Whether the streamed kernels can run the scene: what their launches
-    put in shared memory (the wavefront's head and the chunk and
-    supercluster bound rows, a superset of the streamed megakernel's) fits
-    one block. About 7 M primitives at the default chunk."""
+    """Whether the streamed megakernel can run the scene: the camera
+    vector and the chunk bound rows of both classes fit one block's shared
+    memory. About 7.4 M primitives at the default chunk."""
+    n_r, m_r, _ = _stream_counts(scene, stream)
+    return stream_shared_bytes(n_r, m_r, stream) <= SHARED_LIMIT
+
+
+def fits_wavefront(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:
+    """Whether the wavefront's streamed launch can run the scene: its head,
+    column and ray staging, parked ray states and the chunk and
+    supercluster bound rows fit one block's shared memory. About 6.9 M
+    primitives at the default chunk."""
     n_r, m_r, g = _stream_counts(scene, stream)
     return wavefront_shared_bytes(n_r, m_r, stream=stream,
                                   sc_group=g) <= SHARED_LIMIT

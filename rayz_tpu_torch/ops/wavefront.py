@@ -49,7 +49,7 @@ from .tables import (_BIG, DEFAULT_BLOCK, DEFAULT_STREAM_CHUNK, SHARED_LIMIT,
                      STREAM_BLOCK, StreamTables, _camera_vector,
                      _padded_counts, _patch_inverse, _resolve_blk,
                      _resolve_tiling, _smem_scene_inputs, _stream_counts,
-                     _stream_scene_inputs, fits_stream, supports_scene,
+                     _stream_scene_inputs, fits_wavefront, supports_scene,
                      use_patch_order, wavefront_shared_bytes)
 
 __all__ = ["render_wavefront", "supports_wavefront", "LAUNCHES", "ST",
@@ -73,7 +73,7 @@ N_SYNC = 3
 def supports_wavefront(scene: Scene) -> bool:
     """Scenes the wavefront renders: supported ones whose streamed layout
     fits (every resident scene does)."""
-    return supports_scene(scene) and fits_stream(scene)
+    return supports_scene(scene) and fits_wavefront(scene)
 
 
 class _Rays(NamedTuple):

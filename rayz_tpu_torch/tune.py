@@ -28,19 +28,23 @@ package; each round runs one child process per tree, in alternating order,
 which builds that tree's kernels (once, into ``TREE/build/kernels``) and
 prints the flagship forward (``random_bouncing`` 512x512, 64 spp, depth 32,
 through ``render_fast``: the tree's default schedule) and the streamed megakernel and ``render_fast`` (the
-wavefront) on ``sphere_field`` 100k, with a digest of each image; the
+wavefront) on ``sphere_field`` 100k, with a digest of each image, and each
+of the wavefront render's four launches (``wavefront_launches``); the
 ``recorded-pp`` train step at bench.py's ``fwdbwd`` shape (two
 value-and-gradient micro-batches of 32 spp on the flagship, gradients
 summed) and the ``"recorded"`` engine's value and gradient at 2 spp (host
-clock, Mrays/s, median of 3 after a warm-up); then the recorder's first
-flagship pass (``record_pp``, 262,144 slots, 112 iterations), the
-bounce-indexed recorder's streamed pass on the 100k scene
-(``record_paths``, 1 spp, depth 8, its tables built in the call) and the
-gather backward at :data:`GATHER_BWD_SHAPES` in the [C, R] layout, each
-in CUDA-event milliseconds; and once per tree the sphere sweep's ptxas
-report and SASS instructions per column (``sass_sweep``). The child runs
-this file's code against the tree's package, so trees that predate a
-measurement are measured too. Lines start with ``[tiling]``, ``[record]``
+clock, Mrays/s, median of 3 after a warm-up; and its peak memory); then
+the recorder's first flagship pass (``record_pp``, 262,144 slots, 112
+iterations), the bounce-indexed recorder's resident launch on one
+flagship pass and on the tree's ``RECORD_GROUP`` passes side by side
+(``record_resident``: ms a pass, idle lanes, the tail after its ray
+counter drained), its streamed pass on the 100k scene (``record_paths``,
+1 spp, depth 8, its tables built in the call) and the gather backward at
+:data:`GATHER_BWD_SHAPES` in the [C, R] layout, each in CUDA-event
+milliseconds; and once per tree the sweep kernels' ptxas report and the
+sphere sweep's SASS instructions per column (``sass_sweep``). The
+child runs this file's code against the tree's package, so trees that
+predate a measurement are measured too. Lines start with ``[tiling]``, ``[record]``
 or ``[ab]``; each names the card and its power limit.
 """
 
@@ -81,20 +85,28 @@ def gather_indices(r: int, p: int, dev, g) -> torch.Tensor:
 
 
 #: Kernels whose sphere sweep ``sass_sweep`` dissects, by a fragment of
-#: their mangled names (a tree has one of the two resident kernels: the
-#: one-thread-per-slot ``megakernel`` of earlier trees, or the queue).
+#: their mangled names, with motion (a tree has one of the two resident
+#: kernels: the one-thread-per-slot ``megakernel`` of earlier trees, or the
+#: queue; the resident bounce-indexed recorder sweeps packed records as
+#: the ray queue ``record_queue``).
 SWEEP_KERNELS = (("record_pp", "record_pp_kernelILb1"),
                  ("megakernel", "10megakernelILb1"),
-                 ("megakernel_queue", "megakernel_queueILb1"))
+                 ("megakernel_queue", "megakernel_queueILb1"),
+                 ("record_queue", "record_queueILb1"))
 #: The sphere sweep loops' #pragma unroll.
 SWEEP_UNROLL = 8
+#: Further kernels whose ptxas report ``ptxas_facts`` keeps: the streamed
+#: wavefront without motion (the 100k scene's).
+REPORT_KERNELS = (("wavefront_kernel<false, streamed>",
+                   "wavefront_kernelILb0ELi2E"),)
 
 
 def ptxas_facts(log: str) -> dict:
-    """Registers, stack and spills ptxas reported for SWEEP_KERNELS."""
+    """Registers, stack and spills ptxas reported for SWEEP_KERNELS and
+    REPORT_KERNELS."""
     lines = log.splitlines()
     out = {}
-    for name, frag in SWEEP_KERNELS:
+    for name, frag in SWEEP_KERNELS + REPORT_KERNELS:
         for i, ln in enumerate(lines):
             if "Function properties for" in ln and frag in ln:
                 out[name] = " ".join(x.split(":", 1)[-1].strip()
@@ -277,6 +289,82 @@ def record(n, chunks, blocks) -> None:
                   f"the first | {card}", flush=True)
 
 
+def record_resident(scene, cam, depth: int = 32) -> dict:
+    """The bounce-indexed recorder's resident launch on one flagship pass
+    (262,144 rays, seed 1, sample 0) and on the tree's ``RECORD_GROUP``
+    passes side by side (1 where the tree records a pass a launch), its
+    tables built beforehand: per group size, the CUDA-event ms per pass
+    and the launch's counters (segments, re-sweeps, lane-trips of the
+    warps that ran, the ns between the ray counter draining and the
+    launch's end, where the tree's kernel counts them)."""
+    from rayz_tpu_torch.ops import diffkernel as dk
+    dev = cam.device
+    pix = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
+    tables = dk._record_setup(scene, 0, cam.look_from)
+    groups = sorted({1, getattr(dk, "RECORD_GROUP", 1)})
+    passes = [(*dk._camera_rays(cam, 1, pix, s, True),
+               dk._make_rand(1, pix, s, depth))
+              for s in range(groups[-1])]
+    out = {}
+    for g in groups:
+        o, d, tm = (torch.cat([p[k] for p in passes[:g]]) for k in range(3))
+        rand = torch.cat([p[3] for p in passes[:g]], dim=2)
+        stats = torch.zeros(8, dtype=torch.int64, device=dev)
+        dk._record_rays(scene, tables, o, d, tm, rand, max_depth=depth,
+                        t_min=1e-3, stats=stats)
+        ms = _event_ms(lambda: dk._record_rays(
+            scene, tables, o, d, tm, rand, max_depth=depth, t_min=1e-3))
+        st = [int(x) for x in stats.tolist()]
+        out[str(g)] = dict(ms_per_pass=ms / g, segments=st[0],
+                           resweeps=st[5], lane_trips=st[6],
+                           tail_us=st[7] / 1e3)
+        del o, d, tm, rand
+    return out
+
+
+def wavefront_launches(scene, cam, cfg, runs: int = 3) -> dict:
+    """The 100k render through ``render_wavefront`` with each of its
+    launches bracketed by CUDA events (median ms per launch over ``runs``
+    renders after a warm-up), the device span of the whole render (its
+    sorts, permutes and scatter-back are the span less the launches), and
+    the work counters of one render ([8]: segments, primitive tests, bound
+    tests, votes, votes passed, and where the tree's kernel counts them,
+    at 6 the lane slots its warps spent on primitive tests)."""
+    from rayz_tpu_torch.ops import wavefront as wf
+    kernel = wf._wf_bounce
+    marks = []
+
+    def timed_launch(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        res = kernel(*a, **kw)
+        e.record()
+        marks.append((s, e))
+        return res
+
+    per, spans = [], []
+    wf._wf_bounce = timed_launch
+    try:
+        for k in range(runs + 1):
+            marks.clear()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            wf.render_wavefront(scene, cam, k, cfg)
+            e.record()
+            torch.cuda.synchronize()
+            if k:
+                per.append([a.elapsed_time(b) for a, b in marks])
+                spans.append(s.elapsed_time(e))
+    finally:
+        wf._wf_bounce = kernel
+    stats = torch.zeros(8, dtype=torch.int64, device=cam.device)
+    wf.render_wavefront(scene, cam, 0, cfg, stats=stats)
+    launch_ms = [statistics.median(x) for x in zip(*per)]
+    return dict(launch_ms=launch_ms, span_ms=statistics.median(spans),
+                glue_ms=statistics.median(spans) - sum(launch_ms),
+                stats=[int(x) for x in stats.tolist()])
+
+
 def render() -> None:
     """One A/B child: the measurements the module docstring lists, on
     this tree's package; prints one JSON line."""
@@ -302,6 +390,7 @@ def render() -> None:
             return fn(field, fcam, s, fcfg)
         out[label] = _mrays(fcam.width * fcam.height * fcfg.spp, frun)
         out[label + "_digest"] = _digest(frun(1))
+    out["wavefront_launches"] = wavefront_launches(field, fcam, fcfg)
 
     rcfg = rtt.RenderConfig(spp=2, max_depth=32)
     target = rtt.render_fast(scene, cam, 0, rcfg)
@@ -313,8 +402,11 @@ def render() -> None:
                               "recorded")
         torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     vg(0)
+    torch.cuda.reset_peak_memory_stats()
     out["recorded_step"] = [512 * 512 * rcfg.spp / _timed(lambda s=s: vg(s))
                             / 1e6 for s in range(1, 4)]
+    out["recorded_step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["record_resident"] = record_resident(scene, cam)
 
     from rayz_tpu_torch.ops import diffkernel as dk, pathrec as pr
     # bench.py's fwdbwd: two value-and-gradient micro-batches of 32 spp
@@ -366,6 +458,30 @@ def _child(tree: str, what: str) -> subprocess.CompletedProcess:
                           timeout=900)
 
 
+def _record_line(res: dict) -> str:
+    """The resident record pass of one A/B child, as text."""
+    return "resident record, " + "; ".join(
+        f"{g} per launch {v['ms_per_pass']:.3f} ms a pass, {v['segments']} "
+        f"segments, re-sweeps {v['resweeps']}"
+        + (f", idle lanes {1 - v['segments'] / v['lane_trips']:.4f}, "
+           f"tail {v['tail_us']:.1f} us" if v["lane_trips"] else "")
+        for g, v in res["record_resident"].items())
+
+
+def _wavefront_line(res: dict) -> str:
+    """The 100k wavefront render's launches of one A/B child, as text."""
+    wl = res["wavefront_launches"]
+    s = wl["stats"]
+    return (f"wavefront launches " + ", ".join(
+        f"{ms:.3f}" for ms in wl["launch_ms"])
+        + f" ms (sum {sum(wl['launch_ms']):.3f}), render span "
+        f"{wl['span_ms']:.3f} ms, sorts/permutes/scatter {wl['glue_ms']:.3f} "
+        f"ms; {s[0]} segments, {s[1] / max(s[0], 1):.1f} primitive and "
+        f"{s[2] / max(s[0], 1):.1f} bound tests per segment, votes {s[3]} "
+        f"({s[4]} passed)"
+        + (f", sweep lanes idle {1 - s[1] / s[6]:.4f}" if s[6] else ""))
+
+
 def ab(trees, rounds: int) -> None:
     card = _card()
     builds = [subprocess.Popen(
@@ -403,7 +519,11 @@ def ab(trees, rounds: int) -> None:
                   f"streamed record pass "
                   f"{res['record_streamed']:.3f} ms; gather backward "
                   + ", ".join(f"{ms:.4f}" for ms in res["gather_bwd"])
-                  + f" ms | {card}", flush=True)
+                  + f" ms; recorded step peak "
+                  f"{res['recorded_step_peak_gb']:.3f} GB | {card}",
+                  flush=True)
+            print(f"[ab] round {k} {t}: " + _record_line(res)
+                  + "; " + _wavefront_line(res) + f" | {card}", flush=True)
     for t in trees:
         first = runs[t][0]
 
@@ -415,19 +535,26 @@ def ab(trees, rounds: int) -> None:
                           for k, v in first["sass"].items())
               + f" | {card}", flush=True)
         line = []
-        for key in _FORWARD + ("recorded_pp_step", "recorded_step"):
-            meds = [statistics.median(r[key]) for r in runs[t]]
-            line.append(f"{key} median {statistics.median(meds):.3f} "
-                        f"(rounds {min(meds):.3f}-{max(meds):.3f})")
-        for key in ("record_pp", "record_streamed"):
-            ms = [r[key] for r in runs[t]]
-            line.append(f"{key} ms median {statistics.median(ms):.3f} "
-                        f"(rounds {min(ms):.3f}-{max(ms):.3f})")
-        for i, (r_, p_) in enumerate(GATHER_BWD_SHAPES):
-            ms = [r["gather_bwd"][i] for r in runs[t]]
-            line.append(f"gather backward R={r_} P={p_} ms median "
-                        f"{statistics.median(ms):.4f} (rounds "
-                        f"{min(ms):.4f}-{max(ms):.4f})")
+        series = [(f"record_resident, {g} per launch, ms a pass",
+                   [r["record_resident"][g]["ms_per_pass"]
+                    for r in runs[t]]) for g in first["record_resident"]]
+        series += [("wavefront launches (sum) ms",
+                    [sum(r["wavefront_launches"]["launch_ms"])
+                     for r in runs[t]])]
+        series += [(f"wavefront launch {i} ms",
+                    [r["wavefront_launches"]["launch_ms"][i]
+                     for r in runs[t]]) for i in range(4)]
+        series += [(f"{key} Mrays/s",
+                    [statistics.median(r[key]) for r in runs[t]])
+                   for key in _FORWARD + ("recorded_pp_step", "recorded_step")]
+        series += [(f"{key} ms", [r[key] for r in runs[t]])
+                   for key in ("record_pp", "record_streamed")]
+        series += [(f"gather backward R={r_} P={p_} ms",
+                    [r["gather_bwd"][i] for r in runs[t]])
+                   for i, (r_, p_) in enumerate(GATHER_BWD_SHAPES)]
+        for key, vals in series:
+            line.append(f"{key} median {statistics.median(vals):.4f} "
+                        f"(rounds {min(vals):.4f}-{max(vals):.4f})")
         print(f"[ab] {t}: " + "; ".join(line) + f" | {card}", flush=True)
 
 

@@ -60,6 +60,7 @@ from rayz_tpu.ops import diffkernel as jdk
 from rayz_tpu_torch.diff import inverse
 from rayz_tpu_torch.io.image import read_ppm, write_ppm
 from rayz_tpu_torch.ops import diffkernel as tdk, pathrec as tpr, tables
+from rayz_tpu_torch.ops import sweep as sw
 
 torch.set_num_threads(2)
 
@@ -667,9 +668,86 @@ def test_recordable_gates():
     with pytest.raises(ValueError, match="checker"):
         rtt.render_diff(nested, rtt.make_camera(width=8, height=8,
                                                 device="cpu"), 0, cfg)
+    # forced resident, the packed sphere records (16 bytes a column without
+    # motion) of 20,000 spheres exceed one block's shared memory
+    bigger, cam = rtt.scenes.sphere_field(n=20_000, width=8, device="cpu")
     with pytest.raises(ValueError, match="shared memory"):
-        tdk.record_paths(big, *_rays(cam, 8), torch.zeros((2, 5, 8)),
+        tdk.record_paths(bigger, *_rays(cam, 8), torch.zeros((2, 5, 8)),
                          max_depth=2, t_min=T_MIN, stream=0)
+
+
+def test_resident_record_outputs_start_dead():
+    """The resident kernel (the ray queue) writes winners only: its wrapper
+    hands it idx filled with -1 and the queue's zeroed counter [2] (rays
+    claimed, the last claim's clock); the streamed kernel writes every
+    index and takes no counter."""
+    idx, counter = tdk._record_outputs(4, 10, "cpu", True)
+    assert idx.shape == (4, 10) and idx.dtype == torch.int32
+    assert bool((idx == -1).all())
+    assert counter.dtype == torch.int64 and counter.tolist() == [0, 0]
+    idx, counter = tdk._record_outputs(4, 10, "cpu", False)
+    assert idx.shape == (4, 10) and counter is None
+
+
+def _spy_record(monkeypatch):
+    """Record every call of the record wrapper: (rays, the sphere table's
+    storage, the indices it returned)."""
+    calls = []
+    record = tdk._record
+
+    def spy(stab, ttab, rays, rand, **kw):
+        idx = record(stab, ttab, rays, rand, **kw)
+        calls.append((rays.shape[1], stab.data_ptr(), idx))
+        return idx
+
+    monkeypatch.setattr(tdk, "_record", spy)
+    return calls
+
+
+@pytest.mark.parametrize("streamed", [False, True],
+                         ids=["resident", "streamed"])
+def test_one_record_launch_per_group(monkeypatch, streamed):
+    """render_diff records the resident sample passes RECORD_GROUP at a
+    time, one call of the record wrapper (one launch on the card, counted
+    in LAUNCHES there) over their rays side by side, and the streamed ones
+    one pass per call; the tables are built once."""
+    if streamed:
+        monkeypatch.setattr(tdk, "fits_shared", lambda scene: False)
+        monkeypatch.setattr(tdk, "RECORD_STREAM_CHUNK", 128)
+    calls = _spy_record(monkeypatch)
+    scene, cam = rtt.scenes.random_bouncing(width=8, height=6, device="cpu")
+    spp = tdk.RECORD_GROUP + 2
+    rtt.render_diff(scene, cam, 0, rtt.RenderConfig(spp=spp, max_depth=3))
+    want = [48] * spp if streamed else [48 * tdk.RECORD_GROUP, 96]
+    assert [c[0] for c in calls] == want
+    assert len({c[1] for c in calls}) == 1
+
+
+def test_grouped_recording_changes_nothing(monkeypatch):
+    """Passes recorded three at a time give each pass the indices it gets
+    alone, and pixel_loss(engine="recorded") the same value and gradient
+    bit for bit (each pass's rays and randoms in the group are the ones its
+    replay regenerates)."""
+    scene, cam = rtt.scenes.random_bouncing(width=8, height=6, device="cpu")
+    cfg = rtt.RenderConfig(spp=5, max_depth=4)
+    target = torch.full((cam.height, cam.width, 3), 0.25)
+    out = {}
+    for group in (1, 3):
+        monkeypatch.setattr(tdk, "RECORD_GROUP", group)
+        calls = _spy_record(monkeypatch)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in rtt.extract_params(scene).items()}
+        loss = rtt.pixel_loss(params, scene, cam, 3, target, cfg, "recorded")
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        out[group] = (torch.cat([c[2] for c in calls], dim=1), loss, grads)
+        monkeypatch.undo()
+    (i1, l1, g1), (i3, l3, g3) = out[1], out[3]
+    assert i3.shape == i1.shape == (4, 5 * 48) and torch.equal(i1, i3)
+    assert torch.equal(l1, l3)
+    assert any(g is not None for g in g1)
+    for a, b in zip(g1, g3):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_record_kernel_raises_off_cpu():
@@ -708,4 +786,12 @@ def test_record_kernel_matches_plain_on_card(cuda_device, stream):
                            *(x.to(cuda_device) for x in (o, d, tm, rand)),
                            **kw)
     assert tdk.LAUNCHES[key] == before + 1
-    assert torch.equal(got.cpu(), want)
+    got = got.cpu()
+    if stream:
+        assert torch.equal(got, want)
+    else:  # the packed sweep: equal, or parted at a near tie by the rule
+        rays = torch.cat([o.T, d.T, tm[None]]).float().contiguous()
+        ok = sw.explain_paths(scene, rays, rand.float(), got, want,
+                              t_min=T_MIN)
+        assert ok is None or bool(ok.all())
+        assert float((got == want).double().mean()) >= 0.999

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 import rayz_tpu_torch as rtt
-from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, sweep as sw
+from rayz_tpu_torch.ops import diffkernel as dk, megakernel as mk
+from rayz_tpu_torch.ops import pathrec as pr, sweep as sw
 from rayz_tpu_torch.ops.tables import _BIG, _pad_poison, _CCMR2
 
 torch.set_num_threads(2)
@@ -272,3 +273,46 @@ def test_explain_resumed_recordings():
         ex = sw.explain(scene, cam, 1, pix, got, idx, aux,
                         init_state=state, **kw)
         assert torch.equal(ex, want), col
+
+
+def _twin_ground_scene():
+    """Three spheres on a ground sphere that is in the scene twice (columns
+    0 and 1: every hit on it is an exact tie)."""
+    b = rtt.SceneBuilder()
+    g = b.add_diffuse(color=(0.5, 0.5, 0.5))
+    for _ in range(2):
+        b.add_sphere((0, -100.5, -2), 100.0, g)
+    m = b.add_diffuse(color=(0.8, 0.3, 0.2))
+    for x in (0.0, 1.2, -1.2):
+        b.add_sphere((x, 0, -2), 0.5, m)
+    scene = b.build(device="cpu")
+    cam = rtt.make_camera(width=8, height=8, vfov=60.0, focus_dist=1.0,
+                          look_from=(0, 0, 0), look_at=(0, 0, -1),
+                          device="cpu")
+    return scene, cam
+
+
+@pytest.mark.parametrize("col, accepted", [(1, True), (3, False), (-1, False)],
+                         ids=["twin", "wrong-sphere", "miss"])
+def test_explain_bounce_indexed_recordings(col, accepted):
+    """explain_paths on record_paths' recordings (idx [depth, R]): at a
+    bounce after the first, where the ray is re-derived by the plain
+    recorder, the ground's twin column in place of the ground (an exact
+    tie) is accepted; a sphere the ray does not reach, or a miss against
+    the ground's clear hit, is flagged. Equal recordings give None."""
+    scene, cam = _twin_ground_scene()
+    pix = torch.arange(64, dtype=torch.int32)
+    o, d, tm = dk._camera_rays(cam, 1, pix, 0, False)
+    rand = dk._make_rand(1, pix, 0, 3)
+    idx = dk.record_paths(scene, o, d, tm, rand, max_depth=3, t_min=1e-3,
+                          stream=0)
+    rays = torch.cat([o.T, d.T, tm[None]]).float().contiguous()
+    assert sw.explain_paths(scene, rays, rand, idx, idx, t_min=1e-3) is None
+    later = torch.nonzero(idx[1:] == 0)
+    assert later.shape[0] > 4  # bounces off the spheres onto the ground
+    b, r = int(later[0, 0]) + 1, int(later[0, 1])
+    got = idx.clone()
+    got[b, r] = col
+    got[b + 1:, r] = -1  # what follows a changed winner is not compared
+    assert sw.explain_paths(scene, rays, rand, got, idx,
+                            t_min=1e-3).tolist() == [accepted]

@@ -189,24 +189,33 @@ def test_sort_key_matches_jax():
 
 
 def test_streamed_residency_rule():
-    """fits_stream counts the streamed launches' shared memory: the head
-    and the chunk and supercluster bound rows. At the default chunk of 512
-    a 100k-sphere field (196 chunks in 49 superclusters) needs 4,112
-    bytes; the rule gives out near 7.4 M columns; fits_shared stops at
-    n_pad 3,416."""
+    """fits_wavefront counts the wavefront's streamed launch's shared
+    memory: the head (camera and the warps' counters), the warps' column
+    and ray staging, the parked ray states and the chunk and supercluster
+    bound rows. At the default chunk of 512 a 100k-sphere field (196
+    chunks in 49 superclusters) needs 19,488 bytes; the rule gives out
+    near 6.9 M columns. fits_stream counts the streamed megakernel's (the
+    camera and the chunk bound rows) and gives out near 7.4 M columns;
+    fits_shared stops at n_pad 3,416."""
     chunk = tables.DEFAULT_STREAM_CHUNK
     assert chunk == 512
     assert tables._stream_counts(
         rtt.scenes.sphere_field(n=100_000, width=8, device="cpu")[0],
         chunk) == (100_352, 0, 4)
     assert tables.wavefront_shared_bytes(
-        100_352, 0, stream=chunk, sc_group=4) == 4 * (48 + 4 * (196 + 49))
+        100_352, 0, stream=chunk, sc_group=4) == 4 * (
+            52 + 3072 + 768 + 4 * (196 + 49))
     assert tables.wavefront_shared_bytes(
-        14_500 * chunk, 0, stream=chunk, sc_group=0) <= tables.SHARED_LIMIT
+        13_500 * chunk, 0, stream=chunk, sc_group=0) <= tables.SHARED_LIMIT
     assert tables.wavefront_shared_bytes(
-        14_600 * chunk, 0, stream=chunk, sc_group=0) > tables.SHARED_LIMIT
+        13_600 * chunk, 0, stream=chunk, sc_group=0) > tables.SHARED_LIMIT
+    assert tables.stream_shared_bytes(
+        14_500 * chunk, 0, chunk) <= tables.SHARED_LIMIT
+    assert tables.stream_shared_bytes(
+        14_600 * chunk, 0, chunk) > tables.SHARED_LIMIT
     field, _ = rtt.scenes.sphere_field(n=3500, width=8, device="cpu")
     assert tables.fits_stream(field) and not tables.fits_shared(field)
+    assert tables.fits_wavefront(field)
     assert tables.fits_shared(field, culling=False, block_size=64) is False
 
 

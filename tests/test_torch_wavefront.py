@@ -168,6 +168,9 @@ def test_dispatch(monkeypatch):
     b.add_sphere((0, -100.5, -1), 100.0, b.add_diffuse(texture=outer))
     with pytest.raises(NotImplementedError, match="item 4"):
         engine.pick_engine(b.build(device="cpu"))
+    # beyond the wavefront's shared memory, the streamed megakernel
+    monkeypatch.setattr(engine, "fits_wavefront", lambda scene: False)
+    assert engine.pick_engine(big) == "megakernel"
     monkeypatch.setattr(engine, "fits_stream", lambda scene: False)
     with pytest.raises(NotImplementedError, match="streamed"):
         engine.pick_engine(big)
@@ -192,6 +195,32 @@ def test_wrapper_validates_inputs():
     mrays = wf._Rays(rays.cam.to("meta"), rays.slot_pix.to("meta"), 6144, 96)
     with pytest.raises(ValueError, match="no wavefront kernel"):
         wf._wf_bounce(meta, mrays, None, None, rid.to("meta"), **kw)
+
+
+@pytest.mark.parametrize("name", ["field", "box"])
+def test_streamed_launch_shared_memory(name):
+    """A streamed launch's shared memory as the wrapper accounts it: the
+    camera and 8 work counters per warp tile, then for each of the block's
+    WF_BLOCK // 32 warp tiles the staging of 32 columns of the largest
+    record its sweeps read (a triangle's 12 sweep rows; a sphere's 9 with
+    motion) and of its 32 rays (12 words each), each thread's parked
+    throughput and radiance, then the chunk and supercluster bound rows of
+    both classes."""
+    scene, cam = (rtt.scenes.sphere_field(n=3000, width=16, device="cpu")
+                  if name == "field"
+                  else rtt.scenes.cornell_box(width=16, device="cpu"))
+    tabs, _ = wf._resolve_layout(scene, cam, None, tables.DEFAULT_BLOCK, 128)
+    rows = sum(4 * (n // 128 + (n // (128 * tabs.sc_group)
+                                if tables._sc_enabled(n, 128, tabs.sc_group)
+                                else 0))
+               for n in (tabs.n_pad, tabs.m_pad))
+    warps = wf.WF_BLOCK // 32
+    assert tables.WF_HEAD_WORDS == 20 + 8 * warps
+    assert tables.WF_STAGE_WORDS == warps * (32 * 12 + 32 * 12)
+    assert tables.WF_PARK_WORDS == wf.WF_BLOCK * 6
+    assert wf._smem_bytes(tabs) == 4 * (
+        tables.WF_HEAD_WORDS + tables.WF_STAGE_WORDS + tables.WF_PARK_WORDS
+        + rows)
 
 
 @pytest.mark.cuda
