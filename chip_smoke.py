@@ -114,11 +114,12 @@ WF_STATE_MATCH = 0.9999
 # Two table modes, or the two engines, for the same seed: the share of
 # pixels that are identical (the same paths, up to exact ties).
 PIXEL_MATCH = 0.999
-# The queue kernel (the packed FMA sweep) against the plain full-table
-# render of sphere_field 3,000 (coordinates to 55, radii 0.08: its float32
-# c_term is at the rounding level of the small spheres, so near ties are
-# common): the share of identical pixels, between the sound reading
-# (99.67% on the H100) and what a wrong sweep gives.
+# The resident queue kernel (the packed FMA sweep with the narrow grazing
+# band) against the plain full-table render of sphere_field 3,000
+# (coordinates to 55, radii 0.08: its float32 c_term is at the rounding
+# level of the small spheres, so near ties are common): the share of
+# identical pixels, between the sound reading (99.67% on the H100) and
+# what a wrong sweep gives; every differing pixel is also explained.
 FIELD_PIXEL_MATCH = 0.99
 
 # The H100 SXM's published peaks (NVIDIA's data sheet): FP32 outside
@@ -145,10 +146,10 @@ def phase(name: str, msg: str) -> None:
 
 @contextlib.contextmanager
 def plain_version():
-    """Route the megakernel's launches (the culled and streamed kernel, the
-    queue and its fold) to their plain torch versions (on the same CUDA
-    tensors) for a comparison run."""
-    names = ("_trace_slots", "_queue", "_fold")
+    """Route the megakernel's launches (the queue in every table mode and
+    its fold) to their plain torch versions (on the same CUDA tensors) for
+    a comparison run."""
+    names = ("_queue", "_fold")
     kernels = [getattr(mk, n) for n in names]
     for n in names:
         setattr(mk, n, getattr(mk, n + "_reference"))
@@ -724,8 +725,7 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
                                max_depth=cfg.max_depth, t_min=cfg.t_min,
                                jitter=cfg.jitter,
                                unroll=tb._resolve_tiling(scene))
-    for k in ("bounds", "cull", "spp"):
-        del kw[k]
+    del kw["spp"]
     stats = torch.zeros(8, dtype=torch.int64, device=dev)
     out = mk._queue(*args, n, 0, cfg.spp, stats=stats, **kw)
     q_ms = event_ms(lambda: mk._queue(*args, n, 0, cfg.spp, **kw), 3)
@@ -1109,46 +1109,68 @@ def wavefront_phase(dev) -> float:
     return worst
 
 
-def mk_launch(scene, cam, cfg, seed, **layout):
-    """The arguments of one megakernel launch over the image in the table
-    mode ``layout`` selects (``blk``, ``stream``), and the launch's input
-    tensors."""
+def mode_compare(scene, cam, cfg, seed, dev, label: str, **layout) -> tuple:
+    """The culled or streamed queue launch (``layout``: ``blk``,
+    ``stream``) over the whole image and all ``cfg.spp`` samples (one
+    sample group, as its path launches it), kernel (CUDA events) against
+    its plain version on the same sorted tables: the share of pixels
+    bit-identical after the fold (at least PIXEL_MATCH), every item whose
+    radiance differs also differing in its recorded winners, and every
+    item whose winners differ explained by the near-tie rule
+    (``sweep.explain_items``); then the bound (bytes read and written once;
+    one primitive test per ray segment, ``floor_ops``). Returns (err, ms,
+    plain ms, bound ms, bound by)."""
     args, kw = mk._launch_args(scene, cam, seed, spp=cfg.spp,
                                max_depth=cfg.max_depth, t_min=cfg.t_min,
                                jitter=cfg.jitter,
                                unroll=tb._resolve_tiling(scene), **layout)
-    pix = mk._slot_table(cam.width * cam.height, scene.device)
-    b = kw["bounds"]
-    rows = () if b is None else (b.sblk, b.tblk) + (
-        (b.scb, b.tcb) if layout.get("stream") else ())
-    return (*args, pix), kw, (*args, pix, *rows)
-
-
-def mk_compare(scene, cam, cfg, seed, dev, label: str, **layout) -> tuple:
-    """One megakernel launch over the whole image in the table mode
-    ``layout`` selects, kernel (CUDA events) against its plain version on
-    the same inputs, and its bound (bytes read and written once; one
-    primitive test per ray segment, ``floor_ops``). Returns (err, ms,
-    plain ms, bound ms, bound by)."""
-    args, lkw, inputs = mk_launch(scene, cam, cfg, seed, **layout)
+    del kw["spp"]
+    n, ns = cam.width * cam.height, cfg.spp
+    hk = torch.full((cfg.max_depth, ns * n), -2, dtype=torch.int32,
+                    device=dev)
+    hp = hk.clone()
     stats = torch.zeros(8, dtype=torch.int64, device=dev)
-    k_rgb, _ = mk._trace_slots(*args, stats=stats, **lkw)
-    k_ms = event_ms(lambda: mk._trace_slots(*args, **lkw), 3)
-    (p_rgb, _), p_s = timed(lambda: mk._trace_slots_reference(*args, **lkw))
-    kp = same_pixels(k_rgb.T, p_rgb.T)
-    err = float((k_rgb - p_rgb).abs().max())
-    if kp < PIXEL_MATCH:
-        raise AssertionError(f"megakernel {label} kernel vs plain: "
-                             f"{kp:.5%} of slots identical")
-    b_ms, b_by = bound(nbytes(*inputs, k_rgb), floor_ops(scene, stats))
+    k_out = mk._queue(*args, n, 0, ns, stats=stats, hits=hk, **kw)
+    k_ms = event_ms(lambda: mk._queue(*args, n, 0, ns, **kw), 3)
+    p_out, p_s = timed(lambda: mk._queue_reference(*args, n, 0, ns,
+                                                   hits=hp, **kw))
+    zeros = torch.zeros((3, n), dtype=torch.float32, device=dev)
+    kp = float((mk._fold_reference(k_out, zeros)
+                == mk._fold_reference(p_out, zeros)).all(0).double().mean())
+    err = float((k_out - p_out).abs().max())
+    rad_diff = (k_out != p_out).any(dim=1).flatten()
+    hit_diff = (hk != hp).any(dim=0)
+    ekw = {k: kw[k] for k in ("width", "max_depth", "t_min", "jitter",
+                              "has_motion", "seed")}
+    ex = sw.explain_items(*args, n, 0, hk, hp, **ekw)
+    n_ex = 0 if ex is None else int(ex.sum())
+    if (kp < PIXEL_MATCH or bool((rad_diff & ~hit_diff).any())
+            or n_ex != int(hit_diff.sum())):
+        raise AssertionError(
+            f"megakernel {label} kernel vs plain: {kp:.5%} of pixels "
+            f"identical, {int(rad_diff.sum())} items' radiance and "
+            f"{int(hit_diff.sum())} items' winners differ, {n_ex} explained, "
+            f"{int((rad_diff & ~hit_diff).sum())} radiance differences with "
+            "equal winners")
+    tabs = kw["bounds"]
+    inputs = [*args, tabs.sblk, tabs.tblk]
+    if layout.get("stream"):
+        inputs += [tabs.scb, tabs.tcb, tabs.ssc, *kw["records"]]
+    b_ms, b_by = bound(nbytes(*inputs, k_out), floor_ops(scene, stats))
     st = [int(x) for x in stats.tolist()]
-    phase("megakernel", f"{label} launch, {scene.n_spheres} spheres "
-                        f"{cam.width}x{cam.height} {cfg.spp}spp "
-                        f"d{cfg.max_depth}, vs plain: {kp:.4%} of slots "
-                        f"identical, max abs {err:.3g}; kernel {k_ms:.3f} "
-                        f"ms, plain {p_s * 1e3:.1f} ms, bound {b_ms:.4f} ms "
-                        f"({b_by}); {st[0]} segments, {st[1]} primitive and "
-                        f"{st[2] + st[3]} bound tests")
+    seg = max(st[0], 1)
+    phase("megakernel", f"{label} queue launch ({scene.n_spheres} spheres, "
+                        f"{cam.width}x{cam.height} {ns}spp d{cfg.max_depth}, "
+                        f"grid {mk.QUEUE_GRID} blocks) vs plain: {kp:.4%} of "
+                        f"pixels identical, {int(hit_diff.sum())} of "
+                        f"{ns * n} items' winners differ, all explained by "
+                        f"the near-tie rule, max abs {err:.3g}; kernel "
+                        f"{k_ms:.3f} ms, plain {p_s * 1e3:.1f} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by}); {st[0]} segments, "
+                        f"{st[1] / seg:.1f} primitive, {st[2] / seg:.1f} "
+                        f"block and {st[3] / seg:.1f} chunk tests per segment"
+                        f" ({st[4]} chunk tests passed), {st[5]} re-sweeps, "
+                        f"idle lanes {1 - st[0] / max(st[6], 1):.4f}")
     return err, k_ms, p_s * 1e3, b_ms, b_by
 
 
@@ -1161,32 +1183,40 @@ def field_reference(scene, cam, cfg, seed: int):
 
 
 def megakernel_modes_phase(dev) -> tuple:
-    """The culled and streamed megakernel against the plain full-table
-    render (same seed, the default schedules); the resident megakernel
-    (the queue, the packed FMA sweep) against it, every differing pixel
-    explained by the near-tie rule (this scene's float32 c_term is
-    rounding-level at its small spheres: coordinates reach 55, radii 0.08);
-    then the culled kernel against its plain version on one launch at its
-    path's shape (one launch runs all 16 samples). Returns the culled
-    render's launches and the culled launch's ``mk_compare``."""
+    """The culled and streamed megakernel (one queue launch and one fold a
+    render) against the plain full-table render (same seed), each on at
+    least PIXEL_MATCH of the pixels (the culled mode's packed sweep parts
+    from today's arithmetic only at near ties, which ``mode_compare``
+    explains item by item below; the streamed mode tests columns in
+    today's arithmetic behind conservative bounds); the resident
+    megakernel (the queue, the packed FMA sweep with the narrow grazing
+    band; this scene's float32 c_term is rounding-level at its small
+    spheres: coordinates reach 55, radii 0.08) against it on at least
+    FIELD_PIXEL_MATCH, every differing pixel explained by the near-tie
+    rule; then the culled kernel against its plain version on the launch
+    at its path's shape (all 16 samples), every difference explained.
+    Returns the culled render's queue launches and the culled launch's
+    ``mode_compare``."""
     scene, cam = rtt.scenes.sphere_field(n=3000, width=128, device=dev)
     cfg = rtt.RenderConfig(spp=16, max_depth=8)
     ref = field_reference(scene, cam, cfg, 5)
     launches = {}
     for mode, kw in (("culled", dict(culling=True)),
                      ("streamed", dict(stream=tb.DEFAULT_STREAM_CHUNK))):
-        mk.MODE_LAUNCHES[mode] = 0
+        for k in mk.MODE_LAUNCHES:
+            mk.MODE_LAUNCHES[k] = 0
         img = rtt.render_megakernel(scene, cam, 5, cfg, **kw)
         torch.cuda.synchronize()
-        launches[mode] = mk.MODE_LAUNCHES[mode]
+        launches[mode] = dict(mk.MODE_LAUNCHES)
         share = same_pixels(img, ref)
-        if share < PIXEL_MATCH or launches[mode] != (10 if mode == "culled"
-                                                     else 1):
+        want = dict.fromkeys(mk.MODE_LAUNCHES, 0)
+        want.update({mode: 1, "fold": 1})
+        if share < PIXEL_MATCH or launches[mode] != want:
             raise AssertionError(f"megakernel {mode}: {share:.5%} of pixels "
                                  f"as the plain full-table render, "
-                                 f"{launches[mode]} launches")
+                                 f"launches {launches[mode]}")
         phase("megakernel", f"{mode}: sphere_field 3000 128x72 16spp d8, "
-                            f"{launches[mode]} launch(es), {share:.4%} of "
+                            f"launches {launches[mode]}, {share:.4%} of "
                             "pixels identical to the plain full-table render")
     img = rtt.render_megakernel(scene, cam, 5, cfg, culling=False)
     ex = explain_pixels(scene, cam, 5, cfg, img, ref, "sphere_field queue",
@@ -1195,8 +1225,8 @@ def megakernel_modes_phase(dev) -> tuple:
                         f"d8, {ex['share']:.4%} of pixels identical to the "
                         f"plain full-table render, the {ex['pixels']} others "
                         "each explained by the near-tie rule")
-    return launches["culled"], mk_compare(scene, cam, cfg, 5, dev, "culled",
-                                          blk=tb.DEFAULT_BLOCK)
+    return launches["culled"]["culled"], mode_compare(
+        scene, cam, cfg, 5, dev, "culled", blk=tb.DEFAULT_BLOCK)
 
 
 def engines_phase(dev) -> None:
@@ -1289,9 +1319,13 @@ def large_phase(dev, smi: str) -> dict:
     Mrays/s (median of 5 after a warm-up), peak memory, the share of chunk
     votes that pruned. On the first scene, each launch of the render timed
     and every launch of one render held against its plain version
-    (``wavefront_main_path``); then the streamed megakernel, timed the same
-    way. Returns the main path's launch count, the kernel
-    timing of the wavefront and the streamed megakernel's launches."""
+    (``wavefront_main_path``). On every scene the streamed megakernel (one
+    queue launch and one fold), timed the same way, its image against the
+    wavefront's, and its Mrays/s against the wavefront's (the crossover);
+    on the first its queue launch at the render's shape (all 16 samples)
+    against its plain version (``mode_compare``). Returns the
+    main path's launch count, the kernel timing of the wavefront and the
+    streamed megakernel's queue launches."""
     cfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
     out = {}
     for i, n in enumerate(LARGE_NS):
@@ -1356,32 +1390,37 @@ def large_phase(dev, smi: str) -> dict:
                            f"{1 - ws[1] / max(ws[6], 1):.4f} of the sweeps' "
                            f"lane slots idle | {smi}")
             out["wavefront"] = wavefront_main_path(scene, cam, cfg, dev)
-            mk.MODE_LAUNCHES["streamed"] = 0
-            mimg, m_first = timed(lambda: rtt.render_megakernel(scene, cam, 0,
-                                                                cfg))
-            out["mk_launches"] = mk.MODE_LAUNCHES["streamed"]
-            share = same_pixels(mimg, img)
-            if (out["mk_launches"] != 1 or share < PIXEL_MATCH
-                    or not bool(torch.isfinite(mimg).all())):
-                raise AssertionError(f"streamed megakernel at {n}: "
-                                     f"{out['mk_launches']} launches, "
-                                     f"{share:.5%} of pixels as the "
-                                     "wavefront's")
-            msecs = [timed(lambda s=s: rtt.render_megakernel(
-                scene, cam, s, cfg))[1] for s in range(1, RUNS + 1)]
-            mmr = [rays / s / 1e6 for s in msecs]
-            phase("large", f"render_megakernel (streamed, chunk "
-                           f"{tb.DEFAULT_STREAM_CHUNK}, block "
-                           f"{tb.STREAM_BLOCK}) on sphere_field {n}: 1 "
-                           f"launch, {share:.4%} of pixels as the "
-                           f"wavefront's; Mrays/s median "
-                           f"{statistics.median(mmr):.3f} (runs "
-                           + ", ".join(f"{m:.3f}" for m in mmr)
-                           + f"; first {m_first:.3f} s) | {smi}")
-            out["megakernel_streamed"] = mk_compare(
-                scene, cam, rtt.RenderConfig(spp=1, max_depth=LARGE["depth"]),
-                1, dev, "streamed", stream=tb.DEFAULT_STREAM_CHUNK,
-                blk=tb.STREAM_BLOCK)
+        # the streamed megakernel on the same scene: what auto would give
+        # if it picked the megakernel here (the crossover)
+        for k in mk.MODE_LAUNCHES:
+            mk.MODE_LAUNCHES[k] = 0
+        mimg, m_first = timed(lambda: rtt.render_megakernel(scene, cam, 0,
+                                                            cfg))
+        modes = dict(mk.MODE_LAUNCHES)
+        share = same_pixels(mimg, img)
+        if (modes != dict(resident=0, culled=0, streamed=1, fold=1)
+                or share < PIXEL_MATCH
+                or not bool(torch.isfinite(mimg).all())):
+            raise AssertionError(f"streamed megakernel at {n}: launches "
+                                 f"{modes}, {share:.5%} of pixels as the "
+                                 "wavefront's")
+        msecs = [timed(lambda s=s: rtt.render_megakernel(
+            scene, cam, s, cfg))[1] for s in range(1, RUNS + 1)]
+        mmr = [rays / s / 1e6 for s in msecs]
+        phase("large", f"render_megakernel (streamed, chunk "
+                       f"{tb.DEFAULT_STREAM_CHUNK}, block {tb.STREAM_BLOCK})"
+                       f" on sphere_field {n}: one queue launch and one "
+                       f"fold, {share:.4%} of pixels as the wavefront's; "
+                       f"Mrays/s median {statistics.median(mmr):.3f} (runs "
+                       + ", ".join(f"{m:.3f}" for m in mmr)
+                       + f"; first {m_first:.3f} s), "
+                       f"{statistics.median(mmr) / statistics.median(mr):.3f}"
+                       f"x the wavefront's | {smi}")
+        if i == 0:
+            out["mk_launches"] = modes["streamed"]
+            out["megakernel_streamed"] = mode_compare(
+                scene, cam, cfg, 1, dev, "streamed",
+                stream=tb.DEFAULT_STREAM_CHUNK, blk=tb.STREAM_BLOCK)
     return out
 
 
@@ -1929,6 +1968,7 @@ def large_train_phase(dev, smi: str) -> tuple:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("torch sees no CUDA device: this smoke test runs "
                            "on an NVIDIA GPU only")
@@ -2050,7 +2090,7 @@ def main() -> int:
     img = rtt.render_fast(scene, cam, 1, cfg, engine="auto")
     torch.cuda.synchronize()
     launches, modes = mk.LAUNCHES, dict(mk.MODE_LAUNCHES)
-    if launches != 2 or modes["queue"] != 1 or modes["fold"] != 1:
+    if launches != 2 or modes["resident"] != 1 or modes["fold"] != 1:
         raise AssertionError(f"main path made {launches} kernel launches "
                              f"({modes}), expected one queue launch and one "
                              "fold")
@@ -2058,7 +2098,7 @@ def main() -> int:
             and img.shape == (f["height"], f["width"], 3)):
         raise AssertionError("flagship image not finite/non-negative/shaped")
     phase("flagship", f"render_fast(auto): {launches} kernel launches "
-                      f"({modes['queue']} queue, {modes['fold']} fold, "
+                      f"({modes['resident']} queue, {modes['fold']} fold, "
                       f"persistent grid of {mk.QUEUE_GRID} blocks), image "
                       f"{tuple(img.shape)} finite, mean "
                       f"{float(img.mean()):.4f}")
@@ -2118,10 +2158,12 @@ def main() -> int:
 
     tl = train["launches"]
     wf_kernel = large["wavefront"]
+    phase("time", f"{time.perf_counter() - t_start:.1f} s from the start to "
+                  "the summary, the kernels' build included")
     print(smi)
     print(json.dumps({"kernels": [
         entry("megakernel", "megakernel.cu", "rayz_tpu/ops/megakernel.py:459",
-              modes["queue"], max_err, *flag["queue"]),
+              modes["resident"], max_err, *flag["queue"]),
         entry("fold", "megakernel.cu", "rayz_tpu/ops/megakernel.py:459",
               modes["fold"], *flag["fold"]),
         entry("megakernel_culled", "megakernel.cu",

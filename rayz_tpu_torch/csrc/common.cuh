@@ -7,7 +7,8 @@
 // rayz_tpu_torch/ops/megakernel.py computes, operation for operation and in
 // the same association, and the build passes -fmad=false so that no
 // multiply-add is contracted. The one exception is sweep_packed, the
-// coefficient-form sweep of the resident megakernel and the recorders,
+// coefficient-form sweep of the resident and culled megakernel and the
+// recorders,
 // whose fused multiply-adds are written out; its winner is settled in the
 // plain version's arithmetic (below). Square roots and divisions are IEEE (no
 // fast-math): the poisoned padding columns (|c|^2 - r^2 = 3e38) reject
@@ -177,8 +178,8 @@ __device__ __forceinline__ void sweep_spheres(const float* __restrict__ tab,
   sweep_spheres<kMotion>(tab, n, 0, n, r, t, qb, best);
 }
 
-// ---- the packed coefficient-form sweep (megakernel.cu and record.cu
-// resident, and record_pp.cu) ----
+// ---- the packed coefficient-form sweep (megakernel.cu resident and culled,
+// record.cu resident, and record_pp.cu) ----
 //
 // sweep_spheres issues, per column and lane, 9 broadcast loads of one word
 // (with motion), 27 unfused FP32 operations, the compare, the branch and
@@ -237,6 +238,32 @@ __device__ __forceinline__ float lds32(uint32_t addr) {
   float r;
   asm volatile("ld.shared.f32 %0, [%1];" : "=f"(r) : "r"(addr));
   return r;
+}
+
+// Column j's records. The functions below take the record source as a
+// template parameter: PackedSpheres here (the shared-memory reads of the
+// resident kernels and the culled and streamed megakernel's staging), or a
+// kernel's own source with rec_* overloads found by argument-dependent
+// lookup.
+__device__ __forceinline__ float4 rec_c(const PackedSpheres& s, int j) {
+  return lds128(s.c + 16u * j);
+}
+__device__ __forceinline__ float4 rec_v(const PackedSpheres& s, int j) {
+  return lds128(s.v + 16u * j);
+}
+__device__ __forceinline__ float rec_vv(const PackedSpheres& s, int j) {
+  return lds32(s.vv + 4u * j);
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};"
+               :
+               : "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" : : "r"(addr), "f"(v) : "memory");
 }
 
 // f32 words of shared memory stage_spheres fills for n columns.
@@ -321,14 +348,23 @@ __device__ __forceinline__ float sqrt_approx(float x) {
 // above the two forms' difference for the camera's rays and for most
 // secondary ones.
 constexpr float kGraze = 1.0f / 16384.0f;
+// The culled megakernel's wider band (kWide): a column whose discriminant
+// lies within kGrazeWide |d|^2 (| |c|^2 - r^2 | + |o|^2) of zero, the
+// magnitudes c_term cancels. Away from the origin (sphere_field's small
+// spheres at |c| ~ 55) c_term is a difference of terms near |c|^2, so both
+// forms round it by far more than 2^-14 |d|^2 c_term, and a hit or miss
+// there is decided by rounding; the band flags those columns, and the last
+// of them contests the winner in today's arithmetic (PERF.md §6 gives the
+// culled path's items that differ from the plain version with each band).
+constexpr float kGrazeWide = 1.0f / 524288.0f;
 
 // Column j's discriminant in the coefficient form, its half_b, and whether
 // the column is grazing.
-template <bool kMotion>
-__device__ __forceinline__ float coef_disc(const PackedSpheres& s, int j,
+template <bool kMotion, bool kWide = false, typename S>
+__device__ __forceinline__ float coef_disc(const S& s, int j,
                                            const RayCoef& c, float& half_b,
                                            bool& grazing) {
-  const float4 g = lds128(s.c + 16u * j);
+  const float4 g = rec_c(s, j);
   float hb = __fmaf_rn(c.dx, g.x, c.ndo);
   hb = __fmaf_rn(c.dy, g.y, hb);
   hb = __fmaf_rn(c.dz, g.z, hb);
@@ -337,8 +373,8 @@ __device__ __forceinline__ float coef_disc(const PackedSpheres& s, int j,
   ct = __fmaf_rn(c.moy, g.y, ct);
   ct = __fmaf_rn(c.moz, g.z, ct);
   if (kMotion) {
-    const float4 v = lds128(s.v + 16u * j);
-    const float vv = lds32(s.vv + 4u * j);
+    const float4 v = rec_v(s, j);
+    const float vv = rec_vv(s, j);
     hb = __fmaf_rn(c.tdx, v.x, hb);
     hb = __fmaf_rn(c.tdy, v.y, hb);
     hb = __fmaf_rn(c.tdz, v.z, hb);
@@ -351,27 +387,33 @@ __device__ __forceinline__ float coef_disc(const PackedSpheres& s, int j,
   half_b = hb;
   const float act = c.a * ct;
   const float disc = __fmaf_rn(hb, hb, -act);
-  grazing = fabsf(disc) < kGraze * act;  // false where act overflows
+  if (kWide)  // false where the magnitudes overflow (the padding columns)
+    grazing = fabsf(disc) < kGrazeWide * (c.a * (fabsf(g.w) + c.o2));
+  else
+    grazing = fabsf(disc) < kGraze * act;  // false where act overflows
   return disc;
 }
 
-// Nearest-hit sweep over the n packed columns: sweep_spheres' loop (a
-// shrinking q_best, ties keep the earlier column) in the coefficient form,
-// also keeping the runner-up (`second`, the column of the second smallest
-// accepted q) and the last grazing column (`graze`), -1 where none, which
-// settle_winner tests in today's arithmetic.
-template <bool kMotion>
-__device__ __forceinline__ void sweep_packed(const PackedSpheres& s, int n,
-                                             const RayCoef& c, float& qb,
-                                             int& best, int& second,
-                                             int& graze) {
-  float q2 = kBig;
+// Nearest-hit sweep over the records [j0, j1) of `s`, reported as columns
+// j + off: sweep_spheres' loop (a shrinking q_best, ties keep the earlier
+// column) in the coefficient form, also keeping the runner-up (`second`,
+// the column of the second smallest accepted q, and its q `q2`) and the last
+// grazing column (`graze`), -1 where none, which settle_winner tests in
+// today's arithmetic. The state carries from one range to the next, so a
+// sweep over consecutive ranges (the culled and streamed blocks) finds what
+// one sweep over their union finds: the lexicographically smallest two
+// (q, column) pairs.
+template <bool kMotion, bool kWide = false, typename S>
+__device__ __forceinline__ void sweep_packed(const S& s, int j0, int j1,
+                                             int off, const RayCoef& c,
+                                             float& qb, int& best, float& q2,
+                                             int& second, int& graze) {
 #pragma unroll 8
-  for (int j = 0; j < n; ++j) {
+  for (int j = j0; j < j1; ++j) {
     float hb;
     bool grazing;
-    const float disc = coef_disc<kMotion>(s, j, c, hb, grazing);
-    if (grazing) graze = j;
+    const float disc = coef_disc<kMotion, kWide>(s, j, c, hb, grazing);
+    if (grazing) graze = j + off;
     if (disc >= 0.0f) {
       const float rt = sqrt_approx(disc);
       const float q1 = hb - rt;
@@ -381,31 +423,41 @@ __device__ __forceinline__ void sweep_packed(const PackedSpheres& s, int n,
           q2 = qb;
           second = best;
           qb = qv;
-          best = j;
+          best = j + off;
         } else {
           q2 = qv;
-          second = j;
+          second = j + off;
         }
       }
     }
   }
 }
 
+// The whole table of n packed columns.
+template <bool kMotion>
+__device__ __forceinline__ void sweep_packed(const PackedSpheres& s, int n,
+                                             const RayCoef& c, float& qb,
+                                             int& best, int& second,
+                                             int& graze) {
+  float q2 = kBig;
+  sweep_packed<kMotion>(s, 0, n, 0, c, qb, best, q2, second, graze);
+}
+
 // Sphere j's centre at the ray's time and |c|^2 - r^2, from the packed
 // records with sphere_at's expressions (the same values, so the same bits).
-template <bool kMotion>
-__device__ __forceinline__ void packed_at(const PackedSpheres& s, int j,
-                                          const Ray& r, const RayTerms& t,
-                                          float& cx, float& cy, float& cz,
+template <bool kMotion, typename S>
+__device__ __forceinline__ void packed_at(const S& s, int j, const Ray& r,
+                                          const RayTerms& t, float& cx,
+                                          float& cy, float& cz,
                                           float& ccmr2) {
-  const float4 g = lds128(s.c + 16u * j);
+  const float4 g = rec_c(s, j);
   cx = g.x;
   cy = g.y;
   cz = g.z;
   ccmr2 = g.w;
   if (kMotion) {
-    const float4 v = lds128(s.v + 16u * j);
-    const float vv = lds32(s.vv + 4u * j);
+    const float4 v = rec_v(s, j);
+    const float vv = rec_vv(s, j);
     cx = cx + r.tau * v.x;
     cy = cy + r.tau * v.y;
     cz = cz + r.tau * v.z;
@@ -415,10 +467,10 @@ __device__ __forceinline__ void packed_at(const PackedSpheres& s, int j,
 
 // sweep_spheres' root test of packed column j: whether it accepts the
 // column, the root q it takes and whether that is the first.
-template <bool kMotion>
-__device__ __forceinline__ bool sphere_root(const PackedSpheres& s, int j,
-                                            const Ray& r, const RayTerms& t,
-                                            float& q, bool& first) {
+template <bool kMotion, typename S>
+__device__ __forceinline__ bool sphere_root(const S& s, int j, const Ray& r,
+                                            const RayTerms& t, float& q,
+                                            bool& first) {
   float cx, cy, cz, ccmr2;
   packed_at<kMotion>(s, j, r, t, cx, cy, cz, ccmr2);
   const float half_b = r.dx * cx + r.dy * cy + r.dz * cz - t.d_dot_o;
@@ -433,18 +485,20 @@ __device__ __forceinline__ bool sphere_root(const PackedSpheres& s, int j,
   return q >= t.tmin_a;
 }
 
-// sweep_spheres over the packed columns: its expressions, order and tie
-// rule, so its winner and q are sweep_spheres' bit for bit.
-template <bool kMotion>
-__device__ __forceinline__ void sweep_today(const PackedSpheres& s, int n,
+// sweep_spheres over the packed columns [j0, j1): its expressions, order
+// and tie rule, so its winner and q are sweep_spheres' bit for bit.
+// The columns are reported as j + off.
+template <bool kMotion, typename S>
+__device__ __forceinline__ void sweep_today(const S& s, int j0, int j1,
                                             const Ray& r, const RayTerms& t,
-                                            float& qb, int& best) {
-  for (int j = 0; j < n; ++j) {
+                                            float& qb, int& best,
+                                            int off = 0) {
+  for (int j = j0; j < j1; ++j) {
     float q;
     bool first;
     if (sphere_root<kMotion>(s, j, r, t, q, first) && q < qb) {
       qb = q;
-      best = j;
+      best = j + off;
     }
   }
 }
@@ -452,10 +506,10 @@ __device__ __forceinline__ void sweep_today(const PackedSpheres& s, int n,
 // Column j against the winner (q_best, best) in today's arithmetic: it
 // wins where sweep_spheres would have preferred it (a smaller q, or the
 // same q and an earlier column).
-template <bool kMotion>
-__device__ __forceinline__ void contest(const PackedSpheres& s, int j,
-                                        const Ray& r, const RayTerms& t,
-                                        float& qb, int& best) {
+template <bool kMotion, typename S>
+__device__ __forceinline__ void contest(const S& s, int j, const Ray& r,
+                                        const RayTerms& t, float& qb,
+                                        int& best) {
   float q;
   bool first;
   if (j >= 0 && j != best && sphere_root<kMotion>(s, j, r, t, q, first) &&
@@ -479,13 +533,17 @@ __device__ __forceinline__ void contest(const PackedSpheres& s, int j,
 // grazing exits) is decided by that rounding, which differs between the two
 // forms; without this test the coefficient form changed a few percent of
 // the flagship's recorded lane-iterations. Returns whether it swept again.
-template <bool kMotion>
-__device__ __forceinline__ bool settle_winner(const PackedSpheres& s, int n,
-                                              int from, const Ray& r,
-                                              const RayTerms& t,
-                                              const RayCoef& c, float& qb,
-                                              int& best, int second,
-                                              int graze) {
+// `resweep(qb, best)` sweeps again in today's arithmetic from qb = kBig,
+// best = -1: over every column for the resident kernels (settle_winner),
+// behind today's bound tests for the culled and streamed megakernel.
+template <bool kMotion, typename S, typename Resweep>
+__device__ __forceinline__ bool settle_winner_by(const S& s, int from,
+                                                 const Ray& r,
+                                                 const RayTerms& t,
+                                                 const RayCoef& c, float& qb,
+                                                 int& best, int second,
+                                                 int graze,
+                                                 const Resweep& resweep) {
   if (best >= 0) {
     float hb, q;
     bool first;
@@ -496,7 +554,7 @@ __device__ __forceinline__ bool settle_winner(const PackedSpheres& s, int n,
           first == first_c)) {
       qb = kBig;
       best = -1;
-      sweep_today<kMotion>(s, n, r, t, qb, best);
+      resweep(qb, best);
       return true;
     }
     qb = q;
@@ -505,6 +563,19 @@ __device__ __forceinline__ bool settle_winner(const PackedSpheres& s, int n,
   contest<kMotion>(s, graze, r, t, qb, best);
   contest<kMotion>(s, from, r, t, qb, best);
   return false;
+}
+
+// The resident kernels' form: the re-sweep covers all n packed columns.
+template <bool kMotion>
+__device__ __forceinline__ bool settle_winner(const PackedSpheres& s, int n,
+                                              int from, const Ray& r,
+                                              const RayTerms& t,
+                                              const RayCoef& c, float& qb,
+                                              int& best, int second,
+                                              int graze) {
+  return settle_winner_by<kMotion>(
+      s, from, r, t, c, qb, best, second, graze,
+      [&](float& q, int& b) { sweep_today<kMotion>(s, 0, n, r, t, q, b); });
 }
 
 // Work-counter slots beyond rz::Work's five (the [8] stats array): the
@@ -579,6 +650,29 @@ __device__ __forceinline__ bool bound_possible(const float* __restrict__ rows,
   const float disc = hb * hb - t.a * (ccb - 2.0f * ob + t.o2);
   const float rtb = sqrtf(disc);
   return ccb < kBig && hb - rtb < qb && hb + rtb >= t.tmin_a;
+}
+
+// Bound i of a [4, stride] bound table as one record (centre, |c|^2 -
+// r^2).
+__device__ __forceinline__ float4 bound_rec(const float* __restrict__ rows,
+                                            int stride, int i) {
+  return make_float4(rows[i], rows[stride + i], rows[2 * stride + i],
+                     rows[3 * stride + i]);
+}
+
+// bound_possible on a bound record, with a miss decided before the square
+// root: a negative (or NaN) discriminant fails there as it fails
+// bound_possible's NaN compares after sqrtf, so every decision is
+// bound_possible's, without the IEEE square root's slow path, which a
+// negative argument takes (most bound tests miss).
+__device__ __forceinline__ bool bound_test(const float4& b, const Ray& r,
+                                           const RayTerms& t, float qb) {
+  const float hb = r.dx * b.x + r.dy * b.y + r.dz * b.z - t.d_dot_o;
+  const float ob = r.ox * b.x + r.oy * b.y + r.oz * b.z;
+  const float disc = hb * hb - t.a * (b.w - 2.0f * ob + t.o2);
+  if (!(disc >= 0.0f)) return false;
+  const float rtb = sqrtf(disc);
+  return b.w < kBig && hb - rtb < qb && hb + rtb >= t.tmin_a;
 }
 
 // What one bounce does at a hit: the new direction and the attenuation, or

@@ -7,63 +7,61 @@
 // one-level checker; diffuse / metal / dielectric scatter; sky on a miss;
 // per-pixel RGB radiance sums.
 //
-// What bounds it on the H100: instruction issue in the per-sphere sweep,
-// every segment against every sphere column (an SM issues 4 warp
-// instructions a clock). Measured on the one-thread-per-slot kernel with
-// rz::sweep_spheres (PERF.md §6): 40 issue slots a column (9 one-word
-// shared loads, 27 unfused FP32 operations, the compare, branch and
-// convergence barrier), and a quarter of the lanes idle
-// (0.2295 of lane-trips in one launch at the flagship) because a thread
-// owned one pixel for all its samples. The resident mode answers both:
-//  * it sweeps with rz::sweep_packed (common.cuh): the geometry staged as
-//    16-byte records (2 LDS.128 and an LDS.32 a column with motion), the
-//    quadratic in the coefficient form as 17 fused multiply-adds, the
-//    winner settled in today's arithmetic;
-//  * it is megakernel_queue: a persistent grid whose lanes take (sample,
-//    pixel) items from a counter on the card, 64 items per warp and atomic,
-//    so no lane waits for its pixel's other samples, and a fold kernel that
-//    adds each pixel's samples in sample order;
-//  * the tables sit in shared memory, copied once per block, and all
-//    threads of a warp read the same column at the same moment, so each
-//    table read is a broadcast; the winner is carried in registers as a
-//    (q_best, column) pair and its attributes (centre, material) are read
-//    once per segment from the row-major table in device memory (L1).
+// What bounds it on the H100: instruction issue in the per-sphere sweep
+// (an SM issues 4 warp instructions a clock), and lanes left idle. The
+// design, in every table mode:
+//  * megakernel_queue: a persistent grid whose lanes take (sample, pixel)
+//    items from a counter on the card, 64 items per warp and atomic, so no
+//    lane waits for its pixel's other samples (a thread that owned a pixel
+//    for all its samples idled a quarter of its lane-trips at the
+//    flagship), and a fold kernel that adds each pixel's samples in sample
+//    order. The kernel is a template on its segment sweep, chosen at
+//    compile time, so each mode's instantiation carries only its own code.
+//  * the sphere geometry as 16-byte records (rz::stage_spheres in shared
+//    memory; ops/tables.py pack_records in device memory, streamed);
+//  * shading reads the winner's centre and material from the row-major
+//    sphere table in device memory (L1), once per segment.
 //
-// Table modes:
-//  * resident (`megakernel_queue`, the flagship's): the sphere geometry
-//    packed and the triangle table in shared memory, every column swept.
-//  * kCulled (`megakernel_culled`; the TPU's _culled_loop): Morton-sorted
-//    tables and per-block bound rows in shared memory; a block of `blk`
-//    columns is swept only if its bounding sphere may hold a hit nearer
-//    than the current best.
-//  * kStreamed (`megakernel_culled`; the TPU's _stream_loop): tables and
-//    block rows stay in device memory and are read through L1/L2; the
-//    chunk bound rows sit in shared memory. A chunk is entered only if its bound passes, then its
-//    blocks as in kCulled. The TPU copies a chunk into SMEM scratch because
-//    its scalar core reads only SMEM; here a copy would buy nothing, since
-//    a sweep reads each column once per ray and a warp's threads read the
-//    same column at once (one cached line serves 32 columns of a row).
-// The culled and streamed modes keep the earlier layout and sweep
-// (rz::sweep_spheres): one thread owns one pixel slot and runs all of the
-// slot's spp samples, respawning the next camera sample as soon as a path
-// dies (the TPU's (rs, 128) tile and its tile-wide loop condition become a
-// per-thread loop), in blocks of 128 threads.
-// The TPU tests a bound tile-wide and sweeps the block if ANY lane may hit
-// it. The threads of this persistent kernel run independent trip counts
-// and cannot vote, so each thread tests bounds for its own ray and skips
-// what its own test rejects. Culling is conservative either way, so the
-// winners are those of a full sweep over the same tables, up to exact
-// ties. Both modes run one slot loop (trace_slot: resume and save,
-// respawn, trip budget, shading through rz::camera_ray and rz::shade, the
-// continue/die rule), each with its own sweep.
+// Table modes (the sweep functors below):
+//  * ResidentSweep (the flagship's): the sphere geometry packed and the
+//    triangle table in shared memory, every column swept by
+//    rz::sweep_packed (the quadratic in the coefficient form as fused
+//    multiply-adds, 42-43 SASS instructions a column where sweep_spheres
+//    issued 63-64), the winner settled in today's arithmetic.
+//  * CulledSweep (the TPU's _culled_loop): the Morton-sorted geometry
+//    packed in shared memory with the blocks' bounding spheres; each lane
+//    sweeps in the packed form the blocks its own bound test passes (the
+//    TPU tests a tile's bound and sweeps the block if ANY lane may hit it;
+//    here the warp issues a block's sweep only where some lane's test
+//    passed, and the other lanes skip it). The settle's re-sweep walks the
+//    same blocks in today's arithmetic, and the grazing band is the wide
+//    one (rz::kGrazeWide). Triangles as rz::sweep_blocks on the shared
+//    table.
+//  * StreamSweep (the TPU's _stream_loop): the tables and the packed
+//    records in device memory, the chunk bounds in shared memory, the
+//    block bounds as records in device memory. Each lane keeps its own
+//    hierarchy (chunk, then block, each tested for its own ray against its
+//    own q_best) under warp votes: the warp visits a chunk or block only
+//    where __any_sync over the lanes whose own tests passed says so. A
+//    visited block's records are staged in the warp's shared buffer by one
+//    16-byte load a lane and swept from there by each lane whose test
+//    passed; where at most kColumnsUpTo lanes did, the warp takes those
+//    rays in turn, a column per lane, and keeps the smallest q, then the
+//    lowest column, by warp reductions: the sequential sweep's winner.
+//    Columns are tested in today's arithmetic: the packed form, its settle
+//    re-sweeping ~2% of the segments through the hierarchy one lane at a
+//    time, was slower here, and it parted from the plain version on ~3% of
+//    the 100k scene's pixels (PERF.md). Superclusters were dropped: built
+//    over chunks ordered near to far, they pruned too little to pay for
+//    their tests. Triangles stream per lane behind chunk and block bounds
+//    (rz::sweep_chunks).
+// Culling is conservative, so the winners are those of a full sweep over
+// the same (sorted) tables: bit for bit streamed (up to exact ties), up to
+// near ties culled (its bound tests compare with the packed q_best).
 //
-// Compaction mode (the culled mode's default at spp >= 16): `budget` caps the
-// thread's loop trips (0 = run to the end), `resume` is the [16, cap] state
-// the previous pass saved (read-only), `save` receives the state after this
-// pass, and `pix` maps slots to flat pixel ids (-1 = retired slot). Random
-// draws are keyed by (seed, pixel, sample, bounce, draw), all recoverable
-// from the saved state, so any pass schedule renders the same bits as one
-// launch.
+// Random draws are keyed by (seed, pixel, sample, bounce, draw), so the
+// schedule changes no bit: one queue launch per sample group renders what
+// any other grouping renders.
 //
 // C interface for ctypes (see ops/_build.py): every entry point returns the
 // cudaError_t of its launch.
@@ -74,133 +72,70 @@
 
 namespace {
 
-struct Params {
-  const float* cam;     // [18]
-  const float* stab;    // [17, n_pad]
-  const float* ttab;    // [20, m_pad]
-  const int* pix;       // [cap]
-  const float* resume;  // [16, cap] or null
-  float* save;          // [16, cap] or null
-  float* rgb;           // [3, cap]
-  int n_pad, m_pad, cap;
-  int width, spp, max_depth, budget;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBlock = 128;  // threads per block of the queue kernel
+constexpr int kWarps = kBlock / 32;
+constexpr int kRun = 64;     // items a warp claims with one atomicAdd
+// A streamed block is swept a column per lane when at most this many of the
+// warp's rays entered it, else a ray per lane.
+constexpr int kColumnsUpTo = 16;
+// Staging words per warp of the streamed sweep: 32 records of 9 words with
+// motion (c and v as float4, |v|^2), 4 without.
+template <bool kMotion>
+__host__ __device__ constexpr int stage_words() {
+  return 32 * (kMotion ? 9 : 4);
+}
+
+enum : int { kResident = 0, kCulled = 1, kStreamed = 2 };
+
+struct QueueParams {
+  const float* cam;   // [18]
+  const float* stab;  // [17, n_pad]
+  const float* ttab;  // [20, m_pad]
+  int n_pad, m_pad, n_pix, width, max_depth;
+  int s0, n_samples;  // the samples [s0, s0 + n_samples) of every pixel
   float t_min;
   uint32_t seed;
   bool jitter;
+  unsigned long long* counter;  // items claimed so far (0 at launch)
+  float* out;                   // [n_samples, 3, n_pix]
+  unsigned long long* stats;    // [8] or null
+  // the culled and streamed modes
+  const float* sblk;  // [4, n_pad / blk] sphere block rows
+  const float* tblk;  // [4, m_pad / blk] triangle block rows
+  const float* scb;   // [4, n_pad / stream] sphere chunk rows
+  const float* tcb;   // [4, m_pad / stream] triangle chunk rows
+  const float* recs;  // streamed: packed sphere records (ops/tables.py)
+  const float* brecs; // streamed: sphere block bounds as [n_pad / blk] float4
+  int blk, stream;    // blk 0: no blocks
+  bool cull;          // streamed: false sweeps every chunk untested
+  int* hits;  // [max_depth, n_samples * n_pix] winners (triangles n_pad +
+              // column, -1 a miss), or null
 };
 
-// One slot's samples in either mode of megakernel_culled: resume the saved state or start;
-// respawn each sample's camera ray; the nearest hit through `sweep(r, t,
-// qb, best, is_tri)`, the kernel's table mode; shading; continue or die;
-// then the radiance sums and, compacting, the state.
-template <bool kMotion, typename Sweep>
-__device__ __forceinline__ void trace_slot(Params p, int slot,
-                                           const float* s_cam,
-                                           const float* sph, const float* tri,
-                                           Sweep sweep) {
-  const int cap = p.cap;
-  const int pix = p.pix[slot];
-  const int pp = pix >= 0 ? pix : 0;
-  const float pxf = static_cast<float>(pp % p.width);
-  const float pyf = static_cast<float>(pp / p.width);
-
-  rz::Ray r;
-  float thx, thy, thz, ar, ag, ab;
-  int depth, samples;
-  bool active;
-  if (p.resume) {
-    const float* st = p.resume + slot;
-    r.ox = st[0 * cap];
-    r.oy = st[1 * cap];
-    r.oz = st[2 * cap];
-    r.dx = st[3 * cap];
-    r.dy = st[4 * cap];
-    r.dz = st[5 * cap];
-    r.tau = st[6 * cap];
-    thx = st[7 * cap];
-    thy = st[8 * cap];
-    thz = st[9 * cap];
-    ar = st[10 * cap];
-    ag = st[11 * cap];
-    ab = st[12 * cap];
-    depth = static_cast<int>(st[13 * cap]);
-    samples = static_cast<int>(st[14 * cap]);
-    active = static_cast<int>(st[15 * cap]) > 0;
-  } else {
-    r.ox = r.oy = r.oz = 0.0f;
-    r.dx = r.dy = 0.0f;
-    r.dz = 1.0f;
-    r.tau = 0.0f;
-    thx = thy = thz = 0.0f;
-    ar = ag = ab = 0.0f;
-    depth = 0;
-    samples = pix >= 0 ? p.spp : 0;
-    active = false;
-  }
-
-  const uint32_t key0 = rz::slot_key(p.seed, pix);
-  int trips = 0;
-  while ((active || samples > 0) && (p.budget == 0 || trips < p.budget)) {
-    ++trips;
-    if (!active) {
-      samples -= 1;
-      depth = p.max_depth;
-    }
-    const uint32_t key = rz::step_key(key0, p.spp - samples,
-                                      p.max_depth - depth);
-    if (!active) {
-      rz::camera_ray(s_cam, pxf, pyf, p.jitter, key, r);
-      thx = thy = thz = 1.0f;
-      active = true;
-    }
-
-    const rz::RayTerms t = rz::ray_terms(r, p.t_min);
-    float qb = rz::kBig;
-    int best = -1;
-    bool is_tri = false;
-    sweep(r, t, qb, best, is_tri);
-    if (rz::shade<kMotion>(sph, p.n_pad, tri, p.m_pad, r, t, qb, best, is_tri,
-                           rz::KeyDraws{key}, thx, thy, thz, ar, ag,
-                           ab) == rz::Bounce::kContinued) {
-      depth -= 1;
-      active = depth > 0;  // depth exhausted -> black
-    } else {
-      active = false;  // the sky, or absorbed
-    }
-  }
-
-  p.rgb[0 * cap + slot] = ar;
-  p.rgb[1 * cap + slot] = ag;
-  p.rgb[2 * cap + slot] = ab;
-  if (p.save) {
-    float* st = p.save + slot;
-    st[0 * cap] = r.ox;
-    st[1 * cap] = r.oy;
-    st[2 * cap] = r.oz;
-    st[3 * cap] = r.dx;
-    st[4 * cap] = r.dy;
-    st[5 * cap] = r.dz;
-    st[6 * cap] = r.tau;
-    st[7 * cap] = thx;
-    st[8 * cap] = thy;
-    st[9 * cap] = thz;
-    st[10 * cap] = ar;
-    st[11 * cap] = ag;
-    st[12 * cap] = ab;
-    st[13 * cap] = static_cast<float>(depth);
-    st[14 * cap] = static_cast<float>(samples);
-    st[15 * cap] = active ? 1.0f : 0.0f;
-  }
+// Bound i of a [4, stride] bound table staged into shared memory as one
+// record (centre, |c|^2 - r^2) at `dst`.
+__device__ __forceinline__ void stage_bounds(const float* rows, int stride,
+                                             float4* dst) {
+  for (int i = threadIdx.x; i < stride; i += blockDim.x)
+    dst[i] = rz::bound_rec(rows, stride, i);
 }
 
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- the resident sweep (the flagship's) ----
+
 // The resident tables in shared memory: the camera vector, the sphere
-// geometry packed for sweep_packed, the triangle table row-major. Returns
-// the queue kernel's segment sweep: sweep_packed, its winner
-// settled in today's arithmetic (settle_winner), then the triangles.
-// Shading reads the winner's centre and material from the row-major table
-// in device memory.
+// geometry packed for sweep_packed, the triangle table row-major. Its
+// segment sweep: sweep_packed, its winner settled in today's arithmetic
+// (settle_winner), then the triangles.
 template <bool kMotion>
 struct ResidentSweep {
+  static constexpr int kMode = kResident;
+  static constexpr bool kHasMotion = kMotion;
+  static constexpr int kMinBlocks = 8;
   rz::PackedSpheres ps;
   const float* tri;   // [20, m] in shared memory
   int n, m;
@@ -218,67 +153,354 @@ struct ResidentSweep {
       atomicAdd(stats + rz::kStatResweeps, 1ull);
     rz::sweep_triangles(tri, m, r, t, qb, best, is_tri);
   }
+
+  static __device__ __forceinline__ ResidentSweep stage(const QueueParams& p,
+                                                        float* smem) {
+    for (int i = threadIdx.x; i < 18; i += blockDim.x) smem[i] = p.cam[i];
+    const rz::PackedSpheres ps =
+        rz::stage_spheres<kMotion>(p.stab, p.n_pad, smem + rz::kCamWords);
+    float* s_tri = smem + rz::kCamWords + rz::packed_words<kMotion>(p.n_pad);
+    for (int i = threadIdx.x; i < rz::kTRows * p.m_pad; i += blockDim.x)
+      s_tri[i] = p.ttab[i];
+    __syncthreads();
+    return ResidentSweep{ps, s_tri, p.n_pad, p.m_pad, p.stats};
+  }
+
+  static size_t smem_bytes(const QueueParams& p) {
+    return sizeof(float) *
+           (rz::kCamWords +
+            static_cast<size_t>(rz::packed_words<kMotion>(p.n_pad)) +
+            rz::kTRows * static_cast<size_t>(p.m_pad));
+  }
 };
 
+// ---- the culled sweep ----
+
+// Shared memory: the camera, the Morton-sorted sphere geometry packed, the
+// sphere blocks' bounds as records, the triangle table row-major and its
+// block rows. A lane sweeps a block of spheres where its own bound test
+// against its q_best passes; the settle's re-sweep walks the same blocks in
+// today's arithmetic.
 template <bool kMotion>
-__device__ __forceinline__ ResidentSweep<kMotion> stage_resident(
-    const float* cam, const float* stab, int n, const float* ttab, int m,
-    unsigned long long* stats, float* smem) {
-  for (int i = threadIdx.x; i < 18; i += blockDim.x) smem[i] = cam[i];
-  const rz::PackedSpheres ps =
-      rz::stage_spheres<kMotion>(stab, n, smem + rz::kCamWords);
-  float* s_tri = smem + rz::kCamWords + rz::packed_words<kMotion>(n);
-  for (int i = threadIdx.x; i < rz::kTRows * m; i += blockDim.x)
-    s_tri[i] = ttab[i];
-  __syncthreads();
-  return ResidentSweep<kMotion>{ps, s_tri, n, m, stats};
-}
+struct CulledSweep {
+  static constexpr int kMode = kCulled;
+  static constexpr bool kHasMotion = kMotion;
+  static constexpr int kMinBlocks = 4;
+  rz::PackedSpheres ps;
+  uint32_t sbr;       // [n / blk] float4 sphere block bounds (shared)
+  const float* tri;   // [20, m] in shared memory
+  const float* tbl;   // [4, m / blk] in shared memory
+  int n, m, blk;
+  unsigned long long* stats;
 
-// Dynamic shared memory of the queue kernel.
-size_t resident_smem(bool motion, int n, int m) {
-  return sizeof(float) *
-         (rz::kCamWords +
-          static_cast<size_t>(motion ? rz::packed_words<true>(n)
-                                     : rz::packed_words<false>(n)) +
-          rz::kTRows * static_cast<size_t>(m));
-}
+  __device__ __forceinline__ float4 block(int b) const {
+    return rz::lds128(sbr + 16u * b);
+  }
 
-// The resident mode's main path: a persistent grid whose lanes take
-// (sample, pixel) items from one counter in device memory (sample-major,
-// so a warp's items are neighbouring pixels of one sample). A warp claims
-// kRun items with one atomicAdd and hands them to its lanes as they free
-// up (__ballot_sync/__popc), so a lane is never held by its pixel's other
-// samples: the per-pixel straggler tail of a thread per pixel slot is gone,
-// and only the queue's last paths leave lanes idle. Each item
-// traces one camera sample to its end with today's keys (sample numbers
-// s + 1, bounces 0..) and writes its radiance, the sky term or 0, to
-// out[sample - s0, channel, pixel]; fold_kernel then adds a pixel's samples
-// in sample order from 0.0f, the association of a thread that runs its
-// pixel's samples in turn (the plain version, _trace_slots_reference), so
-// the schedule changes no bit of the image.
-struct QueueParams {
-  const float* cam;   // [18]
-  const float* stab;  // [17, n_pad]
-  const float* ttab;  // [20, m_pad]
-  int n_pad, m_pad, n_pix, width, max_depth;
-  int s0, n_samples;  // the samples [s0, s0 + n_samples) of every pixel
-  float t_min;
-  uint32_t seed;
-  bool jitter;
-  unsigned long long* counter;  // items claimed so far (0 at launch)
-  float* out;                   // [n_samples, 3, n_pix]
-  unsigned long long* stats;    // [8] or null
+  __device__ __forceinline__ void operator()(const rz::Ray& r,
+                                             const rz::RayTerms& t, int from,
+                                             float& qb, int& best,
+                                             bool& is_tri,
+                                             rz::Work& w) const {
+    const int nb = n / blk;
+    if (nb) {
+      const rz::RayCoef c = rz::ray_coef(r, t);
+      int second = -1, graze = -1;
+      float q2 = rz::kBig;
+      w.bounds += nb;
+      for (int b = 0; b < nb; ++b) {
+        if (!rz::bound_test(block(b), r, t, qb)) continue;
+        w.prims += blk;
+        rz::sweep_packed<kMotion, true>(ps, b * blk, (b + 1) * blk, 0, c, qb,
+                                        best, q2, second, graze);
+      }
+      if (rz::settle_winner_by<kMotion>(
+              ps, from, r, t, c, qb, best, second, graze,
+              [&](float& q, int& bb) {
+                for (int b = 0; b < nb; ++b)
+                  if (rz::bound_test(block(b), r, t, q))
+                    rz::sweep_today<kMotion>(ps, b * blk, (b + 1) * blk, r, t,
+                                             q, bb);
+              }) &&
+          stats)
+        atomicAdd(stats + rz::kStatResweeps, 1ull);
+    }
+    rz::sweep_blocks<kMotion, true>(tri, m, tbl, m / blk, blk, 0, m / blk, r,
+                                    t, qb, best, is_tri, w);
+  }
+
+  static __device__ __forceinline__ CulledSweep stage(const QueueParams& p,
+                                                      float* smem) {
+    for (int i = threadIdx.x; i < 18; i += blockDim.x) smem[i] = p.cam[i];
+    const int n = p.n_pad, m = p.m_pad, blk = p.blk;
+    const rz::PackedSpheres ps =
+        rz::stage_spheres<kMotion>(p.stab, n, smem + rz::kCamWords);
+    float4* s_sbr = reinterpret_cast<float4*>(
+        smem + rz::kCamWords + rz::packed_words<kMotion>(n));
+    stage_bounds(p.sblk, n / blk, s_sbr);
+    float* s_tri = reinterpret_cast<float*>(s_sbr + n / blk);
+    for (int i = threadIdx.x; i < rz::kTRows * m; i += blockDim.x)
+      s_tri[i] = p.ttab[i];
+    float* s_tbl = s_tri + rz::kTRows * m;
+    for (int i = threadIdx.x; i < 4 * (m / blk); i += blockDim.x)
+      s_tbl[i] = p.tblk[i];
+    __syncthreads();
+    return CulledSweep{ps, shared_addr(s_sbr), s_tri, s_tbl, n, m, blk,
+                       p.stats};
+  }
+
+  static size_t smem_bytes(const QueueParams& p) {
+    return sizeof(float) *
+           (rz::kCamWords +
+            static_cast<size_t>(rz::packed_words<kMotion>(p.n_pad)) +
+            4 * static_cast<size_t>(p.n_pad / p.blk) +
+            rz::kTRows * static_cast<size_t>(p.m_pad) +
+            4 * static_cast<size_t>(p.m_pad / p.blk));
+  }
 };
 
-constexpr int kRun = 64;  // items a warp claims with one atomicAdd
+// ---- the streamed sweep ----
 
+// One column's records held in registers (a column per lane), read by the
+// same sphere_root as the staged records (its rec_* are found by
+// argument-dependent lookup).
+struct RegSpheres {
+  float4 c, v;
+  float vv;
+};
+__device__ __forceinline__ float4 rec_c(const RegSpheres& s, int) {
+  return s.c;
+}
+__device__ __forceinline__ float4 rec_v(const RegSpheres& s, int) {
+  return s.v;
+}
+__device__ __forceinline__ float rec_vv(const RegSpheres& s, int) {
+  return s.vv;
+}
+
+// The streamed sphere records in device memory (built once a render by
+// ops/tables.py pack_records): [n] float4 (c, |c|^2 - r^2), then with
+// motion [n] float4 (v, 2 c.v) and [n] float |v|^2.
+struct StreamRecords {
+  const float4* c;
+  const float4* v;
+  const float* vv;
+};
+
+// Shared memory: the camera, each warp's staging buffer, the sphere chunk
+// bounds as records, the triangle chunk rows. Device memory: the packed
+// sphere records, the sphere block bounds as records, the triangle table
+// and its block rows. The columns are tested in today's arithmetic
+// (sweep_spheres' expressions on the records): here the packed form lost
+// (PERF.md), its settle re-sweeping ~2% of the segments through the
+// hierarchy one lane at a time.
 template <bool kMotion>
-__global__ void __launch_bounds__(128, 8) megakernel_queue(QueueParams p) {
+struct StreamSweep {
+  static constexpr int kMode = kStreamed;
+  static constexpr bool kHasMotion = kMotion;
+  static constexpr int kMinBlocks = 4;
+  StreamRecords recs;
+  const float4* sbr;  // [n / blk] sphere block bounds (device memory)
+  const float* tri;   // [20, m] (device memory)
+  const float* tbl;   // [4, m / blk] (device memory)
+  const float* tcb;   // [4, m / stream] (shared)
+  uint32_t scb;       // [n / stream] float4 sphere chunk bounds (shared)
+  uint32_t buf;       // this warp's staging buffer (shared)
+  int n, m, stream, blk;
+  bool cull;
+
+  // The records [j0, j1) for the lanes with `mine` (warp-uniform call), 32
+  // columns at a time: a column per lane where few lanes sweep, else staged
+  // by one 16-byte load a lane and swept from there by each of them.
+  __device__ __forceinline__ void sweep_range(int j0, int j1, bool mine,
+                                              const rz::Ray& r,
+                                              const rz::RayTerms& t,
+                                              float& qb, int& best,
+                                              rz::Work& w) const {
+    const unsigned sweepers = __ballot_sync(kFull, mine);
+    if (!sweepers) return;
+    const int lane = threadIdx.x & 31;
+    const bool by_columns = __popc(sweepers) <= kColumnsUpTo;
+    for (int base = j0; base < j1; base += 32) {
+      const int cols = min(32, j1 - base);
+      if (mine) w.prims += cols;
+      if (by_columns) {
+        columns(base, cols, sweepers, r, t, qb, best);
+        continue;
+      }
+      if (lane < cols) {
+        const int j = base + lane;
+        rz::sts128(buf + 16u * lane, __ldg(recs.c + j));
+        if (kMotion) {
+          rz::sts128(buf + 16u * (32 + lane), __ldg(recs.v + j));
+          rz::sts32(buf + 16u * 64 + 4u * lane, __ldg(recs.vv + j));
+        }
+      }
+      __syncwarp();
+      if (mine) {
+        const rz::PackedSpheres ps{buf, buf + 16u * 32, buf + 16u * 64};
+        rz::sweep_today<kMotion>(ps, 0, cols, r, t, qb, best, base);
+      }
+      __syncwarp();
+    }
+  }
+
+  // Columns [base, base + cols) a column per lane, for each ray of
+  // `sweepers` in turn (warp-uniform call): each lane tests its column
+  // with sweep_spheres' expressions against the ray and its q_best; the
+  // smallest q, then the lowest column, is the sequential sweep's winner.
+  __device__ __forceinline__ void columns(int base, int cols,
+                                          unsigned sweepers, const rz::Ray& r,
+                                          const rz::RayTerms& t, float& qb,
+                                          int& best) const {
+    const int lane = threadIdx.x & 31;
+    RegSpheres rec{};
+    if (lane < cols) {
+      rec.c = __ldg(recs.c + base + lane);
+      if (kMotion) {
+        rec.v = __ldg(recs.v + base + lane);
+        rec.vv = __ldg(recs.vv + base + lane);
+      }
+    }
+    while (sweepers) {
+      const int src = __ffs(sweepers) - 1;
+      sweepers &= sweepers - 1;
+      const rz::Ray rs{__shfl_sync(kFull, r.ox, src),
+                       __shfl_sync(kFull, r.oy, src),
+                       __shfl_sync(kFull, r.oz, src),
+                       __shfl_sync(kFull, r.dx, src),
+                       __shfl_sync(kFull, r.dy, src),
+                       __shfl_sync(kFull, r.dz, src),
+                       __shfl_sync(kFull, r.tau, src)};
+      const rz::RayTerms ts{__shfl_sync(kFull, t.a, src),
+                            __shfl_sync(kFull, t.d_dot_o, src),
+                            __shfl_sync(kFull, t.o2, src),
+                            __shfl_sync(kFull, t.tmin_a, src),
+                            __shfl_sync(kFull, t.tau2, src)};
+      const float qs = __shfl_sync(kFull, qb, src);
+      float q = rz::kBig;
+      bool first;
+      const bool ok = lane < cols &&
+                      rz::sphere_root<kMotion>(rec, 0, rs, ts, q, first) &&
+                      q < qs;
+      // q >= t_min |d|^2 >= 0 where accepted: its bits order as the
+      // values (+ 0.0f turns a -0 into +0)
+      const unsigned key = ok ? __float_as_uint(q + 0.0f) : 0xffffffffu;
+      const unsigned k1 = __reduce_min_sync(kFull, key);
+      if (k1 == 0xffffffffu) continue;
+      const unsigned j1 = __reduce_min_sync(kFull, key == k1 ? lane : 32u);
+      const float qa = __shfl_sync(kFull, q, j1);
+      if (lane == src) {
+        qb = qa;
+        best = base + static_cast<int>(j1);
+      }
+    }
+  }
+
+  // Chunk k for the lanes with `act` (warp-uniform call): each lane's own
+  // test, the vote, then the chunk's blocks likewise.
+  __device__ __forceinline__ void chunk(int k, bool act, const rz::Ray& r,
+                                        const rz::RayTerms& t, float& qb,
+                                        int& best, rz::Work& w) const {
+    bool mine = false;
+    if (act) {
+      ++w.votes;
+      mine = rz::bound_test(rz::lds128(scb + 16u * k), r, t, qb);
+      w.passed += mine;
+    }
+    if (!__any_sync(kFull, mine)) return;
+    if (!blk) {
+      sweep_range(k * stream, (k + 1) * stream, mine, r, t, qb, best, w);
+      return;
+    }
+    const int per = stream / blk;
+    for (int b = k * per; b < (k + 1) * per; ++b) {
+      bool in = false;
+      if (mine) {
+        ++w.bounds;
+        in = rz::bound_test(__ldg(sbr + b), r, t, qb);
+      }
+      sweep_range(b * blk, (b + 1) * blk, in, r, t, qb, best, w);
+    }
+  }
+
+  // Warp-uniform call: every lane of the warp, `active` where its lane
+  // traces a segment.
+  __device__ __forceinline__ void operator()(bool active, const rz::Ray& r,
+                                             const rz::RayTerms& t, int,
+                                             float& qb, int& best,
+                                             bool& is_tri,
+                                             rz::Work& w) const {
+    if (!cull) {
+      sweep_range(0, n, active, r, t, qb, best, w);
+    } else {
+      for (int k = 0; k < n / stream; ++k) chunk(k, active, r, t, qb, best, w);
+    }
+    if (active)
+      rz::sweep_chunks<kMotion, true>(tri, m, tcb, tbl, stream, blk, cull, r,
+                                      t, qb, best, is_tri, w);
+  }
+
+  static __device__ __forceinline__ StreamSweep stage(const QueueParams& p,
+                                                      float* smem) {
+    for (int i = threadIdx.x; i < 18; i += blockDim.x) smem[i] = p.cam[i];
+    const int n = p.n_pad, m = p.m_pad, stream = p.stream;
+    float* s_stage = smem + rz::kCamWords;
+    float4* s_scb = reinterpret_cast<float4*>(
+        s_stage + kWarps * stage_words<kMotion>());
+    stage_bounds(p.scb, n / stream, s_scb);
+    float* s_tcb = reinterpret_cast<float*>(s_scb + n / stream);
+    for (int i = threadIdx.x; i < 4 * (m / stream); i += blockDim.x)
+      s_tcb[i] = p.tcb[i];
+    __syncthreads();
+    const float4* c = reinterpret_cast<const float4*>(p.recs);
+    StreamSweep s;
+    s.recs =
+        StreamRecords{c, c + n, reinterpret_cast<const float*>(c + 2 * n)};
+    s.sbr = reinterpret_cast<const float4*>(p.brecs);
+    s.tri = p.ttab;
+    s.tbl = p.tblk;
+    s.tcb = s_tcb;
+    s.scb = shared_addr(s_scb);
+    s.buf =
+        shared_addr(s_stage + (threadIdx.x >> 5) * stage_words<kMotion>());
+    s.n = n;
+    s.m = m;
+    s.stream = stream;
+    s.blk = p.blk;
+    s.cull = p.cull;
+    return s;
+  }
+
+  static size_t smem_bytes(const QueueParams& p) {
+    return sizeof(float) *
+           (rz::kCamWords + kWarps * stage_words<kMotion>() +
+            4 * static_cast<size_t>(p.n_pad / p.stream) +
+            4 * static_cast<size_t>(p.m_pad / p.stream));
+  }
+};
+
+// A persistent grid whose lanes take (sample, pixel) items from one counter
+// in device memory (sample-major, so a warp's items are neighbouring pixels
+// of one sample). A warp claims kRun items with one atomicAdd and hands them
+// to its lanes as they free up (__ballot_sync/__popc), so a lane is never
+// held by its pixel's other samples: only the queue's last paths leave
+// lanes idle. Each item traces one camera sample to its end with today's
+// keys (sample numbers s + 1, bounces 0..) and writes its radiance, the sky
+// term or 0, to out[sample - s0, channel, pixel]; fold_kernel then adds a
+// pixel's samples in sample order from 0.0f, the association of a thread
+// that runs its pixel's samples in turn (the plain version,
+// _trace_slots_reference), so the schedule changes no bit of the image.
+// The resident and culled sweeps run per lane (a lane with no item skips
+// the segment); the streamed sweep votes across the warp, so every lane
+// enters it.
+template <typename Sweep>
+__global__ void __launch_bounds__(kBlock, Sweep::kMinBlocks)
+    megakernel_queue(QueueParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const ResidentSweep<kMotion> sweep = stage_resident<kMotion>(
-      p.cam, p.stab, p.n_pad, p.ttab, p.m_pad, p.stats, smem);
-  constexpr unsigned kFull = 0xffffffffu;
+  const Sweep sweep = Sweep::stage(p, smem);
+  constexpr bool kWarp = Sweep::kMode == kStreamed;
   const int lane = threadIdx.x & 31;
   const unsigned long long total =
       static_cast<unsigned long long>(p.n_samples) * p.n_pix;
@@ -294,6 +516,7 @@ __global__ void __launch_bounds__(128, 8) megakernel_queue(QueueParams p) {
   uint32_t key0 = 0;
   bool active = false, spawn = false;
   unsigned int segments = 0, trips = 0;
+  rz::Work w;
   while (true) {
     const unsigned need = __ballot_sync(kFull, !active);
     if (need) {
@@ -330,10 +553,10 @@ __global__ void __launch_bounds__(128, 8) megakernel_queue(QueueParams p) {
     }
     if (!__any_sync(kFull, active)) break;
     ++trips;
-    if (!active) continue;
-    ++segments;
+    if (!kWarp && !active) continue;
+    if (active) ++segments;
     const uint32_t key = rz::step_key(key0, sample + 1, p.max_depth - depth);
-    if (spawn) {
+    if (active && spawn) {
       rz::camera_ray(smem, static_cast<float>(pix % p.width),
                      static_cast<float>(pix / p.width), p.jitter, key, r);
       thx = thy = thz = 1.0f;
@@ -345,10 +568,23 @@ __global__ void __launch_bounds__(128, 8) megakernel_queue(QueueParams p) {
     float qb = rz::kBig;
     int best = -1;
     bool is_tri = false;
-    sweep(r, t, from, qb, best, is_tri);
-    if (rz::shade<kMotion>(p.stab, p.n_pad, sweep.tri, p.m_pad, r, t, qb,
-                           best, is_tri, rz::KeyDraws{key}, thx, thy, thz,
-                           ar, ag, ab) == rz::Bounce::kContinued) {
+    if constexpr (Sweep::kMode == kResident)
+      sweep(r, t, from, qb, best, is_tri);
+    else if constexpr (kWarp)
+      sweep(active, r, t, from, qb, best, is_tri, w);
+    else
+      sweep(r, t, from, qb, best, is_tri, w);
+    if (kWarp && !active) continue;
+    if constexpr (Sweep::kMode != kResident) {
+      if (p.hits)
+        p.hits[static_cast<size_t>(p.max_depth - depth) * total +
+               static_cast<size_t>(sample - p.s0) * p.n_pix + pix] =
+            is_tri ? p.n_pad + best : best;
+    }
+    if (rz::shade<Sweep::kHasMotion>(p.stab, p.n_pad, sweep.tri, p.m_pad, r,
+                                     t, qb, best, is_tri, rz::KeyDraws{key},
+                                     thx, thy, thz, ar, ag,
+                                     ab) == rz::Bounce::kContinued) {
       depth -= 1;
       active = depth > 0;  // depth exhausted -> black
       from = is_tri ? -1 : best;
@@ -370,6 +606,7 @@ __global__ void __launch_bounds__(128, 8) megakernel_queue(QueueParams p) {
       atomicAdd(p.stats + rz::kStatLaneTrips,
                 32ull * static_cast<unsigned long long>(trips));
     }
+    if constexpr (Sweep::kMode != kResident) rz::flush_work(w, p.stats);
   }
 }
 
@@ -385,85 +622,6 @@ __global__ void fold_kernel(const float* __restrict__ out, int n_samples,
   acc[i] = v;
 }
 
-// Launch parameters of the culled and streamed modes.
-struct ModeParams : Params {
-  const float* sblk;  // [4, n_pad / blk] sphere block rows
-  const float* tblk;  // [4, m_pad / blk] triangle block rows
-  const float* scb;   // [4, n_pad / stream] sphere chunk bounds
-  const float* tcb;   // [4, m_pad / stream] triangle chunk bounds
-  int blk, stream;    // block and chunk columns (streamed blk 0: no blocks)
-  bool cull;          // streamed: false sweeps every chunk untested
-  unsigned long long* stats;  // [8] work counters (rz::Work) or null
-};
-
-enum : int { kCulled = 1, kStreamed = 2 };
-
-// The culled (kCulled) and streamed (kStreamed) modes: trace_slot with the
-// sweep behind bound tests, counting its work.
-template <bool kMotion, int kMode>
-__global__ void __launch_bounds__(128) megakernel_culled(ModeParams p) {
-  extern __shared__ float smem[];
-  float* s_cam = smem;
-  for (int i = threadIdx.x; i < 18; i += blockDim.x) s_cam[i] = p.cam[i];
-  // culled: tables, then block rows; streamed: the chunk bound rows only
-  const float* sph = p.stab;
-  const float* tri = p.ttab;
-  const float* sbl = p.sblk;
-  const float* tbl = p.tblk;
-  const int ns = kMode == kCulled ? 4 * (p.n_pad / p.blk)
-                                  : 4 * (p.n_pad / p.stream);
-  const int nt = kMode == kCulled ? 4 * (p.m_pad / p.blk)
-                                  : 4 * (p.m_pad / p.stream);
-  float* s = smem + rz::kCamWords;
-  if constexpr (kMode == kCulled) {
-    for (int i = threadIdx.x; i < rz::kSRows * p.n_pad; i += blockDim.x)
-      s[i] = p.stab[i];
-    sph = s;
-    s += rz::kSRows * p.n_pad;
-    for (int i = threadIdx.x; i < rz::kTRows * p.m_pad; i += blockDim.x)
-      s[i] = p.ttab[i];
-    tri = s;
-    s += rz::kTRows * p.m_pad;
-  }
-  const float* sb = kMode == kCulled ? p.sblk : p.scb;
-  const float* tb = kMode == kCulled ? p.tblk : p.tcb;
-  for (int i = threadIdx.x; i < ns; i += blockDim.x) s[i] = sb[i];
-  for (int i = threadIdx.x; i < nt; i += blockDim.x) s[ns + i] = tb[i];
-  if constexpr (kMode == kCulled) {
-    sbl = s;
-    tbl = s + ns;
-  }
-  const float* scb = s;  // streamed: chunk bounds
-  const float* tcb = s + ns;
-  __syncthreads();
-
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= p.cap) return;
-  rz::Work w;
-  const int n = p.n_pad, m = p.m_pad, blk = p.blk, stream = p.stream;
-  const bool cull = p.cull;
-  trace_slot<kMotion>(
-      p, slot, s_cam, sph, tri,
-      [&w, sph, tri, sbl, tbl, scb, tcb, n, m, blk, stream, cull](
-          const rz::Ray& r, const rz::RayTerms& t, float& qb, int& best,
-          bool& is_tri) {
-        ++w.segments;
-        if constexpr (kMode == kCulled) {
-          rz::sweep_blocks<kMotion, false>(sph, n, sbl, n / blk, blk, 0,
-                                           n / blk, r, t, qb, best, is_tri,
-                                           w);
-          rz::sweep_blocks<kMotion, true>(tri, m, tbl, m / blk, blk, 0,
-                                          m / blk, r, t, qb, best, is_tri, w);
-        } else {
-          rz::sweep_chunks<kMotion, false>(sph, n, scb, sbl, stream, blk,
-                                           cull, r, t, qb, best, is_tri, w);
-          rz::sweep_chunks<kMotion, true>(tri, m, tcb, tbl, stream, blk,
-                                          cull, r, t, qb, best, is_tri, w);
-        }
-      });
-  if (p.stats) rz::flush_work(w, p.stats);
-}
-
 __global__ void rng_bits_kernel(uint32_t seed, const int* pix,
                                 const int* sample, const int* bounce,
                                 const int* draw, int n, uint32_t* out) {
@@ -474,96 +632,15 @@ __global__ void rng_bits_kernel(uint32_t seed, const int* pix,
   out[i] = rz::draw_bits(key, static_cast<uint32_t>(draw[i]));
 }
 
-template <typename P, typename K>
-cudaError_t launch(K kernel, const P& p, size_t smem, cudaStream_t stream) {
+// Launch the queue kernel on `Sweep`: as many blocks as the card holds at
+// once (the occupancy of this build at its shared memory), at most one per
+// 128 items. `grid` receives the blocks.
+template <typename Sweep>
+cudaError_t launch_queue(const QueueParams& p, cudaStream_t s, int* grid) {
+  const size_t smem = Sweep::smem_bytes(p);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int threads = 128;
-  const int blocks = (p.cap + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// mode: 1 culled (sblk/tblk, blk), 2 streamed (scb/tcb, stream, sblk/tblk
-// with blk, cull); the resident mode is rayz_megakernel_queue. stats: null or [8] uint64 counters (culled and
-// streamed modes).
-extern "C" int rayz_megakernel(const float* cam, const float* stab, int n_pad,
-                               const float* ttab, int m_pad, const int* pix,
-                               int cap, const float* resume, float* save,
-                               float* rgb, int width, int spp, int max_depth,
-                               float t_min, int jitter, int has_motion,
-                               unsigned int seed, int budget, int mode,
-                               const float* sblk, const float* tblk,
-                               const float* scb, const float* tcb, int blk,
-                               int stream_cols, int cull, void* stats,
-                               void* stream) {
-  ModeParams p;
-  p.cam = cam;
-  p.stab = stab;
-  p.ttab = ttab;
-  p.pix = pix;
-  p.resume = resume;
-  p.save = save;
-  p.rgb = rgb;
-  p.n_pad = n_pad;
-  p.m_pad = m_pad;
-  p.cap = cap;
-  p.width = width;
-  p.spp = spp;
-  p.max_depth = max_depth;
-  p.budget = budget;
-  p.t_min = t_min;
-  p.seed = seed;
-  p.jitter = jitter != 0;
-  p.sblk = sblk;
-  p.tblk = tblk;
-  p.scb = scb;
-  p.tcb = tcb;
-  p.blk = blk;
-  p.stream = stream_cols;
-  p.cull = cull != 0;
-  p.stats = static_cast<unsigned long long*>(stats);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool motion = has_motion != 0;
-  const size_t tables = rz::kSRows * static_cast<size_t>(n_pad) +
-                        rz::kTRows * static_cast<size_t>(m_pad);
-  const size_t cam_words = rz::kCamWords;
-  cudaError_t e;
-  if (mode == kCulled) {
-    const size_t smem =
-        sizeof(float) * (cam_words + tables +
-                         4 * static_cast<size_t>(n_pad / blk + m_pad / blk));
-    e = motion ? launch(megakernel_culled<true, kCulled>, p, smem, s)
-               : launch(megakernel_culled<false, kCulled>, p, smem, s);
-  } else if (mode == kStreamed) {
-    const size_t smem =
-        sizeof(float) *
-        (cam_words + 4 * static_cast<size_t>(n_pad / stream_cols +
-                                             m_pad / stream_cols));
-    e = motion ? launch(megakernel_culled<true, kStreamed>, p, smem, s)
-               : launch(megakernel_culled<false, kStreamed>, p, smem, s);
-  } else {
-    e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
-}
-
-namespace {
-
-// Blocks of the queue kernel's persistent grid: as many as the card holds
-// at once (the occupancy of this build at `smem` bytes), at most one per
-// 128 items.
-template <bool kMotion>
-cudaError_t queue_grid(size_t smem, unsigned long long items, int& blocks) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        megakernel_queue<kMotion>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        megakernel_queue<Sweep>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
@@ -573,28 +650,46 @@ cudaError_t queue_grid(size_t smem, unsigned long long items, int& blocks) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, megakernel_queue<kMotion>, 128, smem);
+        &per_sm, megakernel_queue<Sweep>, kBlock, smem);
   if (e != cudaSuccess) return e;
-  const unsigned long long most = (items + 127) / 128;
-  blocks = static_cast<int>(
-      most < static_cast<unsigned long long>(per_sm) * sms
-          ? most
-          : static_cast<unsigned long long>(per_sm) * sms);
-  return blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+  const unsigned long long items =
+      static_cast<unsigned long long>(p.n_samples) * p.n_pix;
+  const unsigned long long most = (items + kBlock - 1) / kBlock;
+  const unsigned long long room = static_cast<unsigned long long>(per_sm) *
+                                  sms;
+  const int blocks = static_cast<int>(most < room ? most : room);
+  if (blocks <= 0) return cudaErrorInvalidConfiguration;
+  megakernel_queue<Sweep><<<blocks, kBlock, smem, s>>>(p);
+  *grid = blocks;
+  return cudaGetLastError();
+}
+
+template <template <bool> class Sweep>
+cudaError_t launch_mode(const QueueParams& p, bool motion, cudaStream_t s,
+                        int* grid) {
+  return motion ? launch_queue<Sweep<true>>(p, s, grid)
+                : launch_queue<Sweep<false>>(p, s, grid);
 }
 
 }  // namespace
 
 // The queue kernel over samples [s0, s0 + n_samples) of pixels [0, n_pix):
 // `counter` is one zeroed uint64, `out` [n_samples, 3, n_pix] f32, `stats`
-// null or [8] uint64 (segments at 0, re-sweeps at rz::kStatResweeps, the
-// warps' lane-trips at rz::kStatLaneTrips). `grid` receives the blocks.
+// null or [8] uint64 (segments at 0; culled and streamed also primitive
+// tests at 1, block bound tests at 2, chunk bound tests at 3 and those that
+// passed at 4; re-sweeps at rz::kStatResweeps, the warps'
+// lane-trips at rz::kStatLaneTrips). mode: 0 resident, 1 culled (sblk/tblk,
+// blk), 2 streamed (scb/tcb, recs/brecs, sblk/tblk with blk, stream, cull).
+// `hits` null or [max_depth, n_samples * n_pix] int32 (culled and streamed:
+// each traced segment's winner). `grid` receives the blocks.
 extern "C" int rayz_megakernel_queue(
     const float* cam, const float* stab, int n_pad, const float* ttab,
     int m_pad, int n_pix, int width, int max_depth, float t_min, int jitter,
     int has_motion, unsigned int seed, int s0, int n_samples, void* counter,
-    float* out, void* stats, int* grid, void* stream) {
-  QueueParams p;
+    float* out, void* stats, int mode, const float* sblk, const float* tblk,
+    const float* scb, const float* tcb, const float* recs, const float* brecs,
+    int blk, int stream_cols, int cull, int* hits, int* grid, void* stream) {
+  QueueParams p{};
   p.cam = cam;
   p.stab = stab;
   p.ttab = ttab;
@@ -611,21 +706,36 @@ extern "C" int rayz_megakernel_queue(
   p.counter = static_cast<unsigned long long*>(counter);
   p.out = out;
   p.stats = static_cast<unsigned long long*>(stats);
-  const bool motion = has_motion != 0;
-  const size_t smem = resident_smem(motion, n_pad, m_pad);
-  const unsigned long long items =
-      static_cast<unsigned long long>(n_samples) * n_pix;
+  p.sblk = sblk;
+  p.tblk = tblk;
+  p.scb = scb;
+  p.tcb = tcb;
+  p.recs = recs;
+  p.brecs = brecs;
+  p.blk = blk;
+  p.stream = stream_cols;
+  p.cull = cull != 0;
+  p.hits = hits;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int blocks = 0;
-  cudaError_t e = motion ? queue_grid<true>(smem, items, blocks)
-                         : queue_grid<false>(smem, items, blocks);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (motion)
-    megakernel_queue<true><<<blocks, 128, smem, s>>>(p);
-  else
-    megakernel_queue<false><<<blocks, 128, smem, s>>>(p);
-  *grid = blocks;
-  return static_cast<int>(cudaGetLastError());
+  const bool motion = has_motion != 0;
+  cudaError_t e;
+  switch (mode) {
+    case kResident:
+      e = launch_mode<ResidentSweep>(p, motion, s, grid);
+      break;
+    case kCulled:
+      e = blk > 0 ? launch_mode<CulledSweep>(p, motion, s, grid)
+                  : cudaErrorInvalidValue;
+      break;
+    case kStreamed:
+      e = stream_cols > 0 && (n_pad == 0 || (recs && (brecs || !blk)))
+              ? launch_mode<StreamSweep>(p, motion, s, grid)
+              : cudaErrorInvalidValue;
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
 // acc [plane] += out[s, :] for s = 0 .. n_samples - 1, in turn.

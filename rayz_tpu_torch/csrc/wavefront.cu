@@ -348,36 +348,13 @@ __device__ __forceinline__ void sweep_staged(const float* __restrict__ tab,
   }
 }
 
-// Bound i of a [4, stride] bound table as one record (centre, |c|^2 -
-// r^2).
-__device__ __forceinline__ float4 bound_rec(const float* rows, int stride,
-                                            int i) {
-  return make_float4(rows[i], rows[stride + i], rows[2 * stride + i],
-                     rows[3 * stride + i]);
-}
-
-// rz::bound_possible on a bound record, with a miss decided before the
-// square root: a negative (or NaN) discriminant fails there as it fails
-// bound_possible's NaN compares after sqrtf, so every decision is
-// bound_possible's, without the IEEE square root's slow path, which a
-// negative argument takes (most bound tests miss).
-__device__ __forceinline__ bool bound_test(const float4& b, const rz::Ray& r,
-                                           const rz::RayTerms& t, float qb) {
-  const float hb = r.dx * b.x + r.dy * b.y + r.dz * b.z - t.d_dot_o;
-  const float ob = r.ox * b.x + r.oy * b.y + r.oz * b.z;
-  const float disc = hb * hb - t.a * (b.w - 2.0f * ob + t.o2);
-  if (!(disc >= 0.0f)) return false;
-  const float rtb = sqrtf(disc);
-  return b.w < rz::kBig && hb - rtb < qb && hb + rtb >= t.tmin_a;
-}
-
 // One voted bound (bound i of `rows`): each active ray's own test, then
 // the warp's vote. Returns the vote; `mine` is the ray's own result.
 __device__ __forceinline__ bool vote(const float* rows, int stride, int i,
                                      bool active, const rz::Ray& r,
                                      const rz::RayTerms& t, float qb,
                                      bool& mine, unsigned int* cnt) {
-  mine = active && bound_test(bound_rec(rows, stride, i), r, t, qb);
+  mine = active && rz::bound_test(rz::bound_rec(rows, stride, i), r, t, qb);
   if (cnt) count(cnt, kBounds, __popc(__ballot_sync(kFull, active)));
   return __any_sync(kFull, mine);
 }

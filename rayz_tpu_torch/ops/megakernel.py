@@ -2,42 +2,39 @@
 
 PyTorch counterpart of :mod:`rayz_tpu.ops.megakernel`: ``_kernel`` in its
 three table modes, as launched by ``_trace_shard``, the straggler-compacted
-``_trace_shard_compact`` and ``_trace_shard_streamed``:
+``_trace_shard_compact`` and ``_trace_shard_streamed``. Every mode runs the
+queue kernel (``csrc/megakernel.cu``, hand-written CUDA for sm_90a; the
+per-ray device code is in ``csrc/common.cuh``): a persistent grid whose
+lanes take (sample, pixel) items from a counter on the card, then a fold
+that adds each pixel's samples in sample order. It is a template on its
+segment sweep:
 
 * resident, culling off (the flagship's mode): the full tables in shared
-  memory, swept in the packed coefficient form (``rz::sweep_packed``, its
-  winner settled in the plain version's arithmetic) by the queue kernel;
+  memory, every column swept in the packed coefficient form
+  (``rz::sweep_packed``, the winner settled in the plain version's
+  arithmetic);
 * resident, culled (``culling=True``): Morton-sorted tables and per-block
-  bound rows in shared memory, one thread per slot, compacted at spp >= 16;
-* streamed (a scene beyond one block's shared memory): the tables in device
-  memory behind chunk and block bound tests; single launch, no compaction.
+  bounds in shared memory, each lane sweeping in the packed form the
+  blocks its own bound test passes;
+* streamed (a scene beyond one block's shared memory): the tables and the
+  packed records in device memory behind chunk and block bound tests, each
+  tested for its own ray under warp votes, a visited block staged in the
+  warp's shared buffer or, where few rays enter it, swept a column per
+  lane, in today's arithmetic (the packed form lost there).
 
-The kernels are ``csrc/megakernel.cu`` (hand-written CUDA for sm_90a); the
-per-ray device code is in ``csrc/common.cuh``.
-
-* :func:`_trace_slots_reference` is the plain torch version of the
-  one-thread-per-slot algorithm in any table mode: vectorized over slots,
-  with a lockstep loop like the TPU tile. It runs for CPU tensors and is
-  what the kernels are held against. It sweeps every column of the tables
-  it is given: the culled and streamed modes test bounds that are
-  conservative, so over the same (sorted) tables they find the same
-  winners, up to exact ties; the queue kernel's coefficient-form sweep
-  finds the same winners up to near ties and grazing roots
+* :func:`_queue` is the queue kernel's wrapper and :func:`_fold` the
+  fold's. For a CUDA tensor each launches its kernel (counting the launch
+  in :data:`LAUNCHES` and :data:`MODE_LAUNCHES`) or raises; only CPU
+  tensors take the plain versions, :func:`_queue_reference` (each item
+  through :func:`_trace_items_reference`, every column of the tables it is
+  given swept) and :func:`_fold_reference`. The culled and streamed modes'
+  bounds are conservative, so over the same (sorted) tables the kernel
+  finds the plain version's winners up to near ties and grazing roots
   (:mod:`rayz_tpu_torch.ops.sweep`).
-* :func:`_trace_slots` is the culled and streamed kernel's wrapper. For a
-  CUDA tensor it launches the kernel (counting the launch in
-  :data:`LAUNCHES`) or raises; only CPU tensors take the plain version.
-* :func:`_trace_queue` runs the resident mode's two kernels through their
-  wrappers: :func:`_queue`, the queue kernel, whose persistent lanes take
-  (sample, pixel) items from a counter on the card, and :func:`_fold`,
-  which adds each pixel's samples in sample order. Their plain versions
-  are :func:`_queue_reference` (each item through
-  :func:`_trace_items_reference`) and :func:`_fold_reference`.
-* :func:`_trace_shard_queue` (every resident unculled render),
-  :func:`_trace_shard` (one launch) and :func:`_trace_shard_compact`
-  (budgeted passes with a stable partition of unfinished slots in between,
-  then the slot -> pixel scatter-back) are the launch schedules, and
-  :func:`render_megakernel` picks among them.
+* :func:`_trace_queue` runs a render's sample groups through them, and
+  :func:`render_megakernel` resolves the table mode.
+* :func:`_trace_slots_reference` is the one-thread-per-slot order of the
+  samples (the JAX kernel's), the oracle of the fold's association.
 
 Random draws are keyed by (seed, pixel, sample, bounce, draw number)
 (:mod:`rayz_tpu_torch.ops.rng`), so every schedule reproduces the single
@@ -52,40 +49,31 @@ from typing import Callable, Optional
 import torch
 
 from ..models.camera import Camera
-from ..models.scene import Scene, _round_up
+from ..models.scene import Scene
 from . import _build, rng
 from .integrator import RenderConfig
 from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
                      _TG1Y, _TG1Z, _TG2V, _TG2X, _TG2Y, _TG2Z, _TNV0, _TNX,
                      _TNY, _TNZ, _TPKF, _VV, _VX, _VY, _VZ, DEFAULT_BLOCK,
                      DEFAULT_STREAM_CHUNK, SHARED_LIMIT, STREAM_BLOCK,
-                     StreamTables, Tables, _camera_vector, _padded_counts,
-                     _resolve_tiling, _smem_scene_inputs,
-                     _stream_scene_inputs, fits_shared, shared_bytes,
-                     stream_shared_bytes, supports_scene)
+                     StreamTables, Tables, _camera_vector, _resolve_tiling,
+                     _smem_scene_inputs, _stream_counts,
+                     _stream_scene_inputs, fits_shared, pack_records,
+                     shared_bytes, stream_shared_bytes, supports_scene)
 
-__all__ = ["render_megakernel", "LAUNCHES", "MODE_LAUNCHES", "STATE_PLANES",
-           "BLOCK", "MODES"]
+__all__ = ["render_megakernel", "LAUNCHES", "MODE_LAUNCHES", "MODES"]
 
-#: Kernel launches made by :func:`_trace_slots`, :func:`_queue` and
-#: :func:`_fold` in this process (never by
-#: the plain version). A run that resets it and reads it back shows which
-#: path it took.
+#: Kernel launches made by :func:`_queue` and :func:`_fold` in this process
+#: (never by the plain version). A run that resets it and reads it back
+#: shows which path it took.
 LAUNCHES = 0
 
-#: Table modes of the kernel, in the order of its ``mode`` argument.
+#: Table modes of the queue kernel, in the order of its ``mode`` argument.
 MODES = ("resident", "culled", "streamed")
 
-#: The same launches: the culled and streamed modes', and the resident
-#: mode's queue launches and their folds (:func:`_trace_queue`).
-MODE_LAUNCHES = dict.fromkeys(MODES[1:] + ("queue", "fold"), 0)
-
-#: Saved per-slot state: origin xyz, direction xyz, time, throughput rgb,
-#: radiance rgb, depth left, samples left, active (integers as f32).
-STATE_PLANES = 16
-
-#: Threads per block of the kernel; slot capacity rounds up to whole blocks.
-BLOCK = 128
+#: The same launches: the queue's in each table mode, and the folds
+#: (:func:`_trace_queue`).
+MODE_LAUNCHES = dict.fromkeys(MODES + ("fold",), 0)
 
 #: Items a warp of the queue kernel claims with one atomicAdd (``kRun`` in
 #: csrc/megakernel.cu): the queue's counter ends at this many times its
@@ -358,23 +346,18 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
                            ttab: torch.Tensor, pix: torch.Tensor, *,
                            width: int, spp: int, max_depth: int, t_min: float,
                            jitter: bool, has_motion: bool, seed: int,
-                           budget: int = 0,
-                           resume: Optional[torch.Tensor] = None,
-                           save_state: bool = False,
-                           bits: Optional[Bits] = None, bounds=None,
-                           cull: bool = True, stats=None):
-    """Plain torch version of the kernel (same arguments as
-    :func:`_trace_slots`; ``bounds``, ``cull`` and ``stats`` change only
-    which columns the kernel skips or what it counts, so they are not read
-    here). Each slot runs its ``spp`` samples with
-    persistent respawn; the loop runs in lockstep over all slots until none
-    is alive or ``budget`` trips are done (0 = no cap).
+                           bits: Optional[Bits] = None) -> torch.Tensor:
+    """The one-thread-per-slot order of the samples, in plain torch: each
+    slot of ``pix`` (flat pixel ids, -1 = none) runs its ``spp`` samples in
+    turn with persistent respawn, the loop in lockstep over all slots until
+    none is alive. The queue's fold adds each pixel's samples in this order
+    from 0.0, so its sums are these bit for bit (the oracle of that order;
+    the JAX kernel runs its tiles so).
 
     ``bits(key, n)`` supplies the random bits of draw ``n`` under the
-    per-step keys (default :func:`rng.draw_bits`); a function returning
-    zeros reproduces what the JAX Pallas interpreter draws.
+    per-step keys (default :func:`rng.draw_bits`).
 
-    Returns (rgb radiance sums [3, cap], saved state [16, cap] or None)."""
+    Returns the radiance sums [3, slots]."""
     bits = rng.draw_bits if bits is None else bits
     f32, i32 = torch.float32, torch.int32
     cap = pix.shape[0]
@@ -382,26 +365,19 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
     pxf = (pp % width).to(f32)
     pyf = (pp // width).to(f32)
 
-    if resume is not None:
-        st = [resume[i].clone() for i in range(13)]
-        depth, samples = resume[13].to(i32), resume[14].to(i32)
-        active = resume[15].to(i32) > 0
-    else:
-        zf = torch.zeros(cap, dtype=f32, device=pix.device)
-        st = [zf.clone() for _ in range(13)]
-        st[5] = torch.ones_like(zf)  # direction placeholder, non-zero
-        depth = torch.zeros(cap, dtype=i32, device=pix.device)
-        samples = torch.where(pix >= 0, spp, 0).to(i32)
-        active = torch.zeros(cap, dtype=torch.bool, device=pix.device)
+    zf = torch.zeros(cap, dtype=f32, device=pix.device)
+    st = [zf.clone() for _ in range(13)]
+    st[5] = torch.ones_like(zf)  # direction placeholder, non-zero
+    depth = torch.zeros(cap, dtype=i32, device=pix.device)
+    samples = torch.where(pix >= 0, spp, 0).to(i32)
+    active = torch.zeros(cap, dtype=torch.bool, device=pix.device)
     ox, oy, oz, dx, dy, dz, tau, thx, thy, thz, ar, ag, ab = st
     key0 = rng.slot_key(seed, pix)
 
-    trips = 0
     while True:
         alive = active | (samples > 0)
-        if (budget and trips >= budget) or not bool(alive.any()):
+        if not bool(alive.any()):
             break
-        trips += 1
 
         # ---- respawn dead slots with the next camera sample ----
         spawn = alive & ~active
@@ -456,13 +432,7 @@ def _trace_slots_reference(cam: torch.Tensor, stab: torch.Tensor,
         depth = depth - cont.to(i32)
         active = cont & (depth > 0)  # depth exhausted -> black
 
-    rgb = torch.stack([ar, ag, ab])
-    if not save_state:
-        return rgb, None
-    state = torch.stack([ox, oy, oz, dx, dy, dz, tau, thx, thy, thz,
-                         ar, ag, ab, depth.to(f32), samples.to(f32),
-                         active.to(f32)])
-    return rgb, state
+    return torch.stack([ar, ag, ab])
 
 
 def _trace_items_reference(cam: torch.Tensor, stab: torch.Tensor,
@@ -470,12 +440,20 @@ def _trace_items_reference(cam: torch.Tensor, stab: torch.Tensor,
                            sample: torch.Tensor, *, width: int,
                            max_depth: int, t_min: float, jitter: bool,
                            has_motion: bool, seed: int,
-                           bits: Optional[Bits] = None) -> torch.Tensor:
+                           bits: Optional[Bits] = None,
+                           hits: Optional[torch.Tensor] = None,
+                           rays: Optional[list] = None) -> torch.Tensor:
     """Plain torch version of one queue item: the camera sample numbered
     ``sample`` [I] (1-based, as :func:`_trace_slots_reference` numbers a
     pixel's samples) of pixel ``pix`` [I], traced to its end with the
     kernel's keys. Returns the radiance [3, I] it adds to its pixel: the
-    sky term of its miss, or 0 where it is absorbed or runs out of depth."""
+    sky term of its miss, or 0 where it is absorbed or runs out of depth.
+
+    ``hits`` [max_depth, I] int32 receives each traced segment's winner as
+    the queue kernel records it (a sphere's column, the sphere count plus a
+    triangle's column, -1 a miss; entries of segments not traced are left
+    as they are); ``rays`` receives, per bounce, the live items and their
+    ray (items, origin, direction, time)."""
     bits = rng.draw_bits if bits is None else bits
     f32 = torch.float32
     pxf = (pix % width).to(f32)
@@ -495,6 +473,11 @@ def _trace_items_reference(cam: torch.Tensor, stab: torch.Tensor,
                            torch.full_like(live, b))
         qb, best, is_tri, a, tau2 = _nearest(stab, ttab, o, d, tau, t_min,
                                              has_motion)
+        if hits is not None:
+            hits[b, live] = torch.where(is_tri, stab.shape[1] + best,
+                                        best).to(hits.dtype)
+        if rays is not None:
+            rays.append((live, tuple(o), tuple(d), tau))
         hit = qb < _BIG
         dinv = 1.0 / torch.sqrt(torch.clamp_min(a, 1e-24))
         sky_t = 0.5 * (d[1] * dinv + 1.0)
@@ -558,15 +541,16 @@ def _check_bounds(bounds, n_pad: int, m_pad: int, dev) -> None:
                              f"on {dev}, got {tuple(t.shape)}")
 
 
-def _mode_shared_bytes(mode: int, n_pad: int, m_pad: int, bounds) -> int:
-    """Dynamic shared memory of a launch in ``mode`` (the C entry point's
-    own accounting)."""
+def _mode_shared_bytes(mode: int, n_pad: int, m_pad: int, bounds,
+                       has_motion: bool) -> int:
+    """Dynamic shared memory of a launch in ``mode`` (at most what the C
+    entry point asks for)."""
     if mode == 2:
-        return stream_shared_bytes(n_pad, m_pad, bounds.stream)
+        return stream_shared_bytes(n_pad, m_pad, bounds.stream, has_motion)
     return shared_bytes(n_pad, m_pad, bounds.blk if mode else 0)
 
 
-def _check_tables(cam, stab, ttab, dev, what: str = "pix"):
+def _check_tables(cam, stab, ttab, dev, what: str = "cam"):
     for name, t in (("cam", cam), ("stab", stab), ("ttab", ttab)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, {what} on {dev}")
@@ -582,94 +566,21 @@ def _check_tables(cam, stab, ttab, dev, what: str = "pix"):
         raise ValueError(f"ttab must be [20, 8k], got {tuple(ttab.shape)}")
 
 
-def _check_inputs(cam, stab, ttab, pix, resume, bounds=None):
-    dev = pix.device
-    if pix.dtype != torch.int32:
-        raise ValueError(f"pix must be {torch.int32}, got {pix.dtype}")
-    if not pix.is_contiguous():
-        raise ValueError("pix must be contiguous")
-    _check_tables(cam, stab, ttab, dev)
-    if pix.dim() != 1 or pix.shape[0] == 0:
-        raise ValueError(f"pix must be a non-empty [cap], got {tuple(pix.shape)}")
-    if resume is not None:
-        if (resume.device != dev or resume.dtype != torch.float32
-                or not resume.is_contiguous()
-                or resume.shape != (STATE_PLANES, pix.shape[0])):
-            raise ValueError(f"resume must be a contiguous f32 "
-                             f"[{STATE_PLANES}, cap] tensor on pix's device")
-    mode = _mode(bounds)
-    if mode:
-        _check_bounds(bounds, stab.shape[1], ttab.shape[1], dev)
-    smem = _mode_shared_bytes(mode, stab.shape[1], ttab.shape[1], bounds)
-    if smem > SHARED_LIMIT:
-        raise ValueError(f"scene tables need {smem} bytes of shared memory "
-                         f"(> {SHARED_LIMIT} per block on an H100)")
-    return mode
-
-
-def _trace_slots(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
-                 pix: torch.Tensor, *, width: int, spp: int, max_depth: int,
-                 t_min: float, jitter: bool, has_motion: bool, seed: int,
-                 budget: int = 0, resume: Optional[torch.Tensor] = None,
-                 save_state: bool = False, bounds=None, cull: bool = True,
-                 stats: Optional[torch.Tensor] = None):
-    """Trace the slots ``pix`` (flat pixel ids, -1 = retired) through the
-    culled or streamed megakernel: camera vector ``cam`` [18], sphere table
-    ``stab`` [17, N] and triangle table ``ttab`` [20, M] (N, M multiples of
-    8, 0 for an absent class). ``budget`` caps each slot's loop trips (0 =
-    no cap), ``resume`` [16, cap] continues from a saved state,
-    ``save_state`` also returns the state after this launch.
-
-    ``bounds`` selects the table mode: the culled :class:`Tables` the
-    tables came from (block rows), or the :class:`StreamTables` (chunk and
-    block rows, tables read from device memory; ``cull=False`` sweeps every
-    chunk untested); None (the resident mode) raises, as that mode is the
-    queue kernel's. ``stats``, an int64
-    [8] tensor on the device, receives the culled and streamed modes' work
-    counters (segments, primitive tests, bound tests, chunk tests, chunk
-    tests passed; see ``rz::Work``).
-
-    CUDA tensors launch the kernel on the current stream (or raise); CPU
-    tensors run the plain version. Returns (rgb [3, cap], state or None)."""
-    global LAUNCHES
-    mode = _check_inputs(cam, stab, ttab, pix, resume, bounds)
-    if mode == 0:
-        raise ValueError("the resident mode runs through the queue kernel "
-                         "(_trace_queue); pass culled or streamed bounds")
-    kw = dict(width=width, spp=spp, max_depth=max_depth, t_min=t_min,
-              jitter=jitter, has_motion=has_motion, seed=seed, budget=budget,
-              resume=resume, save_state=save_state)
-    if pix.device.type == "cpu":
-        return _trace_slots_reference(cam, stab, ttab, pix, **kw)
-    if pix.device.type != "cuda":
-        raise ValueError(f"no megakernel for device {pix.device}")
-    if stats is not None and (stats.device != pix.device
-                              or stats.dtype != torch.int64
-                              or stats.shape != (8,)):
-        raise ValueError("stats must be an int64 [8] tensor on pix's device")
-    lib, _ = _build.load()
-    cap = pix.shape[0]
-    rgb = torch.empty((3, cap), dtype=torch.float32, device=pix.device)
-    save = (torch.empty((STATE_PLANES, cap), dtype=torch.float32,
-                        device=pix.device) if save_state else None)
-    rows = [bounds.sblk, bounds.tblk] + (
-        [bounds.scb, bounds.tcb] if mode == 2 else [None, None])
-    with torch.cuda.device(pix.device):
-        err = lib.rayz_megakernel(
-            cam.data_ptr(), stab.data_ptr(), stab.shape[1], ttab.data_ptr(),
-            ttab.shape[1], pix.data_ptr(), cap,
-            None if resume is None else resume.data_ptr(),
-            None if save is None else save.data_ptr(), rgb.data_ptr(),
-            width, spp, max_depth, t_min, int(jitter), int(has_motion),
-            seed & rng.MASK, budget, mode,
-            *(None if t is None else t.data_ptr() for t in rows),
-            bounds.blk, bounds.stream if mode == 2 else 0,
-            int(cull), None if stats is None else stats.data_ptr(),
-            torch.cuda.current_stream(pix.device).cuda_stream)
-    _build.check(lib, err, "megakernel")
-    LAUNCHES += 1
-    MODE_LAUNCHES[MODES[mode]] += 1
-    return rgb, save
+def _check_records(records, bounds, n_pad: int, has_motion: bool,
+                   dev) -> None:
+    """The streamed launch's packed records (:func:`pack_records`) match
+    its tables."""
+    if records is None:
+        raise ValueError("a streamed launch needs the packed records "
+                         "(tables.pack_records)")
+    recs, brecs = records
+    want = ((recs, ((9 if has_motion else 4) * n_pad,)),
+            (brecs, (n_pad // bounds.blk if bounds.blk else 0, 4)))
+    for t, shape in want:
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"packed records must be contiguous f32 "
+                             f"{list(shape)} on {dev}, got {tuple(t.shape)}")
 
 
 def _queue_group(spp: int, n_pix: int) -> int:
@@ -681,12 +592,18 @@ def _queue_group(spp: int, n_pix: int) -> int:
 def _queue_reference(cam, stab, ttab, n_pix: int, s0: int, n_samples: int,
                      *, width: int, max_depth: int, t_min: float,
                      jitter: bool, has_motion: bool, seed: int,
-                     bits: Optional[Bits] = None, stats=None) -> torch.Tensor:
+                     bits: Optional[Bits] = None, bounds=None, records=None,
+                     cull: bool = True, stats=None,
+                     hits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain torch version of one queue launch (same arguments as
-    :func:`_queue`; ``stats`` counts what only the kernel does, so it is
-    not read here): every (sample, pixel) item of samples [s0, s0 +
-    n_samples) through :func:`_trace_items_reference`. Returns the
-    radiance [n_samples, 3, n_pix]."""
+    :func:`_queue`; ``bounds``, ``records`` and ``cull`` change only which
+    columns the kernel skips and how it reads them, and ``stats`` counts
+    what only the kernel does, so they are not read here): every (sample,
+    pixel) item of samples [s0, s0 + n_samples) through
+    :func:`_trace_items_reference`, every column of the tables it is given
+    swept (the culled and streamed modes' bounds are conservative, so over
+    the same sorted tables they leave the same winners up to near ties).
+    Returns the radiance [n_samples, 3, n_pix]."""
     dev = cam.device
     pix = torch.arange(n_pix, dtype=torch.int32, device=dev)
     sample = torch.arange(s0 + 1, s0 + n_samples + 1, dtype=torch.int32,
@@ -695,38 +612,64 @@ def _queue_reference(cam, stab, ttab, n_pix: int, s0: int, n_samples: int,
         cam, stab, ttab, pix.repeat(n_samples),
         sample.repeat_interleave(n_pix), width=width, max_depth=max_depth,
         t_min=t_min, jitter=jitter, has_motion=has_motion, seed=seed,
-        bits=bits)
+        bits=bits, hits=hits)
     return rad.reshape(3, n_samples, n_pix).transpose(0, 1).contiguous()
 
 
 def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
            n_pix: int, s0: int, n_samples: int, *, width: int,
            max_depth: int, t_min: float, jitter: bool, has_motion: bool,
-           seed: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+           seed: int, bounds=None, records=None, cull: bool = True,
+           stats: Optional[torch.Tensor] = None,
+           hits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the queue kernel over samples [s0, s0 + n_samples) of
-    pixels [0, n_pix), resident tables (camera vector ``cam`` [18], sphere
-    table ``stab`` [17, N], triangle table ``ttab`` [20, M]): a persistent
-    grid whose lanes take (sample, pixel) items from a counter on the card
-    and trace each to its end. ``stats``, an int64 [8] tensor on the
-    device, receives the ray segments (0), the re-sweeps in today's
+    pixels [0, n_pix): camera vector ``cam`` [18], sphere table ``stab``
+    [17, N] and triangle table ``ttab`` [20, M] (N, M multiples of 8, 0 for
+    an absent class). A persistent grid whose lanes take (sample, pixel)
+    items from a counter on the card and trace each to its end.
+
+    ``bounds`` selects the table mode: None (resident: the tables in shared
+    memory, every column swept), the culled :class:`Tables` the tables came
+    from (their block rows), or the :class:`StreamTables` (chunk and block
+    rows, the tables in device memory; ``cull=False`` sweeps every chunk
+    untested), which also needs ``records``, its packed records
+    (:func:`pack_records`). ``stats``, an int64 [8] tensor on the
+    device, receives the ray segments (0), in the culled and streamed modes
+    the primitive tests (1), block bound tests (2), chunk bound tests (3)
+    and those that passed (4), the re-sweeps in today's
     arithmetic (5), the lane-trips of the warps that ran (6) and the items
-    claimed from the counter (7; :data:`QUEUE_RUN` per atomic).
+    claimed from the counter (7; :data:`QUEUE_RUN` per atomic). ``hits``
+    [max_depth, n_samples * n_pix] int32 (culled and streamed) receives each
+    traced segment's winner (see :func:`_trace_items_reference`).
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns the radiance [n_samples, 3,
     n_pix] each item adds to its pixel."""
     global LAUNCHES, QUEUE_GRID
     dev = cam.device
-    _check_tables(cam, stab, ttab, dev, "cam")
+    _check_tables(cam, stab, ttab, dev)
     if n_pix <= 0 or n_samples <= 0 or s0 < 0:
         raise ValueError(f"nothing to trace: {n_pix} pixels, samples "
                          f"[{s0}, {s0 + n_samples})")
-    smem = shared_bytes(stab.shape[1], ttab.shape[1])
+    mode = _mode(bounds)
+    n_pad, m_pad = stab.shape[1], ttab.shape[1]
+    if mode:
+        _check_bounds(bounds, n_pad, m_pad, dev)
+    if mode == 2:
+        _check_records(records, bounds, n_pad, has_motion, dev)
+    smem = _mode_shared_bytes(mode, n_pad, m_pad, bounds, has_motion)
     if smem > SHARED_LIMIT:
         raise ValueError(f"scene tables need {smem} bytes of shared memory "
                          f"(> {SHARED_LIMIT} per block on an H100)")
+    if hits is not None and (
+            mode == 0 or hits.device != dev or hits.dtype != torch.int32
+            or not hits.is_contiguous()
+            or hits.shape != (max_depth, n_samples * n_pix)):
+        raise ValueError("hits must be a contiguous int32 [max_depth, "
+                         "n_samples * n_pix] tensor on cam's device, for a "
+                         "culled or streamed launch")
     kw = dict(width=width, max_depth=max_depth, t_min=t_min, jitter=jitter,
-              has_motion=has_motion, seed=seed)
+              has_motion=has_motion, seed=seed, hits=hits)
     if dev.type == "cpu":
         return _queue_reference(cam, stab, ttab, n_pix, s0, n_samples, **kw)
     if dev.type != "cuda":
@@ -739,17 +682,25 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     out = torch.empty((n_samples, 3, n_pix), dtype=torch.float32, device=dev)
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
     grid = ctypes.c_int(0)
+    rows = [None] * 6
+    if mode:
+        rows[:2] = bounds.sblk, bounds.tblk
+    if mode == 2:
+        rows[2:] = (bounds.scb, bounds.tcb) + tuple(records)
     with torch.cuda.device(dev):
         err = lib.rayz_megakernel_queue(
-            cam.data_ptr(), stab.data_ptr(), stab.shape[1], ttab.data_ptr(),
-            ttab.shape[1], n_pix, width, max_depth, t_min, int(jitter),
-            int(has_motion), seed & rng.MASK, s0, n_samples,
-            counter.data_ptr(), out.data_ptr(),
-            None if stats is None else stats.data_ptr(),
+            cam.data_ptr(), stab.data_ptr(), n_pad, ttab.data_ptr(), m_pad,
+            n_pix, width, max_depth, t_min, int(jitter), int(has_motion),
+            seed & rng.MASK, s0, n_samples, counter.data_ptr(),
+            out.data_ptr(), None if stats is None else stats.data_ptr(),
+            mode, *(None if t is None else t.data_ptr() for t in rows),
+            bounds.blk if mode else 0, bounds.stream if mode == 2 else 0,
+            int(cull),
+            None if hits is None else hits.data_ptr(),
             ctypes.addressof(grid), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "megakernel_queue")
     LAUNCHES += 1
-    MODE_LAUNCHES["queue"] += 1
+    MODE_LAUNCHES[MODES[mode]] += 1
     QUEUE_GRID = grid.value
     if stats is not None:
         stats[7] += counter[0]
@@ -787,13 +738,15 @@ def _fold(out: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
 def _trace_queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
                  n_pix: int, *, width: int, spp: int, max_depth: int,
                  t_min: float, jitter: bool, has_motion: bool, seed: int,
+                 bounds=None, records=None, cull: bool = True,
                  stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Trace the ``spp`` samples of pixels [0, n_pix) through the queue
     kernel and fold them: per sample group (:func:`_queue_group`) one
-    :func:`_queue` launch, then one :func:`_fold` adding the group's
-    samples to each pixel in sample order. Keys, sample numbers and the
-    order of the sums are :func:`_trace_slots_reference`'s. ``stats`` as :func:`_queue`'s, summed over the groups.
-    Returns rgb [3, n_pix] radiance sums."""
+    :func:`_queue` launch in the table mode ``bounds`` selects, then one
+    :func:`_fold` adding the group's samples to each pixel in sample order.
+    Keys, sample numbers and the order of the sums are
+    :func:`_trace_slots_reference`'s. ``stats`` as :func:`_queue`'s,
+    summed over the groups. Returns rgb [3, n_pix] radiance sums."""
     if spp <= 0:
         raise ValueError(f"nothing to trace: {spp} spp")
     acc = torch.zeros((3, max(n_pix, 0)), dtype=torch.float32,
@@ -803,109 +756,49 @@ def _trace_queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
         out = _queue(cam, stab, ttab, n_pix, s0, min(group, spp - s0),
                      width=width, max_depth=max_depth, t_min=t_min,
                      jitter=jitter, has_motion=has_motion, seed=seed,
-                     stats=stats)
+                     bounds=bounds, records=records, cull=cull, stats=stats)
         acc = _fold(out, acc)
     return acc
 
 
 # --------------------------------------------------------------------------
-# launch schedules
+# launch schedule
 # --------------------------------------------------------------------------
-
-def _slot_table(n_local: int, device) -> torch.Tensor:
-    """Pass-0 slot -> pixel table: flat pixel order, capacity rounded up to
-    whole blocks, -1 past the image."""
-    cap = _round_up(n_local, BLOCK)
-    pix = torch.arange(cap, dtype=torch.int32, device=device)
-    return torch.where(pix < n_local, pix, -1)
-
 
 def _launch_args(scene: Scene, camera: Camera, seed: int, *, spp: int,
                  max_depth: int, t_min: float, jitter: bool, unroll: int,
                  blk: int = 0, stream: int = 0, cull: bool = True):
-    """The kernel's tables and keywords for one render: resident (culled
-    with ``blk > 0``) or streamed (``stream > 0``, blocks of ``blk``)."""
+    """The queue's tables and keywords for one render: resident (culled
+    with ``blk > 0``) or streamed (``stream > 0``, blocks of ``blk``, the
+    spheres' packed records)."""
+    records = None
     if stream:
         tabs = _stream_scene_inputs(scene, stream, blk,
                                     camera.look_from.to(torch.float32))
+        records = pack_records(tabs.stab, tabs.sblk, scene.has_motion)
     else:
         tabs = _smem_scene_inputs(scene, unroll, blk)
     cam = _camera_vector(camera).contiguous()
     kw = dict(width=camera.width, spp=spp, max_depth=max_depth, t_min=t_min,
               jitter=jitter, has_motion=scene.has_motion, seed=int(seed),
-              bounds=tabs if (blk or stream) else None, cull=cull)
+              bounds=tabs if (blk or stream) else None, records=records,
+              cull=cull)
     return (cam, tabs.stab, tabs.ttab), kw
-
-
-def _trace_shard(scene: Scene, camera: Camera, seed: int, n_local: int, *,
-                 spp: int, max_depth: int, t_min: float, jitter: bool,
-                 unroll: int, blk: int = 0, stream: int = 0,
-                 cull: bool = True) -> torch.Tensor:
-    """Trace pixels [0, n_local) in one launch, in the culled or streamed
-    table mode that ``blk``/``stream`` select (streamed, it is JAX's
-    ``_trace_shard_streamed``); returns flat [n_local, 3] radiance sums
-    (divide by spp for the image)."""
-    args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
-                            t_min=t_min, jitter=jitter, unroll=unroll,
-                            blk=blk, stream=stream, cull=cull)
-    pix = _slot_table(n_local, scene.device)
-    rgb, _ = _trace_slots(*args, pix, **kw)
-    return rgb[:, :n_local].T
 
 
 def _trace_shard_queue(scene: Scene, camera: Camera, seed: int,
                        n_local: int, *, spp: int, max_depth: int,
-                       t_min: float, jitter: bool, unroll: int,
+                       t_min: float, jitter: bool, unroll: int, blk: int = 0,
+                       stream: int = 0, cull: bool = True,
                        stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Trace pixels [0, n_local) through the queue kernel and its fold
-    (resident tables, culling off): JAX's resident ``_trace_shard`` and
-    ``_trace_shard_compact``. Returns flat [n_local, 3] radiance sums."""
-    (cam, stab, ttab), kw = _launch_args(
-        scene, camera, seed, spp=spp, max_depth=max_depth, t_min=t_min,
-        jitter=jitter, unroll=unroll)
-    del kw["bounds"], kw["cull"]
-    return _trace_queue(cam, stab, ttab, n_local, stats=stats, **kw).T
-
-
-def _trace_shard_compact(scene: Scene, camera: Camera, seed: int,
-                         n_local: int, *, spp: int, max_depth: int,
-                         t_min: float, jitter: bool, unroll: int,
-                         budget: int = 32, passes: int = 26,
-                         blk: int = DEFAULT_BLOCK) -> torch.Tensor:
-    """Straggler-compacted respawn: the budgeted multi-pass variant of
-    :func:`_trace_shard`. A single launch runs each block until its last
-    slot finishes all spp samples, and per-pixel path cost varies widely
-    (glass interiors against sky). Here every pass but the last caps each
-    slot at ``budget`` trips and saves its state; between passes the slots
-    are stable-partitioned so unfinished ones pack densely at the front;
-    the last pass runs unbounded, so every sample is traced to the end.
-    Draws depend only on each slot's own state, so the result is the single
-    launch's, bit for bit. Culled tables only (``blk > 0``)."""
+    """Trace pixels [0, n_local) through the queue kernel and its fold in
+    the table mode ``blk``/``stream`` select: JAX's ``_trace_shard``,
+    ``_trace_shard_compact`` and ``_trace_shard_streamed``. Returns flat
+    [n_local, 3] radiance sums (divide by spp for the image)."""
     args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
                             t_min=t_min, jitter=jitter, unroll=unroll,
-                            blk=blk)
-    pix = _slot_table(n_local, scene.device)
-    st = None
-    for p in range(passes):
-        last = p == passes - 1
-        rgb, out = _trace_slots(*args, pix, budget=0 if last else budget,
-                                resume=st, save_state=not last, **kw)
-        if last:
-            break
-        # stable partition: unfinished slots (mid-path or samples left) to
-        # the front, so whole blocks at the back find nothing to do
-        unfinished = (out[15] > 0.0) | (out[14] > 0.0)
-        order = torch.argsort((~unfinished).to(torch.int8), stable=True)
-        st = out[:, order].contiguous()
-        pix = pix[order].contiguous()
-    # slots are a permutation of the pixels: scatter back to pixel order.
-    # Retired (-1) slots go to a spare row past the end: a -1 index would
-    # wrap onto the last pixel.
-    tgt = torch.where(pix >= 0, pix, n_local).long()
-    flat = torch.zeros((n_local + 1, 3), dtype=torch.float32,
-                       device=pix.device)
-    flat[tgt] = rgb.T
-    return flat[:n_local]
+                            blk=blk, stream=stream, cull=cull)
+    return _trace_queue(*args, n_local, stats=stats, **kw).T
 
 
 def render_megakernel(scene: Scene, camera: Camera, seed: int,
@@ -928,14 +821,12 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
       mode); ``True`` Morton-sorts them into blocks of ``block_size`` behind
       bound tests. Streamed scenes always test chunk and block bounds
       (blocks of :data:`STREAM_BLOCK`) unless ``culling=False``.
-    * ``budget``/``passes``: the culled mode's schedule, straggler-
-      compacted passes of ``budget`` trips (defaults: 10 passes of ``spp``
-      trips at spp >= 16, a single launch below; ``passes=0`` forces the
-      single launch). Resident renders without culling always take the
-      queue (:func:`_trace_shard_queue`: a persistent grid whose lanes take
-      (sample, pixel) items from a counter on the card, then an in-order
-      fold), which leaves no straggler tail to compact; streamed renders
-      take one launch. Every schedule renders the same bits."""
+    * ``budget``/``passes``: JAX's straggler-compacted schedule, accepted
+      and ignored: every mode takes the queue (a persistent grid whose lanes
+      take (sample, pixel) items from a counter on the card, then an
+      in-order fold), which leaves no straggler tail to compact. Every
+      schedule renders the same bits."""
+    del budget, passes
     if not supports_scene(scene):
         if scene.deep_checker:
             raise ValueError(
@@ -956,9 +847,9 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
         if stream % 16:
             raise ValueError("stream chunk must be a multiple of 16")
         blk = STREAM_BLOCK if cull and stream % STREAM_BLOCK == 0 else 0
-        passes = 0
-        n_r, m_r = _padded_counts(scene, 1, stream)
-        if stream_shared_bytes(n_r, m_r, stream) > SHARED_LIMIT:
+        n_r, m_r, _ = _stream_counts(scene, stream)
+        if stream_shared_bytes(n_r, m_r, stream,
+                               scene.has_motion) > SHARED_LIMIT:
             raise ValueError(
                 f"streamed megakernel: {n_r + m_r} columns in chunks of "
                 f"{stream} need more than {SHARED_LIMIT} bytes of chunk "
@@ -970,20 +861,8 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
                 f"scene tables exceed one block's {SHARED_LIMIT} bytes of "
                 "shared memory; stream them (stream=None picks that)")
     h, w = camera.height, camera.width
-    kw = dict(spp=config.spp, max_depth=config.max_depth, t_min=config.t_min,
-              jitter=config.jitter, unroll=unroll)
-    if not (stream or blk):
-        flat = _trace_shard_queue(scene, camera, seed, h * w, **kw)
-        return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)
-    if passes is None:
-        passes = 10 if config.spp >= 16 else 0
-    if budget is None:
-        budget = config.spp
-    kw["blk"] = blk
-    if passes > 1:
-        flat = _trace_shard_compact(scene, camera, seed, h * w,
-                                    budget=budget, passes=passes, **kw)
-    else:
-        flat = _trace_shard(scene, camera, seed, h * w, stream=stream,
-                            cull=cull, **kw)
+    flat = _trace_shard_queue(scene, camera, seed, h * w, spp=config.spp,
+                              max_depth=config.max_depth, t_min=config.t_min,
+                              jitter=config.jitter, unroll=unroll, blk=blk,
+                              stream=stream, cull=cull)
     return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)

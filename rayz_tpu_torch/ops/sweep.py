@@ -21,7 +21,9 @@ columns graze the ray.
   them; :func:`coef_terms` and :func:`today_terms` evaluate ``half_b`` and
   ``c_term`` from either (the CPU tests compare them in float64), and
   :func:`coef_disc` repeats the kernel's float32 chains of fused
-  multiply-adds.
+  multiply-adds; :func:`packed_sweep` is the column-range sweep's state
+  (winner, runner-up, grazing column) carried over ranges of columns, as
+  the culled kernel sweeps its blocks.
 * :func:`candidates` bounds, per ray and candidate column, the float32
   rounding of the root test, and :func:`near_ties` is the rule that accepts
   a difference between two recordings: at the first bounce where they part,
@@ -31,6 +33,9 @@ columns graze the ray.
   when the candidate that decides it, the nearer hit that one sweep passed
   over, is a grazing or range-boundary root that rounding may accept or
   reject. Its model is :func:`diffkernel._exact_ties`.
+* :func:`explain_items` applies it to two recordings of the queue's
+  (sample, pixel) items (the culled and streamed megakernel's winners per
+  bounce against its plain version's, over the same sorted tables);
 * :func:`explain` applies the rule to two recordings of the same slots
   (the kernel's and the plain recorder's), re-deriving each differing
   slot's ray at its first difference with the plain recorder;
@@ -46,22 +51,28 @@ from typing import NamedTuple, Optional
 import torch
 
 from .diffkernel import _record_inputs, _reference_bounces
+from .megakernel import _trace_items_reference
 from .pathrec import (_AUX_DX, _AUX_DY, _AUX_DZ, _AUX_FLG, _AUX_OX, _AUX_OY,
                       _AUX_OZ, _AUX_TAU, _record_slots_reference,
                       _scene_record_inputs)
 from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _TG1V, _TG1X, _TG1Y,
                      _TG1Z, _TG2V, _TG2X, _TG2Y, _TG2Z, _TNV0, _TNX, _TNY,
-                     _TNZ, _VV, _VX, _VY, _VZ)
+                     _TNZ, _VV, _VX, _VY, _VZ, sphere_records)
 
 __all__ = ["pack_spheres", "ray_coef", "coef_terms", "coef_disc",
            "today_terms", "candidates", "near_ties", "explain",
-           "explain_paths", "GRAZE", "TIE_GAMMA"]
+           "explain_paths", "explain_items", "packed_sweep", "GRAZE",
+           "GRAZE_WIDE", "TIE_GAMMA"]
 
 #: Unit roundoff of float32.
 _U = 2.0 ** -24
 #: The kernel's grazing band, ``rz::kGraze``: a column whose discriminant
 #: lies within this share of |d|^2 c_term of zero.
 GRAZE = 2.0 ** -14
+#: The culled megakernel's band, ``rz::kGrazeWide``: a column whose
+#: discriminant lies within this share of |d|^2 (| |c|^2 - r^2 | + |o|^2),
+#: the magnitudes c_term cancels, of zero.
+GRAZE_WIDE = 2.0 ** -19
 #: Rounding operations charged to each float32 sum of the root test: both
 #: forms' chains (up to 9 accumulations each) and their square roots.
 TIE_GAMMA = 16.0
@@ -69,12 +80,8 @@ TIE_GAMMA = 16.0
 
 def pack_spheres(stab: torch.Tensor, has_motion: bool):
     """The shared-memory records ``rz::stage_spheres`` writes from the
-    sphere table ``stab`` [17, N]: (cx, cy, cz, |c|^2 - r^2) [N, 4] and,
-    with motion, (vx, vy, vz, 2 c.v) [N, 4] and |v|^2 [N] (else None)."""
-    c = stab[[_CX, _CY, _CZ, _CCMR2]].T.contiguous()
-    if not has_motion:
-        return c, None, None
-    return c, stab[[_VX, _VY, _VZ, _CV2]].T.contiguous(), stab[_VV].clone()
+    sphere table ``stab`` [17, N] (:func:`tables.sphere_records`)."""
+    return sphere_records(stab, has_motion)
 
 
 class RayCoef(NamedTuple):
@@ -130,13 +137,15 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
 
 
-def coef_disc(packed, coef: RayCoef):
+def coef_disc(packed, coef: RayCoef, wide: bool = False):
     """The kernel's float32 ``coef_disc``: the discriminant, ``half_b`` and
     the grazing flag, each [R, N]; its chains of fused multiply-adds in
     their order (``half_b`` from -d.o, ``c_term`` from |c|^2 - r^2 +
     |o|^2), then half_b^2 - |d|^2 c_term with the product |d|^2 c_term
     rounded first, grazing where |disc| < 2^-14 |d|^2 c_term (false where
-    that product overflows, as it does for the padding columns)."""
+    that product overflows, as it does for the padding columns) or, with
+    ``wide`` (the culled megakernel), where |disc| <
+    GRAZE_WIDE |d|^2 (| |c|^2 - r^2 | + |o|^2)."""
     c, v, vv = packed
     al, be = coef.alpha, coef.beta
     hb = coef.ndo[:, None].expand(-1, c.shape[0])
@@ -154,7 +163,70 @@ def coef_disc(packed, coef: RayCoef):
         ct = _fma32(be[:, 7:8], vv[None, :], ct)
     act = coef.a[:, None] * ct
     disc = _fma32(hb, hb, -act)
+    if wide:
+        mag = coef.a[:, None] * (c[None, :, 3].abs() + coef.o2[:, None])
+        return disc, hb, disc.abs() < GRAZE_WIDE * mag
     return disc, hb, disc.abs() < GRAZE * act
+
+
+class PackedState(NamedTuple):
+    """The per-ray state ``rz::sweep_packed`` carries from one column range
+    to the next: the winner's q and column, the runner-up's, and the last
+    grazing column (-1 where none)."""
+
+    qb: torch.Tensor
+    best: torch.Tensor
+    q2: torch.Tensor
+    second: torch.Tensor
+    graze: torch.Tensor
+
+
+def packed_sweep(packed, coef: RayCoef, j0: int, j1: int,
+                 state: Optional[PackedState] = None) -> PackedState:
+    """Plain torch version of the column-range ``rz::sweep_packed`` of the
+    culled megakernel over the records [j0, j1) of ``packed`` for the rays
+    ``coef``, continuing ``state`` (None: a fresh sweep), as the kernel
+    sweeps its blocks in turn: its float32 chains (:func:`coef_disc`, the
+    wide grazing band) and root rule, the winner the first column of the
+    smallest q, the runner-up the next in (q, column) order, the grazing
+    column the last. The kernel's square root is ``sqrt.approx``, here the
+    IEEE one, so a root within an ulp of another may rank otherwise."""
+    c, v, vv = packed
+    sub = (c[j0:j1], None if v is None else v[j0:j1],
+           None if vv is None else vv[j0:j1])
+    disc, hb, grazing = coef_disc(sub, coef, wide=True)
+    r, k = disc.shape
+    dev = disc.device
+    if state is None:
+        big = torch.full((r,), _BIG, dtype=torch.float32, device=dev)
+        none = torch.full((r,), -1, dtype=torch.int64, device=dev)
+        state = PackedState(big, none, big.clone(), none.clone(),
+                            none.clone())
+    rt = torch.sqrt(torch.clamp_min(disc, 0.0))
+    q1 = hb - rt
+    tm = coef.tmin_a[:, None]
+    qv = torch.where(q1 >= tm, q1, hb + rt)
+    ok = (disc >= 0.0) & (qv >= tm) & (qv < _BIG)
+    q = torch.where(ok, qv, torch.full_like(qv, float("inf")))
+    cols = torch.arange(j0, j1, device=dev)
+    qa, ia = q.min(dim=1)  # the first column of the smallest q
+    q_rest = q.scatter(1, ia[:, None], float("inf"))
+    qc, ic = q_rest.min(dim=1)
+    has_a, has_c = torch.isfinite(qa), torch.isfinite(qc)
+    ja, jc = cols[ia], cols[ic]
+    last = torch.where(grazing, cols[None, :], -1).amax(dim=1) \
+        if k else torch.full((r,), -1, device=dev)
+    graze = torch.where(last >= 0, last, state.graze)
+    new_min = has_a & (qa < state.qb)
+    c_second = has_c & (qc < state.qb)
+    q2 = torch.where(new_min, torch.where(c_second, qc, state.qb),
+                     torch.where(has_a & (qa < state.q2), qa, state.q2))
+    second = torch.where(new_min, torch.where(c_second, jc, state.best),
+                         torch.where(has_a & (qa < state.q2), ja,
+                                     state.second))
+    return PackedState(torch.where(new_min, qa, state.qb),
+                       torch.where(new_min, ja, state.best), q2, second,
+                       graze)
 
 
 def today_terms(stab: torch.Tensor, o, d, tau, has_motion: bool,
@@ -404,4 +476,42 @@ def explain_paths(scene, rays: torch.Tensor, rand: torch.Tensor,
         ok[k] = near_ties(stab, ttab, tuple(x[sel] for x in o),
                           tuple(x[sel] for x in d), tau[sel],
                           got[b, rid[k]].long(), want[b, rid[k]].long(), **kw)
+    return ok
+
+
+def explain_items(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
+                  n_pix: int, s0: int, got: torch.Tensor, want: torch.Tensor,
+                  *, width: int, max_depth: int, t_min: float, jitter: bool,
+                  has_motion: bool, seed: int) -> Optional[torch.Tensor]:
+    """Apply :func:`near_ties` to two recordings ``got`` and ``want``
+    [max_depth, n_samples * n_pix] of the queue's items (samples s0 + 1,
+    ... of pixels [0, n_pix), sample-major; ``megakernel._queue``'s
+    ``hits``, the kernel's and the plain version's, over the tables
+    ``stab``/``ttab``, -2 where a segment was not traced): for every item
+    whose winners differ, at the first bounce where they part, its ray
+    there re-derived by the plain version (the two agree on every bounce
+    before, so they trace the same ray there). A segment one recording
+    traced and the other did not is not explained. Returns bool [items that
+    differ] in item order, or None if none differs."""
+    part = got != want
+    items = torch.nonzero(part.any(dim=0)).flatten()
+    if items.numel() == 0:
+        return None
+    first = part[:, items].int().argmax(dim=0)
+    rays = []
+    _trace_items_reference(cam, stab, ttab, (items % n_pix).to(torch.int32),
+                           (items // n_pix + s0 + 1).to(torch.int32),
+                           width=width, max_depth=max_depth, t_min=t_min,
+                           jitter=jitter, has_motion=has_motion, seed=seed,
+                           rays=rays)
+    ok = torch.zeros(items.numel(), dtype=torch.bool, device=got.device)
+    for b, (live, o, d, tau) in enumerate(rays):
+        sel = torch.nonzero(first[live] == b).flatten()
+        if sel.numel() == 0:
+            continue
+        k = live[sel]
+        g, w = got[b, items[k]].long(), want[b, items[k]].long()
+        ok[k] = (g > -2) & (w > -2) & near_ties(
+            stab, ttab, tuple(x[sel] for x in o), tuple(x[sel] for x in d),
+            tau[sel], g, w, t_min=t_min, has_motion=has_motion)
     return ok

@@ -15,10 +15,11 @@ The residency rules are re-derived for the H100, whose blocks hold at most
 * :func:`fits_shared`: the megakernel copies the camera vector and the
   whole tables (and, culled, 4 bound rows per block) into shared memory.
   It admits at most n_pad = 3,416 spheres or m_pad = 2,904 triangles.
-* :func:`fits_stream`: the streamed megakernel keeps only the camera
-  vector and the chunk bound rows in shared memory; the tables and block
-  rows stay in device memory and are read through L1/L2. About 7.4 M
-  primitives at the default chunk.
+* :func:`fits_stream`: the streamed megakernel keeps the camera vector,
+  its warps' staging and the chunk bound rows in shared memory; the
+  tables, their packed records and the block rows stay in device memory
+  and are read through L1/L2. About 7.37 M primitives at the default
+  chunk, 7.29 M with motion.
 * :func:`fits_wavefront`: the wavefront's streamed launch also keeps its
   warps' counters, column and ray staging, parked ray states and the
   supercluster bound rows there. About 6.9 M primitives at the default
@@ -56,7 +57,8 @@ from ..models.scene import MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
 
 __all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
            "fits_stream", "fits_wavefront", "fits_record_stream",
-           "shared_bytes", "stream_shared_bytes",
+           "shared_bytes", "stream_shared_bytes", "sphere_records",
+           "pack_records",
            "wavefront_shared_bytes", "SHARED_LIMIT", "CAM_WORDS",
            "WF_HEAD_WORDS", "WF_STAGE_WORDS", "WF_PARK_WORDS",
            "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
@@ -572,10 +574,34 @@ def shared_bytes(n_pad: int, m_pad: int, blk: int = 0) -> int:
     return 4 * words
 
 
-def stream_shared_bytes(n_r: int, m_r: int, stream: int) -> int:
-    """Dynamic shared memory of the streamed megakernel: the camera vector
-    and the chunk bound rows of both classes."""
-    return 4 * (CAM_WORDS + 4 * (n_r // stream + m_r // stream))
+def stream_shared_bytes(n_r: int, m_r: int, stream: int,
+                        has_motion: bool) -> int:
+    """Dynamic shared memory of the streamed megakernel: the camera vector,
+    its 4 warps' staging (32 sphere records each, of 9 f32 words with
+    motion, 4 without) and the chunk bound rows of both classes."""
+    stage = 4 * 32 * (9 if has_motion else 4)
+    return 4 * (CAM_WORDS + stage + 4 * (n_r // stream + m_r // stream))
+
+
+def sphere_records(stab: torch.Tensor, has_motion: bool):
+    """The 16-byte sphere records ``rz::stage_spheres`` writes from the
+    sphere table ``stab`` [17, N]: (cx, cy, cz, |c|^2 - r^2) [N, 4] and,
+    with motion, (vx, vy, vz, 2 c.v) [N, 4] and |v|^2 [N] (else None)."""
+    c = stab[[_CX, _CY, _CZ, _CCMR2]].T.contiguous()
+    if not has_motion:
+        return c, None, None
+    return c, stab[[_VX, _VY, _VZ, _CV2]].T.contiguous(), stab[_VV].clone()
+
+
+def pack_records(stab: torch.Tensor, sblk: torch.Tensor,
+                 has_motion: bool):
+    """The streamed megakernel's packed records, built once a render from
+    the sorted sphere table ``stab`` [17, N] and its block rows ``sblk``
+    [4, N/blk]: :func:`sphere_records` laid out flat in one f32 tensor,
+    and the block bounds as records (centre, |c|^2 - r^2) [N/blk, 4]."""
+    parts = [x.reshape(-1) for x in sphere_records(stab, has_motion)
+             if x is not None]
+    return torch.cat(parts), sblk.T.contiguous()
 
 
 def wavefront_shared_bytes(n_pad: int, m_pad: int, *, blk: int = 0,
@@ -621,10 +647,12 @@ def fits_record_stream(scene: Scene, stream: int) -> bool:
 
 def fits_stream(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:
     """Whether the streamed megakernel can run the scene: the camera
-    vector and the chunk bound rows of both classes fit one block's shared
-    memory. About 7.4 M primitives at the default chunk."""
+    vector, its warps' staging and the chunk bound rows fit one block's
+    shared memory. About 7.37 M primitives at the default chunk (7.29 M
+    with motion)."""
     n_r, m_r, _ = _stream_counts(scene, stream)
-    return stream_shared_bytes(n_r, m_r, stream) <= SHARED_LIMIT
+    return stream_shared_bytes(n_r, m_r, stream,
+                               scene.has_motion) <= SHARED_LIMIT
 
 
 def fits_wavefront(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:

@@ -34,8 +34,12 @@ of the wavefront render's four launches (``wavefront_launches``); the
 value-and-gradient micro-batches of 32 spp on the flagship, gradients
 summed) and the ``"recorded"`` engine's value and gradient at 2 spp (host
 clock, Mrays/s, median of 3 after a warm-up; and its peak memory); then
-the recorder's first flagship pass (``record_pp``, 262,144 slots, 112
-iterations), the bounce-indexed recorder's resident launch on one
+the megakernel's culled and streamed renders (``mode_render``:
+``render_megakernel(culling=True)`` on ``sphere_field`` 3,000 at 128x72
+and the streamed 100k render, both 16 spp, d8; each launch of a render
+bracketed by CUDA events, their sum, the render's span, Mrays/s and work
+counters), the recorder's first flagship pass (``record_pp``, 262,144
+slots, 112 iterations), the bounce-indexed recorder's resident launch on one
 flagship pass and on the tree's ``RECORD_GROUP`` passes side by side
 (``record_resident``: ms a pass, idle lanes, the tail after its ray
 counter drained), its streamed pass on the 100k scene (``record_paths``,
@@ -85,20 +89,25 @@ def gather_indices(r: int, p: int, dev, g) -> torch.Tensor:
 
 
 #: Kernels whose sphere sweep ``sass_sweep`` dissects, by a fragment of
-#: their mangled names, with motion (a tree has one of the two resident
-#: kernels: the one-thread-per-slot ``megakernel`` of earlier trees, or the
-#: queue; the resident bounce-indexed recorder sweeps packed records as
-#: the ray queue ``record_queue``).
+#: their mangled names, with motion (the megakernel is the queue as a
+#: template on its sweep, resident and culled; the resident bounce-indexed
+#: recorder sweeps packed records as the ray queue ``record_queue``).
 SWEEP_KERNELS = (("record_pp", "record_pp_kernelILb1"),
-                 ("megakernel", "10megakernelILb1"),
-                 ("megakernel_queue", "megakernel_queueILb1"),
+                 ("megakernel_queue<ResidentSweep<true>>",
+                  "ResidentSweepILb1"),
+                 ("megakernel_queue<CulledSweep<true>>", "CulledSweepILb1"),
                  ("record_queue", "record_queueILb1"))
 #: The sphere sweep loops' #pragma unroll.
 SWEEP_UNROLL = 8
 #: Further kernels whose ptxas report ``ptxas_facts`` keeps: the streamed
-#: wavefront without motion (the 100k scene's).
+#: wavefront without motion (the 100k scene's), and the queue kernel on its
+#: culled and streamed sweeps without motion (``sphere_field``'s).
 REPORT_KERNELS = (("wavefront_kernel<false, streamed>",
-                   "wavefront_kernelILb0ELi2E"),)
+                   "wavefront_kernelILb0ELi2E"),
+                  ("megakernel_queue<CulledSweep<false>>",
+                   "CulledSweepILb0E"),
+                  ("megakernel_queue<StreamSweep<false>>",
+                   "StreamSweepILb0E"))
 
 
 def ptxas_facts(log: str) -> dict:
@@ -365,6 +374,72 @@ def wavefront_launches(scene, cam, cfg, runs: int = 3) -> dict:
                 stats=[int(x) for x in stats.tolist()])
 
 
+def mode_render(scene, cam, cfg, runs: int = 3, **kw) -> dict:
+    """One ``render_megakernel`` (keywords ``kw``: a culled or streamed
+    mode) with each of its kernel launches bracketed by CUDA events, over
+    ``runs`` renders after a warm-up: the launches per render, the median of
+    their summed ms, the render's device span and Mrays/s; then the work
+    counters of one render ([8]: segments, primitive tests, block bound
+    tests, chunk bound tests and how many passed, re-sweeps, lane-trips)
+    and the image's digest. The launches are those of the wrappers
+    ``_queue`` and ``_fold``."""
+    import rayz_tpu_torch as rtt
+    from rayz_tpu_torch.ops import megakernel as mk
+    names = ("_queue", "_fold")
+    real = {n: getattr(mk, n) for n in names}
+    marks, stats = [], []
+
+    def wrap(name):
+        def launch(*a, **k):
+            if stats and name != "_fold":
+                k = dict(k, stats=stats[0])
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            res = real[name](*a, **k)
+            e.record()
+            marks.append((s, e))
+            return res
+        return launch
+
+    per, spans, secs, counts = [], [], [], []
+    rays = cam.width * cam.height * cfg.spp
+    for n in names:
+        setattr(mk, n, wrap(n))
+    try:
+        for k in range(runs + 1):
+            marks.clear()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.record()
+            img = rtt.render_megakernel(scene, cam, k, cfg, **kw)
+            e.record()
+            torch.cuda.synchronize()
+            if k:
+                secs.append(time.perf_counter() - t0)
+                per.append(sum(a.elapsed_time(b) for a, b in marks))
+                spans.append(s.elapsed_time(e))
+                counts.append(len(marks))
+        stats.append(torch.zeros(8, dtype=torch.int64, device=cam.device))
+        img = rtt.render_megakernel(scene, cam, 0, cfg, **kw)
+    finally:
+        for n in names:
+            setattr(mk, n, real[n])
+    return dict(launches=counts[-1], kernel_ms=statistics.median(per),
+                span_ms=statistics.median(spans),
+                mrays=statistics.median(rays / x / 1e6 for x in secs),
+                stats=[int(x) for x in stats[0].tolist()],
+                digest=_digest(img))
+
+
+#: The megakernel's culled and streamed paths ``mode_render`` measures:
+#: ``render_megakernel(culling=True)`` on ``sphere_field`` 3,000 at 128x72
+#: (chip_smoke.py's culled phase) and ``render_megakernel`` on
+#: ``sphere_field`` 100k at 512x288, which streams (both 16 spp, d8).
+MODE_PATHS = (("culled", 3_000, 128, dict(culling=True)),
+              ("streamed", 100_000, LARGE["width"], {}))
+
+
 def render() -> None:
     """One A/B child: the measurements the module docstring lists, on
     this tree's package; prints one JSON line."""
@@ -391,6 +466,10 @@ def render() -> None:
         out[label] = _mrays(fcam.width * fcam.height * fcfg.spp, frun)
         out[label + "_digest"] = _digest(frun(1))
     out["wavefront_launches"] = wavefront_launches(field, fcam, fcfg)
+    for label, n, width, kw in MODE_PATHS:
+        mscene, mcam = ((field, fcam) if n == 100_000 else
+                        rtt.scenes.sphere_field(n=n, width=width))
+        out["mode_" + label] = mode_render(mscene, mcam, fcfg, **kw)
 
     rcfg = rtt.RenderConfig(spp=2, max_depth=32)
     target = rtt.render_fast(scene, cam, 0, rcfg)
@@ -482,6 +561,24 @@ def _wavefront_line(res: dict) -> str:
         + (f", sweep lanes idle {1 - s[1] / s[6]:.4f}" if s[6] else ""))
 
 
+def _mode_line(res: dict) -> str:
+    """The megakernel's culled and streamed renders of one A/B child."""
+    parts = []
+    for label, n, _, _ in MODE_PATHS:
+        m = res["mode_" + label]
+        s = m["stats"]
+        seg = max(s[0], 1)
+        parts.append(
+            f"{label} sphere_field {n}: {m['launches']} launches, kernels "
+            f"{m['kernel_ms']:.3f} ms, span {m['span_ms']:.3f} ms, "
+            f"{m['mrays']:.3f} Mrays/s (digest {m['digest']}); {s[0]} "
+            f"segments, {s[1] / seg:.1f} primitive, {s[2] / seg:.1f} block "
+            f"and {s[3] / seg:.1f} chunk tests per segment ({s[4]} chunk "
+            f"tests passed), re-sweeps {s[5]}"
+            + (f", idle lanes {1 - s[0] / s[6]:.4f}" if s[6] else ""))
+    return "megakernel modes: " + "; ".join(parts)
+
+
 def ab(trees, rounds: int) -> None:
     card = _card()
     builds = [subprocess.Popen(
@@ -524,6 +621,8 @@ def ab(trees, rounds: int) -> None:
                   flush=True)
             print(f"[ab] round {k} {t}: " + _record_line(res)
                   + "; " + _wavefront_line(res) + f" | {card}", flush=True)
+            print(f"[ab] round {k} {t}: " + _mode_line(res) + f" | {card}",
+                  flush=True)
     for t in trees:
         first = runs[t][0]
 
@@ -544,6 +643,9 @@ def ab(trees, rounds: int) -> None:
         series += [(f"wavefront launch {i} ms",
                     [r["wavefront_launches"]["launch_ms"][i]
                      for r in runs[t]]) for i in range(4)]
+        series += [(f"megakernel {label} render, kernel ms",
+                    [r["mode_" + label]["kernel_ms"] for r in runs[t]])
+                   for label, *_ in MODE_PATHS]
         series += [(f"{key} Mrays/s",
                     [statistics.median(r[key]) for r in runs[t]])
                    for key in _FORWARD + ("recorded_pp_step", "recorded_step")]

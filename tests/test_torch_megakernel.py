@@ -13,7 +13,8 @@ Tolerances:
   quarter to a third of float32 results by an ulp), and a curved mirror
   at a grazing angle magnifies such ulps (measured: at most 2.1e-5, on 10
   of the golden scene's 18,432 channels);
-* compact vs single launch: atol 0 (draws are keyed by slot state);
+* sample groups vs one group, ``budget``/``passes`` vs none: atol 0 (draws
+  are keyed by (pixel, sample, bounce), and the fold adds in sample order);
 * real bits vs JAX ``rt.render``: distribution only (different generators),
   with the bounds of tests/test_render.py.
 """
@@ -125,9 +126,8 @@ def _golden_allowance(img):
     return diff.max(), (diff > 0).mean()
 
 
-@pytest.mark.parametrize("schedule", [dict(passes=0),
-                                      dict(budget=2, passes=3)],
-                         ids=["single", "compact"])
+@pytest.mark.parametrize("schedule", [{}, dict(budget=2, passes=3)],
+                         ids=["default", "budget_passes_ignored"])
 def test_golden_plain_version(schedule):
     scene, cam, cfg = _port(_golden_scene)
     before = mk.LAUNCHES
@@ -137,44 +137,58 @@ def test_golden_plain_version(schedule):
     assert step <= 1 and frac < 0.005, (step, frac)
 
 
-@pytest.mark.parametrize("recipe", [_golden_scene, _compact_scene,
-                                    _full_table_scene],
-                         ids=["golden", "compact_scene", "full_table"])
-def test_zero_bits_matches_jax_interpreter(recipe, monkeypatch):
+@pytest.mark.parametrize("recipe, mode", [
+    (_golden_scene, {}), (_compact_scene, {}), (_full_table_scene, {}),
+    (_compact_scene, dict(culling=True)), (_compact_scene, dict(stream=128))],
+    ids=["golden", "compact_scene", "full_table", "culled", "streamed"])
+def test_zero_bits_matches_jax_interpreter(recipe, mode, monkeypatch):
+    """The resident mode on three scenes, and the culled (Morton-sorted
+    blocks) and streamed (chunks of 128) modes on the scene with every
+    material and a triangle, each against ``render_pallas`` in the same
+    mode, interpreted."""
     jscene, jcam, cfg = recipe(rt, dtype=jnp.float32)
     if recipe is _full_table_scene:
         assert jscene.uniq_dielectric_mat == -2  # JAX full-table mode
     want = np.asarray(render_pallas(jscene, jcam, 0, rt.RenderConfig(**cfg),
-                                    interpret=True))
+                                    interpret=True, **mode))
     monkeypatch.setattr(mk, "_queue", functools.partial(
         mk._queue_reference, bits=_zero_bits))
     scene, cam, tcfg = _port(recipe)
-    got = rtt.render_megakernel(scene, cam, 0, tcfg).numpy()
+    got = rtt.render_megakernel(scene, cam, 0, tcfg, **mode).numpy()
     assert got.shape == want.shape
     diff = np.abs(got - want)
     assert (diff > 1e-5).mean() < 1e-3, (diff > 1e-5).sum()
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
 
 
-def test_compact_equals_single_launch_stochastic():
-    """Real random bits, jitter, defocus, motion blur, glass: budgeted
-    passes with compaction in between (the culled mode's schedule)
-    reproduce the single launch bit for bit, because every draw is keyed by
-    the slot's own state."""
+@pytest.mark.parametrize("mode", [dict(culling=True), dict(stream=128)],
+                         ids=["culled", "streamed"])
+def test_sample_groups_equal_one_group(mode, monkeypatch):
+    """Real random bits, jitter, defocus, motion blur, glass: samples run
+    in groups (a small QUEUE_BYTES: one queue launch and one fold per
+    group) render what one group renders, bit for bit, and so do JAX's
+    ``budget``/``passes`` keywords, which the queue ignores; every draw is
+    keyed by (pixel, sample, bounce) and the fold adds in sample order."""
     scene, cam = rtt.scenes.random_bouncing(width=24, height=14, seed=1,
                                             device="cpu")
     cfg = rtt.RenderConfig(spp=6, max_depth=6)
-    ref = rtt.render_megakernel(scene, cam, 5, cfg, culling=True, passes=0)
-    assert float(ref.std()) > 0.01
+    groups = []
+    real = mk._queue
+
+    def spy(*args, **kw):
+        groups.append(args[5])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(mk, "_queue", spy)
+    ref = rtt.render_megakernel(scene, cam, 5, cfg, **mode)
+    assert groups == [6] and float(ref.std()) > 0.01
+    monkeypatch.setattr(mk, "QUEUE_BYTES", 4 * 12 * 24 * 14)
+    groups.clear()
+    img = rtt.render_megakernel(scene, cam, 5, cfg, **mode)
+    assert groups == [4, 2] and torch.equal(img, ref)
     for budget, passes in ((3, 4), (1, 7)):
-        img = rtt.render_megakernel(scene, cam, 5, cfg, culling=True,
-                                    budget=budget, passes=passes)
-        assert torch.equal(img, ref), (budget, passes)
-    # the culled default at spp >= 16 is the compact one
-    cfg16 = rtt.RenderConfig(spp=16, max_depth=3)
-    assert torch.equal(
-        rtt.render_megakernel(scene, cam, 2, cfg16, culling=True),
-        rtt.render_megakernel(scene, cam, 2, cfg16, culling=True, passes=0))
+        assert torch.equal(rtt.render_megakernel(
+            scene, cam, 5, cfg, budget=budget, passes=passes, **mode), ref)
 
 
 def test_plain_version_matches_xla_render_in_distribution():
@@ -194,10 +208,12 @@ def test_plain_version_matches_xla_render_in_distribution():
     assert np.abs(bg - bw).max() < 0.05
 
 
-def test_retired_slots_do_not_overwrite_last_pixel():
-    """20x12 = 240 pixels in 256 slots: the 16 retired (-1) slots must not
-    land on pixel 239 through the final scatter (torch indexing wraps -1
-    as JAX's does)."""
+@pytest.mark.parametrize("mode", [dict(culling=True), dict(stream=128)],
+                         ids=["culled", "streamed"])
+def test_last_pixel_of_a_partial_run(mode):
+    """20x12 = 240 pixels, not a multiple of the queue's run of 64 items:
+    the last pixel of the culled and streamed renders is lit and equals the
+    resident render's (only an exact tie could part them)."""
     b = rtt.SceneBuilder()
     m = b.add_metallic(color=(0.8, 0.7, 0.6), fuzz=0.0)
     b.add_sphere((0, -100.5, -2), 100.0, m)
@@ -207,10 +223,9 @@ def test_retired_slots_do_not_overwrite_last_pixel():
                           look_from=(0, 0, 0), look_at=(0, 0, -1),
                           device="cpu")
     cfg = rtt.RenderConfig(spp=2, max_depth=4, jitter=False)
-    assert mk._slot_table(240, "cpu").tolist()[-17:] == [239] + [-1] * 16
-    ref = rtt.render_megakernel(scene, cam, 0, cfg, culling=True, passes=0)
-    img = rtt.render_megakernel(scene, cam, 0, cfg, culling=True, budget=1,
-                                passes=4)
+    assert (20 * 12) % mk.QUEUE_RUN
+    ref = rtt.render_megakernel(scene, cam, 0, cfg)
+    img = rtt.render_megakernel(scene, cam, 0, cfg, **mode)
     assert float(ref[-1, -1].min()) > 0.0
     assert torch.equal(img, ref)
 
@@ -243,40 +258,56 @@ def test_unsupported_scenes_raise():
 
 
 def test_wrapper_validates_inputs():
+    """The queue's wrapper checks a culled or streamed launch's bounds,
+    packed records and hits, and refuses a device with no kernel instead of
+    falling back."""
     scene, cam, cfg = _port(_golden_scene)
     args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
                                t_min=1e-3, jitter=False, unroll=8,
                                blk=mk.DEFAULT_BLOCK)
-    pix = mk._slot_table(64, "cpu")
-    rgb, st = mk._trace_slots(*args, pix, save_state=True, **kw)
-    assert rgb.shape == (3, 128) and st.shape == (mk.STATE_PLANES, 128)
-    with pytest.raises(ValueError, match="int32"):
-        mk._trace_slots(*args, pix.long(), **kw)
+    del kw["spp"]
+    hits = torch.full((2, 64), -2, dtype=torch.int32)
+    out = mk._queue(*args, 64, 0, 1, hits=hits, **kw)
+    assert out.shape == (1, 3, 64) and bool((hits[0] >= -1).all())
+    with pytest.raises(ValueError, match="hits"):
+        mk._queue(*args, 64, 0, 1, hits=hits.long(), **kw)
+    with pytest.raises(ValueError, match="hits"):
+        mk._queue(*args, 64, 0, 1, hits=hits,
+                  **dict(kw, bounds=None, records=None))
     with pytest.raises(ValueError, match="8k"):
-        mk._trace_slots(args[0], args[1][:, :5].contiguous(), args[2], pix,
-                        **kw)
-    with pytest.raises(ValueError, match="resume"):
-        mk._trace_slots(*args, pix, resume=st[:, :64], **kw)
+        mk._queue(args[0], args[1][:, :5].contiguous(), args[2], 64, 0, 1,
+                  **kw)
     b = kw["bounds"]
+    with pytest.raises(ValueError, match="bound rows"):
+        mk._queue(*args, 64, 0, 1, **dict(kw, bounds=b._replace(
+            sblk=b.sblk.double())))
     meta = dict(kw, bounds=b._replace(sblk=b.sblk.to("meta"),
                                       tblk=b.tblk.to("meta")))
     with pytest.raises(ValueError, match="no megakernel"):
-        mk._trace_slots(*(a.to("meta") for a in args), pix.to("meta"),
-                        **meta)
-    with pytest.raises(ValueError, match="queue"):
-        mk._trace_slots(*args, pix, **dict(kw, bounds=None))
+        mk._queue(*(a.to("meta") for a in args), 64, 0, 1, **meta)
+    args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
+                               t_min=1e-3, jitter=False, unroll=8,
+                               blk=mk.STREAM_BLOCK, stream=128)
+    del kw["spp"]
+    assert mk._queue(*args, 64, 0, 1, **kw).shape == (1, 3, 64)
+    with pytest.raises(ValueError, match="packed records"):
+        mk._queue(*args, 64, 0, 1, **dict(kw, records=None))
+    recs, brecs = kw["records"]
+    with pytest.raises(ValueError, match="packed records"):
+        mk._queue(*args, 64, 0, 1, **dict(kw, records=(recs[:-4], brecs)))
 
 
 MODES = [dict(culling=True), dict(culling=True, budget=2, passes=3),
          dict(stream=128), dict(stream=128, culling=False)]
-MODE_IDS = ["culled", "culled_compact", "streamed", "streamed_unculled"]
+MODE_IDS = ["culled", "culled_budget_passes", "streamed",
+            "streamed_unculled"]
 
 
 @pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 def test_culled_and_streamed_modes_golden(mode):
     """The culled and streamed table modes (Morton-sorted tables; the plain
     version sweeps them in full, as the kernel's conservative bound tests
-    leave the same winners) pass the golden."""
+    leave the same winners up to near ties) pass the golden."""
     scene, cam, cfg = _port(_golden_scene)
     before = mk.LAUNCHES
     img = rtt.render_megakernel(scene, cam, 0, cfg, **mode)
@@ -298,7 +329,7 @@ def test_culled_and_streamed_modes_match_full_table(mode):
     mixed = b.build(device="cpu")
     for sc, cfg in ((scene, rtt.RenderConfig(spp=3, max_depth=6)),
                     (mixed, rtt.RenderConfig(spp=2, max_depth=5))):
-        ref = rtt.render_megakernel(sc, cam, 7, cfg, passes=0)
+        ref = rtt.render_megakernel(sc, cam, 7, cfg)
         img = rtt.render_megakernel(sc, cam, 7, cfg, **mode)
         same = float((img == ref).all(dim=-1).double().mean())
         print(f"{mode}: {same:.4%} of pixels identical")
@@ -317,52 +348,48 @@ def _mixed_primitives(b):
 
 
 def test_render_megakernel_resolves_modes(monkeypatch):
-    """Resident scenes stay unculled by default, take the queue whatever
-    ``passes`` asks, and stream only when asked; culled renders compact at
-    spp >= 16; a scene beyond shared memory streams; streamed renders take
-    one launch and no compaction."""
-    seen, queued = [], []
-    real, real_queue = mk._trace_slots, mk._trace_queue
+    """Every mode takes the queue, one group of all samples at this size:
+    resident scenes stay unculled by default, ``culling=True`` culls them in
+    shared memory, ``stream`` streams them (blocks of STREAM_BLOCK, packed
+    records), a scene beyond shared memory streams, and ``budget``/
+    ``passes`` change nothing."""
+    seen = []
+    real = mk._trace_queue
 
     def spy(*args, **kw):
-        seen.append((mk._mode(kw.get("bounds")), kw.get("budget", 0)))
+        b = kw["bounds"]
+        seen.append((args[3], kw["spp"], mk._mode(b),
+                     getattr(b, "blk", 0), kw["records"] is not None))
         return real(*args, **kw)
 
-    def spy_queue(*args, **kw):
-        queued.append((args[3], kw["spp"]))
-        return real_queue(*args, **kw)
-
-    monkeypatch.setattr(mk, "_trace_slots", spy)
-    monkeypatch.setattr(mk, "_trace_queue", spy_queue)
+    monkeypatch.setattr(mk, "_trace_queue", spy)
     scene, cam = rtt.scenes.random_bouncing(width=8, height=4, device="cpu")
     cfg = rtt.RenderConfig(spp=16, max_depth=2)
     rtt.render_megakernel(scene, cam, 0, cfg)
-    assert seen == [] and queued == [(32, 16)]
-    rtt.render_megakernel(scene, cam, 0, cfg, passes=10)
-    assert seen == [] and len(queued) == 2
+    rtt.render_megakernel(scene, cam, 0, cfg, budget=4, passes=10)
     rtt.render_megakernel(scene, cam, 0, cfg, culling=True)
-    assert seen == [(1, 16)] * 9 + [(1, 0)] and len(queued) == 2
-    seen.clear()
-    rtt.render_megakernel(scene, cam, 0, cfg, culling=True, passes=0)
     rtt.render_megakernel(scene, cam, 0, cfg, stream=256)
-    assert seen == [(1, 0), (2, 0)]
+    assert seen == [(32, 16, 0, 0, False)] * 2 + [
+        (32, 16, 1, mk.DEFAULT_BLOCK, False),
+        (32, 16, 2, mk.STREAM_BLOCK, True)]
     seen.clear()
     big, bcam = rtt.scenes.sphere_field(n=3_500, width=8, height=4,
                                         device="cpu")
     rtt.render_megakernel(big, bcam, 0, rtt.RenderConfig(spp=1, max_depth=1))
-    assert seen == [(2, 0)]
+    assert seen == [(32, 1, 2, mk.STREAM_BLOCK, True)]
 
 
 @pytest.mark.cuda
 def test_kernel_golden_on_card(cuda_device):
     """The CUDA kernels themselves (chip_smoke.py runs this and more on the
-    card): golden through the queue and its fold, whatever ``passes``
-    asks."""
+    card): golden through the queue and its fold in every table mode,
+    whatever ``budget``/``passes`` ask."""
     scene, cam, cfg = _port(_golden_scene)
     scene, cam = scene.to(cuda_device), cam.to(cuda_device)
-    for schedule in (dict(passes=0), dict(budget=2, passes=3)):
+    for mode in ({}, dict(budget=2, passes=3), dict(culling=True),
+                 dict(stream=128)):
         before = mk.LAUNCHES
-        img = rtt.render_megakernel(scene, cam, 0, cfg, **schedule)
+        img = rtt.render_megakernel(scene, cam, 0, cfg, **mode)
         torch.cuda.synchronize()
         assert mk.LAUNCHES - before == 2
         step, frac = _golden_allowance(img)

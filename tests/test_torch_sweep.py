@@ -19,7 +19,7 @@ import torch
 
 import rayz_tpu_torch as rtt
 from rayz_tpu_torch.ops import diffkernel as dk, megakernel as mk
-from rayz_tpu_torch.ops import pathrec as pr, sweep as sw
+from rayz_tpu_torch.ops import pathrec as pr, sweep as sw, tables
 from rayz_tpu_torch.ops.tables import _BIG, _pad_poison, _CCMR2
 
 torch.set_num_threads(2)
@@ -48,6 +48,13 @@ def _random_rays(g, r: int):
     d = tuple(torch.from_numpy(g.standard_normal(r)).float()
               for _ in range(3))
     return o, d, torch.from_numpy(g.random(r)).float()
+
+
+def _slots(n: int) -> torch.Tensor:
+    """Flat pixel ids of n pixels in whole blocks of 128 slots, -1 past
+    the image (the one-thread-per-slot kernel's slot table)."""
+    pix = torch.arange(-(-n // 128) * 128, dtype=torch.int32)
+    return torch.where(pix < n, pix, -1)
 
 
 @pytest.mark.parametrize("motion", [False, True], ids=["static", "motion"])
@@ -87,7 +94,108 @@ def test_packed_records_reproduce_todays_terms(motion):
     disc, _, grazing = sw.coef_disc(packed, coef)
     assert not (disc[:, ~valid] >= 0.0).any()
     assert not grazing[:, ~valid].any()
+    assert not sw.coef_disc(packed, coef, wide=True)[2][:, ~valid].any()
     assert (disc[:, valid] >= 0.0).any()  # some rays do hit
+
+
+@pytest.mark.parametrize("motion", [False, True], ids=["static", "motion"])
+def test_streamed_records_reproduce_todays_terms(motion):
+    """The streamed megakernel's packed records, built once a render in
+    device memory (tables.pack_records), are the resident kernels' staged
+    records laid out flat (then the block bounds as records); its sweep
+    reads them with sweep_spheres' expressions (rz::packed_at), which give
+    the centre at the ray's time and |c|^2 - r^2 of the table bit for bit,
+    so its winners are the plain version's."""
+    g = np.random.default_rng(4)
+    stab = _random_spheres(g, 120)
+    sblk = torch.from_numpy(g.uniform(-5, 5, (4, 4))).float()
+    recs, brecs = tables.pack_records(stab, sblk, motion)
+    packed = sw.pack_spheres(stab, motion)
+    n = stab.shape[1]
+    assert recs.shape == ((9 if motion else 4) * n,)
+    c = recs[:4 * n].view(n, 4)
+    assert torch.equal(c, packed[0])
+    if motion:
+        assert torch.equal(recs[4 * n:8 * n].view(n, 4), packed[1])
+        assert torch.equal(recs[8 * n:], packed[2])
+    assert torch.equal(brecs, sblk.T) and brecs.is_contiguous()
+    _, _, tau = _random_rays(g, 64)
+    tau = tau[:, None]
+    cx, cy, cz, ccmr2 = c[:, 0], c[:, 1], c[:, 2], c[:, 3]
+    if motion:
+        v, vv = recs[4 * n:8 * n].view(n, 4), recs[8 * n:]
+        cx, cy, cz = cx + tau * v[:, 0], cy + tau * v[:, 1], cz + tau * v[:, 2]
+        ccmr2 = ccmr2 + v[:, 3] * tau + vv * (tau * tau)
+    want = mk._sphere_at(stab, slice(None), tau, tau * tau, motion)
+    for got, ref in zip((cx, cy, cz, ccmr2), want):
+        assert torch.equal(got.expand_as(ref), ref)
+
+
+@pytest.mark.parametrize("motion", [False, True], ids=["static", "motion"])
+def test_range_sweep_matches_sequential_and_today(motion):
+    """The column-range packed sweep (the culled kernel's blocks): ranges
+    swept in turn carry the state to what one sweep over their union gives,
+    which is what the sequential loop (a shrinking q_best, the runner-up,
+    the last grazing column) keeps, column by column; and its winner is
+    sweep_spheres' except where the near-tie rule accepts the difference."""
+    g = np.random.default_rng(5)
+    stab = _random_spheres(g, 120)
+    o, d, tau = _random_rays(g, 512)
+    if not motion:
+        tau = torch.zeros_like(tau)
+    packed = sw.pack_spheres(stab, motion)
+    coef = sw.ray_coef(o, d, tau, 1e-3)
+    n = stab.shape[1]
+    one = sw.packed_sweep(packed, coef, 0, n)
+    st = None
+    for j0, j1 in ((0, 32), (32, 33), (33, 96), (96, n)):
+        st = sw.packed_sweep(packed, coef, j0, j1, st)
+    assert all(torch.equal(a, b) for a, b in zip(one, st))
+    seq = None
+    for j in range(n):
+        seq = sw.packed_sweep(packed, coef, j, j + 1, seq)
+    assert all(torch.equal(a, b) for a, b in zip(one, seq))
+    assert bool((one.best >= 0).any()) and bool((one.second >= 0).any())
+    a = coef.a
+    qb, best, _ = mk._sweep(stab, torch.zeros((20, 0)), o, d, tau, a,
+                            -coef.ndo, coef.o2, coef.tmin_a, tau * tau,
+                            motion)
+    differ = one.best != best
+    assert float(differ.double().mean()) < 0.01
+    ok = sw.near_ties(stab, torch.zeros((20, 0)),
+                      tuple(x[differ] for x in o), tuple(x[differ] for x in d),
+                      tau[differ], one.best[differ], best[differ],
+                      t_min=1e-3, has_motion=motion)
+    assert bool(ok.all())
+
+
+@pytest.mark.parametrize("mode", [dict(blk=64), dict(stream=128, blk=32)],
+                         ids=["culled", "streamed"])
+def test_explain_items(mode):
+    """explain_items holds the culled and streamed queue's winners per
+    bounce (``hits``) against the plain version's, over the mode's sorted
+    tables: each differing item's ray re-derived at its first difference,
+    a swap of the duplicated sphere's column accepted, a jump to the
+    farther sphere refused, equal recordings None."""
+    scene, cam = _tie_scene()
+    args, kw = mk._launch_args(scene, cam, 1, spp=2, max_depth=3,
+                               t_min=1e-3, jitter=False, unroll=8, **mode)
+    del kw["spp"]
+    stab = args[1]
+    pair = torch.nonzero(stab[2] == -3.0).flatten().tolist()
+    far = torch.nonzero(stab[2] == -6.0).flatten().tolist()
+    assert len(pair) == 2 and len(far) == 1
+    hits = torch.full((3, 32), -2, dtype=torch.int32)
+    mk._queue(*args, 16, 0, 2, hits=hits, **kw)
+    ekw = {k: kw[k] for k in ("width", "max_depth", "t_min", "jitter",
+                              "has_motion", "seed")}
+    assert sw.explain_items(*args, 16, 0, hits, hits, **ekw) is None
+    b, i = (int(x) for x in torch.nonzero(hits == pair[0])[-1])
+    for col, want in ((pair[1], True), (far[0], False), (-2, False)):
+        got = hits.clone()
+        got[b, i] = col
+        assert sw.explain_items(*args, 16, 0, got, hits,
+                                **ekw).tolist() == [want]
 
 
 def test_queue_fold_matches_slot_sums():
@@ -99,9 +207,8 @@ def test_queue_fold_matches_slot_sums():
     scene, cam = rtt.scenes.random_bouncing(width=8, height=8, device="cpu")
     args, kw = mk._launch_args(scene, cam, 5, spp=4, max_depth=4,
                                t_min=1e-3, jitter=True, unroll=8)
-    want, _ = mk._trace_slots_reference(*args, mk._slot_table(64, "cpu"),
-                                        **kw)
-    del kw["bounds"], kw["cull"]
+    del kw["bounds"], kw["records"], kw["cull"]
+    want = mk._trace_slots_reference(*args, _slots(64), **kw)
     before = (mk.LAUNCHES, dict(mk.MODE_LAUNCHES))
     got = mk._trace_queue(*args, 64, **kw)
     assert (mk.LAUNCHES, mk.MODE_LAUNCHES) == before
@@ -121,9 +228,9 @@ def test_queue_fold_matches_slot_sums():
     args, kw = mk._launch_args(scene, cam, 5, spp=4, max_depth=4,
                                t_min=1e-3, jitter=True,
                                unroll=mk._resolve_tiling(scene))
-    sums, _ = mk._trace_slots_reference(*args, mk._slot_table(64, "cpu"),
-                                        **kw)
-    img = rtt.render_megakernel(scene, cam, 5, cfg, passes=0)
+    del kw["bounds"], kw["records"], kw["cull"]
+    sums = mk._trace_slots_reference(*args, _slots(64), **kw)
+    img = rtt.render_megakernel(scene, cam, 5, cfg)
     assert torch.equal(img, (sums[:, :64].T.reshape(8, 8, 3) / 4.0))
 
 
@@ -134,7 +241,7 @@ def test_queue_groups_keep_the_fold_order(monkeypatch):
     scene, cam = rtt.scenes.random_bouncing(width=6, height=4, device="cpu")
     args, kw = mk._launch_args(scene, cam, 9, spp=5, max_depth=3,
                                t_min=1e-3, jitter=True, unroll=8)
-    del kw["bounds"], kw["cull"]
+    del kw["bounds"], kw["records"], kw["cull"]
     whole = mk._trace_queue(*args, 24, **kw)
     monkeypatch.setattr(mk, "QUEUE_BYTES", 2 * 12 * 24)
     assert mk._queue_group(5, 24) == 2
@@ -209,7 +316,7 @@ def test_render_megakernel_queue_stats_refuse_on_cpu():
     scene, cam = rtt.scenes.random_bouncing(width=4, height=4, device="cpu")
     args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
                                t_min=1e-3, jitter=False, unroll=8)
-    del kw["bounds"], kw["cull"]
+    del kw["bounds"], kw["records"], kw["cull"]
     with pytest.raises(ValueError, match="nothing to trace"):
         mk._trace_queue(*args, 0, **kw)
     with pytest.raises(ValueError, match="8k"):

@@ -195,8 +195,9 @@ def test_streamed_residency_rule():
     bound rows. At the default chunk of 512 a 100k-sphere field (196
     chunks in 49 superclusters) needs 19,488 bytes; the rule gives out
     near 6.9 M columns. fits_stream counts the streamed megakernel's (the
-    camera and the chunk bound rows) and gives out near 7.4 M columns;
-    fits_shared stops at n_pad 3,416."""
+    camera, its warps' staging of 4 words a record, 9 with motion, and the
+    chunk bound rows) and gives out near 7.37 M columns (7.29 M with
+    motion); fits_shared stops at n_pad 3,416."""
     chunk = tables.DEFAULT_STREAM_CHUNK
     assert chunk == 512
     assert tables._stream_counts(
@@ -209,10 +210,15 @@ def test_streamed_residency_rule():
         13_500 * chunk, 0, stream=chunk, sc_group=0) <= tables.SHARED_LIMIT
     assert tables.wavefront_shared_bytes(
         13_600 * chunk, 0, stream=chunk, sc_group=0) > tables.SHARED_LIMIT
-    assert tables.stream_shared_bytes(
-        14_500 * chunk, 0, chunk) <= tables.SHARED_LIMIT
-    assert tables.stream_shared_bytes(
-        14_600 * chunk, 0, chunk) > tables.SHARED_LIMIT
+    assert tables.stream_shared_bytes(100_352, 0, chunk, False) == 4 * (
+        20 + 4 * 32 * 4 + 4 * 196)
+    assert tables.stream_shared_bytes(100_352, 0, chunk, True) == 4 * (
+        20 + 4 * 32 * 9 + 4 * 196)
+    for motion, fits in ((False, 14_395), (True, 14_235)):
+        assert tables.stream_shared_bytes(
+            fits * chunk, 0, chunk, motion) <= tables.SHARED_LIMIT
+        assert tables.stream_shared_bytes(
+            (fits + 1) * chunk, 0, chunk, motion) > tables.SHARED_LIMIT
     field, _ = rtt.scenes.sphere_field(n=3500, width=8, device="cpu")
     assert tables.fits_stream(field) and not tables.fits_shared(field)
     assert tables.fits_wavefront(field)
