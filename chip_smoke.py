@@ -20,8 +20,13 @@ gathers and the eager replay); the forward render of large scenes,
 ``render_fast(engine="auto")`` on ``sphere_field`` at 100k, 10k and 64k
 spheres (512x288, 16 spp, depth 8: scripts/bench_culling.py's defaults),
 which resolves to the wavefront engine, then the streamed megakernel on the
-100k scene; and one ``engine="recorded"`` value and gradient on the 100k
-scene through the streamed record kernel. Before them the wavefront kernel
+100k scene; one ``engine="recorded"`` value and gradient on the 100k
+scene through the streamed record kernel; and the dense integrator, plain
+torch (the flagship at 2 spp through ``render_fast(engine="xla")`` against
+the megakernel's image, one ``engine="dense"`` value and gradient, a
+nested-checker scene through ``"auto"``, ``fit`` with its defaults). The
+gather forward is held bit for bit against its plain version and timed at
+the shape the train step launches it. Before them the wavefront kernel
 is held against its plain version launch by launch in its three table
 modes, the record kernel in its two, the megakernel's culled and streamed
 modes against the full-table megakernel and their plain versions, the two
@@ -48,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -58,10 +64,11 @@ from rayz_tpu_torch.ops import _build, diffkernel as dk
 from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, rng
 from rayz_tpu_torch.ops import sweep as sw
 from rayz_tpu_torch.ops import tables as tb, wavefront as wf
-# shared with tune ab: the gather backward's shapes and synthetic indices,
+# shared with tune ab: the gathers' shapes and synthetic indices,
 # the sweep's ptxas and SASS facts, the wavefront's per-launch times
-from rayz_tpu_torch.tune import (GATHER_BWD_SHAPES, gather_indices,
-                                 ptxas_facts, sass_sweep, wavefront_launches)
+from rayz_tpu_torch.tune import (GATHER_BWD_SHAPES, GATHER_FWD_SHAPES,
+                                 gather_indices, ptxas_facts, sass_sweep,
+                                 wavefront_launches)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden_deterministic.ppm")
@@ -403,43 +410,92 @@ def gather_bwd_shape(r: int, p: int, dev, g) -> tuple:
     return out
 
 
-def gather_phase(dev):
-    """Gather kernels vs plain versions: the forward at a flagship replay
-    step's shape, the backward at GATHER_BWD_SHAPES; returns {name:
-    (max_abs_err, kernel ms, plain ms, bound ms, bound by, library ms)},
-    the backward's at the recorded-pp flagship pass's shape (the main
-    path's). The library call computes the same function in one PyTorch
-    call (index_select over the table with a zero row appended, index_add_
-    into the table and a spare row), on indices mapped outside the
-    timing."""
-    r, p, c = GATHER_BWD_SHAPES[0][0], 512, 20
-    g = np.random.default_rng(0)
+def device_ms(fn, n: int) -> float:
+    """Mean device milliseconds of the kernels ``fn`` launches, over ``n``
+    calls after a warm-up, by torch.profiler: at a shape where a launch
+    takes less device time than its host wrapper, CUDA events around a
+    loop time the host's enqueueing instead."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        total += ev.cuda_time_total if us is None else us
+    return total / 1e3 / n
+
+
+def gather_fwd_shape(r: int, p: int, transposed: bool, dev, g) -> tuple:
+    """The forward at one shape: bit-identical to the plain version and to
+    index_select (over the table with a zero row appended; its transpose
+    for the [C, R] layout, taken outside the timing) in both layouts.
+    Returns (0.0, kernel ms, plain ms, bound ms, bound by, index_select
+    ms, the other layout's kernel ms, kernel device ms, index_select
+    device ms) in the path's layout: CUDA events, then torch.profiler's
+    device time."""
+    c = 20
     idx = gather_indices(r, p, dev, g)
     tab = torch.from_numpy(g.standard_normal((p, c)).astype(np.float32))
     tab = tab.to(dev)
-    for transposed in (False, True):
-        out = pr._gather_fwd(tab, idx, transposed)
-        if not torch.equal(out, pr._gather_fwd_reference(tab, idx,
-                                                          transposed)):
-            raise AssertionError(f"gather forward (transposed={transposed}) "
-                                 "differs from plain")
     tgt = torch.where((idx >= 0) & (idx < p), idx.long(), p)
     tab_z = torch.cat([tab, torch.zeros((1, c), device=dev)])
-    out = pr._gather_fwd(tab, idx, False)
-    if not torch.equal(torch.index_select(tab_z, 0, tgt), out):
-        raise AssertionError("gather forward differs from index_select")
-    res = {"gather_fwd": (0.0, event_ms(
-        lambda: pr._gather_fwd(tab, idx, False), 20), event_ms(
-        lambda: pr._gather_fwd_reference(tab, idx, False), 20),
-        *bound(nbytes(tab, idx, out), 0.0),
-        event_ms(lambda: torch.index_select(tab_z, 0, tgt), 20))}
+    tab_zt = tab_z.T.contiguous()
+
+    def library(t):
+        return (torch.index_select(tab_zt, 1, tgt) if t
+                else torch.index_select(tab_z, 0, tgt))
+    ms = {}
+    for t in (False, True):
+        out = pr._gather_fwd(tab, idx, t)
+        if not torch.equal(out, pr._gather_fwd_reference(tab, idx, t)):
+            raise AssertionError(f"gather forward R={r} P={p} "
+                                 f"(transposed={t}) differs from plain")
+        if not torch.equal(out, library(t)):
+            raise AssertionError(f"gather forward R={r} P={p} "
+                                 f"(transposed={t}) differs from "
+                                 "index_select")
+        del out
+        ms[t] = event_ms(lambda t=t: pr._gather_fwd(tab, idx, t), 10)
+    out = pr._gather_fwd(tab, idx, transposed)
+    res = (0.0, ms[transposed],
+           event_ms(lambda: pr._gather_fwd_reference(tab, idx, transposed),
+                    3),
+           *bound(nbytes(tab, idx, out), 0.0),
+           event_ms(lambda: library(transposed), 10), ms[not transposed],
+           device_ms(lambda: pr._gather_fwd(tab, idx, transposed), 10),
+           device_ms(lambda: library(transposed), 10))
+    del out, tgt, idx
+    torch.cuda.empty_cache()
+    return res
+
+
+def gather_phase(dev):
+    """Gather kernels vs plain versions: the forward at GATHER_FWD_SHAPES,
+    the backward at GATHER_BWD_SHAPES; returns {name: (max_abs_err, kernel
+    ms, plain ms, bound ms, bound by, library ms)} at the recorded-pp
+    flagship pass's shape (the main path's, [C, R]). The library call
+    computes the same function in one PyTorch call (index_select over the
+    table with a zero row appended, index_add_ into the table and a spare
+    row), on indices mapped outside the timing."""
+    g = np.random.default_rng(1)
+    fwd = [gather_fwd_shape(r, p, t, dev, g) for r, p, t in GATHER_FWD_SHAPES]
+    for (r, p, t), f in zip(GATHER_FWD_SHAPES, fwd):
+        lay = ("[C, R]", "[R, C]")
+        phase("gather", f"forward R={r} P={p}: bit-identical to plain and to "
+                        f"index_select in both layouts; {lay[not t]} "
+                        f"{f[1]:.4f} ms ({f[3] / f[1]:.1%} of its "
+                        f"{f[3]:.4f} ms bound, {f[4]}) vs plain "
+                        f"{f[2]:.4f}, index_select {f[5]:.4f} ms; "
+                        f"{lay[t]} {f[6]:.4f} ms; device time (profiler) "
+                        f"{f[7]:.4f} ms, index_select {f[8]:.4f} ms")
+    res = {"gather_fwd": fwd[0][:6]}
+    g = np.random.default_rng(0)
     bwd = [gather_bwd_shape(r, p, dev, g) for r, p in GATHER_BWD_SHAPES]
     res["gather_bwd"] = bwd[1][:6]
-    phase("gather", f"R={r} P={p} ({int((idx == 0).sum())} rays on row 0): "
-                    "forward bit-identical to plain in both layouts, "
-                    f"{res['gather_fwd'][1]:.4f} ms vs plain "
-                    f"{res['gather_fwd'][2]:.4f}, index_select "
-                    f"{res['gather_fwd'][5]:.4f} ms")
     for (r, p), b in zip(GATHER_BWD_SHAPES, bwd):
         phase("gather", f"backward R={r} P={p}, both layouts: bit-identical "
                         f"across launches, within {b[6]:.3g} of each row's "
@@ -1967,6 +2023,163 @@ def large_train_phase(dev, smi: str) -> tuple:
     return launches["streamed"], (err, k_ms, p_ms, b_ms, b_by)
 
 
+#: The dense integrator's phase: the flagship scene at full width through
+#: render_fast(engine="xla"), spp cut to 2, in chunks of 65,536 rays; one
+#: value and gradient of pixel_loss(engine="dense") at spp 1.
+DENSE = dict(spp=2, chunk=65_536, grad_spp=1)
+#: Share of channels of the dense render within STOCHASTIC_ATOL of the
+#: megakernel's at the same seed: the two trace the same paths but round
+#: differently, so a near tie (a glass coin, a grazing hit) parts a path,
+#: more often the deeper the paths.
+DENSE_MATCH = 0.9
+
+
+def kernel_launches() -> int:
+    """Launches counted by every kernel wrapper of the port."""
+    return (mk.LAUNCHES + wf.LAUNCHES + sum(pr.LAUNCHES.values())
+            + sum(dk.LAUNCHES.values()))
+
+
+def reset_launches() -> None:
+    mk.LAUNCHES = 0
+    wf.LAUNCHES = 0
+    for counts in (mk.MODE_LAUNCHES, pr.LAUNCHES, dk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def nested_checker_scene(dev):
+    """tests/test_render.py's six-deep checker scene: nested checkers,
+    which only the dense integrator shades."""
+    b = rtt.SceneBuilder()
+    cur = b.add_solid_texture((0.9, 0.1, 0.1))
+    other = b.add_solid_texture((0.1, 0.1, 0.9))
+    for lvl in range(5):
+        cur = b.add_checker_texture(1.6 / (2 ** lvl), cur, other)
+    b.add_sphere((0, -100.5, -2), 100.0, b.add_diffuse(texture=cur))
+    b.add_sphere((0, 0, -2), 0.5, b.add_diffuse(texture=cur))
+    cam = rtt.make_camera(width=64, height=64, vfov=55.0, focus_dist=1.0,
+                          look_from=(0, 0, 0), look_at=(0, 0, -1),
+                          device=dev)
+    return b.build(device=dev), cam
+
+
+def dense_phase(dev, smi: str) -> None:
+    """The dense integrator on the card (plain torch, no kernel of the
+    port): the golden, independent of the matmul precision setting; the
+    flagship at full width through render_fast(engine="xla") against the
+    megakernel's image at the same seed; one value and gradient of
+    pixel_loss(engine="dense"); a nested-checker scene through
+    render_fast("auto") against the same render on the CPU; fit with its
+    defaults."""
+    scene, cam, cfg = golden_scene(dev)
+    img = rtt.render(scene, cam, 0, cfg)
+    step, frac = golden_check(img)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("medium")
+    try:
+        loose = rtt.render(scene, cam, 0, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    if not torch.equal(img, loose):
+        raise AssertionError("the dense render depends on the matmul "
+                             "precision setting")
+    phase("dense", f"golden through render: max step {step}, {frac:.4%} of "
+                   "channels off; the same bits with TF32 matmuls allowed")
+
+    f = FLAGSHIP
+    scene, cam = rtt.scenes.random_bouncing(width=f["width"],
+                                            height=f["height"], device=dev)
+    cfg = rtt.RenderConfig(spp=DENSE["spp"], max_depth=f["depth"],
+                           chunk_size=DENSE["chunk"])
+    rays = f["width"] * f["height"] * cfg.spp
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    img, sec = timed(lambda: rtt.render_fast(scene, cam, 1, cfg,
+                                             engine="xla"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if kernel_launches():
+        raise AssertionError("the dense render launched a kernel of the port")
+    if not (bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+            and img.shape == (f["height"], f["width"], 3)):
+        raise AssertionError("dense flagship image not finite/shaped")
+    ref = rtt.render_megakernel(scene, cam, 1, cfg)
+    share = float(((img - ref).abs() <= STOCHASTIC_ATOL).double().mean())
+    mean_diff = float((img.mean((0, 1)) - ref.mean((0, 1))).abs().max())
+    if share < DENSE_MATCH or mean_diff > BLOCK_MEAN_ATOL:
+        raise AssertionError(f"dense vs megakernel: {share:.4%} of channels "
+                             f"within {STOCHASTIC_ATOL}, image means "
+                             f"{mean_diff} apart")
+    phase("dense", f"render_fast(xla) {f['width']}x{f['height']} "
+                   f"{cfg.spp}spp d{cfg.max_depth}, chunks of {cfg.chunk_size}: "
+                   f"{sec * 1e3:.1f} ms wall, {rays / sec / 1e6:.4f} "
+                   f"Mrays/s, peak {peak:.3f} GB, "
+                   f"no kernel launched; {share:.4%} of channels within "
+                   f"{STOCHASTIC_ATOL} of the megakernel's image at the same "
+                   f"seed, image means within {mean_diff:.3g} | {smi}")
+
+    gcfg = cfg._replace(spp=DENSE["grad_spp"])
+    target = rtt.render_fast(scene, cam, 0, gcfg)
+    params = train_params(scene)
+
+    def value_and_grad():
+        loss = rtt.pixel_loss(params, scene, cam, 3, target, gcfg, "dense")
+        return loss, torch.autograd.grad(loss, list(params.values()),
+                                         allow_unused=True)
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads), sec = timed(value_and_grad)
+    loss = loss.detach()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_grads("dense", loss, dict(zip(params, grads)))
+    phase("dense", f"pixel_loss(dense) value and gradient {f['width']}x"
+                   f"{f['height']} {gcfg.spp}spp d{gcfg.max_depth}, remat, "
+                   f"chunks of {gcfg.chunk_size}: {sec * 1e3:.1f} ms, peak "
+                   f"{peak:.3f} GB, loss {loss.item():.6g}, gradients finite "
+                   f"({', '.join(k for k, g in zip(params, grads) if g is not None)})")
+
+    scene, cam = nested_checker_scene(dev)
+    cfg = rtt.RenderConfig(spp=4, max_depth=4)
+    if rtt.pick_engine(scene, "auto") != "xla":
+        raise AssertionError("auto did not pick the dense integrator for "
+                             "nested checkers")
+    img = rtt.render_fast(scene, cam, 5, cfg)
+    ref = rtt.render_fast(scene.to("cpu"), cam.to("cpu"), 5, cfg)
+    share = float(((img.cpu() - ref).abs() <= STOCHASTIC_ATOL).double()
+                  .mean())
+    agr = agreement(img.cpu(), ref)
+    if share < DENSE_MATCH or agr["block"] > BLOCK_MEAN_ATOL:
+        raise AssertionError(f"nested checkers, card vs CPU: {share:.4%} "
+                             f"of channels within {STOCHASTIC_ATOL}, {agr}")
+    phase("dense", f"six-deep checker 64x64 {cfg.spp}spp d{cfg.max_depth} "
+                   f"through render_fast(auto) = xla: {share:.4%} of channels "
+                   f"within {STOCHASTIC_ATOL} of the same render on the CPU")
+    # the recorders cannot shade nested checkers: allow_dense degrades, loud
+    params = {"tex_color": scene.tex_color.clone().requires_grad_(True)}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        loss = rtt.pixel_loss(params, scene, cam, 6, img, cfg, "recorded",
+                              allow_dense=True)
+    dense = rtt.pixel_loss(params, scene, cam, 6, img, cfg, "dense")
+    if (not any(issubclass(w.category, RuntimeWarning) for w in caught)
+            or loss.item() != dense.item()):
+        raise AssertionError("allow_dense did not degrade to the dense "
+                             "engine with a RuntimeWarning")
+    phase("dense", "pixel_loss(engine='recorded', allow_dense=True) on it: "
+                   "RuntimeWarning, the dense engine's loss "
+                   f"{loss.item():.6g}")
+
+    scene, cam = rtt.scenes.random_bouncing(width=64, height=36, device=dev)
+    cfg = rtt.RenderConfig(spp=2, max_depth=8)
+    target = rtt.render_fast(scene, cam, 0, cfg)
+    _, hist = rtt.fit(scene, cam, target, config=cfg, steps=2)
+    if len(hist) != 2 or not all(np.isfinite(hist)):
+        raise AssertionError(f"fit with its defaults: {hist}")
+    phase("dense", f"fit(defaults: engine dense, every trainable field) on "
+                   f"random_bouncing 64x36 {cfg.spp}spp d{cfg.max_depth}, 2 "
+                   f"Adam steps: losses {hist[0]:.6g}, {hist[1]:.6g}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2146,6 +2359,10 @@ def main() -> int:
     large = large_phase(dev, smi)
     torch.cuda.empty_cache()
     streamed_launches, large_rec = large_train_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 16. the dense integrator (plain torch) ----
+    dense_phase(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
               bound_by, library_ms=None):

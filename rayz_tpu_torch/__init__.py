@@ -1,18 +1,19 @@
 """rayz_tpu_torch — the PyTorch + CUDA port of ``rayz_tpu``.
 
 A second package beside the JAX reference, laid out the same way
-(``models/``, ``ops/``, ``diff/``, ``io/``). Plain tensor code is PyTorch;
+(``models/``, ``ops/``, ``diff/``, ``io/``, ``utils/``). Plain tensor code is PyTorch;
 the render, record, gather and replay kernels are hand-written CUDA for
 Hopper (``csrc/``), built at first use. This package imports torch and
-numpy, never JAX.
+numpy, never JAX. The dense integrator (``render``) is plain torch.
 """
 
 from .io import read_ppm, to_u8, write_png, write_ppm
 from .models import (Camera, Scene, SceneBuilder, camera_from_numpy,
-                     make_camera, scene_from_numpy)
+                     generate_rays, make_camera, scene_from_numpy)
 from .models import scenes
-from .ops import (RenderConfig, pick_engine, render_diff, render_diff_pp,
-                  render_fast, render_megakernel, render_wavefront)
+from .ops import (RenderConfig, pick_engine, render, render_diff,
+                  render_diff_pp, render_fast, render_jit, render_megakernel,
+                  render_wavefront, trace_rays)
 from .diff import (DEFAULT_TRAINABLE, extract_params, fit, inject_params,
                    make_train_step, params_from_numpy, pixel_loss)
 
@@ -24,9 +25,13 @@ __all__ = [
     "SceneBuilder",
     "make_camera",
     "camera_from_numpy",
+    "generate_rays",
     "scene_from_numpy",
     "scenes",
     "RenderConfig",
+    "render",
+    "render_jit",
+    "trace_rays",
     "render_fast",
     "render_megakernel",
     "render_wavefront",

@@ -1,8 +1,9 @@
 """Command-line renderer, mirroring the reference CLI: positional image
 width, optional output path (default: PPM to stdout), timed render printing
 rays/s and us/ray in the reference's format. Extras beyond the reference:
-scene selection, spp/depth/seed flags, PNG output by extension, and the
-device to render on.
+scene selection, spp/depth/seed flags, the engine and the dense
+integrator's chunk size, PNG output by extension, and the device to render
+on.
 
 Usage:
     python -m rayz_tpu_torch 512 out.ppm
@@ -50,10 +51,15 @@ def main(argv=None) -> int:
                    help="max bounces (reference default 50)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--t-min", type=float, default=1e-3)
+    p.add_argument("--chunk", type=int, default=None,
+                   help="rays per chunk of the dense integrator (memory "
+                        "bound; engine xla)")
     p.add_argument("--engine", default="auto", choices=ENGINES,
                    help="render engine; auto picks the megakernel for scenes "
-                        "whose tables fit one block's shared memory and the "
-                        "wavefront for larger ones (xla is not ported yet)")
+                        "whose tables fit one block's shared memory, the "
+                        "wavefront for larger ones and the dense integrator "
+                        "(xla) for nested checker textures and beyond the "
+                        "streamed tables' limits")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernel (and fails "
                         "without a GPU); cpu runs the plain torch version")
@@ -62,7 +68,8 @@ def main(argv=None) -> int:
     dev = _device(args.device)
     scene, camera = scenes.SCENES[args.scene](width=args.width,
                                               height=args.height, device=dev)
-    cfg = RenderConfig(spp=args.spp, max_depth=args.depth, t_min=args.t_min)
+    cfg = RenderConfig(spp=args.spp, max_depth=args.depth, t_min=args.t_min,
+                       chunk_size=args.chunk)
     engine = pick_engine(scene, args.engine)
 
     def run():

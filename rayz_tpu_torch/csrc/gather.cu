@@ -8,11 +8,32 @@
 //
 // Forward: rows = tab[idx], an index outside [0, P) giving a zero row (the
 // TPU builds a one-hot per 2048-ray block and contracts it on the MXU, in
-// three bf16 terms, because its vector unit cannot gather; Hopper can). One
-// thread per output element, in either layout: [R, C] (gather_rows) or
-// [C, R] (gather_rows_T, rays on columns). Output stores are coalesced;
-// the table is a few KB and stays in L1/L2. Bound: device-memory bandwidth
-// (4 bytes of index per ray, 4 * C bytes of rows).
+// three bf16 terms, because its vector unit cannot gather; Hopper can), in
+// either layout: [R, C] (gather_rows, the "recorded" engine's per-bounce
+// gathers: R = 262,144 on P = 512 rows, or 147,456 on a large scene's
+// 100,352) or [C, R] (gather_rows_T, rays on columns: the fused replay's
+// one gather of a pass, R = K * slots = 29,360,128 on the flagship's first
+// pass, a 2.35 GB output). Bound: device-memory bandwidth, one read of the
+// 4-byte indices and one write of the 4 * C bytes of each ray's row.
+// Design (gather_fwd_kernel): a grid-stride loop, the grid sized to what
+// the SMs hold at once, rows moved as float4s of 4 columns. [C, R]: a
+// thread takes a quad of rays, reads their indices in one aligned int4
+// load (a scalar tail where R % 4 != 0), range-checks each once (-1
+// selects the zero row) and transposes the quad's four float4s so that for
+// each column it stores 4 consecutive rays as one float4 (a warp stores
+// 128 consecutive floats of a column). [R, C]: a thread takes one float4
+// of the output (column quad w % 5 of ray
+// w / 5 at C = 20), so a warp stores 512 consecutive bytes (a thread
+// storing its own 80-byte row, lanes 80 bytes apart, half-filled each
+// sector a store touched: 5.48 ms at 29,360,128 rays on an H100, against
+// 0.915). Stores are streaming
+// (st.global.cs): the output does not fit the 50 MB L2 and is not read
+// again by this kernel. Where the table fits kFwdStageBytes of shared
+// memory and each block reads at least kFwdStageRatio rows per staged row,
+// each block stages it once; else rows are read through the read-only
+// cache (a large scene's 8 MB table). C must be a multiple of 4.
+// Only the element offsets are 64-bit. A copy, so its result equals the
+// plain version's bit for bit.
 //
 // Backward: d_tab[p, c] = sum of g[r, c] over the rays r with idx[r] = p. It
 // must be deterministic, as the TPU's contraction is: two launches on the
@@ -55,30 +76,121 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
 constexpr int kFwdThreads = 256;
+constexpr int kFwdStageBytes = 48 * 1024;  // no opt-in needed up to here
+constexpr int kFwdStageRatio = 4;  // rows read per staged row, at least
 
-__global__ void gather_fwd_kernel(const float* __restrict__ tab, int p_rows,
-                                  int cols, const int* __restrict__ idx,
-                                  int rays, int transposed,
-                                  float* __restrict__ out) {
-  const int64_t e =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= static_cast<int64_t>(rays) * cols) return;
-  int r, c;
-  if (transposed) {  // out [C, R]
-    c = static_cast<int>(e / rays);
-    r = static_cast<int>(e % rays);
-  } else {  // out [R, C]
-    r = static_cast<int>(e / cols);
-    c = static_cast<int>(e % cols);
+
+// Columns 4q .. 4q + 3 of `row` of a [P, C] table (C % 4 == 0), or zeros
+// for row -1.
+template <bool kStaged>
+__device__ __forceinline__ float4 row_quad(const float* src, int cols,
+                                           int row, int q) {
+  if (row < 0) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* p = reinterpret_cast<const float4*>(src + row * cols) + q;
+  return kStaged ? *p : __ldg(p);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// kStaged: the table copied to shared memory first; else read from device
+// memory. C % 4 == 0; tab and idx are 16-byte aligned. Work items: [C, R]
+// quads of rays, [R, C] the output's float4s.
+template <bool kStaged>
+__global__ void __launch_bounds__(kFwdThreads)
+    gather_fwd_kernel(const float* __restrict__ tab, int p_rows, int cols,
+                      const int* __restrict__ idx, int rays, int transposed,
+                      float* __restrict__ out) {
+  extern __shared__ float4 staged[];
+  const int nq = cols >> 2;
+  const float* src = tab;
+  if (kStaged) {
+    const float4* t4 = reinterpret_cast<const float4*>(tab);
+    for (int e = threadIdx.x; e < p_rows * nq; e += blockDim.x)
+      staged[e] = __ldg(t4 + e);
+    __syncthreads();
+    src = reinterpret_cast<const float*>(staged);
   }
-  const int i = idx[r];
-  out[e] = (i >= 0 && i < p_rows) ? tab[static_cast<int64_t>(i) * cols + c]
-                                  : 0.0f;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!transposed) {  // out [R, C]: float4 w is column quad w % nq of ray
+                      // w / nq; a warp stores 512 consecutive bytes
+    const int items = rays * nq;
+    for (int w = first; w < items; w += stride) {
+      const int r = w / nq;
+      const int i = __ldg(idx + r);
+      const int row =
+          static_cast<unsigned>(i) < static_cast<unsigned>(p_rows) ? i : -1;
+      __stcs(reinterpret_cast<float4*>(out) + w,
+             row_quad<kStaged>(src, cols, row, w - r * nq));
+    }
+    return;
+  }
+  // out [C, R]: column c of the quad k at c * R + 4k
+  const int quads = (rays + 3) >> 2;
+  const bool col_vec = (rays & 3) == 0;  // columns 16-byte aligned
+  for (int k = first; k < quads; k += stride) {
+    const int r0 = 4 * k;
+    const int n = min(4, rays - r0);
+    int i[4];
+    if (n == 4) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(idx) + k);
+      i[0] = v.x, i[1] = v.y, i[2] = v.z, i[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) i[j] = j < n ? __ldg(idx + r0 + j) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      i[j] = static_cast<unsigned>(i[j]) < static_cast<unsigned>(p_rows)
+                 ? i[j] : -1;
+    for (int q = 0; q < nq; ++q) {
+      const float4 v0 = row_quad<kStaged>(src, cols, i[0], q);
+      const float4 v1 = row_quad<kStaged>(src, cols, i[1], q);
+      const float4 v2 = row_quad<kStaged>(src, cols, i[2], q);
+      const float4 v3 = row_quad<kStaged>(src, cols, i[3], q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* o = out + static_cast<int64_t>(4 * q + j) * rays + r0;
+        const float4 v = make_float4(lane_of(v0, j), lane_of(v1, j),
+                                     lane_of(v2, j), lane_of(v3, j));
+        if (col_vec) {
+          __stcs(reinterpret_cast<float4*>(o), v);
+        } else {
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            if (m < n) __stcs(o + m, lane_of(v, m));
+        }
+      }
+    }
+  }
+}
+
+// Blocks of gather_fwd_kernel<kStaged> one SM holds at once with `smem`
+// bytes of dynamic shared memory, times the SMs (the last answer cached per
+// device: a path launches at one table size).
+template <bool kStaged>
+int64_t fwd_grid_cap(int smem) {
+  static int64_t cap[64];
+  static int at[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) dev = 0;
+  if (!cap[dev] || at[dev] != smem) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gather_fwd_kernel<kStaged>, kFwdThreads, smem);
+    cap[dev] = static_cast<int64_t>(std::max(1, sms)) * std::max(1, per_sm);
+    at[dev] = smem;
+  }
+  return cap[dev];
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -399,14 +511,35 @@ __global__ void gather_bwd_pieces_sum_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
+// tab [P, C] f32, idx [R] int32 and out ([R, C], or [C, R] when
+// transposed) f32, contiguous, tab and idx 16-byte aligned, C % 4 == 0.
 extern "C" int rayz_gather_fwd(const float* tab, int p_rows, int cols,
                                const int* idx, int rays, int transposed,
                                float* out, void* stream) {
-  const int64_t n = static_cast<int64_t>(rays) * cols;
-  const int64_t blocks = (n + kFwdThreads - 1) / kFwdThreads;
-  gather_fwd_kernel<<<static_cast<unsigned int>(blocks), kFwdThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      tab, p_rows, cols, idx, rays, transposed, out);
+  if (rays <= 0) return static_cast<int>(cudaSuccess);
+  if ((cols & 3) || (reinterpret_cast<uintptr_t>(idx) & 15) ||
+      (reinterpret_cast<uintptr_t>(tab) & 15))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t items = transposed ? (static_cast<int64_t>(rays) + 3) / 4
+                                   : static_cast<int64_t>(rays) * (cols / 4);
+  if (items >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+  const int64_t want = (items + kFwdThreads - 1) / kFwdThreads;
+  const int64_t stage = static_cast<int64_t>(p_rows) * cols * 4;
+  if (stage <= kFwdStageBytes) {
+    const int64_t grid =
+        std::min(want, fwd_grid_cap<true>(static_cast<int>(stage)));
+    if (rays >= static_cast<int64_t>(kFwdStageRatio) * grid * p_rows) {
+      gather_fwd_kernel<true><<<static_cast<unsigned int>(grid), kFwdThreads,
+                                stage, s>>>(tab, p_rows, cols, idx, rays,
+                                            transposed, out);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  const int64_t grid = std::min(want, fwd_grid_cap<false>(0));
+  gather_fwd_kernel<false><<<static_cast<unsigned int>(grid), kFwdThreads, 0,
+                             s>>>(tab, p_rows, cols, idx, rays, transposed,
+                                  out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-from .camera import Camera, camera_from_numpy, make_camera
+from .camera import Camera, camera_from_numpy, generate_rays, make_camera
 from .scene import (
     DIFFUSE_HEMISPHERE,
     DIFFUSE_UNIT_SPHERE,
@@ -17,6 +17,7 @@ __all__ = [
     "Camera",
     "make_camera",
     "camera_from_numpy",
+    "generate_rays",
     "Scene",
     "SceneBuilder",
     "scene_from_numpy",

@@ -3,9 +3,9 @@
 PyTorch counterpart of :mod:`rayz_tpu.models.camera`. The basis/viewport
 precompute is done in float64 numpy on the host, term for term as in the JAX
 package, and cast to the render dtype, so both packages hold identical
-camera vectors. Ray generation happens inside the megakernel (spawn with
-jitter, defocus and time); the batched ``generate_rays`` of the dense
-integrator is not part of this package yet.
+camera vectors. The kernels spawn their camera rays themselves (jitter,
+defocus and time); :func:`generate_rays`, the dense integrator's batched
+form, computes the same rays from the same draws.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from .scene import resolve_device
 
-__all__ = ["Camera", "make_camera", "camera_from_numpy"]
+__all__ = ["Camera", "make_camera", "camera_from_numpy", "generate_rays"]
 
 _DEG_TO_RAD = math.pi / 180.0
 _VECTORS = ("look_from", "px_du", "px_dv", "px_origin", "defocus_u",
@@ -123,3 +123,25 @@ def make_camera(
         height=int(height),
         width=int(width),
     )
+
+
+def generate_rays(camera: Camera, px_x, px_y, seed=None, sample: int = 0):
+    """Batched Camera.getRay (camera.zig:59-77) for integer pixel
+    coordinates ``px_x``/``px_y`` of any one shape [...]: returns (origins
+    [..., 3], directions [..., 3], times [...]) in the camera's dtype.
+
+    ``seed=None`` is the reference's deterministic path (no jitter, origin
+    at look_from, time 0). With a seed, the ray is sample ``sample`` (from
+    0) of that render as the megakernel spawns it: jitter, defocus disk and
+    time from the draws keyed by (seed, pixel, sample), through
+    :func:`rayz_tpu_torch.ops.diffkernel._camera_rays`. (The JAX function
+    takes a ``jax.random`` key instead.)"""
+    from ..ops.diffkernel import _camera_rays
+
+    x = torch.as_tensor(px_x, device=camera.device)
+    y = torch.as_tensor(px_y, device=camera.device)
+    shape = torch.broadcast_shapes(x.shape, y.shape)
+    pix = (y.long() * camera.width + x.long()).expand(shape).reshape(-1)
+    o, d, tm = _camera_rays(camera, 0 if seed is None else int(seed),
+                            pix.to(torch.int32), sample, seed is not None)
+    return o.reshape(*shape, 3), d.reshape(*shape, 3), tm.reshape(shape)

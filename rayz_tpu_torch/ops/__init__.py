@@ -1,5 +1,8 @@
 from .engine import pick_engine, render_fast
-from .integrator import RenderConfig
+from .integrator import RenderConfig, render, render_jit, trace_rays
+from .intersect import (HitRecord, intersect, intersect_spheres,
+                        intersect_triangles)
+from .shade import scatter, schlick_reflectance, sky_color, texture_value
 from .megakernel import render_megakernel
 from .pathrec import (gather_rows, gather_rows_T, record_pp, render_diff_pp,
                       render_diff_pp_flat, replay_pp, supports_pp)
@@ -10,6 +13,17 @@ from .wavefront import render_wavefront
 
 __all__ = [
     "RenderConfig",
+    "render",
+    "render_jit",
+    "trace_rays",
+    "intersect",
+    "intersect_spheres",
+    "intersect_triangles",
+    "HitRecord",
+    "scatter",
+    "schlick_reflectance",
+    "sky_color",
+    "texture_value",
     "render_fast",
     "render_megakernel",
     "render_wavefront",

@@ -522,31 +522,34 @@ def replay_paths(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
 # the sample passes and the image-level entry point
 # --------------------------------------------------------------------------
 
-def _make_rand(seed: int, pix: torch.Tensor, sample: int,
+def _make_rand(seed: int, pix: torch.Tensor, sample,
                max_depth: int) -> torch.Tensor:
-    """[max_depth, 5, R] f32 randoms of sample ``sample`` (from 0) of the
-    flat pixel ids ``pix``: bounce b draws 5-8 under the megakernel's key
+    """[max_depth, 5, R] f32 randoms of sample ``sample`` (from 0; an int,
+    or an [R] tensor, one per ray) of the flat pixel ids ``pix``: bounce b
+    draws 5-8 under the megakernel's key
     ``step_key(slot_key(seed, pixel), sample + 1, b)`` (megakernel.py:375
     counts samples from 1 and bounces from 0), through :func:`_key_draws`:
     the unit vector (draws 5-6), u^(1/3) by exp/log (7), the Schlick
     uniform (8)."""
     key0 = rng.slot_key(seed, pix)[None, :]
     bounce = torch.arange(max_depth, device=pix.device)[:, None]
-    key = rng.step_key(key0, torch.full_like(key0, sample + 1), bounce)
+    key = rng.step_key(key0, torch.as_tensor(sample + 1, device=pix.device),
+                       bounce)
     return torch.stack(_key_draws(key, rng.draw_bits), dim=1)
 
 
-def _camera_rays(camera: Camera, seed: int, pix: torch.Tensor, sample: int,
+def _camera_rays(camera: Camera, seed: int, pix: torch.Tensor, sample,
                  jitter: bool):
-    """The megakernel's camera ray of sample ``sample`` (from 0) of the
-    pixels ``pix``: ``_spawn`` with draws 0-4 under bounce 0's key, in the
+    """The megakernel's camera ray of sample ``sample`` (from 0; an int, or
+    an [R] tensor) of the pixels ``pix``: ``_spawn`` with draws 0-4 under
+    bounce 0's key, in the
     camera's dtype (an f64 camera spawns in f64 from the f32 draws, so with
     jitter off the rays are JAX's ``generate_rays`` bit for bit; the
     recorder takes them rounded to f32). Returns (origin [R, 3], direction
     [R, 3], time [R])."""
     cam = _camera_vector(camera, camera.dtype)
     key0 = rng.slot_key(seed, pix)
-    key = rng.step_key(key0, torch.full_like(key0, sample + 1),
+    key = rng.step_key(key0, torch.as_tensor(sample + 1, device=pix.device),
                        torch.zeros_like(key0))
     pxf = (pix % camera.width).to(camera.dtype)
     pyf = (pix // camera.width).to(camera.dtype)
@@ -630,8 +633,8 @@ def render_diff(scene: Scene, camera: Camera, seed: int,
         if scene.deep_checker:
             raise ValueError(
                 "record/replay resolves only ONE level of checker nesting; "
-                "nested-checker scenes need the dense engine (ROADMAP queue "
-                "1 item 4)")
+                "nested-checker scenes need the dense engine "
+                "(engine='dense')")
         raise ValueError("record/replay needs a non-empty scene (spheres "
                          "and/or triangles)")
     if camera.device != scene.device:

@@ -831,8 +831,9 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
         if scene.deep_checker:
             raise ValueError(
                 "megakernel resolves only ONE level of checker nesting; this "
-                "scene nests checkers inside checkers (the dense integrator, "
-                "ROADMAP queue 1 item 4, will render it)")
+                "scene nests checkers inside checkers: render it with the "
+                "dense integrator (render, or render_fast with engine 'xla' "
+                "or 'auto')")
         raise ValueError("megakernel needs a non-empty scene (spheres and/or "
                          "triangles)")
     if camera.device != scene.device:

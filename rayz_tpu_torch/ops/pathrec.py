@@ -446,6 +446,12 @@ def _gather_fwd(tab, idx, transposed: bool):
     if not idx.is_contiguous():
         raise ValueError("idx must be contiguous")
     (p, c), r = tab.shape, idx.shape[0]
+    if c % 4:
+        raise ValueError(f"the gather kernel moves rows as float4s: C must "
+                         f"be a multiple of 4, got {c}")
+    # its vector loads need 16-byte alignment, which a view may lack
+    tab, idx = (x if x.data_ptr() % 16 == 0 else x.clone()
+                for x in (tab, idx))
     out = torch.empty((c, r) if transposed else (r, c), dtype=torch.float32,
                       device=idx.device)
     if r == 0:
@@ -1282,8 +1288,8 @@ def render_diff_pp(scene: Scene, camera: Camera, seed: int,
         if scene.deep_checker:
             raise ValueError(
                 "record/replay resolves only ONE level of checker nesting; "
-                "nested-checker scenes need the dense engine (ROADMAP queue "
-                "1 item 4)")
+                "nested-checker scenes need the dense engine "
+                "(engine='dense')")
         raise ValueError("record/replay needs a non-empty scene (spheres "
                          "and/or triangles)")
     if camera.device != scene.device:

@@ -43,7 +43,8 @@ slots, 112 iterations), the bounce-indexed recorder's resident launch on one
 flagship pass and on the tree's ``RECORD_GROUP`` passes side by side
 (``record_resident``: ms a pass, idle lanes, the tail after its ray
 counter drained), its streamed pass on the 100k scene (``record_paths``,
-1 spp, depth 8, its tables built in the call) and the gather backward at
+1 spp, depth 8, its tables built in the call), the gather forward at
+:data:`GATHER_FWD_SHAPES` in each path's layout and the gather backward at
 :data:`GATHER_BWD_SHAPES` in the [C, R] layout, each in CUDA-event
 milliseconds; and once per tree the sweep kernels' ptxas report and the
 sphere sweep's SASS instructions per column (``sass_sweep``). The
@@ -73,6 +74,14 @@ LARGE = dict(width=512, spp=16, depth=8)  # scripts/bench_culling.py:58-60
 #: K*R rows (112 iterations x 262,144 slots) and the large recorded step's
 #: pass (sphere_field 100k at 512x288: 147,456 rays, 100,352 rows).
 GATHER_BWD_SHAPES = ((262_144, 512), (29_360_128, 512), (147_456, 100_352))
+#: The gather forward's shapes (rays R, table rows P, whether its path
+#: takes the [C, R] layout),
+#: here and in chip_smoke.py: the recorded-pp flagship pass's one gather of
+#: K*R rows in the [C, R] layout the fused replay reads (the main path's),
+#: the "recorded" step's per-bounce [R, C] gather, and the large recorded
+#: step's on sphere_field 100k's table.
+GATHER_FWD_SHAPES = ((29_360_128, 512, True), (262_144, 512, False),
+                     (147_456, 100_352, False))
 
 
 def gather_indices(r: int, p: int, dev, g) -> torch.Tensor:
@@ -513,6 +522,14 @@ def render() -> None:
               dk._make_rand(1, pix, 0, LARGE["depth"]))
     out["record_streamed"] = _event_ms(lambda: dk.record_paths(
         field, *inputs, max_depth=LARGE["depth"], t_min=1e-3), 3)
+    g = np.random.default_rng(1)
+    out["gather_fwd"] = []
+    for r, p, t in GATHER_FWD_SHAPES:
+        idx = gather_indices(r, p, "cuda", g)
+        tab = torch.randn((p, 20), device="cuda")
+        out["gather_fwd"].append(_event_ms(
+            lambda: pr._gather_fwd(tab, idx, t), 10))
+        torch.cuda.empty_cache()
     g = np.random.default_rng(0)
     out["gather_bwd"] = []
     for r, p in GATHER_BWD_SHAPES:
@@ -614,7 +631,9 @@ def ab(trees, rounds: int) -> None:
                   f"{statistics.median(res['recorded_step']):.4f} Mrays/s; "
                   f"record_pp first pass {res['record_pp']:.3f} ms; "
                   f"streamed record pass "
-                  f"{res['record_streamed']:.3f} ms; gather backward "
+                  f"{res['record_streamed']:.3f} ms; gather forward "
+                  + ", ".join(f"{ms:.4f}" for ms in res["gather_fwd"])
+                  + " ms; gather backward "
                   + ", ".join(f"{ms:.4f}" for ms in res["gather_bwd"])
                   + f" ms; recorded step peak "
                   f"{res['recorded_step_peak_gb']:.3f} GB | {card}",
@@ -651,6 +670,10 @@ def ab(trees, rounds: int) -> None:
                    for key in _FORWARD + ("recorded_pp_step", "recorded_step")]
         series += [(f"{key} ms", [r[key] for r in runs[t]])
                    for key in ("record_pp", "record_streamed")]
+        series += [(f"gather forward R={r_} P={p_} "
+                    f"{'[C, R]' if t_ else '[R, C]'} ms",
+                    [r["gather_fwd"][i] for r in runs[t]])
+                   for i, (r_, p_, t_) in enumerate(GATHER_FWD_SHAPES)]
         series += [(f"gather backward R={r_} P={p_} ms",
                     [r["gather_bwd"][i] for r in runs[t]])
                    for i, (r_, p_) in enumerate(GATHER_BWD_SHAPES)]

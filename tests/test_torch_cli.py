@@ -49,9 +49,18 @@ def test_cuda_device_without_gpu_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("engine", ["xla"])
 def test_unported_engines_raise(engine, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["16", str(tmp_path / "x.png"), "--scene", "two_sphere",
-              "--engine", engine, "--device", "cpu"])
+    """``--engine xla`` raised until the dense integrator was ported; now
+    it renders through it, and ``--chunk`` (its chunk size) changes no
+    bit of the image."""
+    outs = []
+    for chunk in ([], ["--chunk", "100"]):
+        out = tmp_path / f"x{len(chunk)}.ppm"
+        assert main(["16", str(out), "--scene", "two_sphere", "--spp", "2",
+                     "--depth", "3", "--engine", engine, "--device", "cpu",
+                     *chunk]) == 0
+        outs.append(read_ppm(str(out)))
+    assert outs[0].shape == (16, 16, 3) and outs[0].max() > 0
+    assert (outs[0] == outs[1]).all()
 
 
 def test_wavefront_engine_renders(tmp_path):

@@ -216,10 +216,11 @@ def test_unported_paths_raise():
     cfg = rtt.RenderConfig(spp=1, max_depth=2, jitter=False)
     params = rtt.extract_params(scene)
     target = torch.zeros((16, 16, 3))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rtt.pixel_loss(params, scene, cam, 0, target, cfg, "dense")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rtt.make_train_step(None, cfg, engine="dense")
+    # the dense engine (ROADMAP queue 1 item 4) raised here until it was
+    # ported; it is the default now
+    loss = rtt.pixel_loss(params, scene, cam, 0, target, cfg, "dense")
+    assert loss.shape == () and bool(torch.isfinite(loss))
+    assert callable(rtt.make_train_step(None, cfg, engine="dense"))
     with pytest.raises(ValueError, match="unknown engine"):
         rtt.make_train_step(None, cfg, engine="fused")
     with pytest.raises(NotImplementedError, match="item 9"):
