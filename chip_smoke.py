@@ -23,9 +23,16 @@ which resolves to the wavefront engine, then the streamed megakernel on the
 100k scene; one ``engine="recorded"`` value and gradient on the 100k
 scene through the streamed record kernel; and the dense integrator, plain
 torch (the flagship at 2 spp through ``render_fast(engine="xla")`` against
-the megakernel's image, one ``engine="dense"`` value and gradient, a
-nested-checker scene through ``"auto"``, ``fit`` with its defaults). The
-gather forward is held bit for bit against its plain version and timed at
+the megakernel's image and its peak memory at 2 and 8 spp, one
+``engine="dense"`` value and gradient, a nested-checker scene through
+``"auto"``, ``fit`` with its defaults); last the pixel-sharded paths, two
+ranks sharing the card over gloo (the flagship through
+``render_megakernel_sharded``, each rank's queue launch at its pixel
+offset, the image assembled on rank 0 against the one-process render bit
+for bit, and a full-width ``"recorded-pp"`` mesh train step against this
+process's gradients), then a world of one over NCCL. The flagship's queue
+launch is also split in two at a pixel offset and held against the one
+launch. The gather forward is held bit for bit against its plain version and timed at
 the shape the train step launches it. Before them the wavefront kernel
 is held against its plain version launch by launch in its three table
 modes, the record kernel in its two, the megakernel's culled and streamed
@@ -807,6 +814,7 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
                              f"{torch.equal(kimg, img)}")
     ex = explain_pixels(scene, cam, 1, cfg, kimg, pimg,
                         "flagship queue vs plain")
+    off = offset_launches(args, kw, n, cfg.spp, out, out_p, acc)
     st = [int(x) for x in stats.tolist()]
     seg, resweeps, lane_trips, claimed = st[0], st[5], st[6], st[7]
     q_bound = bound(nbytes(*args, out), seg * args[1].shape[1]
@@ -823,6 +831,17 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
                       f"all explained by the near-tie rule); fold {f_ms:.4f} "
                       f"ms (plain {fp_s * 1e3:.3f}, torch.sum {lib_ms:.4f}), "
                       f"bit-identical to plain")
+    phase("flagship", f"row 1 at a pixel offset (the sharded path's launch): "
+                      f"two launches of {off['half']} and {n - off['half']} "
+                      f"pixels (p0 = 0 and {off['half']}) equal the one "
+                      f"launch bit for bit, their folds its sums; the p0 = "
+                      f"{off['half']} launch vs its plain version "
+                      f"{off['items']:.4%} of items bit-identical (the plain "
+                      f"version at p0 equals the plain launch's rows, so "
+                      f"every difference is one explained above), max abs "
+                      f"{off['err']:.3g}; kernel {off['ms']:.3f} ms for "
+                      f"those pixels, the one launch {q_ms:.3f} ms (PERF.md "
+                      f"row 1 before the offset: 34.403 ms)")
     phase("flagship", f"queue counters: {seg} segments in {lane_trips} "
                       f"lane-trips of the warps that ran (idle lanes "
                       f"{1 - seg / lane_trips:.4f}); {resweeps} re-sweeps in "
@@ -839,7 +858,7 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
                       f"{tb.shared_bytes(args[1].shape[1], args[2].shape[1])} "
                       "B of shared memory admitted per block "
                       f"({4 * (20 + 9 * args[1].shape[1])} B used)")
-    return dict(queue_err=queue_err,
+    return dict(queue_err=max(queue_err, off["err"]),
                 queue=(q_ms, p_s * 1e3, *q_bound),
                 fold=(fold_err, f_ms, fp_s * 1e3, *f_bound, lib_ms))
 
@@ -2025,13 +2044,40 @@ def large_train_phase(dev, smi: str) -> tuple:
 
 #: The dense integrator's phase: the flagship scene at full width through
 #: render_fast(engine="xla"), spp cut to 2, in chunks of 65,536 rays; one
-#: value and gradient of pixel_loss(engine="dense") at spp 1.
-DENSE = dict(spp=2, chunk=65_536, grad_spp=1)
+#: value and gradient of pixel_loss(engine="dense") at spp 1; its peak
+#: memory again at 8 spp.
+DENSE = dict(spp=2, chunk=65_536, grad_spp=1, peak_spp=8)
 #: Share of channels of the dense render within STOCHASTIC_ATOL of the
 #: megakernel's at the same seed: the two trace the same paths but round
 #: differently, so a near tie (a glass coin, a grazing hit) parts a path,
 #: more often the deeper the paths.
 DENSE_MATCH = 0.9
+
+
+def offset_launches(args, kw, n: int, spp: int, out, out_p, acc) -> dict:
+    """Row 1 at a pixel offset: the flagship's queue launch split in two
+    halves, the second at p0 = n/2, against the one launch ``out`` (bit
+    for bit), its folds against the one fold ``acc``, and the p0 launch
+    against its plain version at p0 (which must equal the plain launch's
+    rows ``out_p``)."""
+    half = n // 2
+    lo = mk._queue(*args, half, 0, spp, **kw)
+    hi = mk._queue(*args, n - half, 0, spp, p0=half, **kw)
+    ms = event_ms(lambda: mk._queue(*args, n - half, 0, spp, p0=half, **kw),
+                  3)
+    plain = mk._queue_reference(*args, n - half, 0, spp, p0=half, **kw)
+    sums = torch.cat([mk._fold(x, torch.zeros((3, x.shape[2]),
+                                              device=x.device))
+                      for x in (lo, hi)], dim=1)
+    checks = {"halves == one launch": torch.equal(torch.cat([lo, hi], 2),
+                                                  out),
+              "folded halves == one fold": torch.equal(sums, acc),
+              "plain at p0 == plain rows": torch.equal(plain,
+                                                       out_p[:, :, half:])}
+    if not all(checks.values()):
+        raise AssertionError(f"row 1 at a pixel offset: {checks}")
+    return dict(half=half, ms=ms, err=float((hi - plain).abs().max()),
+                items=float((hi == plain).all(dim=1).double().mean()))
 
 
 def kernel_launches() -> int:
@@ -2062,6 +2108,33 @@ def nested_checker_scene(dev):
                           look_from=(0, 0, 0), look_at=(0, 0, -1),
                           device=dev)
     return b.build(device=dev), cam
+
+
+def dense_peaks(scene, cam, cfg, peak: int, smi: str) -> None:
+    """The dense render's peak memory at DENSE["peak_spp"] against ``peak``,
+    the one at ``cfg.spp`` with the same chunk: within 5%, and below half
+    of what the stacked form (every pass's [H*W, 3] radiance kept, then a
+    concatenated copy) would add for the extra passes."""
+    cfg8 = cfg._replace(spp=DENSE["peak_spp"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    img, sec = timed(lambda: rtt.render_fast(scene, cam, 1, cfg8,
+                                             engine="xla"))
+    peak8 = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("dense 8-spp image not finite")
+    stacked = 2 * 12 * cam.width * cam.height * (cfg8.spp - cfg.spp)
+    grow = peak8 - peak
+    if abs(grow) > 0.05 * peak or grow > stacked / 2:
+        raise AssertionError(f"dense peak {peak} B at {cfg.spp} spp, "
+                             f"{peak8} B at {cfg8.spp}: it grows with spp")
+    phase("dense", f"peak memory of render_fast(xla) {cam.width}x"
+                   f"{cam.height} d{cfg.max_depth}, chunks of "
+                   f"{cfg.chunk_size}: {peak} B at {cfg.spp} spp, {peak8} B "
+                   f"at {cfg8.spp} spp ({grow:+d} B, "
+                   f"{grow / peak:+.4%}; the stacked form would add about "
+                   f"{stacked} B); {cfg8.spp} spp in {sec * 1e3:.1f} ms | "
+                   f"{smi}")
 
 
 def dense_phase(dev, smi: str) -> None:
@@ -2099,6 +2172,7 @@ def dense_phase(dev, smi: str) -> None:
     img, sec = timed(lambda: rtt.render_fast(scene, cam, 1, cfg,
                                              engine="xla"))
     peak = torch.cuda.max_memory_allocated() / 1e9
+    dense_peaks(scene, cam, cfg, torch.cuda.max_memory_allocated(), smi)
     if kernel_launches():
         raise AssertionError("the dense render launched a kernel of the port")
     if not (bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
@@ -2178,6 +2252,221 @@ def dense_phase(dev, smi: str) -> None:
     phase("dense", f"fit(defaults: engine dense, every trainable field) on "
                    f"random_bouncing 64x36 {cfg.spp}spp d{cfg.max_depth}, 2 "
                    f"Adam steps: losses {hist[0]:.6g}, {hist[1]:.6g}")
+
+
+#: Ranks of the sharded phase, sharing the one card over gloo (NCCL takes
+#: one rank per device), and the seconds they may take together.
+SHARDED_RANKS = 2
+SHARDED_LIMIT_S = 420
+#: The mesh train step against this process: the loss relative to the
+#: single-process pixel_loss's, and each gradient field, relative to its
+#: largest entry, against the same two pixel shares differentiated here and
+#: added (the ranks' arithmetic but for the transport). Against the
+#: single-process gradients the bound is GRAD_RTOL: a field's gradient sums
+#: millions of terms of both signs in float32, and split in two shares it
+#: sums them in another order.
+MESH_RTOL = 1e-5
+
+
+def sharded_rank(rank: int, port: int, out: str) -> None:
+    """One of SHARDED_RANKS processes that share the card over gloo: the
+    flagship at full width through render_megakernel_sharded (its pixel
+    shard, counted, then timed), the image assembled on rank 0, and one
+    "recorded-pp" mesh train step at 32 spp (counted; SGD at lr 0 keeps
+    the all-reduced gradients in .grad). Rank 0 saves what it saw to
+    ``out``."""
+    from rayz_tpu_torch import parallel
+    from rayz_tpu_torch.parallel.mesh import shard_range
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize(f"127.0.0.1:{port}", SHARDED_RANKS, rank,
+                        backend="gloo", device="cuda")
+    try:
+        mesh = parallel.make_mesh("cuda")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        f = FLAGSHIP
+        scene, cam = rtt.scenes.random_bouncing(width=f["width"],
+                                                height=f["height"],
+                                                device=dev)
+        cfg = rtt.RenderConfig(spp=f["spp"], max_depth=f["depth"])
+        reset_launches()
+        img = mk.render_megakernel_sharded(scene, cam, 1, cfg, mesh)
+        torch.cuda.synchronize()
+        render_launches = dict(mk.MODE_LAUNCHES)
+        wall = [timed(lambda: mk.render_megakernel_sharded(
+            scene, cam, 1, cfg, mesh))[1] * 1e3 for _ in range(3)]
+        p0, p1 = shard_range(cam.width * cam.height, mesh)
+        full = parallel.assemble_global_image(img.reshape(-1, 3)[p0:p1])
+        if (full is None) != (rank != 0):
+            raise AssertionError(f"rank {rank}: assemble_global_image gave "
+                                 f"{'None' if full is None else 'an image'}")
+        target = rtt.render_megakernel(scene, cam, 0, cfg)
+        params = train_params(scene)
+        opt = torch.optim.SGD(list(params.values()), lr=0.0)
+        step = rtt.make_train_step(opt, cfg._replace(spp=MICRO_SPP), mesh,
+                                   engine="recorded-pp", with_leftover=True)
+        reset_launches()
+        (_, loss, left), step_s = timed(
+            lambda: step(params, scene, cam, 5, target))
+        if rank == 0:
+            torch.save({
+                "img": torch.from_numpy(full), "pixels": (p0, p1),
+                "render_launches": render_launches, "render_ms": wall,
+                "loss": loss.cpu(), "left": int(left),
+                "grads": {k: p.grad.cpu() for k, p in params.items()},
+                "step_launches": dict(pr.LAUNCHES), "step_s": step_s}, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(out: str) -> float:
+    """Spawn the sharded ranks and wait for them (at most
+    SHARDED_LIMIT_S); a rank that fails, or the time running out, stops
+    them all and raises. Returns the wall seconds."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(sharded_rank, args=(port, out),
+                              nprocs=SHARDED_RANKS, join=False,
+                              start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > SHARDED_LIMIT_S:
+                raise AssertionError(f"sharded ranks still running after "
+                                     f"{SHARDED_LIMIT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return time.perf_counter() - t0
+
+
+def split_grads(scene, cam, seed: int, target, cfg) -> dict:
+    """The mesh step's gradients computed in this process: each rank's
+    pixels (round-robin over SHARDED_RANKS) differentiated on its own, the
+    shares added in rank order and divided by H*W*3, as the all-reduce
+    and the step do."""
+    from rayz_tpu_torch.diff import inverse
+
+    n = cam.width * cam.height
+    total = None
+    for r in range(SHARDED_RANKS):
+        params = train_params(scene)
+        pix = torch.arange(r, n, SHARDED_RANKS, dtype=torch.int32,
+                           device=cam.device)
+        loss, _ = inverse._shard_loss(params, scene, cam, seed, target, cfg,
+                                      "recorded-pp", None, False, pix)
+        g = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x
+             for p, x in zip(params.values(), g)]
+        total = g if total is None else [a + b for a, b in zip(total, g)]
+    return {k: x / (n * 3) for k, x in zip(params, total)}
+
+
+def sharded_phase(dev, smi: str) -> None:
+    """The pixel-sharded paths on the one card: two ranks over gloo (the
+    flagship through render_megakernel_sharded, its image assembled on rank
+    0 against this process's render bit for bit; a "recorded-pp" mesh step
+    at full width against this process's pixel_loss), then a world of one
+    over NCCL, the backend of a machine with a card per rank, rendering
+    the flagship the same way. One card shows no scaling: the wall time of
+    two ranks sharing it is printed as that."""
+    from rayz_tpu_torch import parallel
+
+    f = FLAGSHIP
+    out = os.path.join(ROOT, "build", "sharded", "rank0.pt")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    torch.cuda.empty_cache()
+    wall_s = run_ranks(out)
+    got = torch.load(out, weights_only=True)
+
+    scene, cam = rtt.scenes.random_bouncing(width=f["width"],
+                                            height=f["height"], device=dev)
+    cfg = rtt.RenderConfig(spp=f["spp"], max_depth=f["depth"])
+    img = rtt.render_fast(scene, cam, 1, cfg)
+    want = {"resident": 1, "culled": 0, "streamed": 0, "fold": 1}
+    if got["render_launches"] != want:
+        raise AssertionError(f"sharded render launches "
+                             f"{got['render_launches']}, expected {want}")
+    if not torch.equal(got["img"].reshape(img.shape), img.cpu()):
+        raise AssertionError("two ranks' assembled image differs from the "
+                             "single-process render")
+    phase("sharded", f"{SHARDED_RANKS} ranks over gloo on one card, "
+                     f"render_megakernel_sharded 512x512 {cfg.spp}spp "
+                     f"d{cfg.max_depth}: rank 0 traced pixels "
+                     f"{got['pixels']} in {got['render_launches']['resident']}"
+                     f" queue launch and {got['render_launches']['fold']} "
+                     "fold at its offset; the image assembled on rank 0 "
+                     "equals the single-process render bit for bit; wall "
+                     "time of two ranks sharing one card (no scaling "
+                     "figure): " + ", ".join(f"{t:.1f}" for t in
+                                             got["render_ms"])
+                     + " ms a render, the gather through host memory "
+                     f"included | {smi}")
+
+    target = rtt.render_megakernel(scene, cam, 0, cfg)
+    mcfg = cfg._replace(spp=MICRO_SPP)
+    loss, left, grads = loss_and_grads(scene, cam, 5, target, mcfg)
+    split = split_grads(scene, cam, 5, target, mcfg)
+
+    def rel(a, b):  # a field with no rows (no triangles here) agrees
+        if not b.numel():
+            return 0.0
+        return float((a - b.cpu()).abs().max()
+                     / b.abs().max().clamp_min(1e-30).cpu())
+    rel_loss = abs(float(got["loss"]) - loss.item()) / loss.item()
+    rel_split = {k: rel(got["grads"][k], g) for k, g in split.items()}
+    rel_one = {k: rel(got["grads"][k], g) for k, g in grads.items()
+               if g is not None}
+    if (got["left"] or left or rel_loss > MESH_RTOL
+            or max(rel_split.values()) > MESH_RTOL
+            or max(rel_one.values()) > GRAD_RTOL):
+        raise AssertionError(f"mesh step vs this process: leftover "
+                             f"{got['left']} / {left}, loss {rel_loss}, "
+                             f"gradients vs the same shares {rel_split}, vs "
+                             f"one share {rel_one}")
+    if not all(got["step_launches"].values()):
+        raise AssertionError(f"mesh step launches {got['step_launches']}")
+    phase("sharded", f"make_train_step(mesh, recorded-pp) 512x512 "
+                     f"{MICRO_SPP}spp d{cfg.max_depth} over the two ranks: "
+                     f"loss {float(got['loss']):.6g}, leftover 0, within "
+                     f"{rel_loss:.3g} of the single-process pixel_loss "
+                     f"(bound {MESH_RTOL}); gradients within "
+                     f"{max(rel_split.values()):.3g} of the two shares "
+                     f"differentiated here and added (bound {MESH_RTOL}), "
+                     f"within {max(rel_one.values()):.3g} of the single-"
+                     f"process ones (bound {GRAD_RTOL}: float32 sums in "
+                     f"another order; by field {rel_one}); rank 0 launches "
+                     f"{got['step_launches']}, {got['step_s']:.3f} s; both "
+                     f"ranks took {wall_s:.1f} s from spawn to exit")
+
+    try:
+        mesh = parallel.make_mesh("cuda")
+        backend = torch.distributed.get_backend(mesh.get_group())
+        reset_launches()
+        one = mk.render_megakernel_sharded(scene, cam, 1, cfg, mesh)
+        torch.cuda.synchronize()
+        launches = dict(mk.MODE_LAUNCHES)
+        full = parallel.assemble_global_image(one.reshape(-1, 3))
+    finally:
+        torch.distributed.destroy_process_group()
+    if launches != want or not torch.equal(one, img) or not np.array_equal(
+            full.reshape(img.shape), img.cpu().numpy()):
+        raise AssertionError(f"world of one over {backend}: launches "
+                             f"{launches}, image equal "
+                             f"{torch.equal(one, img)}")
+    phase("sharded", f"a world of one over {backend} (the store in memory): "
+                     "render_megakernel_sharded equals the single-process "
+                     "render bit for bit, and so does the assembled image")
 
 
 def main() -> int:
@@ -2363,6 +2652,10 @@ def main() -> int:
 
     # ---- 16. the dense integrator (plain torch) ----
     dense_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 17. the pixel-sharded paths ----
+    sharded_phase(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
               bound_by, library_ms=None):

@@ -1,10 +1,11 @@
 """rayz_tpu_torch — the PyTorch + CUDA port of ``rayz_tpu``.
 
 A second package beside the JAX reference, laid out the same way
-(``models/``, ``ops/``, ``diff/``, ``io/``, ``utils/``). Plain tensor code is PyTorch;
-the render, record, gather and replay kernels are hand-written CUDA for
-Hopper (``csrc/``), built at first use. This package imports torch and
-numpy, never JAX. The dense integrator (``render``) is plain torch.
+(``models/``, ``ops/``, ``diff/``, ``parallel/``, ``io/``, ``utils/``).
+Plain tensor code is PyTorch; the render, record, gather and replay
+kernels are hand-written CUDA for Hopper (``csrc/``), built at first use.
+This package imports torch and numpy, never JAX. The dense integrator
+(``render``) is plain torch.
 """
 
 from .io import read_ppm, to_u8, write_png, write_ppm
@@ -13,7 +14,7 @@ from .models import (Camera, Scene, SceneBuilder, camera_from_numpy,
 from .models import scenes
 from .ops import (RenderConfig, pick_engine, render, render_diff,
                   render_diff_pp, render_fast, render_jit, render_megakernel,
-                  render_wavefront, trace_rays)
+                  render_megakernel_sharded, render_wavefront, trace_rays)
 from .diff import (DEFAULT_TRAINABLE, extract_params, fit, inject_params,
                    make_train_step, params_from_numpy, pixel_loss)
 
@@ -34,6 +35,7 @@ __all__ = [
     "trace_rays",
     "render_fast",
     "render_megakernel",
+    "render_megakernel_sharded",
     "render_wavefront",
     "render_diff",
     "render_diff_pp",

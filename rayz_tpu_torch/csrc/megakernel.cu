@@ -93,6 +93,7 @@ struct QueueParams {
   const float* stab;  // [17, n_pad]
   const float* ttab;  // [20, m_pad]
   int n_pad, m_pad, n_pix, width, max_depth;
+  int p0;             // the pixels [p0, p0 + n_pix) of the image
   int s0, n_samples;  // the samples [s0, s0 + n_samples) of every pixel
   float t_min;
   uint32_t seed;
@@ -537,8 +538,8 @@ __global__ void __launch_bounds__(kBlock, Sweep::kMinBlocks)
           item = fresh + (rank - run_left);
         if (item < total) {
           sample = p.s0 + static_cast<int>(item / p.n_pix);
-          pix = static_cast<int>(item % p.n_pix);
-          key0 = rz::slot_key(p.seed, pix);
+          pix = static_cast<int>(item % p.n_pix);  // local; global p0 + pix
+          key0 = rz::slot_key(p.seed, p.p0 + pix);
           depth = p.max_depth;
           active = spawn = true;
         }
@@ -557,8 +558,9 @@ __global__ void __launch_bounds__(kBlock, Sweep::kMinBlocks)
     if (active) ++segments;
     const uint32_t key = rz::step_key(key0, sample + 1, p.max_depth - depth);
     if (active && spawn) {
-      rz::camera_ray(smem, static_cast<float>(pix % p.width),
-                     static_cast<float>(pix / p.width), p.jitter, key, r);
+      const int gpix = p.p0 + pix;
+      rz::camera_ray(smem, static_cast<float>(gpix % p.width),
+                     static_cast<float>(gpix / p.width), p.jitter, key, r);
       thx = thy = thz = 1.0f;
       ar = ag = ab = 0.0f;
       spawn = false;
@@ -673,7 +675,9 @@ cudaError_t launch_mode(const QueueParams& p, bool motion, cudaStream_t s,
 
 }  // namespace
 
-// The queue kernel over samples [s0, s0 + n_samples) of pixels [0, n_pix):
+// The queue kernel over samples [s0, s0 + n_samples) of the pixels [p0, p0 +
+// n_pix) of the image (keys and camera rays from the global pixel; `out`,
+// `hits` and the items indexed by the local pixel):
 // `counter` is one zeroed uint64, `out` [n_samples, 3, n_pix] f32, `stats`
 // null or [8] uint64 (segments at 0; culled and streamed also primitive
 // tests at 1, block bound tests at 2, chunk bound tests at 3 and those that
@@ -684,8 +688,9 @@ cudaError_t launch_mode(const QueueParams& p, bool motion, cudaStream_t s,
 // each traced segment's winner). `grid` receives the blocks.
 extern "C" int rayz_megakernel_queue(
     const float* cam, const float* stab, int n_pad, const float* ttab,
-    int m_pad, int n_pix, int width, int max_depth, float t_min, int jitter,
-    int has_motion, unsigned int seed, int s0, int n_samples, void* counter,
+    int m_pad, int n_pix, int p0, int width, int max_depth, float t_min,
+    int jitter, int has_motion, unsigned int seed, int s0, int n_samples,
+    void* counter,
     float* out, void* stats, int mode, const float* sblk, const float* tblk,
     const float* scb, const float* tcb, const float* recs, const float* brecs,
     int blk, int stream_cols, int cull, int* hits, int* grid, void* stream) {
@@ -696,6 +701,7 @@ extern "C" int rayz_megakernel_queue(
   p.n_pad = n_pad;
   p.m_pad = m_pad;
   p.n_pix = n_pix;
+  p.p0 = p0;
   p.width = width;
   p.max_depth = max_depth;
   p.s0 = s0;

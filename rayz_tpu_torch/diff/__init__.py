@@ -1,3 +1,4 @@
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .inverse import (
     DEFAULT_TRAINABLE,
     extract_params,
@@ -16,4 +17,7 @@ __all__ = [
     "pixel_loss",
     "make_train_step",
     "fit",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "latest_step",
 ]

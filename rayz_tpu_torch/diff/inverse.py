@@ -1,8 +1,9 @@
 """Inverse rendering: recover scene parameters by gradient descent on pixels.
 
 PyTorch counterpart of :mod:`rayz_tpu.diff.inverse`: :func:`pixel_loss`
-(inverse.py:147), :func:`make_train_step` (:188) without a mesh, and
-:func:`fit` (:312), with ``torch.optim.Adam`` in place of optax.
+(inverse.py:147), :func:`make_train_step` (:188) on one device or over a
+pixel-sharded mesh, and :func:`fit` (:312) with its checkpoints, with
+``torch.optim.Adam`` in place of optax.
 Parameters are a dict of leaf tensors keyed by scene field
 (:data:`DEFAULT_TRAINABLE`); autograd reaches them through one of three
 engines:
@@ -20,8 +21,7 @@ engines:
 A recorded engine RAISES on a scene its recorder cannot run, unless the
 caller passes ``allow_dense=True``: then it renders through the dense
 integrator with a ``RuntimeWarning``, never silently (inverse.py:97).
-Not ported yet, and raising ``NotImplementedError``: the mesh path (ROADMAP
-queue 1 item 9) and checkpoints (item 10). The render under
+The render under
 ``"recorded-pp"`` replays a float32 scene through the fused replay kernels
 and a float64 scene through the eager replay, as the JAX package does (the
 ``fused=None`` default of
@@ -29,7 +29,12 @@ and a float64 scene through the eager replay, as the JAX package does (the
 replays eagerly in the scene's dtype, as the JAX package replays in XLA.
 
 Seeds are ints; :func:`fit` draws each step's seed from an explicit
-``torch.Generator``.
+``torch.Generator``, whose state its checkpoints keep.
+
+On a mesh (:func:`rayz_tpu_torch.parallel.make_mesh`) each rank renders
+its own pixels (the draws keyed by the global pixel ids) and the
+gradients are all-reduced; the step then equals the single-device one up
+to the order of the sums.
 
 The JAX module's geometry-gradient caveat holds here too: the HEMISPHERE
 diffuse scatter is piecewise constant in the surface normal, so positions
@@ -48,9 +53,10 @@ import torch
 
 from ..models.camera import Camera
 from ..models.scene import Scene
-from ..ops.diffkernel import RECORD_STREAM_CHUNK, render_diff, supports_diff
-from ..ops.integrator import RenderConfig, render
-from ..ops.pathrec import render_diff_pp
+from ..ops.diffkernel import (RECORD_STREAM_CHUNK, render_diff,
+                              render_diff_flat, supports_diff)
+from ..ops.integrator import RenderConfig, render, render_pixels
+from ..ops.pathrec import render_diff_pp, render_diff_pp_flat
 from ..ops.tables import SHARED_LIMIT, fits_record_stream, fits_shared
 
 __all__ = [
@@ -197,15 +203,30 @@ def make_train_step(optimizer: torch.optim.Optimizer, config: RenderConfig,
     ``iters`` overrides the ``"recorded-pp"`` recording budget;
     ``strict=True`` forces the exhaustive single-pass ``spp * max_depth``,
     which never truncates; ``allow_dense`` as in :func:`pixel_loss`.
-    ``mesh`` (pixel-sharded data parallelism) is ROADMAP queue 1 item 9."""
+
+    With a 1-D ``mesh`` (:func:`rayz_tpu_torch.parallel.make_mesh`) the
+    step is data-parallel over pixels (inverse.py:230-309); call it on
+    every rank with the same arguments. Rank ``s`` of ``D`` takes the
+    pixels s, s + D, s + 2D, ... (round-robin, where the renders take
+    contiguous ranges: each rank's pixels then sample the whole image, so
+    the ranks' work and their shares of ``"recorded-pp"``'s straggling
+    samples follow the image's, and its compaction schedule, sized for a
+    share of the slots, holds on every rank; contiguous halves of the
+    flagship left 632 samples unfinished on the rank holding the ground).
+    It renders them through the engine's pixel-list render, keyed by the
+    global pixel ids, and differentiates the SUM of their squared errors.
+    The loss, every parameter gradient and the leftover are all-reduced
+    (SUM) over the mesh, and the loss and gradients divided by
+    ``H * W * 3``, so the learning rate means what it means off the mesh.
+    No pixel is padded: a rank beyond the pixels renders none."""
     _check_engine(engine)
-    if mesh is not None:
-        raise NotImplementedError("the mesh path of make_train_step is "
-                                  "ROADMAP queue 1 item 9")
     if strict:
         if iters is not None:
             raise ValueError("pass either iters or strict=True, not both")
         iters = config.spp * config.max_depth
+    if mesh is not None:
+        return _mesh_step(optimizer, config, mesh, engine, iters,
+                          with_leftover, allow_dense)
 
     def step(params, scene, camera, seed, target):
         optimizer.zero_grad(set_to_none=True)
@@ -221,13 +242,83 @@ def make_train_step(optimizer: torch.optim.Optimizer, config: RenderConfig,
     return step
 
 
+def _shard_loss(params, scene: Scene, camera: Camera, seed: int,
+                target: torch.Tensor, config: RenderConfig, engine: str,
+                iters: Optional[int], allow_dense: bool, pix: torch.Tensor):
+    """One rank's summed squared error over the global pixel ids ``pix``
+    (int32 [n], n > 0) and its leftover (0 but for a truncated
+    ``"recorded-pp"`` recording): JAX's ``_loss_grad_shard`` body. Each
+    engine renders the pixel list keyed by the global ids:
+    ``render_pixels`` (dense), ``render_diff_pp_flat`` or
+    ``render_diff_flat``."""
+    recordable = _check_recordable(scene, engine, allow_dense)
+    fitted = inject_params(scene, params)
+    tgt = target.reshape(-1, 3)[pix.long()]
+    left = torch.zeros((), dtype=torch.int64, device=camera.device)
+    kw = dict(spp=config.spp, max_depth=config.max_depth, t_min=config.t_min,
+              jitter=config.jitter)
+    px, py = pix % camera.width, pix // camera.width
+    if engine == "recorded-pp" and recordable:
+        img, left = render_diff_pp_flat(fitted, camera, seed, px, py,
+                                        iters=iters, return_leftover=True,
+                                        **kw)
+    elif engine == "recorded" and recordable:
+        img = render_diff_flat(fitted, camera, seed, px, py, **kw)
+    else:
+        img = render_pixels(fitted, camera, seed, pix, config)
+    return torch.sum((img - tgt.to(img.dtype)) ** 2), left
+
+
+def _mesh_step(optimizer, config, mesh, engine, iters, with_leftover,
+               allow_dense):
+    """The mesh path of :func:`make_train_step`."""
+    import torch.distributed as dist
+
+    group = mesh.get_group()
+
+    def step(params, scene, camera, seed, target):
+        optimizer.zero_grad(set_to_none=True)
+        n_px = camera.height * camera.width
+        pix = torch.arange(mesh.get_local_rank(), n_px, mesh.size(),
+                           dtype=torch.int32, device=camera.device)
+        leaves = list(params.values())
+        if pix.numel():
+            loss, left = _shard_loss(params, scene, camera, seed, target,
+                                     config, engine, iters, allow_dense, pix)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            loss = loss.detach()
+        else:  # more ranks than pixels: this rank adds nothing, but
+            # raises where the others raise instead of waiting for them
+            _check_recordable(scene, engine, allow_dense)
+            loss = torch.zeros((), dtype=camera.dtype, device=camera.device)
+            left = torch.zeros((), dtype=torch.int64, device=camera.device)
+            grads = [None] * len(leaves)
+        # the recorded engines' gradients can be strided views of one
+        # table; a collective reduces a dense tensor
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
+                 for p, g in zip(leaves, grads)]
+        for t in (loss, left, *grads):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        denom = n_px * 3
+        for p, g in zip(leaves, grads):
+            p.grad = g / denom
+        optimizer.step()
+        loss = loss / denom
+        if with_leftover:
+            return params, loss, left
+        return params, loss
+
+    return step
+
+
 def fit(scene: Scene, camera: Camera, target: torch.Tensor, *,
         config: RenderConfig, steps: int = 200, learning_rate: float = 1e-2,
         fields: Sequence[str] = DEFAULT_TRAINABLE, mesh=None,
         seed: int = 0, callback=None, engine: str = "dense",
         iters: Optional[int] = None, strict: bool = False,
         allow_dense: bool = False,
-        checkpoint_dir: Optional[str] = None) -> Tuple[Scene, list]:
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 50) -> Tuple[Scene, list]:
     """Run Adam on pixel L2 against ``target``; returns (fitted scene, loss
     history). Step seeds are drawn from a ``torch.Generator`` seeded with
     ``seed``. With ``engine="recorded-pp"`` every step's leftover is
@@ -235,21 +326,42 @@ def fit(scene: Scene, camera: Camera, target: torch.Tensor, *,
     straggler compaction, so loss and gradients would be biased) raises
     ``RuntimeError``; raise ``iters`` or pass ``strict=True`` to proceed.
     ``engine`` and ``allow_dense`` as in :func:`pixel_loss`: with the
-    defaults it trains through the dense integrator. ``checkpoint_dir``
-    (resume) is ROADMAP queue 1 item 10."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError("fit checkpoints are ROADMAP queue 1 item "
-                                  "10")
+    defaults it trains through the dense integrator. ``mesh`` trains
+    pixel-sharded (:func:`make_train_step`); every rank runs ``fit`` with
+    the same arguments, and a truncated recording raises on each.
+
+    With ``checkpoint_dir`` the parameters, the Adam ``state_dict``, the
+    step number and the generator's state are saved
+    (:mod:`rayz_tpu_torch.diff.checkpoint`) every ``checkpoint_every``
+    steps and after the last; a directory that holds a checkpoint already
+    RESUMES from its latest step, onto the trajectory an uninterrupted run
+    takes, bit for bit. ``steps`` counts the resumed steps too; the
+    history covers only the steps this call runs (inverse.py:312-390). On
+    a mesh rank 0 writes and every rank reads."""
     params = {f: getattr(scene, f).detach().clone().requires_grad_(True)
               for f in fields}
     optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate)
+    gen = torch.Generator().manual_seed(int(seed))
+    start = 0
+    if checkpoint_dir is not None:
+        from . import checkpoint as ckpt
+
+        last = ckpt.latest_step(checkpoint_dir)
+        if last is not None:
+            st = ckpt.restore_checkpoint(checkpoint_dir, last,
+                                         map_location=camera.device)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(st["params"][k])
+            optimizer.load_state_dict(st["optimizer"])
+            gen.set_state(st["generator"].cpu())
+            start = int(st["step"])
     check_left = engine == "recorded-pp"
     step_fn = make_train_step(optimizer, config, mesh, engine=engine,
                               iters=iters, strict=strict, with_leftover=True,
                               allow_dense=allow_dense)
-    gen = torch.Generator().manual_seed(int(seed))
     history = []
-    for i in range(steps):
+    for i in range(start, steps):
         sub = int(torch.randint(0, 2**31 - 1, (), generator=gen))
         params, loss, leftover = step_fn(params, scene, camera, sub, target)
         if check_left and int(leftover):
@@ -262,5 +374,25 @@ def fit(scene: Scene, camera: Camera, target: torch.Tensor, *,
         history.append(float(loss))
         if callback is not None:
             callback(i, float(loss), params)
+        if checkpoint_dir is not None and (
+                (i + 1) % checkpoint_every == 0 or i + 1 == steps):
+            _save(checkpoint_dir, i + 1, params, optimizer, gen, mesh)
     return inject_params(scene, {k: v.detach() for k, v in params.items()}
                          ), history
+
+
+def _save(directory: str, step: int, params, optimizer, gen, mesh) -> None:
+    """Checkpoint a fit after ``step`` steps; on a mesh rank 0 writes and
+    the ranks wait for it, so none reads a checkpoint not yet written."""
+    from . import checkpoint as ckpt
+
+    rank0 = mesh is None or mesh.get_rank() == 0
+    if rank0:
+        ckpt.save_checkpoint(directory, step, {
+            "params": {k: v.detach() for k, v in params.items()},
+            "optimizer": optimizer.state_dict(),
+            "generator": gen.get_state(), "step": step})
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.get_group())

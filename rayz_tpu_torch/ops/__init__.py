@@ -1,9 +1,10 @@
 from .engine import pick_engine, render_fast
-from .integrator import RenderConfig, render, render_jit, trace_rays
-from .intersect import (HitRecord, intersect, intersect_spheres,
+from .integrator import (RenderConfig, render, render_jit, render_pixels,
+                         trace_rays)
+from .intersect import (HitRecord, aabb_hit, intersect, intersect_spheres,
                         intersect_triangles)
 from .shade import scatter, schlick_reflectance, sky_color, texture_value
-from .megakernel import render_megakernel
+from .megakernel import render_megakernel, render_megakernel_sharded
 from .pathrec import (gather_rows, gather_rows_T, record_pp, render_diff_pp,
                       render_diff_pp_flat, replay_pp, supports_pp)
 from .diffkernel import record_paths, render_diff, replay_paths
@@ -15,17 +16,20 @@ __all__ = [
     "RenderConfig",
     "render",
     "render_jit",
+    "render_pixels",
     "trace_rays",
     "intersect",
     "intersect_spheres",
     "intersect_triangles",
     "HitRecord",
+    "aabb_hit",
     "scatter",
     "schlick_reflectance",
     "sky_color",
     "texture_value",
     "render_fast",
     "render_megakernel",
+    "render_megakernel_sharded",
     "render_wavefront",
     "pick_engine",
     "render_diff_pp",

@@ -82,9 +82,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.rayz_rng_bits.argtypes = [u, p, p, p, p, i, p, p]
     lib.rayz_rng_bits.restype = i
-    lib.rayz_megakernel_queue.argtypes = [p, p, i, p, i, i, i, i, f, i, i,
-                                          u, i, i, p, p, p, i, p, p, p, p, p,
-                                          p, i, i, i, p, p, p]
+    lib.rayz_megakernel_queue.argtypes = [p, p, i, p, i, i, i, i, i, f, i,
+                                          i, u, i, i, p, p, p, i, p, p, p, p,
+                                          p, p, i, i, i, p, p, p]
     lib.rayz_megakernel_queue.restype = i
     lib.rayz_fold.argtypes = [p, i, ctypes.c_longlong, p, p]
     lib.rayz_fold.restype = i

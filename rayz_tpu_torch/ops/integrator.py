@@ -36,7 +36,8 @@ from ..models.scene import Scene
 from .intersect import intersect
 from .shade import scatter, sky_color
 
-__all__ = ["RenderConfig", "trace_rays", "render", "render_jit"]
+__all__ = ["RenderConfig", "trace_rays", "render", "render_jit",
+           "render_pixels"]
 
 
 class RenderConfig(NamedTuple):
@@ -97,53 +98,94 @@ def trace_rays(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
     return rad
 
 
-def render(scene: Scene, camera: Camera, seed: int,
-           config: RenderConfig = RenderConfig()) -> torch.Tensor:
-    """Full render to a [H, W, 3] linear-RGB image (integrator.py:103),
-    differentiable in the scene's float tensors. The rays are the (sample,
-    pixel) pairs in sample-major order, traced in chunks of
-    ``config.chunk_size`` (None: one sample pass of every pixel at a time,
-    as in JAX; a larger chunk takes several passes at once), each chunk's
-    camera rays and bounce draws made from its pairs' keys. The passes'
-    radiance is summed in pass order and divided by ``spp``, so the image
-    does not depend on the chunking. With ``config.remat`` each chunk is
-    checkpointed too, so the backward keeps only its range of pairs and
-    traces it again (its rays and draws are counter-keyed and come out the
-    same). The image has the camera's dtype; the scene and the camera must
-    share a device."""
+def render_pixels(scene: Scene, camera: Camera, seed: int,
+                  pix: torch.Tensor,
+                  config: RenderConfig = RenderConfig()) -> torch.Tensor:
+    """Render the flat pixel ids ``pix`` (an integer tensor [n], ids
+    ``y * W + x`` of the full image) to radiance [n, 3], averaged over
+    ``config.spp``: the pixel-subset render that :func:`render` runs over
+    every pixel and a pixel shard of
+    :func:`rayz_tpu_torch.parallel.render_sharded` over its own.
+
+    The rays are the (sample, pixel) items over ``pix`` in sample-major
+    order, traced in chunks of ``config.chunk_size`` (None: one sample pass
+    of ``pix`` at a time, as in JAX; a larger chunk takes several passes at
+    once), each chunk's camera rays and bounce draws made from its items'
+    keys, which hold the global pixel id. So a pixel's radiance does not
+    depend on which other pixels are rendered with it, and any subset
+    equals the matching rows of :func:`render` bit for bit.
+
+    Each chunk's radiance is added into one [n, 3] accumulator as soon as
+    it is traced, in pass order (a chunk that spans a pass boundary is
+    split there): memory holds the accumulator and one chunk whatever the
+    spp, and the sum is the one pass after another gives. The additions
+    save no inputs, so under autograd with ``config.remat`` each chunk is
+    checkpointed and the backward keeps only the accumulator and the
+    chunks' ranges, tracing each chunk again (its rays and draws are
+    counter-keyed and come out the same). The radiance has the camera's
+    dtype; the scene, the camera and ``pix`` share a device."""
     from .diffkernel import _camera_rays, _make_rand
 
     if camera.device != scene.device:
         raise ValueError(f"camera is on {camera.device}, scene on "
                          f"{scene.device}")
-    h, w = camera.height, camera.width
-    n_px = h * w
-    items = n_px * config.spp
-    chunk = min(config.chunk_size or n_px, items)
+    if pix.dim() != 1 or pix.dtype.is_floating_point:
+        raise ValueError(f"pix must be a 1-D integer tensor, got "
+                         f"{pix.dtype} {tuple(pix.shape)}")
+    pix = pix.to(device=camera.device, dtype=torch.int32)
+    n = pix.shape[0]
+    items = n * config.spp
+    if items == 0:
+        return torch.zeros((n, 3), dtype=camera.dtype, device=camera.device)
+    chunk = min(config.chunk_size or n, items)
 
     def trace_chunk(i0: int, i1: int):
         item = torch.arange(i0, i1, dtype=torch.int64, device=camera.device)
-        pix = (item % n_px).to(torch.int32)
-        sample = item // n_px
-        o, d, tm = _camera_rays(camera, seed, pix, sample, config.jitter)
-        rand = _make_rand(seed, pix, sample, config.max_depth).to(o.dtype)
+        p = pix[item % n]
+        sample = item // n
+        o, d, tm = _camera_rays(camera, seed, p, sample, config.jitter)
+        rand = _make_rand(seed, p, sample, config.max_depth).to(o.dtype)
         return trace_rays(scene, o, d, tm, rand, max_depth=config.max_depth,
                           t_min=config.t_min, remat=config.remat)
 
-    parts = []
+    acc = None
     for i0 in range(0, items, chunk):
         i1 = min(i0 + chunk, items)
         if config.remat and torch.is_grad_enabled():
-            parts.append(checkpoint(trace_chunk, i0, i1, use_reentrant=False,
-                                    preserve_rng_state=False))
+            rad = checkpoint(trace_chunk, i0, i1, use_reentrant=False,
+                             preserve_rng_state=False)
         else:
-            parts.append(trace_chunk(i0, i1))
-    rad = (parts[0] if len(parts) == 1 else torch.cat(parts)).reshape(
-        config.spp, n_px, 3)
-    acc = rad[0]
-    for s in range(1, config.spp):
-        acc = acc + rad[s]
-    return (acc.to(camera.dtype) / config.spp).reshape(h, w, 3)
+            rad = trace_chunk(i0, i1)
+        if acc is None:
+            acc = rad.new_empty((n, 3))
+        j = i0
+        while j < i1:  # the chunk's piece of each pass it spans
+            s, a = divmod(j, n)
+            e = min(i1, (s + 1) * n)
+            piece = rad[j - i0:e - i0]
+            if s == 0:
+                acc[a:a + e - j] = piece
+            else:
+                acc[a:a + e - j] += piece
+            j = e
+    return acc.to(camera.dtype) / config.spp
+
+
+def render(scene: Scene, camera: Camera, seed: int,
+           config: RenderConfig = RenderConfig()) -> torch.Tensor:
+    """Full render to a [H, W, 3] linear-RGB image (integrator.py:103),
+    differentiable in the scene's float tensors: :func:`render_pixels`
+    over every pixel. The passes' radiance is summed in pass order and
+    divided by ``spp``, so the image does not depend on the chunking
+    (``config.chunk_size``) or on ``config.remat``, and memory does not
+    grow with the spp. The image has the camera's dtype; the scene and
+    the camera must share a device."""
+    if camera.device != scene.device:
+        raise ValueError(f"camera is on {camera.device}, scene on "
+                         f"{scene.device}")
+    h, w = camera.height, camera.width
+    pix = torch.arange(h * w, dtype=torch.int32, device=camera.device)
+    return render_pixels(scene, camera, seed, pix, config).reshape(h, w, 3)
 
 
 def render_jit(scene: Scene, camera: Camera, seed: int,

@@ -34,7 +34,8 @@ from ..models.scene import Scene
 from ..utils import vec
 
 __all__ = ["HitRecord", "intersect", "intersect_spheres",
-           "intersect_triangles"]
+           "intersect_triangles", "aabb_hit", "aabb_enclose",
+           "aabb_longest_axis", "sphere_aabb"]
 
 
 class HitRecord(NamedTuple):
@@ -194,3 +195,41 @@ def intersect(scene: Scene, origin, direction, time, t_min: float,
     normal = torch.where(front_face[:, None], normal, -normal)
     return HitRecord(t=t, point=point, normal=normal, front_face=front_face,
                      material=material.to(torch.int32), hit=hit)
+
+
+def aabb_hit(low, high, origin, direction, t_min, t_max):
+    """Batched slab test, AABB.hit (hit.zig:70-98; intersect.py:234): the
+    per-axis intervals intersected with [t_min, t_max]; a hit iff t1 > t0
+    (strict). Division by a zero direction component follows IEEE, as in
+    JAX: an infinite slab bound, or NaN where the origin lies on the slab's
+    plane, which every comparison then fails. ``low``/``high`` [..., 3]
+    broadcast against ``origin``/``direction`` [..., 3]."""
+    t0s = (low - origin) / direction
+    t1s = (high - origin) / direction
+    lo = torch.minimum(t0s, t1s)
+    hi = torch.maximum(t0s, t1s)
+    t0 = torch.maximum(lo.amax(dim=-1), torch.as_tensor(t_min, dtype=lo.dtype,
+                                                        device=lo.device))
+    t1 = torch.minimum(hi.amin(dim=-1), torch.as_tensor(t_max, dtype=hi.dtype,
+                                                        device=hi.device))
+    return t1 > t0
+
+
+def aabb_enclose(low_a, high_a, low_b, high_b):
+    """Union of two boxes, AABB.enclose (hit.zig:55-60; intersect.py:250)."""
+    return torch.minimum(low_a, low_b), torch.maximum(high_a, high_b)
+
+
+def aabb_longest_axis(low, high):
+    """Index of the widest axis (int32), AABB.longestAxis (hit.zig:62-64;
+    intersect.py:257): the first axis on a tie."""
+    return torch.argmax(high - low, dim=-1).to(torch.int32)
+
+
+def sphere_aabb(center0, velocity, radius):
+    """Box of a (possibly moving) sphere over t in [0, 1], the union of its
+    boxes at t = 0 and t = 1, Sphere.boundingBox (geom.zig:24-31;
+    intersect.py:265)."""
+    r = radius[..., None]
+    c1 = center0 + velocity
+    return aabb_enclose(center0 - r, center0 + r, c1 - r, c1 + r)

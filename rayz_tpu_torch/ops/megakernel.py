@@ -32,7 +32,10 @@ segment sweep:
   finds the plain version's winners up to near ties and grazing roots
   (:mod:`rayz_tpu_torch.ops.sweep`).
 * :func:`_trace_queue` runs a render's sample groups through them, and
-  :func:`render_megakernel` resolves the table mode.
+  :func:`render_megakernel` resolves the table mode. Every launch takes a
+  pixel offset ``p0``: it traces the pixels [p0, p0 + n) of the image,
+  keyed by their global ids, which is how
+  :func:`render_megakernel_sharded` gives each rank of a mesh its own.
 * :func:`_trace_slots_reference` is the one-thread-per-slot order of the
   samples (the JAX kernel's), the oracle of the fold's association.
 
@@ -61,7 +64,8 @@ from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
                      _stream_scene_inputs, fits_shared, pack_records,
                      shared_bytes, stream_shared_bytes, supports_scene)
 
-__all__ = ["render_megakernel", "LAUNCHES", "MODE_LAUNCHES", "MODES"]
+__all__ = ["render_megakernel", "render_megakernel_sharded", "LAUNCHES",
+           "MODE_LAUNCHES", "MODES"]
 
 #: Kernel launches made by :func:`_queue` and :func:`_fold` in this process
 #: (never by the plain version). A run that resets it and reads it back
@@ -594,18 +598,20 @@ def _queue_reference(cam, stab, ttab, n_pix: int, s0: int, n_samples: int,
                      jitter: bool, has_motion: bool, seed: int,
                      bits: Optional[Bits] = None, bounds=None, records=None,
                      cull: bool = True, stats=None,
-                     hits: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     hits: Optional[torch.Tensor] = None,
+                     p0: int = 0) -> torch.Tensor:
     """Plain torch version of one queue launch (same arguments as
     :func:`_queue`; ``bounds``, ``records`` and ``cull`` change only which
     columns the kernel skips and how it reads them, and ``stats`` counts
     what only the kernel does, so they are not read here): every (sample,
-    pixel) item of samples [s0, s0 + n_samples) through
+    pixel) item of samples [s0, s0 + n_samples) of the pixels [p0, p0 +
+    n_pix) through
     :func:`_trace_items_reference`, every column of the tables it is given
     swept (the culled and streamed modes' bounds are conservative, so over
     the same sorted tables they leave the same winners up to near ties).
     Returns the radiance [n_samples, 3, n_pix]."""
     dev = cam.device
-    pix = torch.arange(n_pix, dtype=torch.int32, device=dev)
+    pix = torch.arange(p0, p0 + n_pix, dtype=torch.int32, device=dev)
     sample = torch.arange(s0 + 1, s0 + n_samples + 1, dtype=torch.int32,
                           device=dev)
     rad = _trace_items_reference(
@@ -621,9 +627,12 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
            max_depth: int, t_min: float, jitter: bool, has_motion: bool,
            seed: int, bounds=None, records=None, cull: bool = True,
            stats: Optional[torch.Tensor] = None,
-           hits: Optional[torch.Tensor] = None) -> torch.Tensor:
+           hits: Optional[torch.Tensor] = None,
+           p0: int = 0) -> torch.Tensor:
     """One launch of the queue kernel over samples [s0, s0 + n_samples) of
-    pixels [0, n_pix): camera vector ``cam`` [18], sphere table ``stab``
+    the pixels [p0, p0 + n_pix) of the image (the draws keyed and the
+    camera rays made by the global pixel id, the outputs indexed by the
+    local one): camera vector ``cam`` [18], sphere table ``stab``
     [17, N] and triangle table ``ttab`` [20, M] (N, M multiples of 8, 0 for
     an absent class). A persistent grid whose lanes take (sample, pixel)
     items from a counter on the card and trace each to its end.
@@ -648,9 +657,9 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     global LAUNCHES, QUEUE_GRID
     dev = cam.device
     _check_tables(cam, stab, ttab, dev)
-    if n_pix <= 0 or n_samples <= 0 or s0 < 0:
-        raise ValueError(f"nothing to trace: {n_pix} pixels, samples "
-                         f"[{s0}, {s0 + n_samples})")
+    if n_pix <= 0 or n_samples <= 0 or s0 < 0 or p0 < 0:
+        raise ValueError(f"nothing to trace: pixels [{p0}, {p0 + n_pix}), "
+                         f"samples [{s0}, {s0 + n_samples})")
     mode = _mode(bounds)
     n_pad, m_pad = stab.shape[1], ttab.shape[1]
     if mode:
@@ -669,7 +678,7 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
                          "n_samples * n_pix] tensor on cam's device, for a "
                          "culled or streamed launch")
     kw = dict(width=width, max_depth=max_depth, t_min=t_min, jitter=jitter,
-              has_motion=has_motion, seed=seed, hits=hits)
+              has_motion=has_motion, seed=seed, hits=hits, p0=p0)
     if dev.type == "cpu":
         return _queue_reference(cam, stab, ttab, n_pix, s0, n_samples, **kw)
     if dev.type != "cuda":
@@ -690,7 +699,7 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.rayz_megakernel_queue(
             cam.data_ptr(), stab.data_ptr(), n_pad, ttab.data_ptr(), m_pad,
-            n_pix, width, max_depth, t_min, int(jitter), int(has_motion),
+            n_pix, p0, width, max_depth, t_min, int(jitter), int(has_motion),
             seed & rng.MASK, s0, n_samples, counter.data_ptr(),
             out.data_ptr(), None if stats is None else stats.data_ptr(),
             mode, *(None if t is None else t.data_ptr() for t in rows),
@@ -739,9 +748,10 @@ def _trace_queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
                  n_pix: int, *, width: int, spp: int, max_depth: int,
                  t_min: float, jitter: bool, has_motion: bool, seed: int,
                  bounds=None, records=None, cull: bool = True,
-                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Trace the ``spp`` samples of pixels [0, n_pix) through the queue
-    kernel and fold them: per sample group (:func:`_queue_group`) one
+                 stats: Optional[torch.Tensor] = None,
+                 p0: int = 0) -> torch.Tensor:
+    """Trace the ``spp`` samples of the pixels [p0, p0 + n_pix) through the
+    queue kernel and fold them: per sample group (:func:`_queue_group`) one
     :func:`_queue` launch in the table mode ``bounds`` selects, then one
     :func:`_fold` adding the group's samples to each pixel in sample order.
     Keys, sample numbers and the order of the sums are
@@ -756,7 +766,8 @@ def _trace_queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
         out = _queue(cam, stab, ttab, n_pix, s0, min(group, spp - s0),
                      width=width, max_depth=max_depth, t_min=t_min,
                      jitter=jitter, has_motion=has_motion, seed=seed,
-                     bounds=bounds, records=records, cull=cull, stats=stats)
+                     bounds=bounds, records=records, cull=cull, stats=stats,
+                     p0=p0)
         acc = _fold(out, acc)
     return acc
 
@@ -790,43 +801,24 @@ def _trace_shard_queue(scene: Scene, camera: Camera, seed: int,
                        n_local: int, *, spp: int, max_depth: int,
                        t_min: float, jitter: bool, unroll: int, blk: int = 0,
                        stream: int = 0, cull: bool = True,
-                       stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Trace pixels [0, n_local) through the queue kernel and its fold in
-    the table mode ``blk``/``stream`` select: JAX's ``_trace_shard``,
-    ``_trace_shard_compact`` and ``_trace_shard_streamed``. Returns flat
-    [n_local, 3] radiance sums (divide by spp for the image)."""
+                       stats: Optional[torch.Tensor] = None,
+                       p0: int = 0) -> torch.Tensor:
+    """Trace the pixels [p0, p0 + n_local) through the queue kernel and its
+    fold in the table mode ``blk``/``stream`` select: JAX's
+    ``_trace_shard``, ``_trace_shard_compact`` and
+    ``_trace_shard_streamed``. Returns flat [n_local, 3] radiance sums
+    (divide by spp for the image)."""
     args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
                             t_min=t_min, jitter=jitter, unroll=unroll,
                             blk=blk, stream=stream, cull=cull)
-    return _trace_queue(*args, n_local, stats=stats, **kw).T
+    return _trace_queue(*args, n_local, stats=stats, p0=p0, **kw).T
 
 
-def render_megakernel(scene: Scene, camera: Camera, seed: int,
-                      config: RenderConfig = RenderConfig(), *,
-                      budget: Optional[int] = None,
-                      passes: Optional[int] = None,
-                      culling: Optional[bool] = None,
-                      block_size: int = DEFAULT_BLOCK,
-                      stream: Optional[int] = None) -> torch.Tensor:
-    """Render [H, W, 3] through the megakernel on the scene's device (the
-    CUDA kernel on a GPU; the plain version on the CPU).
-
-    Resolved as ``render_pallas`` does, with the H100's limits:
-
-    * ``stream=None`` keeps the tables in shared memory where they fit
-      (:func:`fits_shared` at this ``culling``) and streams them in chunks
-      of :data:`DEFAULT_STREAM_CHUNK` otherwise; ``stream=k`` forces chunks
-      of k columns (a multiple of 16).
-    * ``culling``: resident scenes default to no culling (the full-table
-      mode); ``True`` Morton-sorts them into blocks of ``block_size`` behind
-      bound tests. Streamed scenes always test chunk and block bounds
-      (blocks of :data:`STREAM_BLOCK`) unless ``culling=False``.
-    * ``budget``/``passes``: JAX's straggler-compacted schedule, accepted
-      and ignored: every mode takes the queue (a persistent grid whose lanes
-      take (sample, pixel) items from a counter on the card, then an
-      in-order fold), which leaves no straggler tail to compact. Every
-      schedule renders the same bits."""
-    del budget, passes
+def _resolve_mode(scene: Scene, camera: Camera, culling: Optional[bool],
+                  block_size: int, stream: Optional[int]):
+    """The table mode of a megakernel render (:func:`render_megakernel`'s
+    rules): ``(unroll, blk, stream, cull)`` for :func:`_trace_shard_queue`.
+    Raises on a scene the megakernel cannot render."""
     if not supports_scene(scene):
         if scene.deep_checker:
             raise ValueError(
@@ -861,9 +853,83 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
             raise ValueError(
                 f"scene tables exceed one block's {SHARED_LIMIT} bytes of "
                 "shared memory; stream them (stream=None picks that)")
+    return unroll, blk, stream, cull
+
+
+def render_megakernel(scene: Scene, camera: Camera, seed: int,
+                      config: RenderConfig = RenderConfig(), *,
+                      budget: Optional[int] = None,
+                      passes: Optional[int] = None,
+                      culling: Optional[bool] = None,
+                      block_size: int = DEFAULT_BLOCK,
+                      stream: Optional[int] = None) -> torch.Tensor:
+    """Render [H, W, 3] through the megakernel on the scene's device (the
+    CUDA kernel on a GPU; the plain version on the CPU).
+
+    Resolved as ``render_pallas`` does, with the H100's limits:
+
+    * ``stream=None`` keeps the tables in shared memory where they fit
+      (:func:`fits_shared` at this ``culling``) and streams them in chunks
+      of :data:`DEFAULT_STREAM_CHUNK` otherwise; ``stream=k`` forces chunks
+      of k columns (a multiple of 16).
+    * ``culling``: resident scenes default to no culling (the full-table
+      mode); ``True`` Morton-sorts them into blocks of ``block_size`` behind
+      bound tests. Streamed scenes always test chunk and block bounds
+      (blocks of :data:`STREAM_BLOCK`) unless ``culling=False``.
+    * ``budget``/``passes``: JAX's straggler-compacted schedule, accepted
+      and ignored: every mode takes the queue (a persistent grid whose lanes
+      take (sample, pixel) items from a counter on the card, then an
+      in-order fold), which leaves no straggler tail to compact. Every
+      schedule renders the same bits."""
+    del budget, passes
+    unroll, blk, stream, cull = _resolve_mode(scene, camera, culling,
+                                              block_size, stream)
     h, w = camera.height, camera.width
     flat = _trace_shard_queue(scene, camera, seed, h * w, spp=config.spp,
                               max_depth=config.max_depth, t_min=config.t_min,
                               jitter=config.jitter, unroll=unroll, blk=blk,
                               stream=stream, cull=cull)
     return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)
+
+
+def render_megakernel_sharded(scene: Scene, camera: Camera, seed: int,
+                              config: RenderConfig, mesh, *,
+                              culling: Optional[bool] = None,
+                              block_size: int = DEFAULT_BLOCK,
+                              budget: Optional[int] = None,
+                              passes: Optional[int] = None) -> torch.Tensor:
+    """The megakernel render with the pixels sharded over the 1-D ``mesh``
+    (:func:`rayz_tpu_torch.parallel.make_mesh`), JAX's
+    ``render_pallas_sharded`` (megakernel.py:1823); returns the full
+    [H, W, 3] image on every rank. Call it on every rank of the mesh.
+
+    Each rank makes one :func:`_trace_shard_queue` call over its own pixels
+    [p0, p1) (:func:`rayz_tpu_torch.parallel.mesh.shard_range`): the queue
+    kernel's launches and their fold at pixel offset ``p0``, its draws keyed
+    by the global pixel ids. Then the shards are gathered in order. So the
+    image equals :func:`render_megakernel`'s bit for bit (JAX folds the
+    seed per device instead). The table modes are JAX's: resident, and
+    culled with ``culling=True``; a scene whose tables must stream raises,
+    as JAX has no sharded streamed path. ``budget``/``passes`` are
+    accepted and ignored, as by :func:`render_megakernel`."""
+    from ..parallel.mesh import gather_shards, shard_range
+
+    del budget, passes
+    if supports_scene(scene) and not fits_shared(scene, culling, block_size):
+        raise ValueError(
+            f"scene tables exceed one block's {SHARED_LIMIT} bytes of shared "
+            "memory: the sharded megakernel keeps them resident, as JAX's "
+            "does (there is no sharded streamed path); render it with "
+            "parallel.render_sharded or unsharded with render_megakernel")
+    unroll, blk, _, _ = _resolve_mode(scene, camera, culling, block_size, 0)
+    h, w = camera.height, camera.width
+    p0, p1 = shard_range(h * w, mesh)
+    if p1 > p0:
+        flat = _trace_shard_queue(scene, camera, seed, p1 - p0,
+                                  spp=config.spp, max_depth=config.max_depth,
+                                  t_min=config.t_min, jitter=config.jitter,
+                                  unroll=unroll, blk=blk, p0=p0)
+    else:  # more ranks than pixels
+        flat = torch.zeros((0, 3), dtype=torch.float32, device=camera.device)
+    img = gather_shards(flat, h * w, mesh).reshape(h, w, 3)
+    return (img / float(config.spp)).to(camera.dtype)

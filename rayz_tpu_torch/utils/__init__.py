@@ -1,3 +1,5 @@
-from . import sampling, vec
+from . import profiling, sampling, vec
+from .profiling import RenderStats, timed_render, trace
 
-__all__ = ["vec", "sampling"]
+__all__ = ["vec", "sampling", "profiling", "RenderStats", "timed_render",
+           "trace"]

@@ -457,3 +457,80 @@ def test_fit_with_defaults():
     fitted, hist = rtt.fit(scene, cam, target, config=cfg, steps=2)
     assert len(hist) == 2 and np.isfinite(hist).all()
     assert not torch.equal(fitted.tex_color, scene.tex_color)
+
+
+def _render_stacked(scene, cam, seed, cfg):
+    """The dense render before its memory repair: every chunk's radiance
+    kept, stacked to [spp, H*W, 3] and summed pass by pass afterwards. The
+    yardstick of the repaired accumulation's bits."""
+    from rayz_tpu_torch.ops.diffkernel import _camera_rays, _make_rand
+
+    n_px = cam.height * cam.width
+    items = n_px * cfg.spp
+    chunk = min(cfg.chunk_size or n_px, items)
+    parts = []
+    for i0 in range(0, items, chunk):
+        item = torch.arange(i0, min(i0 + chunk, items), dtype=torch.int64)
+        pix = (item % n_px).to(torch.int32)
+        o, d, tm = _camera_rays(cam, seed, pix, item // n_px, cfg.jitter)
+        rand = _make_rand(seed, pix, item // n_px, cfg.max_depth).to(o.dtype)
+        parts.append(rtt.trace_rays(scene, o, d, tm, rand,
+                                    max_depth=cfg.max_depth, t_min=cfg.t_min))
+    rad = torch.cat(parts).reshape(cfg.spp, n_px, 3)
+    acc = rad[0]
+    for s in range(1, cfg.spp):
+        acc = acc + rad[s]
+    return (acc / cfg.spp).reshape(cam.height, cam.width, 3)
+
+
+def _peak_bytes(fn) -> int:
+    """Most bytes the CPU allocator held at once while ``fn`` ran, from the
+    profiler's allocation and free events in time order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        fn()
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() == "[memory]"), key=lambda e: e.start_ns())
+    cur = top = 0
+    for e in events:
+        cur += e.nbytes()
+        top = max(top, cur)
+    return top
+
+
+@pytest.mark.parametrize("chunk", [None, 100, 700], ids=["pass", "chunk100",
+                                                        "chunk700"])
+def test_peak_memory_flat_in_spp(chunk):
+    """The repaired accumulation: the peak does not grow with the spp (the
+    stacked form's [spp, H*W, 3] grew it), and the image is the stacked
+    form's bit for bit (a 700-ray chunk spans passes of 512 pixels)."""
+    scene, cam = rtt.scenes.two_sphere(width=32, height=16, device="cpu")
+    peaks = {}
+    for spp in (2, 8):
+        cfg = rtt.RenderConfig(spp=spp, max_depth=3, chunk_size=chunk)
+        with torch.no_grad():
+            img = rtt.render(scene, cam, 5, cfg)
+            assert torch.equal(img, _render_stacked(scene, cam, 5, cfg))
+            peaks[spp] = _peak_bytes(lambda: rtt.render(scene, cam, 5, cfg))
+    assert peaks[8] <= 1.05 * peaks[2], peaks
+
+
+def test_render_pixels_is_any_subset_of_render():
+    """render_pixels over any subset of pixel ids, in any order and at any
+    chunking, equals the matching rows of render bit for bit; the empty
+    subset renders nothing."""
+    scene, cam = _unit_scene()
+    cfg = rtt.RenderConfig(spp=3, max_depth=4)
+    full = rtt.render(scene, cam, 2, cfg).reshape(-1, 3)
+    r = np.random.default_rng(0)
+    for n, chunk in ((1, None), (37, None), (37, 10), (100, 250)):
+        pix = torch.from_numpy(r.choice(full.shape[0], n, replace=False))
+        got = rtt.ops.render_pixels(scene, cam, 2, pix,
+                                    cfg._replace(chunk_size=chunk))
+        assert torch.equal(got, full[pix])
+    none = torch.zeros(0, dtype=torch.int64)
+    assert rtt.ops.render_pixels(scene, cam, 2, none, cfg).shape == (0, 3)
+    with pytest.raises(ValueError, match="integer"):
+        rtt.ops.render_pixels(scene, cam, 2, torch.zeros(3), cfg)

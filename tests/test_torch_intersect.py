@@ -11,7 +11,9 @@ boolean outputs (winners, hit flags, faces, materials, scattered) equal,
 apart from winners tied within that rounding (none on these rays).
 Textures and the deterministic camera rays are exact in float64 (the same
 operations in the same order); the sky and Schlick within 1e-15 relative
-(XLA may fuse a division or a power differently).
+(XLA may fuse a division or a power differently). The AABB helpers are
+exact in both dtypes, zero-direction divisions (IEEE infinities and NaN)
+included.
 """
 
 import dataclasses
@@ -41,6 +43,7 @@ from rayz_tpu_torch.utils import sampling, vec
 torch.set_num_threads(2)
 
 shade = sys.modules["rayz_tpu_torch.ops.shade"]
+ti = sys.modules["rayz_tpu_torch.ops.intersect"]
 
 STATICS = ("n_spheres", "n_triangles", "has_motion", "deep_checker",
            "tex_depth", "uniq_checker_tex", "uniq_dielectric_mat")
@@ -406,3 +409,75 @@ def test_deterministic_camera_rays_match_jax():
     assert torch.equal(o.reshape(-1, 3), ro) and torch.equal(tm.reshape(-1),
                                                              rtm)
     assert not torch.equal(o.reshape(-1, 3), got[0].reshape(-1, 3))
+
+
+def _boxes_and_rays(r, n):
+    """Random boxes and rays, with zero direction components and origins on
+    a slab's plane (IEEE infinities and 0/0 = NaN in the slab test)."""
+    a, b = r.uniform(-2, 2, (n, 3)), r.uniform(-2, 2, (n, 3))
+    low, high = np.minimum(a, b), np.maximum(a, b)
+    o = r.uniform(-4, 4, (n, 3))
+    d = r.normal(size=(n, 3))
+    d[r.random((n, 3)) < 0.2] = 0.0
+    on_plane = r.random(n) < 0.1
+    o[on_plane, 0] = low[on_plane, 0]
+    return low, high, o, d
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_aabb_helpers_match_jax(dt):
+    """aabb_hit, aabb_enclose, aabb_longest_axis and sphere_aabb against
+    rayz_tpu/ops/intersect.py:234-272 on random inputs, bit for bit (the
+    same IEEE operations)."""
+    jint = sys.modules["rayz_tpu.ops.intersect"]
+    jdt = DTYPES[dt][0]
+    r = np.random.default_rng(11)
+    low, high, o, d = (x.astype(np.dtype(jdt)) for x in
+                       _boxes_and_rays(r, 4000))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        assert np.isnan((low - o) / d).any()
+    for t_min, t_max in ((0.0, 10.0), (1e-3, 2.5)):
+        want = np.asarray(jint.aabb_hit(low, high, o, d, t_min, t_max))
+        got = ti.aabb_hit(*(torch.from_numpy(x) for x in (low, high, o, d)),
+                          t_min, t_max)
+        assert got.dtype == torch.bool and 0 < want.mean() < 1
+        np.testing.assert_array_equal(got.numpy(), want)
+    lo2, hi2 = low[::-1].copy(), high[::-1].copy()
+    for w, g in zip(jint.aabb_enclose(low, high, lo2, hi2),
+                    ti.aabb_enclose(*(torch.from_numpy(x) for x in
+                                      (low, high, lo2, hi2)))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = np.asarray(jint.aabb_longest_axis(low, high))
+    got = ti.aabb_longest_axis(torch.from_numpy(low), torch.from_numpy(high))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    rad = r.uniform(0.1, 1, 4000).astype(np.dtype(jdt))
+    for w, g in zip(jint.sphere_aabb(o, d, rad),
+                    ti.sphere_aabb(torch.from_numpy(o), torch.from_numpy(d),
+                                   torch.from_numpy(rad))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert rtt.ops.aabb_hit is ti.aabb_hit
+
+
+def test_aabb_golden():
+    """The reference's hit.zig and geom.zig cases, as
+    tests/test_intersect.py:105-135 holds JAX's helpers to them."""
+    t = torch.tensor
+    low, high = t([0.0, 0, 0]), t([1.0, 1, 1])
+    o = t([[-1.0, -1, -1]] * 3)
+    d = t([[1.0, 1, 1], [-1, -1, -1], [0.5, 0.5, 0.5]])
+    assert ti.aabb_hit(low, high, o, d, 0.0, 10.0).tolist() == [True, False,
+                                                                True]
+    assert bool(ti.aabb_hit(t([-1000.0, -2000, -1000]), t([1000.0, 2, 1000]),
+                            t([[13.0, 2, 3]]), t([[-9.6, -1.5, -2.3]]),
+                            0.0, 10.0)[0])
+    lo, hi = ti.aabb_enclose(t([-1.0, -1, -1]), t([1.0, 1, 1]),
+                             t([0.0, 0, 0]), t([2.0, 2, 2]))
+    assert lo.tolist() == [-1, -1, -1] and hi.tolist() == [2, 2, 2]
+    assert int(ti.aabb_longest_axis(t([0.0, 0, 0]), t([1.0, 3, 2]))) == 1
+    lo, hi = ti.sphere_aabb(torch.zeros(1, 3), torch.zeros(1, 3),
+                            torch.ones(1))
+    assert lo[0].tolist() == [-1, -1, -1] and hi[0].tolist() == [1, 1, 1]
+    lo, hi = ti.sphere_aabb(torch.zeros(1, 3), torch.ones(1, 3),
+                            torch.ones(1))
+    assert lo[0].tolist() == [-1, -1, -1] and hi[0].tolist() == [2, 2, 2]

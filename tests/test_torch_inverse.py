@@ -211,7 +211,7 @@ def test_check_recordable_raises():
                            cfg)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     _, _, scene, cam = _pair()
     cfg = rtt.RenderConfig(spp=1, max_depth=2, jitter=False)
     params = rtt.extract_params(scene)
@@ -223,11 +223,30 @@ def test_unported_paths_raise():
     assert callable(rtt.make_train_step(None, cfg, engine="dense"))
     with pytest.raises(ValueError, match="unknown engine"):
         rtt.make_train_step(None, cfg, engine="fused")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rtt.make_train_step(None, cfg, mesh=object(), engine="recorded-pp")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        rtt.fit(scene, cam, target, config=cfg, engine="recorded-pp",
-                checkpoint_dir="ckpt")
+    # the mesh path and fit's checkpoints raised NotImplementedError here
+    # until they were ported; now a mesh step runs (a world of one: every
+    # pixel on this rank) and equals the single-device step, and a
+    # checkpointed fit runs and saves
+    from rayz_tpu_torch.parallel import make_mesh
+    import torch.distributed as dist
+
+    try:
+        mesh = make_mesh("cpu")
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        opt = torch.optim.SGD(list(p.values()), lr=0.0)
+        step = rtt.make_train_step(opt, cfg, mesh, engine="recorded-pp",
+                                   with_leftover=True)
+        _, mloss, left = step(p, scene, cam, 0, target)
+    finally:
+        dist.destroy_process_group()
+    ploss = rtt.pixel_loss(params, scene, cam, 0, target, cfg, "recorded-pp")
+    assert int(left) == 0
+    assert abs(mloss.item() - ploss.item()) <= 1e-6 * ploss.item()
+    ckpt = str(tmp_path / "ckpt")
+    _, hist = rtt.fit(scene, cam, target, config=cfg, engine="recorded-pp",
+                      steps=2, fields=("tex_color",), checkpoint_dir=ckpt)
+    assert len(hist) == 2 and rtt.diff.latest_step(ckpt) == 2
 
 
 def test_cuda_path_raises_without_card(monkeypatch):
