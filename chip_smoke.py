@@ -25,14 +25,19 @@ scene through the streamed record kernel; and the dense integrator, plain
 torch (the flagship at 2 spp through ``render_fast(engine="xla")`` against
 the megakernel's image and its peak memory at 2 and 8 spp, one
 ``engine="dense"`` value and gradient, a nested-checker scene through
-``"auto"``, ``fit`` with its defaults); last the pixel-sharded paths, two
+``"auto"``, ``fit`` with its defaults); then the pixel-sharded paths, two
 ranks sharing the card over gloo (the flagship through
 ``render_megakernel_sharded``, each rank's queue launch at its pixel
 offset, the image assembled on rank 0 against the one-process render bit
 for bit, and a full-width ``"recorded-pp"`` mesh train step against this
-process's gradients), then a world of one over NCCL. The flagship's queue
-launch is also split in two at a pixel offset and held against the one
-launch. The gather forward is held bit for bit against its plain version and timed at
+process's gradients), then a world of one over NCCL; then the scripts:
+``rayz_tpu_torch.scripts.gpu_check``'s whole list (each stochastic engine
+and table mode at one seed against the dense integrator at another, with
+the oracle's noise floor, and the three gradient lines) at 64 wide, 256
+spp, and a row of each bench script (``bench_configs``' first config,
+``bench_culling``'s 10k row), every kernel of the port launched. The
+flagship's queue launch is also split in two at a pixel offset and held
+against the one launch. The gather forward is held bit for bit against its plain version and timed at
 the shape the train step launches it. Before them the wavefront kernel
 is held against its plain version launch by launch in its three table
 modes, the record kernel in its two, the megakernel's culled and streamed
@@ -71,6 +76,9 @@ from rayz_tpu_torch.ops import _build, diffkernel as dk
 from rayz_tpu_torch.ops import megakernel as mk, pathrec as pr, rng
 from rayz_tpu_torch.ops import sweep as sw
 from rayz_tpu_torch.ops import tables as tb, wavefront as wf
+from rayz_tpu_torch.scripts import bench_configs, bench_culling, card
+from rayz_tpu_torch.scripts import gpu_check
+from rayz_tpu_torch.scripts.gpu_check import forced_stream
 # shared with tune ab: the gathers' shapes and synthetic indices,
 # the sweep's ptxas and SASS facts, the wavefront's per-launch times
 from rayz_tpu_torch.tune import (GATHER_BWD_SHAPES, GATHER_FWD_SHAPES,
@@ -1528,18 +1536,6 @@ def plain_recorded():
 
 
 @contextlib.contextmanager
-def forced_stream(chunk: int):
-    """Have record_paths stream every scene in chunks of ``chunk``, as it
-    does the scenes beyond one block's shared memory."""
-    rule, default = dk.fits_shared, dk.RECORD_STREAM_CHUNK
-    dk.fits_shared, dk.RECORD_STREAM_CHUNK = (lambda scene: False), chunk
-    try:
-        yield
-    finally:
-        dk.fits_shared, dk.RECORD_STREAM_CHUNK = rule, default
-
-
-@contextlib.contextmanager
 def host_draws():
     """render_diff's camera rays and randoms made by torch on the CPU and
     moved to the card."""
@@ -2469,6 +2465,97 @@ def sharded_phase(dev, smi: str) -> None:
                      "render bit for bit, and so does the assembled image")
 
 
+#: gpu_check's size in the parity phase: 64 wide keeps its 256-spp
+#: tolerances (the mean absolute error's expected value, and so the noise
+#: floor, does not depend on the width); the recorded engines at 64 spp
+PARITY = dict(width=64, spp=256)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter by name: the megakernel's modes and
+    fold, the wavefront, the recorded-pp kernels, the record kernel's two
+    modes."""
+    return {**{f"megakernel_{k}": v for k, v in mk.MODE_LAUNCHES.items()},
+            "wavefront": wf.LAUNCHES, **pr.LAUNCHES,
+            **{f"record_{k}": v for k, v in dk.LAUNCHES.items()}}
+
+
+def parity_phase(dev, smi: str) -> None:
+    """gpu_check's whole list at PARITY: each stochastic engine and table
+    mode at one seed against the dense integrator at another, within
+    Monte-Carlo error and with the oracle's noise floor below each
+    tolerance, then the three gradient lines, and the triangle line again
+    on the plain versions and through the eager replay. Counted: every
+    kernel of the port must launch."""
+    lines = []
+
+    def out(line: str) -> None:
+        lines.append(line)
+        phase("parity", line)
+
+    reset_launches()
+    checks = gpu_check.Checks(PARITY["width"], PARITY["spp"], dev, out=out)
+    ok, secs = timed(checks.run)
+    counts = launch_counts()
+    # the triangle line's finite difference of the same frozen recording
+    # through other implementations of the replay: the kernels' plain
+    # versions on the card, and the eager replay (autograd of plain torch)
+    name, fields, kw = gpu_check.FD_LINES["tri_vertices"]
+    for what, ctx in (("plain", plain_pathrec), ("eager", eager_replay)):
+        with ctx():
+            ok &= checks.grad_fd(f"tri_vertices[{what}]", name, fields,
+                                 min(PARITY["width"], 64), **kw)
+    fails = [ln for ln in lines if not ln.startswith("OK")]
+    if not ok or fails:
+        raise AssertionError(f"gpu_check: {fails}")
+    idle = [k for k, v in counts.items() if not v]
+    if idle:
+        raise AssertionError(f"gpu_check launched no {idle}: {counts}")
+    phase("parity", f"{len(lines)} checks OK at {PARITY['width']} wide, "
+                    f"{PARITY['spp']} spp (recorded {min(PARITY['spp'], 64)})"
+                    f" in {secs:.1f} s; launches {counts} | {smi}")
+
+
+def script_line(what: str, row: dict, want: set, counts: dict) -> str:
+    """A bench script's row through JSON and back, with its keys, its
+    finite positive rates, and the launches it made, checked."""
+    line = json.dumps(row)
+    back = json.loads(line)
+    rates = [v for k, v in back.items() if isinstance(v, float)]
+    if (set(back) != want or not rates
+            or not all(np.isfinite(rates)) or min(rates) <= 0):
+        raise AssertionError(f"{what}: {line}")
+    if not all(counts.values()):
+        raise AssertionError(f"{what} launched no {counts}")
+    return line
+
+
+def scripts_phase(dev) -> None:
+    """The bench scripts' own functions on the card: bench_configs' first
+    config and bench_culling's 10k row (512x288, 16 spp, depth 8, 5 seeds),
+    each JSON line checked, each counted."""
+    reset_launches()
+    row = bench_configs.config_row(*bench_configs.CONFIGS[0], device=dev)
+    want = {"config", "width", "height", "spp", "depth", "fwd_mrays_per_s",
+            "engine", "device"}
+    counts = {k: mk.MODE_LAUNCHES[k] for k in ("resident", "fold")}
+    phase("scripts", "bench_configs " + script_line(
+        "bench_configs", row, want, counts) + f"; launches {counts}")
+
+    reset_launches()
+    row = bench_culling.culling_row(10_000, device=dev)
+    want = {"n_spheres", "width", "spp", "depth", "fits_shared", "seeds",
+            "speedup", "best_speedup", "auto", "device"}
+    for mode in ("brute_force", "culling_on", "wavefront"):
+        want |= {mode, mode + "_median", mode + "_digest"}
+    counts = {"streamed": mk.MODE_LAUNCHES["streamed"],
+              "fold": mk.MODE_LAUNCHES["fold"], "wavefront": wf.LAUNCHES}
+    if row["fits_shared"] or row["auto"] != "wavefront":
+        raise AssertionError(f"bench_culling 10k: {row}")
+    phase("scripts", "bench_culling " + script_line(
+        "bench_culling", row, want, counts) + f"; launches {counts}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2479,10 +2566,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. the card ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card(dev)
     phase("card", f"{smi} | torch {torch.__version__} cuda "
                   f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
@@ -2656,6 +2740,11 @@ def main() -> int:
 
     # ---- 17. the pixel-sharded paths ----
     sharded_phase(dev, smi)
+
+    # ---- 18-19. the scripts: gpu_check's parity list, the bench rows ----
+    parity_phase(dev, smi)
+    torch.cuda.empty_cache()
+    scripts_phase(dev)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
               bound_by, library_ms=None):

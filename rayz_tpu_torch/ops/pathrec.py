@@ -115,6 +115,14 @@ def default_k1(spp: int, max_depth: int = 32) -> int:
     return min(spp * max_depth, max(16, (7 * spp) // 2))
 
 
+def slot_layout(n_px: int) -> tuple:
+    """(block, r_pad): the slot block of a recording of ``n_px`` pixels
+    (:func:`render_diff_pp_flat`'s, JAX's tile of up to 16 x 128 slots)
+    and the slot count padded to it."""
+    block = min(_TILE_SUBLANES, max(1, -(-n_px // 128))) * 128
+    return block, -(-n_px // block) * block
+
+
 def default_schedule(spp: int, max_depth: int, r_pad: int,
                      block: int) -> list:
     """Compaction pass schedule [(iters, capacity), ...]: a lean full-width
@@ -1187,9 +1195,7 @@ def render_diff_pp_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
         fused = scene.dtype == torch.float32
     k_exh = spp * max_depth
     n_px = px.shape[0]
-    rs = min(_TILE_SUBLANES, max(1, -(-n_px // 128)))
-    block = rs * 128
-    r_pad = -(-n_px // block) * block
+    block, r_pad = slot_layout(n_px)
     if iters is None:
         if compact is None:
             compact = True

@@ -159,6 +159,9 @@ def test_image_bytes_match_jax_writers():
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import rayz_tpu_torch, rayz_tpu_torch.cli, rayz_tpu_torch.tune; "
+            "import rayz_tpu_torch.bench, rayz_tpu_torch.scripts.gpu_check, "
+            "rayz_tpu_torch.scripts.bench_configs, "
+            "rayz_tpu_torch.scripts.bench_culling; "
             "assert 'rayz_tpu' not in sys.modules; print('ok')")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
