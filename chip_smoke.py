@@ -2778,10 +2778,11 @@ def main() -> int:
               tl["gather_fwd"], *gather["gather_fwd"]),
         entry("gather_bwd", "gather.cu", "rayz_tpu/ops/pathrec.py:1120",
               tl["gather_bwd"], *gather["gather_bwd"]),
-        *(entry(name, "replay_pp.cu", f"rayz_tpu/ops/pathrec.py:{line}",
-                tl[name], max(small, replay[name][0]), *replay[name][1:])
-          for name, line, small in (("replay_fwd", 1512, replay_err[0]),
-                                    ("replay_bwd", 1565, replay_err[1]))),
+        *(entry(name, "replay_pp.cu", replaces, tl[name],
+                max(small, replay[name][0]), *replay[name][1:])
+          for name, replaces, small in (
+              ("replay_fwd", "rayz_tpu/ops/pathrec.py:1512", replay_err[0]),
+              ("replay_bwd", "rayz_tpu/ops/pathrec.py:1565", replay_err[1]))),
         entry("record", "record.cu", "rayz_tpu/ops/diffkernel.py:130",
               rec_launches, max(rec10_err["resident"], rec10[0]),
               *rec10[1:]),

@@ -126,6 +126,9 @@ class Scene:
     def device(self) -> torch.device:
         return self.sphere_center.device
 
+    def replace(self, **kw) -> "Scene":
+        return dataclasses.replace(self, **kw)
+
     def to(self, device) -> "Scene":
         """A copy with every tensor field on ``device``."""
         return dataclasses.replace(self, **{

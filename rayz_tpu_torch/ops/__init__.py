@@ -5,12 +5,13 @@ from .intersect import (HitRecord, aabb_hit, intersect, intersect_spheres,
                         intersect_triangles)
 from .shade import scatter, schlick_reflectance, sky_color, texture_value
 from .megakernel import render_megakernel, render_megakernel_sharded
-from .pathrec import (gather_rows, gather_rows_T, record_pp, render_diff_pp,
-                      render_diff_pp_flat, replay_pp, supports_pp)
-from .diffkernel import record_paths, render_diff, replay_paths
+from .pathrec import (default_iters, default_k1, gather_rows, gather_rows_T,
+                      record_pp, render_diff_pp, render_diff_pp_flat,
+                      replay_pp, supports_pp)
+from .diffkernel import record_paths, render_diff, replay_paths, supports_diff
 from .tables import (fits_shared, fits_stream, scene_tables, supports_scene,
                      tri_tables)
-from .wavefront import render_wavefront
+from .wavefront import render_wavefront, supports_wavefront
 
 __all__ = [
     "RenderConfig",
@@ -31,6 +32,7 @@ __all__ = [
     "render_megakernel",
     "render_megakernel_sharded",
     "render_wavefront",
+    "supports_wavefront",
     "pick_engine",
     "render_diff_pp",
     "render_diff_pp_flat",
@@ -41,7 +43,10 @@ __all__ = [
     "replay_pp",
     "gather_rows",
     "gather_rows_T",
+    "default_iters",
+    "default_k1",
     "supports_pp",
+    "supports_diff",
     "fits_shared",
     "fits_stream",
     "scene_tables",

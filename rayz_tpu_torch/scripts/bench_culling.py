@@ -34,6 +34,9 @@ from rayz_tpu_torch.ops.tables import fits_shared
 from rayz_tpu_torch.scripts import card, resolve, sync
 
 SEEDS = (1, 2, 3, 4, 5)
+# The least interval the clock tells from zero: a render timed below it
+# counts as taking it, so no rate or speedup divides by zero.
+_TICK = time.get_clock_info("perf_counter").resolution
 
 
 def _time_fn(run, dev, seeds=SEEDS):
@@ -46,7 +49,7 @@ def _time_fn(run, dev, seeds=SEEDS):
         t0 = time.perf_counter()
         img = run(s)
         sync(dev)
-        times.append(time.perf_counter() - t0)
+        times.append(max(time.perf_counter() - t0, _TICK))
         if digest is None:
             digest = hashlib.sha256(img.numpy().tobytes()).hexdigest()[:16]
     times.sort()
@@ -71,15 +74,20 @@ def culling_row(n: int, width: int = 512, spp: int = 16, depth: int = 8,
         "wavefront": lambda s: rtt.render_wavefront(scene, camera, s,
                                                     config),
     }
+    # Speedups are ratios of the unrounded best times: a rate rounded to
+    # 3 decimals can be 0.0 for a slow plain render.
+    best = {}
     for key, render in renders.items():
-        best, med, digest = _time_fn(lambda s: render(s).cpu(), dev, seeds)
-        row[key] = round(rays / best / 1e6, 3)
+        best[key], med, digest = _time_fn(lambda s: render(s).cpu(), dev,
+                                          seeds)
+        row[key] = round(rays / best[key] / 1e6, 3)
         row[key + "_median"] = round(rays / med / 1e6, 3)
         row[key + "_digest"] = digest
         if key == "culling_on":
-            row["speedup"] = round(row["culling_on"] / row["brute_force"], 2)
+            row["speedup"] = round(best["brute_force"] / best["culling_on"],
+                                   2)
     row["best_speedup"] = round(
-        max(row["culling_on"], row["wavefront"]) / row["brute_force"], 2)
+        best["brute_force"] / min(best["culling_on"], best["wavefront"]), 2)
     row["auto"] = rtt.pick_engine(scene)
     row["device"] = card(dev)
     return row

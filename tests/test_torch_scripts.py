@@ -16,7 +16,9 @@ bench script.
 
 import ast
 import importlib.util
+import itertools
 import json
+import math
 import os
 
 import pytest
@@ -136,6 +138,20 @@ def test_culling_row_streamed():
     assert row["fits_shared"] is False and row["auto"] == "wavefront"
     assert (row["brute_force_digest"] == row["culling_on_digest"]
             == row["wavefront_digest"])
+
+
+def test_culling_row_slow_clock(monkeypatch):
+    """A render slow enough that its rate rounds to 0.0 Mrays/s (144 rays
+    in 0.5 s): the row is still formed, its speedups finite. The clock is
+    a fake that moves 0.5 s a call, so no real time matters."""
+    clock = itertools.count(0.0, 0.5)
+    monkeypatch.setattr(bench_culling.time, "perf_counter",
+                        lambda: next(clock))
+    row = bench_culling.culling_row(4000, width=16, spp=1, depth=2,
+                                    device="cpu", seeds=(1,))
+    assert row["brute_force"] == row["culling_on"] == 0.0
+    assert math.isfinite(row["speedup"]) and row["speedup"] > 0
+    assert math.isfinite(row["best_speedup"]) and row["best_speedup"] > 0
 
 
 def _checks(lines):
