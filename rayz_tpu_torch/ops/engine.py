@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .integrator import RenderConfig, render_jit
 from .megakernel import render_megakernel
 from .tables import fits_shared, fits_stream, fits_wavefront, supports_scene
@@ -65,7 +66,8 @@ def render_fast(scene, camera, seed: int,
     the wavefront takes ``culling``, ``block_size``, ``stream`` and
     ``sort`` and ignores the rest, the dense integrator ignores them all
     (it reads ``config.chunk_size``)."""
-    eng = pick_engine(scene, engine)
+    with span("dispatch"):
+        eng = pick_engine(scene, engine)
     if eng == "xla":
         with torch.no_grad():
             return render_jit(scene, camera, seed, config)

@@ -53,6 +53,7 @@ import torch
 
 from ..models.camera import Camera
 from ..models.scene import Scene
+from ..utils.profiling import span
 from . import _build, rng
 from .integrator import RenderConfig
 from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
@@ -763,12 +764,14 @@ def _trace_queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
                       device=cam.device)
     group = _queue_group(spp, max(n_pix, 1))
     for s0 in range(0, spp, group):
-        out = _queue(cam, stab, ttab, n_pix, s0, min(group, spp - s0),
-                     width=width, max_depth=max_depth, t_min=t_min,
-                     jitter=jitter, has_motion=has_motion, seed=seed,
-                     bounds=bounds, records=records, cull=cull, stats=stats,
-                     p0=p0)
-        acc = _fold(out, acc)
+        with span("queue"):
+            out = _queue(cam, stab, ttab, n_pix, s0, min(group, spp - s0),
+                         width=width, max_depth=max_depth, t_min=t_min,
+                         jitter=jitter, has_motion=has_motion, seed=seed,
+                         bounds=bounds, records=records, cull=cull,
+                         stats=stats, p0=p0)
+        with span("fold"):
+            acc = _fold(out, acc)
     return acc
 
 
@@ -808,9 +811,11 @@ def _trace_shard_queue(scene: Scene, camera: Camera, seed: int,
     ``_trace_shard``, ``_trace_shard_compact`` and
     ``_trace_shard_streamed``. Returns flat [n_local, 3] radiance sums
     (divide by spp for the image)."""
-    args, kw = _launch_args(scene, camera, seed, spp=spp, max_depth=max_depth,
-                            t_min=t_min, jitter=jitter, unroll=unroll,
-                            blk=blk, stream=stream, cull=cull)
+    with span("tables"):
+        args, kw = _launch_args(scene, camera, seed, spp=spp,
+                                max_depth=max_depth, t_min=t_min,
+                                jitter=jitter, unroll=unroll, blk=blk,
+                                stream=stream, cull=cull)
     return _trace_queue(*args, n_local, stats=stats, p0=p0, **kw).T
 
 
@@ -882,14 +887,16 @@ def render_megakernel(scene: Scene, camera: Camera, seed: int,
       in-order fold), which leaves no straggler tail to compact. Every
       schedule renders the same bits."""
     del budget, passes
-    unroll, blk, stream, cull = _resolve_mode(scene, camera, culling,
-                                              block_size, stream)
+    with span("dispatch"):
+        unroll, blk, stream, cull = _resolve_mode(scene, camera, culling,
+                                                  block_size, stream)
     h, w = camera.height, camera.width
     flat = _trace_shard_queue(scene, camera, seed, h * w, spp=config.spp,
                               max_depth=config.max_depth, t_min=config.t_min,
                               jitter=config.jitter, unroll=unroll, blk=blk,
                               stream=stream, cull=cull)
-    return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)
+    with span("finish"):
+        return (flat.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)
 
 
 def render_megakernel_sharded(scene: Scene, camera: Camera, seed: int,
@@ -921,7 +928,9 @@ def render_megakernel_sharded(scene: Scene, camera: Camera, seed: int,
             "memory: the sharded megakernel keeps them resident, as JAX's "
             "does (there is no sharded streamed path); render it with "
             "parallel.render_sharded or unsharded with render_megakernel")
-    unroll, blk, _, _ = _resolve_mode(scene, camera, culling, block_size, 0)
+    with span("dispatch"):
+        unroll, blk, _, _ = _resolve_mode(scene, camera, culling, block_size,
+                                          0)
     h, w = camera.height, camera.width
     p0, p1 = shard_range(h * w, mesh)
     if p1 > p0:
@@ -931,5 +940,6 @@ def render_megakernel_sharded(scene: Scene, camera: Camera, seed: int,
                                   unroll=unroll, blk=blk, p0=p0)
     else:  # more ranks than pixels
         flat = torch.zeros((0, 3), dtype=torch.float32, device=camera.device)
-    img = gather_shards(flat, h * w, mesh).reshape(h, w, 3)
-    return (img / float(config.spp)).to(camera.dtype)
+    img = gather_shards(flat, h * w, mesh)
+    with span("finish"):
+        return (img.reshape(h, w, 3) / float(config.spp)).to(camera.dtype)

@@ -1,5 +1,5 @@
 from . import profiling, sampling, vec
-from .profiling import RenderStats, timed_render, trace
+from .profiling import RenderStats, span, timed_render, trace
 
 __all__ = ["vec", "sampling", "profiling", "RenderStats", "timed_render",
-           "trace"]
+           "trace", "span"]

@@ -11,6 +11,23 @@ and us/ray from the camera-ray count (rayz.zig:24-34). Here:
   card, CUDA activity: each kernel launch and its device time), written as
   a Chrome trace into a directory (``chrome://tracing`` or Perfetto reads
   it), the counterpart of JAX's XProf dump.
+* :func:`span`: a named stage of the render path, recorded only while a
+  ``torch.profiler`` is on (:func:`trace`, or any other profile): a
+  ``user_annotation`` event ``rayz.<name>`` on the profiler's clock, in the
+  same trace as the kernels and copies it launches. With no profiler
+  running it is one check and nothing more. The megakernel render path
+  (``render_fast`` -> ``render_megakernel`` -> ``_trace_shard_queue``)
+  marks five flat stages, none inside another:
+
+  - ``rayz.dispatch``: the engine pick in ``render_fast`` and the table
+    mode's resolution in ``render_megakernel`` (two a ``render_fast``
+    render; the wavefront and dense engines have only the first);
+  - ``rayz.tables``: the tables, camera vector and (streamed) packed
+    records built for the render (``_launch_args``);
+  - ``rayz.queue``: each queue launch with its argument checks
+    (``_queue``), one a sample group;
+  - ``rayz.fold``: each fold of a sample group (``_fold``);
+  - ``rayz.finish``: the image's reshape, division by spp and cast.
 """
 
 from __future__ import annotations
@@ -23,7 +40,9 @@ from typing import Callable, Iterator
 
 import torch
 
-__all__ = ["RenderStats", "timed_render", "trace"]
+__all__ = ["RenderStats", "timed_render", "trace", "span"]
+
+_OFF = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,3 +108,13 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A context manager marking the stage ``name`` as the profiler event
+    ``rayz.<name>`` while a ``torch.profiler`` records, and doing nothing
+    otherwise (the one check costs well under a microsecond, where an
+    unchecked ``record_function`` costs ~10)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(f"rayz.{name}")
+    return _OFF
