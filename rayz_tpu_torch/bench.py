@@ -79,9 +79,9 @@ def _stats(times, rays):
 
 def engine_knobs(scene, camera, micro: int, depth: int) -> dict:
     """What the two metrics ran: the engine ``pick_engine`` resolves, its
-    table mode, the queue's persistent grid (read after a launch), the
-    resident recorder's passes a launch, and the compaction schedule
-    (iterations, slots) of a ``recorded-pp`` micro-batch."""
+    table mode, the queue's persistent grid and threads a block (read after
+    a launch), the resident recorder's passes a launch, and the compaction
+    schedule (iterations, slots) of a ``recorded-pp`` micro-batch."""
     engine = rtt.pick_engine(scene)
     mode = None
     if engine == "megakernel":
@@ -93,6 +93,7 @@ def engine_knobs(scene, camera, micro: int, depth: int) -> dict:
         "engine": engine,
         "table_mode": mode,
         "queue_grid": mk.QUEUE_GRID,
+        "queue_block": mk.QUEUE_BLOCK,
         "record_group": dk.RECORD_GROUP,
         "compact_schedule": pr.default_schedule(micro, depth, r_pad, block),
     }

@@ -9,7 +9,15 @@
 //
 // What bounds it on the H100: instruction issue in the per-sphere sweep
 // (an SM issues 4 warp instructions a clock), and lanes left idle. The
-// design, in every table mode:
+// triangle sweep is a serial chain a column (shared loads, a dot product,
+// an IEEE reciprocal, a branch on q_best), so it is bound by latency and
+// needs many warps an SM to hide it. The resident build's width follows
+// its shared-memory footprint (ops/tables.py queue_threads): a block of
+// kBlock threads while 8 such blocks fit an SM (32 warps), else one block
+// of kWide threads, so a table too large for two blocks an SM (the Cornell
+// box's 1,536 triangles, 123 KB) still feeds 32 warps from its one staged
+// copy, not 4. Both widths cap registers at 64 a thread. The design, in
+// every table mode:
 //  * megakernel_queue: a persistent grid whose lanes take (sample, pixel)
 //    items from a counter on the card, 64 items per warp and atomic, so no
 //    lane waits for its pixel's other samples (a thread that owned a pixel
@@ -75,6 +83,9 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = 128;  // threads per block of the queue kernel
 constexpr int kWarps = kBlock / 32;
+// Threads per block of the resident queue's wide build (a table whose
+// footprint leaves kBlock-thread blocks short of 32 warps an SM).
+constexpr int kWide = 1024;
 constexpr int kRun = 64;     // items a warp claims with one atomicAdd
 // A streamed block is swept a column per lane when at most this many of the
 // warp's rays entered it, else a ray per lane.
@@ -131,12 +142,14 @@ __device__ __forceinline__ uint32_t shared_addr(const void* p) {
 // The resident tables in shared memory: the camera vector, the sphere
 // geometry packed for sweep_packed, the triangle table row-major. Its
 // segment sweep: sweep_packed, its winner settled in today's arithmetic
-// (settle_winner), then the triangles.
-template <bool kMotion>
+// (settle_winner), then the triangles. Built at kBlock threads (8 blocks an
+// SM) and kWide (one block an SM), both at 64 registers a thread.
+template <bool kMotion, int kWidth>
 struct ResidentSweep {
   static constexpr int kMode = kResident;
   static constexpr bool kHasMotion = kMotion;
-  static constexpr int kMinBlocks = 8;
+  static constexpr int kThreads = kWidth;
+  static constexpr int kMinBlocks = kWidth == kBlock ? 8 : 1;
   rz::PackedSpheres ps;
   const float* tri;   // [20, m] in shared memory
   int n, m;
@@ -187,6 +200,7 @@ struct CulledSweep {
   static constexpr int kMode = kCulled;
   static constexpr bool kHasMotion = kMotion;
   static constexpr int kMinBlocks = 4;
+  static constexpr int kThreads = kBlock;
   rz::PackedSpheres ps;
   uint32_t sbr;       // [n / blk] float4 sphere block bounds (shared)
   const float* tri;   // [20, m] in shared memory
@@ -300,6 +314,7 @@ struct StreamSweep {
   static constexpr int kMode = kStreamed;
   static constexpr bool kHasMotion = kMotion;
   static constexpr int kMinBlocks = 4;
+  static constexpr int kThreads = kBlock;
   StreamRecords recs;
   const float4* sbr;  // [n / blk] sphere block bounds (device memory)
   const float* tri;   // [20, m] (device memory)
@@ -496,7 +511,7 @@ struct StreamSweep {
 // the segment); the streamed sweep votes across the warp, so every lane
 // enters it.
 template <typename Sweep>
-__global__ void __launch_bounds__(kBlock, Sweep::kMinBlocks)
+__global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
     megakernel_queue(QueueParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -636,7 +651,7 @@ __global__ void rng_bits_kernel(uint32_t seed, const int* pix,
 
 // Launch the queue kernel on `Sweep`: as many blocks as the card holds at
 // once (the occupancy of this build at its shared memory), at most one per
-// 128 items. `grid` receives the blocks.
+// Sweep::kThreads items. `grid` receives the blocks.
 template <typename Sweep>
 cudaError_t launch_queue(const QueueParams& p, cudaStream_t s, int* grid) {
   const size_t smem = Sweep::smem_bytes(p);
@@ -652,16 +667,17 @@ cudaError_t launch_queue(const QueueParams& p, cudaStream_t s, int* grid) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, megakernel_queue<Sweep>, kBlock, smem);
+        &per_sm, megakernel_queue<Sweep>, Sweep::kThreads, smem);
   if (e != cudaSuccess) return e;
   const unsigned long long items =
       static_cast<unsigned long long>(p.n_samples) * p.n_pix;
-  const unsigned long long most = (items + kBlock - 1) / kBlock;
+  const unsigned long long most =
+      (items + Sweep::kThreads - 1) / Sweep::kThreads;
   const unsigned long long room = static_cast<unsigned long long>(per_sm) *
                                   sms;
   const int blocks = static_cast<int>(most < room ? most : room);
   if (blocks <= 0) return cudaErrorInvalidConfiguration;
-  megakernel_queue<Sweep><<<blocks, kBlock, smem, s>>>(p);
+  megakernel_queue<Sweep><<<blocks, Sweep::kThreads, smem, s>>>(p);
   *grid = blocks;
   return cudaGetLastError();
 }
@@ -671,6 +687,13 @@ cudaError_t launch_mode(const QueueParams& p, bool motion, cudaStream_t s,
                         int* grid) {
   return motion ? launch_queue<Sweep<true>>(p, s, grid)
                 : launch_queue<Sweep<false>>(p, s, grid);
+}
+
+template <int kWidth>
+cudaError_t launch_resident(const QueueParams& p, bool motion,
+                            cudaStream_t s, int* grid) {
+  return motion ? launch_queue<ResidentSweep<true, kWidth>>(p, s, grid)
+                : launch_queue<ResidentSweep<false, kWidth>>(p, s, grid);
 }
 
 }  // namespace
@@ -685,7 +708,8 @@ cudaError_t launch_mode(const QueueParams& p, bool motion, cudaStream_t s,
 // lane-trips at rz::kStatLaneTrips). mode: 0 resident, 1 culled (sblk/tblk,
 // blk), 2 streamed (scb/tcb, recs/brecs, sblk/tblk with blk, stream, cull).
 // `hits` null or [max_depth, n_samples * n_pix] int32 (culled and streamed:
-// each traced segment's winner). `grid` receives the blocks.
+// each traced segment's winner). `threads` per block: kBlock, or kWide in the
+// resident mode. `grid` receives the blocks.
 extern "C" int rayz_megakernel_queue(
     const float* cam, const float* stab, int n_pad, const float* ttab,
     int m_pad, int n_pix, int p0, int width, int max_depth, float t_min,
@@ -693,7 +717,8 @@ extern "C" int rayz_megakernel_queue(
     void* counter,
     float* out, void* stats, int mode, const float* sblk, const float* tblk,
     const float* scb, const float* tcb, const float* recs, const float* brecs,
-    int blk, int stream_cols, int cull, int* hits, int* grid, void* stream) {
+    int blk, int stream_cols, int cull, int* hits, int threads, int* grid,
+    void* stream) {
   QueueParams p{};
   p.cam = cam;
   p.stab = stab;
@@ -724,10 +749,13 @@ extern "C" int rayz_megakernel_queue(
   p.hits = hits;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool motion = has_motion != 0;
+  if (threads != kBlock && !(mode == kResident && threads == kWide))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   switch (mode) {
     case kResident:
-      e = launch_mode<ResidentSweep>(p, motion, s, grid);
+      e = threads == kWide ? launch_resident<kWide>(p, motion, s, grid)
+                           : launch_resident<kBlock>(p, motion, s, grid);
       break;
     case kCulled:
       e = blk > 0 ? launch_mode<CulledSweep>(p, motion, s, grid)

@@ -84,7 +84,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rayz_rng_bits.restype = i
     lib.rayz_megakernel_queue.argtypes = [p, p, i, p, i, i, i, i, i, f, i,
                                           i, u, i, i, p, p, p, i, p, p, p, p,
-                                          p, p, i, i, i, p, p, p]
+                                          p, p, i, i, i, p, i, p, p]
     lib.rayz_megakernel_queue.restype = i
     lib.rayz_fold.argtypes = [p, i, ctypes.c_longlong, p, p]
     lib.rayz_fold.restype = i

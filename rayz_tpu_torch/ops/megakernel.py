@@ -12,7 +12,9 @@ segment sweep:
 * resident, culling off (the flagship's mode): the full tables in shared
   memory, every column swept in the packed coefficient form
   (``rz::sweep_packed``, the winner settled in the plain version's
-  arithmetic);
+  arithmetic), in blocks of 128 threads, or of 1,024 where the tables
+  leave 128-thread blocks short of 32 warps an SM
+  (:func:`~rayz_tpu_torch.ops.tables.queue_threads`; the Cornell box);
 * resident, culled (``culling=True``): Morton-sorted tables and per-block
   bounds in shared memory, each lane sweeping in the packed form the
   blocks its own bound test passes;
@@ -59,11 +61,12 @@ from .integrator import RenderConfig
 from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
                      _TG1Y, _TG1Z, _TG2V, _TG2X, _TG2Y, _TG2Z, _TNV0, _TNX,
                      _TNY, _TNZ, _TPKF, _VV, _VX, _VY, _VZ, DEFAULT_BLOCK,
-                     DEFAULT_STREAM_CHUNK, SHARED_LIMIT, STREAM_BLOCK,
-                     StreamTables, Tables, _camera_vector, _resolve_tiling,
-                     _smem_scene_inputs, _stream_counts,
+                     DEFAULT_STREAM_CHUNK, QUEUE_WIDTHS, SHARED_LIMIT,
+                     STREAM_BLOCK, StreamTables, Tables, _camera_vector,
+                     _resolve_tiling, _smem_scene_inputs, _stream_counts,
                      _stream_scene_inputs, fits_shared, pack_records,
-                     shared_bytes, stream_shared_bytes, supports_scene)
+                     queue_shared_bytes, queue_threads, shared_bytes,
+                     stream_shared_bytes, supports_scene)
 
 __all__ = ["render_megakernel", "render_megakernel_sharded", "LAUNCHES",
            "MODE_LAUNCHES", "MODES"]
@@ -92,6 +95,11 @@ QUEUE_BYTES = 1 << 28
 #: Blocks of the last queue launch's persistent grid (the card's occupancy
 #: at the launch's shared memory, or fewer for a small render).
 QUEUE_GRID = 0
+
+#: Threads a block of the last queue launch: 128, or in the resident mode
+#: the width :func:`~rayz_tpu_torch.ops.tables.queue_threads` picks from
+#: the launch's shared memory.
+QUEUE_BLOCK = 0
 
 _TWO_PI = 6.283185307179586
 # Bound on the [slots, primitives] temporaries of the plain sweep.
@@ -655,7 +663,7 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns the radiance [n_samples, 3,
     n_pix] each item adds to its pixel."""
-    global LAUNCHES, QUEUE_GRID
+    global LAUNCHES, QUEUE_GRID, QUEUE_BLOCK
     dev = cam.device
     _check_tables(cam, stab, ttab, dev)
     if n_pix <= 0 or n_samples <= 0 or s0 < 0 or p0 < 0:
@@ -691,6 +699,8 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     lib, _ = _build.load()
     out = torch.empty((n_samples, 3, n_pix), dtype=torch.float32, device=dev)
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    threads = (queue_threads(queue_shared_bytes(n_pad, m_pad, has_motion))
+               if mode == 0 else QUEUE_WIDTHS[0][0])
     grid = ctypes.c_int(0)
     rows = [None] * 6
     if mode:
@@ -706,12 +716,12 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
             mode, *(None if t is None else t.data_ptr() for t in rows),
             bounds.blk if mode else 0, bounds.stream if mode == 2 else 0,
             int(cull),
-            None if hits is None else hits.data_ptr(),
+            None if hits is None else hits.data_ptr(), threads,
             ctypes.addressof(grid), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "megakernel_queue")
     LAUNCHES += 1
     MODE_LAUNCHES[MODES[mode]] += 1
-    QUEUE_GRID = grid.value
+    QUEUE_GRID, QUEUE_BLOCK = grid.value, threads
     if stats is not None:
         stats[7] += counter[0]
     return out

@@ -15,6 +15,9 @@ The residency rules are re-derived for the H100, whose blocks hold at most
 * :func:`fits_shared`: the megakernel copies the camera vector and the
   whole tables (and, culled, 4 bound rows per block) into shared memory.
   It admits at most n_pad = 3,416 spheres or m_pad = 2,904 triangles.
+  :func:`queue_threads` picks the resident queue kernel's block width from
+  its launch's footprint (:func:`queue_shared_bytes`), so a large table
+  still feeds 32 warps an SM.
 * :func:`fits_stream`: the streamed megakernel keeps the camera vector,
   its warps' staging and the chunk bound rows in shared memory; the
   tables, their packed records and the block rows stay in device memory
@@ -57,8 +60,8 @@ from ..models.scene import MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
 
 __all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
            "fits_stream", "fits_wavefront", "fits_record_stream",
-           "shared_bytes", "stream_shared_bytes", "sphere_records",
-           "pack_records",
+           "shared_bytes", "stream_shared_bytes", "queue_shared_bytes",
+           "queue_threads", "sphere_records", "pack_records",
            "wavefront_shared_bytes", "SHARED_LIMIT", "CAM_WORDS",
            "WF_HEAD_WORDS", "WF_STAGE_WORDS", "WF_PARK_WORDS",
            "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
@@ -89,6 +92,16 @@ CAM_WORDS = 20
 
 #: Dynamic shared memory one block may use on an H100 (bytes).
 SHARED_LIMIT = 232_448
+#: One H100 SM: its shared memory (bytes; each resident block takes its
+#: dynamic shared memory and :data:`BLOCK_RESERVED` more), its threads and
+#: its 32-bit registers.
+SM_SHARED = 233_472
+BLOCK_RESERVED = 1_024
+SM_THREADS = 2_048
+SM_REGISTERS = 65_536
+#: The resident queue kernel's builds (``kBlock`` and ``kWide`` in
+#: csrc/megakernel.cu): threads a block, registers a thread at most.
+QUEUE_WIDTHS = ((128, 64), (1024, 64))
 
 #: f32 words at the head of the wavefront kernel's shared memory: the
 #: camera vector (20) and 8 work counters for each of its 4 warps, keeping
@@ -129,8 +142,9 @@ def _resolve_tiling(scene: Scene) -> int:
     """Per-scene sweep unroll the tables are padded to: 8 primitives per
     group for sphere scenes, 16 for triangle-dominant ones, as in the JAX
     package. The kernel unrolls its sweeps by 8, so both keep its loops free
-    of remainders. (The TPU tile size has no counterpart here: the kernel's
-    block is a fixed 128 threads, see csrc/megakernel.cu.)"""
+    of remainders. (The TPU tile size has no counterpart here: the queue
+    kernel's block is 128 threads, or for a large resident table the wide
+    build's, see :func:`queue_threads`.)"""
     return 16 if scene.n_triangles > scene.n_spheres else 8
 
 
@@ -581,6 +595,36 @@ def stream_shared_bytes(n_r: int, m_r: int, stream: int,
     motion, 4 without) and the chunk bound rows of both classes."""
     stage = 4 * 32 * (9 if has_motion else 4)
     return 4 * (CAM_WORDS + stage + 4 * (n_r // stream + m_r // stream))
+
+
+def queue_shared_bytes(n_pad: int, m_pad: int, has_motion: bool) -> int:
+    """Dynamic shared memory of the resident queue kernel's launch
+    (``ResidentSweep::smem_bytes``): the camera vector, the sphere geometry
+    as 16-byte records (9 f32 words a column with motion, 4 without) and
+    the triangle table. At most :func:`shared_bytes` of the same tables."""
+    return 4 * (CAM_WORDS + (9 if has_motion else 4) * n_pad
+                + _TNROWS * m_pad)
+
+
+def queue_threads(smem: int) -> int:
+    """Threads a block of the resident queue kernel for a launch of
+    ``smem`` bytes of dynamic shared memory: of :data:`QUEUE_WIDTHS`, the
+    build that keeps the most warps an SM, the narrower on a tie. An SM
+    holds as many blocks of a build as its threads, its registers at the
+    build's cap and its shared memory allow. The flagship's 18,512 bytes
+    keep 8 blocks of 128 threads (32 warps, a tie with one wide block);
+    past 28,160 bytes fewer than 8 fit, and the Cornell box's 122,960 hold
+    one block: 4 warps narrow, 32 wide."""
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"{smem} bytes of shared memory exceed one block's "
+                         f"{SHARED_LIMIT} on an H100")
+
+    def warps(width):
+        threads, regs = width
+        blocks = min(SM_THREADS // threads, SM_REGISTERS // (threads * regs),
+                     SM_SHARED // (smem + BLOCK_RESERVED))
+        return blocks * threads // 32
+    return max(QUEUE_WIDTHS, key=warps)[0]
 
 
 def sphere_records(stab: torch.Tensor, has_motion: bool):

@@ -26,10 +26,11 @@ exact ties).
 process tree: every TREE is a directory holding a ``rayz_tpu_torch``
 package; each round runs one child process per tree, in alternating order,
 which builds that tree's kernels (once, into ``TREE/build/kernels``) and
-prints the flagship forward (``random_bouncing`` 512x512, 64 spp, depth 32,
-through ``render_fast``: the tree's default schedule) and the streamed megakernel and ``render_fast`` (the
-wavefront) on ``sphere_field`` 100k, with a digest of each image, and each
-of the wavefront render's four launches (``wavefront_launches``); the
+prints the flagship and the Cornell box forward (``random_bouncing`` and
+``cornell_box`` 512x512, 64 spp, depth 32, through ``render_fast``: the
+tree's default schedule) and the streamed megakernel and ``render_fast``
+(the wavefront) on ``sphere_field`` 100k, with a digest of each image, and
+each of the wavefront render's four launches (``wavefront_launches``); the
 ``recorded-pp`` train step at bench.py's ``fwdbwd`` shape (two
 value-and-gradient micro-batches of 32 spp on the flagship, gradients
 summed) and the ``"recorded"`` engine's value and gradient at 2 spp (host
@@ -47,8 +48,8 @@ counter drained), its streamed pass on the 100k scene (``record_paths``,
 :data:`GATHER_FWD_SHAPES` in each path's layout and the gather backward at
 :data:`GATHER_BWD_SHAPES` in the [C, R] layout, each in CUDA-event
 milliseconds; and once per tree the sweep kernels' ptxas report and the
-sphere sweep's SASS instructions per column (``sass_sweep``). The
-child runs this file's code against the tree's package, so trees that
+sphere and triangle sweeps' SASS instructions per column (``sass_sweep``).
+The child runs this file's code against the tree's package, so trees that
 predate a measurement are measured too. Lines start with ``[tiling]``, ``[record]``
 or ``[ab]``; each names the card and its power limit.
 """
@@ -97,16 +98,24 @@ def gather_indices(r: int, p: int, dev, g) -> torch.Tensor:
     return torch.from_numpy(idx.astype(np.int32)).to(dev)
 
 
-#: Kernels whose sphere sweep ``sass_sweep`` dissects, by a fragment of
-#: their mangled names, with motion (the megakernel is the queue as a
-#: template on its sweep, resident and culled; the resident bounce-indexed
-#: recorder sweeps packed records as the ray queue ``record_queue``).
-SWEEP_KERNELS = (("record_pp", "record_pp_kernelILb1"),
+#: Square roots, the sphere sweep's; reciprocals, the triangle sweep's.
+_ROOTS, _RCP = ("MUFU.RSQ", "MUFU.SQRT"), ("MUFU.RCP",)
+#: Kernels whose sweep ``sass_sweep`` dissects, by a pattern of their
+#: mangled names, and the opcodes that mark the sweep's loop: the sphere
+#: sweep with motion (the megakernel is the queue as a template on its
+#: sweep, resident at 128 threads and culled; the resident bounce-indexed
+#: recorder sweeps packed records as the ray queue ``record_queue``), and
+#: the triangle sweep of the resident queue without motion at the width
+#: the Cornell box takes (any build but the 128-thread one).
+SWEEP_KERNELS = (("record_pp", "record_pp_kernelILb1", _ROOTS),
                  ("megakernel_queue<ResidentSweep<true>>",
-                  "ResidentSweepILb1"),
-                 ("megakernel_queue<CulledSweep<true>>", "CulledSweepILb1"),
-                 ("record_queue", "record_queueILb1"))
-#: The sphere sweep loops' #pragma unroll.
+                  "ResidentSweepILb1E(E|Li128E)", _ROOTS),
+                 ("megakernel_queue<CulledSweep<true>>", "CulledSweepILb1",
+                  _ROOTS),
+                 ("record_queue", "record_queueILb1", _ROOTS),
+                 ("megakernel_queue<ResidentSweep<false>> triangles",
+                  "ResidentSweepILb0E(?!Li128E)", _RCP))
+#: The sweep loops' #pragma unroll.
 SWEEP_UNROLL = 8
 #: Further kernels whose ptxas report ``ptxas_facts`` keeps: the streamed
 #: wavefront without motion (the 100k scene's), and the queue kernel on its
@@ -122,24 +131,26 @@ REPORT_KERNELS = (("wavefront_kernel<false, streamed>",
 def ptxas_facts(log: str) -> dict:
     """Registers, stack and spills ptxas reported for SWEEP_KERNELS and
     REPORT_KERNELS."""
+    import re
     lines = log.splitlines()
     out = {}
-    for name, frag in SWEEP_KERNELS + REPORT_KERNELS:
+    for name, frag, *_ in SWEEP_KERNELS + REPORT_KERNELS:
         for i, ln in enumerate(lines):
-            if "Function properties for" in ln and frag in ln:
+            if "Function properties for" in ln and re.search(frag, ln):
                 out[name] = " ".join(x.split(":", 1)[-1].strip()
                                      for x in lines[i + 1:i + 3])
     return out
 
 
 def sass_sweep(lib_path) -> dict:
-    """Instructions per column of each SWEEP_KERNELS sphere sweep, from
-    ``cuobjdump -sass`` of a built kernel library: the loop (a backward
-    branch, under 1,500 instructions) that reads shared memory and takes
-    square roots (``MUFU.RSQ``/``MUFU.SQRT``; the triangle sweep takes
-    reciprocals), its opcodes counted and divided by the unroll. Predicated
-    instructions issue whether their predicate holds or not; a branch's
-    target block issues only when taken."""
+    """Instructions per column of each SWEEP_KERNELS sweep, from
+    ``cuobjdump -sass`` of a built kernel library: the smallest loop (a
+    backward branch, under 1,500 instructions) that reads shared memory
+    and holds an unroll's worth of the entry's marking opcodes (square
+    roots for spheres, reciprocals for triangles), its opcodes counted and
+    divided by the unroll. Predicated instructions issue whether their
+    predicate holds or not; a branch's target block issues only when
+    taken."""
     import collections
     import re
     from rayz_tpu_torch.ops import _build
@@ -160,8 +171,8 @@ def sass_sweep(lib_path) -> dict:
         return re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
 
     out = {}
-    for name, frag in SWEEP_KERNELS:
-        ins = next((v for k, v in funcs.items() if frag in k), None)
+    for name, frag, marks in SWEEP_KERNELS:
+        ins = next((v for k, v in funcs.items() if re.search(frag, k)), None)
         if ins is None:
             continue
         best = None
@@ -171,9 +182,9 @@ def sass_sweep(lib_path) -> dict:
                 continue
             lo = int(m.group(1), 16)
             body = [opcode(x) for a, x in ins if lo <= a <= addr]
-            roots = sum(o in ("MUFU.RSQ", "MUFU.SQRT") for o in body)
+            marked = sum(o in marks for o in body)
             lds = sum(o.startswith("LDS") for o in body)
-            if roots >= SWEEP_UNROLL and lds and len(body) < 1500 and (
+            if marked >= SWEEP_UNROLL and lds and len(body) < 1500 and (
                     best is None or len(body) < len(best)):
                 best = body
         if best is None:
@@ -465,6 +476,12 @@ def render() -> None:
         return rtt.render_fast(scene, cam, s, cfg)
     out["forward"] = _mrays(512 * 512 * 64, run)
     out["forward_digest"] = _digest(run(1))
+    box, bcam = rtt.scenes.cornell_box(width=512)
+
+    def crun(s):
+        return rtt.render_fast(box, bcam, s, cfg)
+    out["cornell"] = _mrays(512 * 512 * 64, crun)
+    out["cornell_digest"] = _digest(crun(1))
     field, fcam = rtt.scenes.sphere_field(n=100_000, width=LARGE["width"])
     fcfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
 
@@ -541,10 +558,11 @@ def render() -> None:
     print(json.dumps(out), flush=True)
 
 
-#: The forward measurements of ``render``: the flagship through
-#: ``render_fast`` (the main path), and the 100k-sphere scene through the
-#: streamed megakernel and ``render_fast`` (the wavefront).
-_FORWARD = ("forward", "streamed", "wavefront")
+#: The forward measurements of ``render``: the flagship and the Cornell
+#: box through ``render_fast`` (the main path; 512x512, 64 spp, depth 32),
+#: and the 100k-sphere scene through the streamed megakernel and
+#: ``render_fast`` (the wavefront).
+_FORWARD = ("forward", "cornell", "streamed", "wavefront")
 
 
 def _child(tree: str, what: str) -> subprocess.CompletedProcess:
@@ -648,7 +666,7 @@ def ab(trees, rounds: int) -> None:
         def ops(v):
             return ", ".join(f"{o} {n:g}" for o, n in v.items()
                              if o != "total")
-        print(f"[ab] {t}: ptxas {first['ptxas']}; sphere sweep per column "
+        print(f"[ab] {t}: ptxas {first['ptxas']}; sweeps per column "
               + "; ".join(f"{k} {v['total']:.3f} instructions ({ops(v)})"
                           for k, v in first["sass"].items())
               + f" | {card}", flush=True)

@@ -395,3 +395,29 @@ def test_kernel_golden_on_card(cuda_device):
         assert mk.LAUNCHES - before == 2
         step, frac = _golden_allowance(img)
         assert step <= 1 and frac < 0.005, (step, frac)
+
+
+@pytest.mark.cuda
+def test_wide_resident_build_on_card(cuda_device):
+    """A scene whose resident tables take the wide build (the Cornell box,
+    122,960 bytes: one block an SM) launches 1,024 threads a block, no more
+    than the card's SMs hold at once, and renders what ``_queue_reference``
+    renders on at least 99.9% of its items (64x64, 4 spp, depth 8); a
+    flagship-sized sphere scene keeps 128 threads."""
+    scene, cam = rtt.scenes.cornell_box(width=64, device=cuda_device)
+    args, kw = mk._launch_args(scene, cam, 3, spp=4, max_depth=8, t_min=1e-3,
+                               jitter=True, unroll=mk._resolve_tiling(scene))
+    del kw["spp"]
+    n = cam.width * cam.height
+    got = mk._queue(*args, n, 0, 4, **kw)
+    torch.cuda.synchronize()
+    assert mk.QUEUE_BLOCK == 1024
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert mk.QUEUE_GRID * mk.QUEUE_BLOCK <= sms * 2048
+    want = mk._queue_reference(*args, n, 0, 4, **kw)
+    same = float((got == want).all(dim=1).double().mean())
+    assert same >= 0.999, same
+    scene, cam = rtt.scenes.random_bouncing(width=64, height=64,
+                                            device=cuda_device)
+    rtt.render_megakernel(scene, cam, 0, rtt.RenderConfig(spp=1, max_depth=4))
+    assert mk.QUEUE_BLOCK == 128

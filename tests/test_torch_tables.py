@@ -225,6 +225,38 @@ def test_streamed_residency_rule():
     assert tables.fits_shared(field, culling=False, block_size=64) is False
 
 
+def _resident_bytes(scene):
+    """The resident queue launch's shared memory for ``scene``'s tables."""
+    tabs = tables._smem_scene_inputs(scene, tables._resolve_tiling(scene), 0)
+    return tables.queue_shared_bytes(tabs.stab.shape[1], tabs.ttab.shape[1],
+                                     scene.has_motion)
+
+
+@pytest.mark.parametrize("scene, smem, threads", [
+    ("random_bouncing", 18_512, 128), ("cornell_box", 122_960, 1024),
+    (None, 0, 128), (None, 28_160, 128), (None, 28_176, 1024),
+    (None, tables.SHARED_LIMIT, 1024), (None, tables.SHARED_LIMIT + 16, None)],
+    ids=["flagship", "cornell_box", "tie", "narrow_last", "wide_first",
+         "limit", "over_limit"])
+def test_queue_width_rule(scene, smem, threads):
+    """The resident queue kernel's block width from its launch's shared
+    memory: the build with the most warps an SM, 128 threads on a tie. The
+    flagship's 18,512 bytes (512 packed moving spheres) keep 8 blocks of
+    128 (32 warps, as one block of 1,024); the Cornell box's 122,960 (1,536
+    triangles) fit one block an SM, 4 warps narrow against 32 wide. 8
+    narrow blocks fit up to 28,160 bytes (8 x 29,184 = 233,472 with the
+    1,024 reserved a block), 16 bytes more leave 7 (28 warps). Past
+    SHARED_LIMIT nothing launches."""
+    if scene:
+        scene, _ = getattr(rtt.scenes, scene)(width=8, device="cpu")
+        assert _resident_bytes(scene) == smem
+    if threads is None:
+        with pytest.raises(ValueError, match="exceed"):
+            tables.queue_threads(smem)
+    else:
+        assert tables.queue_threads(smem) == threads
+
+
 @pytest.mark.parametrize("name", SCENES)
 def test_streamed_permutations_invert_the_sort(name):
     """_stream_scene_inputs' column maps: each a permutation of the padded
