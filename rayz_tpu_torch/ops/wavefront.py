@@ -41,6 +41,7 @@ import torch
 
 from ..models.camera import Camera
 from ..models.scene import Scene, _round_up
+from ..utils.profiling import span
 from . import _build, rng
 from .integrator import RenderConfig
 from .megakernel import (Bits, _hit_frame, _key_draws, _mode, _nearest,
@@ -287,11 +288,11 @@ def _morton18(cx, cy, cz) -> torch.Tensor:
 
 
 def _sort_key(st: torch.Tensor, alive: torch.Tensor, lo: torch.Tensor,
-              span: torch.Tensor) -> torch.Tensor:
+              extent: torch.Tensor) -> torch.Tensor:
     """Coherence sort key: dead rays last; live rays by the 18-bit Morton
     cell of their origin (a 64^3 grid over the scene bounds), then their
     3-bit direction octant."""
-    cell = [torch.clip((st[k] - lo[k]) / span[k] * 64.0, 0.0, 63.0)
+    cell = [torch.clip((st[k] - lo[k]) / extent[k] * 64.0, 0.0, 63.0)
             .to(torch.int32) for k in range(3)]
     octant = ((st[3] < 0).to(torch.int32) | ((st[4] < 0).to(torch.int32) << 1)
               | ((st[5] < 0).to(torch.int32) << 2))
@@ -300,7 +301,7 @@ def _sort_key(st: torch.Tensor, alive: torch.Tensor, lo: torch.Tensor,
 
 
 def _scene_bounds(scene: Scene):
-    """(lo, span) of the valid primitives' AABBs (sphere motion enclosed)."""
+    """(lo, extent) of the valid primitives' AABBs (sphere motion enclosed)."""
     f32 = torch.float32
     big = 3e38
     parts_lo, parts_hi = [], []
@@ -406,50 +407,59 @@ def render_wavefront(scene: Scene, camera: Camera, seed: int,
     if camera.device != scene.device:
         raise ValueError(f"camera is on {camera.device}, scene on "
                          f"{scene.device}")
-    tabs, cull = _resolve_layout(scene, camera, culling, block_size, stream)
     dev = scene.device
     h, w = camera.height, camera.width
     n_px, spp, max_depth = h * w, config.spp, config.max_depth
-    rays = _Rays(_camera_vector(camera).contiguous(), _slot_pixels(camera),
-                 n_px * spp, w)
-    r_pad = _round_up(rays.n_rays, WF_BLOCK)
+    with span("tables"):
+        tabs, cull = _resolve_layout(scene, camera, culling, block_size,
+                                     stream)
+        lo, extent = _scene_bounds(scene)
+        rays = _Rays(_camera_vector(camera).contiguous(),
+                     _slot_pixels(camera), n_px * spp, w)
+        r_pad = _round_up(rays.n_rays, WF_BLOCK)
+        rid = torch.arange(r_pad, dtype=torch.int32, device=dev)
     kw = dict(t_min=config.t_min, jitter=config.jitter,
               has_motion=scene.has_motion, seed=int(seed), cull=cull,
               stats=stats)
-    lo, span = _scene_bounds(scene)
 
     def permute(order, *ts):
         return [t[..., order].contiguous() for t in ts]
 
-    rid = torch.arange(r_pad, dtype=torch.int32, device=dev)
     n_sync = min(max_depth, N_SYNC)
-    st, alive, radbuf = _wf_bounce(tabs, rays, None, None, rid, bounce=0,
-                                   loop_bounces=1, **kw)
+    with span("bounce"):
+        st, alive, radbuf = _wf_bounce(tabs, rays, None, None, rid,
+                                       bounce=0, loop_bounces=1, **kw)
     for b in range(1, n_sync):
         if sort:
-            if b == 1 or resort:
-                order = torch.argsort(_sort_key(st, alive, lo, span),
-                                      stable=True)
-            else:
-                order = _dead_last(alive)
-            st, alive, rid, radbuf = permute(order, st, alive, rid, radbuf)
-        st, alive, rad = _wf_bounce(tabs, rays, st, alive, rid, bounce=b,
-                                    loop_bounces=1, **kw)
-        radbuf = radbuf + rad
+            with span("sort"):
+                if b == 1 or resort:
+                    order = torch.argsort(_sort_key(st, alive, lo, extent),
+                                          stable=True)
+                else:
+                    order = _dead_last(alive)
+                st, alive, rid, radbuf = permute(order, st, alive, rid,
+                                                 radbuf)
+        with span("bounce"):
+            st, alive, rad = _wf_bounce(tabs, rays, st, alive, rid, bounce=b,
+                                        loop_bounces=1, **kw)
+            radbuf = radbuf + rad
     if max_depth > n_sync:
-        st, alive, rid, radbuf = permute(_dead_last(alive), st, alive, rid,
-                                         radbuf)
-        _, _, rad = _wf_bounce(tabs, rays, st, alive, rid, bounce=n_sync,
-                               loop_bounces=max_depth - n_sync, **kw)
-        radbuf = radbuf + rad
+        with span("sort"):
+            st, alive, rid, radbuf = permute(_dead_last(alive), st, alive,
+                                             rid, radbuf)
+        with span("bounce"):
+            _, _, rad = _wf_bounce(tabs, rays, st, alive, rid, bounce=n_sync,
+                                   loop_bounces=max_depth - n_sync, **kw)
+            radbuf = radbuf + rad
 
     # back to ray order (ids are unique), then the samples in order
-    by_ray = torch.empty((3, r_pad), dtype=torch.float32, device=dev)
-    by_ray[:, rid.long()] = radbuf
-    per_sample = by_ray[:, :rays.n_rays].reshape(3, spp, n_px)
-    acc = torch.zeros((3, n_px), dtype=torch.float32, device=dev)
-    for s in range(spp):
-        acc = acc + per_sample[:, s]
-    img = torch.empty((n_px, 3), dtype=torch.float32, device=dev)
-    img[rays.slot_pix.long()] = acc.T
-    return (img.reshape(h, w, 3) / float(spp)).to(camera.dtype)
+    with span("finish"):
+        by_ray = torch.empty((3, r_pad), dtype=torch.float32, device=dev)
+        by_ray[:, rid.long()] = radbuf
+        per_sample = by_ray[:, :rays.n_rays].reshape(3, spp, n_px)
+        acc = torch.zeros((3, n_px), dtype=torch.float32, device=dev)
+        for s in range(spp):
+            acc = acc + per_sample[:, s]
+        img = torch.empty((n_px, 3), dtype=torch.float32, device=dev)
+        img[rays.slot_pix.long()] = acc.T
+        return (img.reshape(h, w, 3) / float(spp)).to(camera.dtype)

@@ -15,9 +15,9 @@ and us/ray from the camera-ray count (rayz.zig:24-34). Here:
   ``torch.profiler`` is on (:func:`trace`, or any other profile): a
   ``user_annotation`` event ``rayz.<name>`` on the profiler's clock, in the
   same trace as the kernels and copies it launches. With no profiler
-  running it is one check and nothing more. The megakernel render path
-  (``render_fast`` -> ``render_megakernel`` -> ``_trace_shard_queue``)
-  marks five flat stages, none inside another:
+  running it is one check and nothing more. The render paths mark flat
+  stages, none inside another. The megakernel's (``render_fast`` ->
+  ``render_megakernel`` -> ``_trace_shard_queue``):
 
   - ``rayz.dispatch``: the engine pick in ``render_fast`` and the table
     mode's resolution in ``render_megakernel`` (two a ``render_fast``
@@ -28,6 +28,18 @@ and us/ray from the camera-ray count (rayz.zig:24-34). Here:
     (``_queue``), one a sample group;
   - ``rayz.fold``: each fold of a sample group (``_fold``);
   - ``rayz.finish``: the image's reshape, division by spp and cast.
+
+  The wavefront's (``render_fast`` -> ``render_wavefront``), after the
+  dispatch:
+
+  - ``rayz.tables``: the (streamed) tables, the scene's bounds, the camera
+    vector, the slot -> pixel table and the ray ids;
+  - ``rayz.bounce``: each launch with its input checks, and the addition
+    of its radiance (one a synchronous bounce, one for the tail);
+  - ``rayz.sort``: each sort or dead-last partition between launches with
+    its permutation of the ray planes;
+  - ``rayz.finish``: the radiance scattered back to ray order, the sum
+    over samples in order, the image's scatter, division by spp and cast.
 """
 
 from __future__ import annotations

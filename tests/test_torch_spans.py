@@ -2,10 +2,13 @@
 under a ``torch.profiler``, a megakernel render through ``render_fast``
 records five flat stages, ``rayz.dispatch`` (2), ``rayz.tables`` (1),
 ``rayz.queue`` and ``rayz.fold`` (one each a sample group) and
-``rayz.finish`` (1), as ``user_annotation`` events inside the caller's
-own annotation; with no profiler running no ``record_function`` is entered
-and the image is bit for bit the traced one. On the CPU the wrappers run
-the plain versions through the same Python path as the kernels."""
+``rayz.finish`` (1), and a wavefront render ``rayz.dispatch`` (1),
+``rayz.tables`` (1), ``rayz.bounce`` (one a launch), ``rayz.sort`` (one a
+sort or partition between launches) and ``rayz.finish`` (1), as
+``user_annotation`` events inside the caller's own annotation; with no
+profiler running no ``record_function`` is entered and the image is bit
+for bit the traced one. On the CPU the wrappers run the plain versions
+through the same Python path as the kernels."""
 
 import collections
 import json
@@ -21,6 +24,7 @@ from rayz_tpu_torch.utils import profiling
 torch.set_num_threads(2)
 
 STAGES = ("dispatch", "tables", "queue", "fold", "finish")
+WF_STAGES = ("dispatch", "tables", "bounce", "sort", "finish")
 CFG = rtt.RenderConfig(spp=3, max_depth=3)
 
 
@@ -28,8 +32,8 @@ def _scene():
     return rtt.scenes.two_sphere(width=8, height=6, device="cpu")
 
 
-def _render(scene, cam, engine="megakernel"):
-    return rtt.render_fast(scene, cam, 7, CFG, engine=engine)
+def _render(scene, cam, engine="megakernel", config=CFG, **kw):
+    return rtt.render_fast(scene, cam, 7, config, engine=engine, **kw)
 
 
 def _events(tmp_path, fn):
@@ -64,6 +68,41 @@ def _flat(spans) -> bool:
     return True
 
 
+def _stages(events):
+    """The ``rayz.*`` spans' stage names in order, after checking that they
+    are user annotations, flat and inside the caller's ``request``."""
+    spans = _spans(events)
+    assert all(e["cat"] == "user_annotation" for e in spans)
+    assert _flat(spans)
+    (req,) = [e for e in events if e["name"] == "request"]
+    assert all(req["ts"] <= e["ts"] and e["ts"] + e["dur"]
+               <= req["ts"] + req["dur"] + 2e-3 for e in spans)
+    return [e["name"][5:] for e in sorted(spans, key=lambda e: e["ts"])]
+
+
+def _check_off_and_on(tmp_path, monkeypatch, render, stages):
+    """With no profiler ``render`` enters no ``record_function`` and gives
+    the traced image bit for bit; once a profiler records it enters one
+    for each of ``stages``."""
+    traced, _ = _events(tmp_path, render)
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(*args, **kw):
+        entered.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    assert not torch.autograd._profiler_enabled()
+    plain = render()
+    assert entered == []
+    assert torch.equal(plain, traced)
+    # the same patch is entered once a profiler records
+    _events(tmp_path, render)
+    assert {a[0] for a in entered} - {"request"} == {
+        f"rayz.{s}" for s in stages}
+
+
 @pytest.mark.parametrize("groups", [1, 3])
 def test_megakernel_render_records_five_flat_stages(tmp_path, monkeypatch,
                                                     groups):
@@ -73,20 +112,43 @@ def test_megakernel_render_records_five_flat_stages(tmp_path, monkeypatch,
     assert -(-CFG.spp // mk._queue_group(CFG.spp, cam.width * cam.height)) \
         == groups
     _, events = _events(tmp_path, lambda: _render(scene, cam))
-    spans = _spans(events)
-    counts = collections.Counter(e["name"] for e in spans)
-    assert counts == {"rayz.dispatch": 2, "rayz.tables": 1,
-                      "rayz.queue": groups, "rayz.fold": groups,
-                      "rayz.finish": 1}
-    assert all(e["cat"] == "user_annotation" for e in spans)
-    assert _flat(spans)
-    (req,) = [e for e in events if e["name"] == "request"]
-    assert all(req["ts"] <= e["ts"] and e["ts"] + e["dur"]
-               <= req["ts"] + req["dur"] + 2e-3 for e in spans)
+    order = _stages(events)
+    assert collections.Counter(order) == {
+        "dispatch": 2, "tables": 1, "queue": groups, "fold": groups,
+        "finish": 1}
     # stages in order: dispatch, dispatch, tables, (queue, fold)..., finish
-    order = [e["name"][5:] for e in sorted(spans, key=lambda e: e["ts"])]
     assert order == ["dispatch", "dispatch", "tables"] + \
         ["queue", "fold"] * groups + ["finish"]
+
+
+@pytest.mark.parametrize("depth,sort,order", [
+    # bounces 0, 1, 2 and the tail; a sort before bounce 1, a partition
+    # before bounce 2 and one before the tail
+    (8, True, ["bounce", "sort", "bounce", "sort", "bounce", "sort",
+               "bounce"]),
+    (3, True, ["bounce", "sort", "bounce", "sort", "bounce"]),
+    (2, True, ["bounce", "sort", "bounce"]),
+    # without the sort only the tail's partition is left
+    (8, False, ["bounce", "bounce", "bounce", "sort", "bounce"]),
+])
+def test_wavefront_render_records_flat_stages(tmp_path, depth, sort, order):
+    scene, cam = _scene()
+    cfg = CFG._replace(max_depth=depth)
+    _, events = _events(tmp_path, lambda: _render(scene, cam, "wavefront",
+                                                  cfg, sort=sort))
+    got = _stages(events)
+    assert got == ["dispatch", "tables"] + order + ["finish"]
+    if depth == 8 and sort:
+        assert collections.Counter(got) == {
+            "dispatch": 1, "tables": 1, "bounce": 4, "sort": 3, "finish": 1}
+
+
+def test_wavefront_without_profiler_enters_nothing(tmp_path, monkeypatch):
+    scene, cam = _scene()
+    cfg = CFG._replace(max_depth=8)
+    _check_off_and_on(tmp_path, monkeypatch,
+                      lambda: _render(scene, cam, "wavefront", cfg),
+                      WF_STAGES)
 
 
 def test_other_engines_record_only_the_dispatch(tmp_path):
@@ -97,23 +159,8 @@ def test_other_engines_record_only_the_dispatch(tmp_path):
 
 def test_no_profiler_enters_no_record_function(tmp_path, monkeypatch):
     scene, cam = _scene()
-    traced, _ = _events(tmp_path, lambda: _render(scene, cam))
-    entered = []
-    real = torch.profiler.record_function
-
-    def counting(*args, **kw):
-        entered.append(args)
-        return real(*args, **kw)
-
-    monkeypatch.setattr(torch.profiler, "record_function", counting)
-    assert not torch.autograd._profiler_enabled()
-    plain = _render(scene, cam)
-    assert entered == []
-    assert torch.equal(plain, traced)
-    # the same patch is entered once a profiler records
-    _events(tmp_path, lambda: _render(scene, cam))
-    assert {a[0] for a in entered} - {"request"} == {
-        f"rayz.{s}" for s in STAGES}
+    _check_off_and_on(tmp_path, monkeypatch, lambda: _render(scene, cam),
+                      STAGES)
 
 
 def test_span_is_one_shared_no_op_when_off():
