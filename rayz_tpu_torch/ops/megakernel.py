@@ -62,11 +62,12 @@ from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _PKF, _TG1V, _TG1X,
                      _TG1Y, _TG1Z, _TG2V, _TG2X, _TG2Y, _TG2Z, _TNV0, _TNX,
                      _TNY, _TNZ, _TPKF, _VV, _VX, _VY, _VZ, DEFAULT_BLOCK,
                      DEFAULT_STREAM_CHUNK, QUEUE_WIDTHS, SHARED_LIMIT,
-                     STREAM_BLOCK, StreamTables, Tables, _camera_vector,
-                     _resolve_tiling, _smem_scene_inputs, _stream_counts,
-                     _stream_scene_inputs, fits_shared, pack_records,
-                     queue_shared_bytes, queue_threads, shared_bytes,
-                     stream_shared_bytes, supports_scene)
+                     STREAM_BLOCK, StreamTables, Tables, _resolve_tiling,
+                     _smem_scene_inputs, _stream_counts,
+                     _stream_scene_inputs, fits_shared, memo_camera_vector,
+                     memo_tables, pack_records, queue_shared_bytes,
+                     queue_threads, shared_bytes, stream_shared_bytes,
+                     supports_scene, tables_stage)
 
 __all__ = ["render_megakernel", "render_megakernel_sharded", "LAUNCHES",
            "MODE_LAUNCHES", "MODES"]
@@ -794,15 +795,20 @@ def _launch_args(scene: Scene, camera: Camera, seed: int, *, spp: int,
                  blk: int = 0, stream: int = 0, cull: bool = True):
     """The queue's tables and keywords for one render: resident (culled
     with ``blk > 0``) or streamed (``stream > 0``, blocks of ``blk``, the
-    spheres' packed records)."""
-    records = None
-    if stream:
+    spheres' packed records). The tables and the camera vector come
+    through the memos of :mod:`~rayz_tpu_torch.ops.tables` (keyed on the
+    scene, and the camera's origin where the streamed layout reads it), so
+    a render of an unchanged scene builds none of them."""
+    def build():
+        if not stream:
+            return _smem_scene_inputs(scene, unroll, blk), None
         tabs = _stream_scene_inputs(scene, stream, blk,
                                     camera.look_from.to(torch.float32))
-        records = pack_records(tabs.stab, tabs.sblk, scene.has_motion)
-    else:
-        tabs = _smem_scene_inputs(scene, unroll, blk)
-    cam = _camera_vector(camera).contiguous()
+        return tabs, pack_records(tabs.stab, tabs.sblk, scene.has_motion)
+
+    tabs, records = memo_tables(scene, camera.look_from if stream else None,
+                                ("megakernel", unroll, blk, stream), build)
+    cam = memo_camera_vector(camera)
     kw = dict(width=camera.width, spp=spp, max_depth=max_depth, t_min=t_min,
               jitter=jitter, has_motion=scene.has_motion, seed=int(seed),
               bounds=tabs if (blk or stream) else None, records=records,
@@ -821,7 +827,7 @@ def _trace_shard_queue(scene: Scene, camera: Camera, seed: int,
     ``_trace_shard``, ``_trace_shard_compact`` and
     ``_trace_shard_streamed``. Returns flat [n_local, 3] radiance sums
     (divide by spp for the image)."""
-    with span("tables"):
+    with tables_stage():
         args, kw = _launch_args(scene, camera, seed, spp=spp,
                                 max_depth=max_depth, t_min=t_min,
                                 jitter=jitter, unroll=unroll, blk=blk,

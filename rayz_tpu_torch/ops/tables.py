@@ -35,6 +35,11 @@ The residency rules are re-derived for the H100, whose blocks hold at most
 They replace the JAX package's ``fits_smem``/``fits_stream``/
 ``SMEM_BUDGET``, which are sized for the 1 MiB SMEM of a TPU v5e.
 
+The forward renders (the megakernel's ``_launch_args``, the wavefront's
+table stage) look their tables up in :data:`TABLE_MEMO` and build them only
+for a scene they have not seen unchanged (:class:`Memo`); the recorders
+build theirs on every call.
+
 Chunk and block sizes of the streamed layout (:data:`DEFAULT_STREAM_CHUNK`,
 :data:`STREAM_BLOCK`) are the H100's own. On the TPU a chunk is a DMA into
 SMEM scratch (4,096 columns, 327,680 bytes for triangles: more than a
@@ -49,14 +54,19 @@ never the winner (except at exact ties).
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
 import functools
-from typing import NamedTuple
+import weakref
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from ..models.camera import Camera
-from ..models.scene import MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
+from ..models.camera import _VECTORS, Camera
+from ..models.scene import _STATIC, MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
+from ..utils.profiling import span
 
 __all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
            "fits_stream", "fits_wavefront", "fits_record_stream",
@@ -65,7 +75,8 @@ __all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
            "wavefront_shared_bytes", "SHARED_LIMIT", "CAM_WORDS",
            "WF_HEAD_WORDS", "WF_STAGE_WORDS", "WF_PARK_WORDS",
            "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
-           "DEFAULT_STREAM_CHUNK", "STREAM_BLOCK", "Tables", "StreamTables"]
+           "DEFAULT_STREAM_CHUNK", "STREAM_BLOCK", "Tables", "StreamTables",
+           "Memo", "TABLE_MEMO", "VIEW_MEMO", "clear_memos"]
 
 # Sphere table rows (one f32 row per attribute, columns = spheres).
 _CX, _CY, _CZ, _CCMR2 = 0, 1, 2, 3
@@ -572,6 +583,129 @@ def _stream_counts(scene: Scene, stream: int):
     """Streamed column counts and the supercluster group they imply."""
     n_r, m_r = _padded_counts(scene, 1, stream)
     return n_r, m_r, _pick_sc_group(max(n_r, m_r) // stream)
+
+
+# --------------------------------------------------------------------------
+# the memo of a render's tables
+# --------------------------------------------------------------------------
+
+_SCENE_TENSORS = tuple(f.name for f in dataclasses.fields(Scene)
+                       if f.name not in _STATIC)
+
+
+class Memo:
+    """A small LRU memo of what a render builds from tensors it only reads.
+    A viewport or preview loop renders the same ``Scene`` and ``Camera``
+    again and again, a new seed each time; the memo hands each render the
+    tables the last one built, unchanged, instead of building them again.
+
+    :meth:`get` keys an entry on the tensors the build reads, each by
+    identity (held as a weak reference, so a freed tensor whose address is
+    reused never hits) and by its ``_version``, which every in-place write
+    bumps (an optimiser's ``add_``, an indexed assignment), and on the
+    build's other arguments, the device and, on a card, the current stream.
+    ``Scene.replace`` or a new camera brings new tensors, so a miss. A write
+    through ``.data`` does not bump ``_version`` and is not seen. Reading
+    the key syncs nothing. Where grad mode is on and a keyed tensor requires
+    grad, or in inference mode, the memo is bypassed and builds, so no
+    cached value holds an autograd graph or is an inference tensor. It
+    keeps at most ``size`` entries, and each lookup first drops those whose
+    tensors have been freed. Cached values are handed out as they are: the
+    renders read them and write into none.
+
+    ``counts`` holds this process's hits, builds (misses) and bypasses."""
+
+    def __init__(self, size: int = 4):
+        self.size = size
+        self.counts = dict(hits=0, builds=0, bypasses=0)
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+
+    def clear(self) -> None:
+        """Drop every entry and zero the counts."""
+        self._entries.clear()
+        self.counts.update(hits=0, builds=0, bypasses=0)
+
+    def get(self, device: torch.device, tensors, args: tuple,
+            build: Callable[[], object]):
+        """The value ``build()`` gives for ``tensors`` (a tuple) and
+        ``args`` (hashable) on ``device``: the cached one if they are
+        unchanged since it was built, else a new one, then cached."""
+        if torch.is_inference_mode_enabled() or (
+                torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)):
+            self.counts["bypasses"] += 1
+            return build()
+        if device.type == "cuda":
+            args += (torch.cuda.current_stream(device).cuda_stream,)
+        key = (device, args, tuple(map(id, tensors)),
+               tuple(t._version for t in tensors))
+        for k in [k for k, (refs, _) in self._entries.items()
+                  if any(r() is None for r in refs)]:
+            del self._entries[k]
+        entry = self._entries.get(key)
+        if entry is not None and all(
+                r() is t for r, t in zip(entry[0], tensors)):
+            self._entries.move_to_end(key)
+            self.counts["hits"] += 1
+            return entry[1]
+        value = build()
+        self._entries[key] = ([weakref.ref(t) for t in tensors], value)
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.size:
+            self._entries.popitem(last=False)
+        self.counts["builds"] += 1
+        return value
+
+
+#: The scene's tables of a forward render (the megakernel's and the
+#: wavefront's), keyed on every tensor of the scene and, where the layout
+#: reads it (streamed), the camera's origin.
+TABLE_MEMO = Memo()
+#: What a render builds from its camera or image size alone: the camera
+#: vector and the wavefront's slot -> pixel table.
+VIEW_MEMO = Memo()
+
+
+def clear_memos() -> None:
+    """Empty both memos and zero their counts."""
+    TABLE_MEMO.clear()
+    VIEW_MEMO.clear()
+
+
+def memo_tables(scene: Scene, origin, args: tuple,
+                build: Callable[[], object]):
+    """``build()``'s tables for ``scene`` through :data:`TABLE_MEMO`, keyed
+    on every tensor field of the scene, its static fields, ``args`` and
+    the camera's ``origin`` tensor where the build reads it (else None)."""
+    tensors = tuple(getattr(scene, f) for f in _SCENE_TENSORS)
+    if origin is not None:
+        tensors += (origin,)
+    return TABLE_MEMO.get(scene.device, tensors,
+                          args + tuple(getattr(scene, f) for f in _STATIC),
+                          build)
+
+
+def memo_camera_vector(camera: Camera) -> torch.Tensor:
+    """:func:`_camera_vector` (contiguous) through :data:`VIEW_MEMO`."""
+    return VIEW_MEMO.get(camera.device,
+                         tuple(getattr(camera, k) for k in _VECTORS),
+                         ("camera",),
+                         lambda: _camera_vector(camera).contiguous())
+
+
+@contextlib.contextmanager
+def tables_stage():
+    """The render's ``rayz.tables`` span around its table lookups and any
+    build; after it, where the scene's tables were built (a miss or a
+    bypass of :data:`TABLE_MEMO`), a flat, empty ``rayz.tables_built``
+    span, so a trace counts the builds."""
+    counts = TABLE_MEMO.counts
+    before = counts["builds"] + counts["bypasses"]
+    with span("tables"):
+        yield
+    if counts["builds"] + counts["bypasses"] != before:
+        with span("tables_built"):
+            pass
 
 
 # --------------------------------------------------------------------------

@@ -47,11 +47,12 @@ from .integrator import RenderConfig
 from .megakernel import (Bits, _hit_frame, _key_draws, _mode, _nearest,
                          _scatter, _spawn)
 from .tables import (_BIG, DEFAULT_BLOCK, DEFAULT_STREAM_CHUNK, SHARED_LIMIT,
-                     STREAM_BLOCK, StreamTables, _camera_vector,
-                     _padded_counts, _patch_inverse, _resolve_blk,
-                     _resolve_tiling, _smem_scene_inputs, _stream_counts,
-                     _stream_scene_inputs, fits_wavefront, supports_scene,
-                     use_patch_order, wavefront_shared_bytes)
+                     STREAM_BLOCK, VIEW_MEMO, StreamTables, _padded_counts,
+                     _patch_inverse, _resolve_blk, _resolve_tiling,
+                     _smem_scene_inputs, _stream_counts, _stream_scene_inputs,
+                     fits_wavefront, memo_camera_vector, memo_tables,
+                     supports_scene, tables_stage, use_patch_order,
+                     wavefront_shared_bytes)
 
 __all__ = ["render_wavefront", "supports_wavefront", "LAUNCHES", "ST",
            "WF_BLOCK", "N_SYNC"]
@@ -337,17 +338,21 @@ def _dead_last(alive: torch.Tensor) -> torch.Tensor:
 
 def _slot_pixels(camera: Camera) -> torch.Tensor:
     """Patch slot -> flat pixel id (row-major where the image does not tile
-    into 64x32 patches)."""
-    w, h = camera.width, camera.height
-    if use_patch_order(w, h):
-        slot2pix = np.argsort(_patch_inverse(w, h)).astype(np.int32)
-        return torch.from_numpy(slot2pix).to(camera.device)
-    return torch.arange(w * h, dtype=torch.int32, device=camera.device)
+    into 64x32 patches), built once for each image size and device
+    (:data:`~rayz_tpu_torch.ops.tables.VIEW_MEMO`)."""
+    w, h, dev = camera.width, camera.height, camera.device
+
+    def build():
+        if use_patch_order(w, h):
+            slot2pix = np.argsort(_patch_inverse(w, h)).astype(np.int32)
+            return torch.from_numpy(slot2pix).to(dev)
+        return torch.arange(w * h, dtype=torch.int32, device=dev)
+    return VIEW_MEMO.get(dev, (), ("slots", w, h), build)
 
 
-def _resolve_layout(scene: Scene, camera: Camera, culling, block_size: int,
-                    stream: Optional[int]):
-    """The tables of one render and whether streamed chunks are tested, as
+def _layout_mode(scene: Scene, culling, block_size: int,
+                 stream: Optional[int]):
+    """``(unroll, blk, stream, sc_group, cull)`` of one render's tables, as
     ``render_wavefront`` resolves them (see there)."""
     unroll = _resolve_tiling(scene)
     blk = _resolve_blk(scene, culling, block_size)
@@ -356,9 +361,8 @@ def _resolve_layout(scene: Scene, camera: Camera, culling, block_size: int,
                                           blk=blk)
         stream = 0 if resident <= SHARED_LIMIT else DEFAULT_STREAM_CHUNK
     cull = culling is not False
-    if not stream:
-        tabs = _smem_scene_inputs(scene, unroll, blk)
-    else:
+    g = 0
+    if stream:
         if stream % 16:
             raise ValueError("stream chunk must be a multiple of 16")
         blk = STREAM_BLOCK if cull and stream % STREAM_BLOCK == 0 else 0
@@ -369,9 +373,24 @@ def _resolve_layout(scene: Scene, camera: Camera, culling, block_size: int,
                 f"wavefront: the chunk bounds of {n_r + m_r} columns in "
                 f"chunks of {stream} need {need} bytes of shared memory (> "
                 f"{SHARED_LIMIT}); use a larger chunk")
-        tabs = _stream_scene_inputs(scene, stream, blk,
-                                    camera.look_from.to(torch.float32), g)
-    return tabs, cull
+    return unroll, blk, stream, g, cull
+
+
+def _build_layout(scene: Scene, camera: Camera, unroll: int, blk: int,
+                  stream: int, sc_group: int):
+    """The tables of a layout :func:`_layout_mode` resolved."""
+    if not stream:
+        return _smem_scene_inputs(scene, unroll, blk)
+    return _stream_scene_inputs(scene, stream, blk,
+                                camera.look_from.to(torch.float32), sc_group)
+
+
+def _resolve_layout(scene: Scene, camera: Camera, culling, block_size: int,
+                    stream: Optional[int]):
+    """The tables of one render and whether streamed chunks are tested, as
+    ``render_wavefront`` resolves them (see there), built anew."""
+    *mode, cull = _layout_mode(scene, culling, block_size, stream)
+    return _build_layout(scene, camera, *mode), cull
 
 
 def render_wavefront(scene: Scene, camera: Camera, seed: int,
@@ -400,7 +419,12 @@ def render_wavefront(scene: Scene, camera: Camera, seed: int,
       the render's launches.
 
     Any of these changes only the order of the work, not the image (up to
-    exact ties)."""
+    exact ties). The tables and the scene's bounds (keyed on the scene, and
+    the camera's origin where streamed), the camera vector and the slot ->
+    pixel table come through the memos of :mod:`~rayz_tpu_torch.ops.tables`:
+    a render of an unchanged scene builds none of them. (The ray ids are
+    made anew: the first sort replaces them, so a cached copy would only
+    add its size to the render's peak memory.)"""
     if not supports_scene(scene):
         raise ValueError("wavefront needs a non-empty scene (spheres and/or "
                          "triangles) without nested checker textures")
@@ -410,12 +434,15 @@ def render_wavefront(scene: Scene, camera: Camera, seed: int,
     dev = scene.device
     h, w = camera.height, camera.width
     n_px, spp, max_depth = h * w, config.spp, config.max_depth
-    with span("tables"):
-        tabs, cull = _resolve_layout(scene, camera, culling, block_size,
-                                     stream)
-        lo, extent = _scene_bounds(scene)
-        rays = _Rays(_camera_vector(camera).contiguous(),
-                     _slot_pixels(camera), n_px * spp, w)
+    with tables_stage():
+        *mode, cull = _layout_mode(scene, culling, block_size, stream)
+        tabs, lo, extent = memo_tables(
+            scene, camera.look_from if mode[2] else None,
+            ("wavefront", *mode),
+            lambda: (_build_layout(scene, camera, *mode),
+                     *_scene_bounds(scene)))
+        rays = _Rays(memo_camera_vector(camera), _slot_pixels(camera),
+                     n_px * spp, w)
         r_pad = _round_up(rays.n_rays, WF_BLOCK)
         rid = torch.arange(r_pad, dtype=torch.int32, device=dev)
     kw = dict(t_min=config.t_min, jitter=config.jitter,

@@ -23,7 +23,10 @@ and us/ray from the camera-ray count (rayz.zig:24-34). Here:
     mode's resolution in ``render_megakernel`` (two a ``render_fast``
     render; the wavefront and dense engines have only the first);
   - ``rayz.tables``: the tables, camera vector and (streamed) packed
-    records built for the render (``_launch_args``);
+    records of the render (``_launch_args``): their lookup in the memos of
+    ``ops/tables.py``, and their build where the scene is new or changed;
+  - ``rayz.tables_built``: empty, right after ``rayz.tables`` where that
+    built the scene's tables (none on a memo hit);
   - ``rayz.queue``: each queue launch with its argument checks
     (``_queue``), one a sample group;
   - ``rayz.fold``: each fold of a sample group (``_fold``);
@@ -32,8 +35,9 @@ and us/ray from the camera-ray count (rayz.zig:24-34). Here:
   The wavefront's (``render_fast`` -> ``render_wavefront``), after the
   dispatch:
 
-  - ``rayz.tables``: the (streamed) tables, the scene's bounds, the camera
-    vector, the slot -> pixel table and the ray ids;
+  - ``rayz.tables`` and ``rayz.tables_built``, as the megakernel's: the
+    (streamed) tables, the scene's bounds, the camera vector, the slot ->
+    pixel table and the ray ids;
   - ``rayz.bounce``: each launch with its input checks, and the addition
     of its radiance (one a synchronous bounce, one for the tail);
   - ``rayz.sort``: each sort or dead-last partition between launches with

@@ -5,7 +5,10 @@ records five flat stages, ``rayz.dispatch`` (2), ``rayz.tables`` (1),
 ``rayz.finish`` (1), and a wavefront render ``rayz.dispatch`` (1),
 ``rayz.tables`` (1), ``rayz.bounce`` (one a launch), ``rayz.sort`` (one a
 sort or partition between launches) and ``rayz.finish`` (1), as
-``user_annotation`` events inside the caller's own annotation; with no
+``user_annotation`` events inside the caller's own annotation; a render
+that builds its scene's tables (the first of a scene) records an empty
+``rayz.tables_built`` right after ``rayz.tables``, one that finds them in
+the memo (ops/tables.py ``TABLE_MEMO``) does not; with no
 profiler running no ``record_function`` is entered and the image is bit
 for bit the traced one. On the CPU the wrappers run the plain versions
 through the same Python path as the kernels."""
@@ -114,10 +117,11 @@ def test_megakernel_render_records_five_flat_stages(tmp_path, monkeypatch,
     _, events = _events(tmp_path, lambda: _render(scene, cam))
     order = _stages(events)
     assert collections.Counter(order) == {
-        "dispatch": 2, "tables": 1, "queue": groups, "fold": groups,
-        "finish": 1}
-    # stages in order: dispatch, dispatch, tables, (queue, fold)..., finish
-    assert order == ["dispatch", "dispatch", "tables"] + \
+        "dispatch": 2, "tables": 1, "tables_built": 1, "queue": groups,
+        "fold": groups, "finish": 1}
+    # stages in order: dispatch, dispatch, tables (and, the scene's first
+    # render, its build), (queue, fold)..., finish
+    assert order == ["dispatch", "dispatch", "tables", "tables_built"] + \
         ["queue", "fold"] * groups + ["finish"]
 
 
@@ -137,10 +141,24 @@ def test_wavefront_render_records_flat_stages(tmp_path, depth, sort, order):
     _, events = _events(tmp_path, lambda: _render(scene, cam, "wavefront",
                                                   cfg, sort=sort))
     got = _stages(events)
-    assert got == ["dispatch", "tables"] + order + ["finish"]
+    assert got == ["dispatch", "tables", "tables_built"] + order + ["finish"]
     if depth == 8 and sort:
         assert collections.Counter(got) == {
-            "dispatch": 1, "tables": 1, "bounce": 4, "sort": 3, "finish": 1}
+            "dispatch": 1, "tables": 1, "tables_built": 1, "bounce": 4,
+            "sort": 3, "finish": 1}
+
+
+@pytest.mark.parametrize("engine", ["megakernel", "wavefront"])
+def test_tables_built_is_recorded_on_a_build_and_not_on_a_hit(tmp_path,
+                                                              engine):
+    scene, cam = _scene()
+    _, first = _events(tmp_path, lambda: _render(scene, cam, engine))
+    _, second = _events(tmp_path, lambda: _render(scene, cam, engine))
+    order = _stages(first)
+    assert order.count("tables_built") == 1
+    assert order[order.index("tables") + 1] == "tables_built"
+    assert "tables" in _stages(second)
+    assert "tables_built" not in _stages(second)
 
 
 def test_wavefront_without_profiler_enters_nothing(tmp_path, monkeypatch):

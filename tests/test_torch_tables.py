@@ -1,11 +1,18 @@
 """The port's culling table prep (rayz_tpu_torch/ops/tables.py) against the
 JAX package's: Morton order, block bound rows, near-to-far order, the
 culled resident layout and the streamed layout with superclusters, on a
-moving-sphere scene, a triangle scene and a mixed one.
+moving-sphere scene, a triangle scene and a mixed one. Then the memo of a
+render's tables on the three paths that look them up (the megakernel
+resident and streamed, the wavefront streamed): hits, misses, bypasses and
+eviction, every image bit for bit a cold render's.
 
 Tolerance: permutations equal; tables and bound rows within 1 ulp (both
 build from the same float32 values in the same order; the rows agree bit
 for bit today)."""
+
+import dataclasses
+import gc
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +23,7 @@ import rayz_tpu as rt
 import rayz_tpu_torch as rtt
 from rayz_tpu.ops import megakernel as jmk
 from rayz_tpu.ops import wavefront as jwf
-from rayz_tpu_torch.ops import tables, wavefront as twf
+from rayz_tpu_torch.ops import megakernel as mk, tables, wavefront as twf
 
 torch.set_num_threads(2)
 
@@ -287,3 +294,182 @@ def test_streamed_permutations_invert_the_sort(name):
             assert torch.equal(tab, t2)
             assert torch.equal(cb, tables._block_rows(lo, hi, v, stream))
             assert torch.equal(bl, tables._block_rows(lo, hi, v, blk))
+
+
+# --------------------------------------------------------------------------
+# the memo of a render's tables (TABLE_MEMO, VIEW_MEMO)
+# --------------------------------------------------------------------------
+
+MEMO_CFG = rtt.RenderConfig(spp=1, max_depth=3)
+#: The render paths that look their tables up: the megakernel resident, the
+#: megakernel streamed and the wavefront streamed (both read the camera's
+#: origin).
+MEMO_PATHS = {"resident": dict(engine="megakernel"),
+              "streamed": dict(engine="megakernel", stream=128),
+              "wavefront": dict(engine="wavefront", stream=128)}
+
+
+@pytest.fixture
+def memo():
+    tables.clear_memos()
+    yield tables.TABLE_MEMO
+    tables.clear_memos()
+
+
+def _memo_scene():
+    return rtt.scenes.random_bouncing(width=16, height=9, seed=3,
+                                      device="cpu")
+
+
+def _render_path(path, scene, cam):
+    return rtt.render_fast(scene, cam, 5, MEMO_CFG, **MEMO_PATHS[path])
+
+
+def _fresh(scene):
+    """The same scene in new tensors."""
+    return scene.replace(**{f: getattr(scene, f).clone()
+                            for f in tables._SCENE_TENSORS})
+
+
+def _cached_tensors():
+    out = []
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, tuple):
+            for x in v:
+                walk(x)
+    for m in (tables.TABLE_MEMO, tables.VIEW_MEMO):
+        for _, value in m._entries.values():
+            walk(value)
+    return out
+
+
+@pytest.mark.parametrize("path", MEMO_PATHS)
+def test_memo_second_render_hits_bit_for_bit(path, memo, monkeypatch):
+    """A second render of an unchanged scene takes the first one's tables:
+    no table builder runs, the image is the cold render's bit for bit and
+    no cached tensor is written."""
+    scene, cam = _memo_scene()
+    cold = _render_path(path, scene, cam)
+    assert memo.counts == dict(hits=0, builds=1, bypasses=0)
+    versions = [(t, t._version) for t in _cached_tensors()]
+    assert len(versions) >= 3
+
+    def refuse(*args, **kw):
+        raise AssertionError("a hit built tables")
+    for mod, name in ((mk, "_smem_scene_inputs"),
+                      (mk, "_stream_scene_inputs"), (mk, "pack_records"),
+                      (twf, "_smem_scene_inputs"),
+                      (twf, "_stream_scene_inputs"), (twf, "_scene_bounds"),
+                      (tables, "_camera_vector"), (tables, "scene_tables"),
+                      (tables, "tri_tables"), (twf.np, "argsort")):
+        monkeypatch.setattr(mod, name, refuse)
+    warm = _render_path(path, scene, cam)
+    assert memo.counts == dict(hits=1, builds=1, bypasses=0)
+    assert torch.equal(warm, cold)
+    assert all(t._version == v for t, v in versions)
+
+
+@pytest.mark.parametrize("change", ["in_place", "replace"])
+@pytest.mark.parametrize("path", MEMO_PATHS)
+def test_memo_misses_on_a_changed_scene(path, change, memo):
+    """An in-place write to a scene tensor (its ``_version``) or a new
+    tensor through ``Scene.replace`` misses, and the render is a fresh
+    scene's of the same values bit for bit."""
+    scene, cam = _memo_scene()
+    before = _render_path(path, scene, cam)
+    if change == "in_place":
+        scene.sphere_center.add_(torch.tensor([0.0, 0.05, 0.0]))
+    else:
+        scene = scene.replace(sphere_radius=scene.sphere_radius * 1.5)
+    got = _render_path(path, scene, cam)
+    assert memo.counts == dict(hits=0, builds=2, bypasses=0)
+    assert not torch.equal(got, before)
+    assert torch.equal(got, _render_path(path, _fresh(scene), cam))
+
+
+@pytest.mark.parametrize("path", MEMO_PATHS)
+def test_memo_keys_the_camera_where_the_layout_reads_it(path, memo):
+    """A new camera origin misses on the streamed layouts (their chunks are
+    ordered near to far from it) and hits on the resident one; the image
+    is a cold render's with that camera bit for bit."""
+    scene, cam = _memo_scene()
+    _render_path(path, scene, cam)
+    moved = dataclasses.replace(
+        cam, look_from=cam.look_from + torch.tensor([0.5, 0.0, 0.0]))
+    got = _render_path(path, scene, moved)
+    streamed = path != "resident"
+    assert memo.counts == dict(hits=int(not streamed), builds=1 + streamed,
+                               bypasses=0)
+    tables.clear_memos()
+    assert torch.equal(got, _render_path(path, scene, moved))
+
+
+@pytest.mark.parametrize("path", MEMO_PATHS)
+def test_memo_is_bypassed_for_a_tensor_that_needs_grad(path, memo):
+    """With grad mode on, a scene tensor that requires grad bypasses the
+    memo (built as without it, nothing cached); under no_grad the tables
+    are cached, and none of them requires grad."""
+    scene, cam = _memo_scene()
+    want = _render_path(path, scene, cam)
+    trained = scene.replace(
+        sphere_radius=scene.sphere_radius.clone().requires_grad_(True))
+    got = _render_path(path, trained, cam)
+    assert memo.counts == dict(hits=0, builds=1, bypasses=1)
+    assert len(memo._entries) == 1
+    assert torch.equal(got.detach(), want)
+    with torch.no_grad():
+        _render_path(path, trained, cam)
+    assert memo.counts == dict(hits=0, builds=2, bypasses=1)
+    assert not any(t.requires_grad for t in _cached_tensors())
+
+
+@pytest.mark.parametrize("path", MEMO_PATHS)
+def test_memo_drops_a_freed_scenes_entry(path, memo):
+    scene, cam = _memo_scene()
+    _render_path(path, scene, cam)
+    other = _fresh(scene)
+    _render_path(path, other, cam)
+    assert len(memo._entries) == 2
+    ref = weakref.ref(other.sphere_center)
+    del other
+    gc.collect()
+    assert ref() is None
+    _render_path(path, scene, cam)
+    assert len(memo._entries) == 1
+    assert memo.counts == dict(hits=1, builds=2, bypasses=0)
+
+
+def test_memo_keeps_its_most_recent_entries():
+    """At most ``size`` entries, the least recently used dropped first;
+    the key holds the arguments as well as the tensors."""
+    m = tables.Memo(size=2)
+    ts = [torch.zeros(1) for _ in range(3)]
+    built = []
+
+    def get(t, arg=0):
+        return m.get(t.device, (t,), (arg,),
+                     lambda: built.append((t, arg)) or len(built))
+    assert [get(ts[0]), get(ts[1]), get(ts[0])] == [1, 2, 1]
+    get(ts[2])  # drops ts[1], the least recently used
+    assert get(ts[0]) == 1 and get(ts[1]) == 4
+    assert get(ts[1], arg=1) == 5
+    assert m.counts == dict(hits=2, builds=5, bypasses=0)
+    assert len(m._entries) == 2
+    m.clear()
+    assert m.counts == dict(hits=0, builds=0, bypasses=0)
+    assert not m._entries
+
+
+def test_memo_is_bypassed_in_inference_mode():
+    m = tables.Memo()
+    t = torch.zeros(1)
+    with torch.inference_mode():
+        assert m.get(t.device, (t,), (), lambda: 1) == 1
+    assert m.counts == dict(hits=0, builds=0, bypasses=1)
+    assert m.get(t.device, (t,), (), lambda: 2) == 2
+    t[0] = 1.0  # bumps the version: a miss
+    assert m.get(t.device, (t,), (), lambda: 3) == 3
+    assert m.counts == dict(hits=0, builds=2, bypasses=1)
