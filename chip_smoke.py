@@ -792,10 +792,9 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
     same inputs; the queue's counters (segments, the warps' lane-trips,
     re-sweeps, atomics); the bounds over this render's segments."""
     n = cam.width * cam.height
-    args, kw = mk._launch_args(scene, cam, 1, spp=cfg.spp,
-                               max_depth=cfg.max_depth, t_min=cfg.t_min,
-                               jitter=cfg.jitter,
-                               unroll=tb._resolve_tiling(scene))
+    args, kw = mk._launch_args(scene, cam, 1, tb.resolve(scene, "megakernel"),
+                               spp=cfg.spp, max_depth=cfg.max_depth,
+                               t_min=cfg.t_min, jitter=cfg.jitter)
     del kw["spp"]
     stats = torch.zeros(8, dtype=torch.int64, device=dev)
     out = mk._queue(*args, n, 0, cfg.spp, stats=stats, **kw)
@@ -863,7 +862,7 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
                       f"{r_bound[0]:.4f} ms ({r_bound[1]}: {seg} segments x "
                       f"{args[1].shape[1]} columns x {prim_ops(scene)} ops), "
                       f"{r_bound[0] / (q_ms + f_ms):.1%} of the time; "
-                      f"{tb.shared_bytes(args[1].shape[1], args[2].shape[1])} "
+                      f"{kw['layout'].smem} "
                       "B of shared memory admitted per block "
                       f"({4 * (20 + 9 * args[1].shape[1])} B used)")
     return dict(queue_err=max(queue_err, off["err"]),
@@ -886,7 +885,8 @@ def record_flagship(scene, cam, dev):
     stats = torch.zeros(8, dtype=torch.int64, device=dev)
     pr._record_slots(*pr._scene_record_inputs(scene, cam), pix,
                      width=cam.width, has_motion=scene.has_motion, seed=1,
-                     iters=iters, stats=stats, **kw)
+                     iters=iters, layout=tb.resolve(scene, "record_pp"),
+                     stats=stats, **kw)
     with plain_pathrec():
         p, p_s = timed(lambda: pr.record_pp(scene, cam, 1, pix, iters=iters,
                                             **kw))
@@ -901,7 +901,7 @@ def record_flagship(scene, cam, dev):
                     f"first difference; {resweeps} re-sweeps in today's "
                     f"arithmetic ({resweeps / live:.3g} of {live} live "
                     "lane-iterations)")
-    stab = tb._smem_scene_inputs(scene, tb._resolve_tiling(scene)).stab
+    stab = pr._scene_record_inputs(scene, cam)[1]
     per = SPHERE_OPS + (MOTION_OPS if scene.has_motion else 0)
     return (agr["err"], k_ms, p_s * 1e3,
             *bound(nbytes(stab, pix, *k), live * stab.shape[1] * per))
@@ -1161,11 +1161,10 @@ def wavefront_phase(dev) -> float:
              ("streamed triangles, chunk 128", box, dict(stream=128), 2))
     worst = 0.0
     for label, (scene, cam), kw, want_mode in cases:
-        tabs, _ = wf._resolve_layout(scene, cam, kw.get("culling"),
-                                     tb.DEFAULT_BLOCK, kw.get("stream"))
-        if mk._mode(tabs) != want_mode:
+        tabs = tb.resolve(scene, "wavefront", **kw)
+        if tabs.mode != want_mode:
             raise AssertionError(f"wavefront {label}: resolved mode "
-                                 f"{mk._mode(tabs)}, expected {want_mode}")
+                                 f"{tabs.mode}, expected {want_mode}")
         recs = []
         with compare_wavefront(recs):
             img = wf.render_wavefront(scene, cam, 9, cfg, **kw)
@@ -1193,8 +1192,8 @@ def wavefront_phase(dev) -> float:
 
 
 def mode_compare(scene, cam, cfg, seed, dev, label: str, **layout) -> tuple:
-    """The culled or streamed queue launch (``layout``: ``blk``,
-    ``stream``) over the whole image and all ``cfg.spp`` samples (one
+    """The culled or streamed queue launch (``layout``: ``culling=True``
+    or ``stream``, as ``tables.resolve`` takes them) over the whole image and all ``cfg.spp`` samples (one
     sample group, as its path launches it), kernel (CUDA events) against
     its plain version on the same sorted tables: the share of pixels
     bit-identical after the fold (at least PIXEL_MATCH), every item whose
@@ -1203,10 +1202,10 @@ def mode_compare(scene, cam, cfg, seed, dev, label: str, **layout) -> tuple:
     (``sweep.explain_items``); then the bound (bytes read and written once;
     one primitive test per ray segment, ``floor_ops``). Returns (err, ms,
     plain ms, bound ms, bound by)."""
-    args, kw = mk._launch_args(scene, cam, seed, spp=cfg.spp,
-                               max_depth=cfg.max_depth, t_min=cfg.t_min,
-                               jitter=cfg.jitter,
-                               unroll=tb._resolve_tiling(scene), **layout)
+    args, kw = mk._launch_args(scene, cam, seed,
+                               tb.resolve(scene, "megakernel", **layout),
+                               spp=cfg.spp, max_depth=cfg.max_depth,
+                               t_min=cfg.t_min, jitter=cfg.jitter)
     del kw["spp"]
     n, ns = cam.width * cam.height, cfg.spp
     hk = torch.full((cfg.max_depth, ns * n), -2, dtype=torch.int32,
@@ -1309,7 +1308,7 @@ def megakernel_modes_phase(dev) -> tuple:
                         f"plain full-table render, the {ex['pixels']} others "
                         "each explained by the near-tie rule")
     return launches["culled"]["culled"], mode_compare(
-        scene, cam, cfg, 5, dev, "culled", blk=tb.DEFAULT_BLOCK)
+        scene, cam, cfg, 5, dev, "culled", culling=True)
 
 
 def engines_phase(dev) -> None:
@@ -1442,7 +1441,8 @@ def large_phase(dev, smi: str) -> dict:
         stats = torch.zeros(8, dtype=torch.int64, device=dev)
         wf.render_wavefront(scene, cam, 0, cfg, stats=stats)
         st = [int(x) for x in stats.tolist()]
-        tabs, _ = wf._resolve_layout(scene, cam, None, tb.DEFAULT_BLOCK, None)
+        tabs, _ = tb.layout_tables(scene, tb.resolve(scene, "wavefront"),
+                                   cam.look_from, memo=False)
         phase("large", f"sphere_field {n} ({tabs.n_pad} columns, "
                        f"{nbytes(tabs.stab) / 1e6:.2f} MB of tables, "
                        f"{tabs.n_pad // tabs.stream} chunks in superclusters "
@@ -1503,7 +1503,7 @@ def large_phase(dev, smi: str) -> dict:
             out["mk_launches"] = modes["streamed"]
             out["megakernel_streamed"] = mode_compare(
                 scene, cam, cfg, 1, dev, "streamed",
-                stream=tb.DEFAULT_STREAM_CHUNK, blk=tb.STREAM_BLOCK)
+                stream=tb.DEFAULT_STREAM_CHUNK)
     return out
 
 
@@ -1634,13 +1634,15 @@ def scene_order_split(scene, inputs, depth: int, k) -> tuple:
     the tables in the scene's own order: (indices that differ, rays that
     differ, of them those that part at an exact f32 tie). Raises unless
     every differing ray parts at a tie."""
-    stab, ttab, _ = dk._record_inputs(scene, 0)
+    layout = tb.resolve(scene, "record", stream=0)
+    raw = dk._record_tables(scene, layout)
+    stab, ttab = raw.stab, raw.ttab
     o, d, tm, rand = inputs
     rays = torch.cat([o.T, d.T, tm[None]]).float().contiguous()
     rand = rand.float().contiguous()
     want = dk._record_reference(stab, ttab, rays, rand, depth=depth,
                                 t_min=1e-3, has_motion=scene.has_motion,
-                                tri_base=tb._padded_counts(scene, 1)[0])
+                                tri_base=layout.n_pad)
     tie = dk._exact_ties(scene, rays, rand, k, want, depth=depth, t_min=1e-3)
     if not bool(tie.all()):
         raise AssertionError(f"streamed record: {int((~tie).sum())} of "
@@ -1668,7 +1670,7 @@ def diff_record_phase(dev) -> dict:
         ("mixed, chunk 128", (mixed, mcam), 128, "streamed")]
     field = rtt.scenes.sphere_field(n=20_000, width=128, device=dev)
     cases += [(f"sphere_field 20000 128x72 d8, chunk {c}", field, c,
-               "streamed") for c in (128, dk.RECORD_STREAM_CHUNK)]
+               "streamed") for c in (128, tb.RECORD_STREAM_CHUNK)]
     worst = dict(resident=0.0, streamed=0.0)
     for label, (scene, cam), stream, mode in cases:
         before = dict(dk.LAUNCHES)
@@ -1871,15 +1873,17 @@ def record_pass_kernel(scene, cam, dev, depth: int, stream=None,
     inputs = record_inputs(scene, cam, 1, depth, dev, passes=passes)
     share, k, st, _, _ = record_compare(scene, inputs, depth, stream,
                                         "record pass at full width")
-    tabs, prep_s = timed(lambda: dk._record_setup(scene, stream,
-                                                  inputs[0][0]))
-    k_ms = event_ms(lambda: dk._record_rays(scene, tabs, *inputs,
+    layout = tb.resolve(scene, "record", stream=stream)
+    tabs, prep_s = timed(lambda: dk._record_tables(scene, layout,
+                                                   inputs[0][0]))
+    k_ms = event_ms(lambda: dk._record_rays(scene, layout, tabs, *inputs,
                                             max_depth=depth, t_min=1e-3), 3)
     with plain_recorded():
         _, p_s = timed(lambda: dk.record_paths(scene, *inputs,
                                                max_depth=depth, t_min=1e-3,
                                                stream=stream))
-    stab, ttab, bounds = tabs
+    stab, ttab = tabs.stab, tabs.ttab
+    bounds = tabs if layout.mode == tb.STREAMED else None
     rows = () if bounds is None else (bounds.scb, bounds.tcb, bounds.sblk,
                                       bounds.tblk, bounds.sperm, bounds.tperm)
     per = SPHERE_OPS + (MOTION_OPS if scene.has_motion else 0)
@@ -2006,7 +2010,7 @@ def large_train_phase(dev, smi: str) -> tuple:
     phase("train-large", f"sphere_field {n} {cam.width}x{cam.height} "
                          f"{cfg.spp}spp d{cfg.max_depth}, pixel_loss("
                          f"recorded) value and gradient: record launches "
-                         f"{launches} (chunk {dk.RECORD_STREAM_CHUNK}), "
+                         f"{launches} (chunk {tb.RECORD_STREAM_CHUNK}), "
                          f"loss {float(loss):.6g}, gradients finite; "
                          "recorded-pp refuses the scene; Mrays/s median "
                          f"{statistics.median(mr):.4f} (runs "
@@ -2015,16 +2019,16 @@ def large_train_phase(dev, smi: str) -> tuple:
                          f"| {smi}")
     phase("train-large", one_pass_split(scene, cam, target, 5, cfg))
     err, k_ms, p_ms, b_ms, b_by, st, prep_ms, split = record_pass_kernel(
-        scene, cam, dev, cfg.max_depth, dk.RECORD_STREAM_CHUNK)
+        scene, cam, dev, cfg.max_depth, tb.RECORD_STREAM_CHUNK)
     s = [int(x) for x in st.tolist()]
-    cols = sum(tb._padded_counts(scene, 1, dk.RECORD_STREAM_CHUNK))
+    cols = sum(tb._padded_counts(scene, 1, tb.RECORD_STREAM_CHUNK))
     if s[1] > 0.05 * cols * s[0]:
         raise AssertionError(f"streamed record: {s[1] / s[0]:.1f} of {cols} "
                              "columns tested per segment (more than 5%)")
     phase("record", f"one streamed pass at {cam.width}x{cam.height} on "
                     f"{n} spheres ({cam.width * cam.height} rays, "
-                    f"d{cfg.max_depth}; chunk {dk.RECORD_STREAM_CHUNK}, "
-                    f"blocks of {dk.RECORD_STREAM_BLOCK}): kernel "
+                    f"d{cfg.max_depth}; chunk {tb.RECORD_STREAM_CHUNK}, "
+                    f"blocks of {tb.RECORD_STREAM_BLOCK}): kernel "
                     f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, {1 - err:.4%} of "
                     f"indices equal; table prep {prep_ms:.2f} ms (host "
                     f"clock, once per render); {s[0]} segments, "
@@ -2655,9 +2659,8 @@ def main() -> int:
         raise AssertionError(f"cornell_box kernel vs plain: {agr}")
     ex = explain_pixels(scene, cam, 4, cfg, kimg, ref, "cornell_box")
     max_err = max(max_err, agr["max_abs"])
-    n_pad, m_pad = rtt.ops.tables._smem_scene_inputs(scene, 16)[2:4]
     phase("stochastic", f"cornell_box 48x48 4spp d8 "
-                        f"({rtt.ops.tables.shared_bytes(n_pad, m_pad)} B of "
+                        f"({tb.resolve(scene, 'megakernel').smem} B of "
                         f"tables): the queue vs plain "
                         f"{ex['share']:.4%} of pixels identical "
                         f"({ex['pixels']} explained), {agr['frac']:.4%} "

@@ -42,7 +42,7 @@ import rayz_tpu_torch as rtt
 from rayz_tpu_torch.ops import diffkernel as dk
 from rayz_tpu_torch.ops import megakernel as mk
 from rayz_tpu_torch.ops import pathrec as pr
-from rayz_tpu_torch.ops.tables import DEFAULT_BLOCK
+from rayz_tpu_torch.ops import tables
 from rayz_tpu_torch.scripts import card, resolve, sync
 
 REFERENCE_BASELINE_MRAYS = 1.0  # documented ESTIMATE, see module docstring
@@ -85,9 +85,7 @@ def engine_knobs(scene, camera, micro: int, depth: int) -> dict:
     engine = rtt.pick_engine(scene)
     mode = None
     if engine == "megakernel":
-        _, blk, stream, _ = mk._resolve_mode(scene, camera, None,
-                                             DEFAULT_BLOCK, None)
-        mode = "streamed" if stream else "culled" if blk else "resident"
+        mode = tables.MODES[tables.resolve(scene, "megakernel").mode]
     block, r_pad = pr.slot_layout(camera.width * camera.height)
     return {
         "engine": engine,

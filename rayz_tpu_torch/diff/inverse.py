@@ -53,11 +53,10 @@ import torch
 
 from ..models.camera import Camera
 from ..models.scene import Scene
-from ..ops.diffkernel import (RECORD_STREAM_CHUNK, render_diff,
-                              render_diff_flat, supports_diff)
+from ..ops.diffkernel import render_diff, render_diff_flat, supports_diff
 from ..ops.integrator import RenderConfig, render, render_pixels
 from ..ops.pathrec import render_diff_pp, render_diff_pp_flat
-from ..ops.tables import SHARED_LIMIT, fits_record_stream, fits_shared
+from ..ops.tables import RECORD_STREAM_CHUNK, SHARED_LIMIT, fits
 
 __all__ = [
     "DEFAULT_TRAINABLE",
@@ -120,20 +119,19 @@ def _check_recordable(scene: Scene, engine: str,
 
     ``"recorded"`` takes every scene :func:`supports_diff` covers whose
     tables fit one block's shared memory or whose chunk bounds do
-    (:func:`fits_record_stream`: streamed); ``"recorded-pp"`` only the
-    first. The JAX package's one-hot replay budget has no counterpart (the
-    port gathers rows)."""
+    (streamed); ``"recorded-pp"`` only the first, as
+    :func:`~rayz_tpu_torch.ops.tables.resolve` lays out their recorders.
+    The JAX package's one-hot replay budget has no counterpart (the port
+    gathers rows)."""
     _check_engine(engine)
     if engine == "dense":
         return False
     if not supports_diff(scene):
         why = ("the scene is empty or nests checker textures, which the "
                "record/replay estimator does not shade exactly")
-    elif fits_shared(scene):
+    elif fits(scene, "record" if engine == "recorded" else "record_pp"):
         return True
     elif engine == "recorded":
-        if fits_record_stream(scene, RECORD_STREAM_CHUNK):
-            return True
         why = (f"the bounds of its chunks of {RECORD_STREAM_CHUNK} columns "
                f"exceed one block's {SHARED_LIMIT} bytes of shared memory")
     else:

@@ -134,9 +134,9 @@ def generate_rays(camera: Camera, px_x, px_y, seed=None, sample: int = 0):
     at look_from, time 0). With a seed, the ray is sample ``sample`` (from
     0) of that render as the megakernel spawns it: jitter, defocus disk and
     time from the draws keyed by (seed, pixel, sample), through
-    :func:`rayz_tpu_torch.ops.diffkernel._camera_rays`. (The JAX function
+    :func:`rayz_tpu_torch.ops.common._camera_rays`. (The JAX function
     takes a ``jax.random`` key instead.)"""
-    from ..ops.diffkernel import _camera_rays
+    from ..ops.common import _camera_rays
 
     x = torch.as_tensor(px_x, device=camera.device)
     y = torch.as_tensor(px_y, device=camera.device)

@@ -1,9 +1,10 @@
 """Bounce-indexed record/replay: the ``"recorded"`` gradient engine.
 
 PyTorch counterpart of :mod:`rayz_tpu.ops.diffkernel`: ``supports_diff``
-(diffkernel.py:100), the differentiable parameter table
-(``_diff_material_cols`` :607, ``_diff_tables`` :633) that both record/replay
-estimators gather from, and the bounce-indexed estimator itself:
+(diffkernel.py:100) and the bounce-indexed estimator. The differentiable
+parameter table that both record/replay estimators gather from
+(``_diff_material_cols`` :607, ``_diff_tables`` :633) is built in
+:mod:`.tables`, beside the kernels' tables it is the twin of.
 
 * **Record** (CUDA, non-differentiable): :func:`record_paths` (:464) over
   ``csrc/record.cu``, which replaces ``_record_kernel`` (:130). It traces
@@ -15,11 +16,10 @@ estimators gather from, and the bounce-indexed estimator itself:
   coefficient-form sphere sweep (its paths are the plain recorder's but at
   the near ties and grazing roots :mod:`.sweep`'s rule accepts); larger
   ones stream their tables from device
-  memory in the streamed megakernel's layout (Morton-sorted, chunks of
-  :data:`RECORD_STREAM_CHUNK` columns and blocks of
-  :data:`RECORD_STREAM_BLOCK`, near to far;
-  :func:`rayz_tpu_torch.ops.tables.fits_record_stream`), each winner mapped
-  back to its column in the scene's order.
+  memory in the streamed megakernel's layout (Morton-sorted, chunks and
+  blocks near to far, as :func:`rayz_tpu_torch.ops.tables.resolve` lays
+  them out for ``"record"``), each winner mapped back to its column in the
+  scene's order.
   :func:`_record_reference` is its plain torch version.
 * **Replay** (torch autograd): :func:`replay_paths` (:666) re-derives each
   bounce from the winner's row of :func:`_diff_tables`, gathered through
@@ -31,8 +31,8 @@ estimators gather from, and the bounce-indexed estimator itself:
   only its indices.
 
 Departures from the JAX package: the randoms and the camera rays are the
-megakernel's counter-keyed draws (:mod:`.rng`; :func:`_make_rand`,
-:func:`_camera_rays`), not ``jax.random``'s, so a recorded path is the path
+megakernel's counter-keyed draws (:mod:`.rng`; ``common._make_rand``,
+``common._camera_rays``), not ``jax.random``'s, so a recorded path is the path
 the megakernel traces for the same seed; seeds are ints; there is no
 ``interpret``/``tile_sublanes`` plumbing (CPU tensors run the plain
 versions, and any ray count is taken); the residency rules are the
@@ -50,28 +50,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.camera import Camera
-from ..models.scene import TEX_SOLID, Scene
-# pathrec imports this module for _diff_tables; its gathers and replay
-# shading are used here at call time only, so the import order of
-# ops/__init__.py (pathrec first) resolves the cycle.
-from . import _build, pathrec, rng
+from ..models.scene import Scene
+from . import _build, pathrec
+from .common import _camera_rays, _hit_frame, _make_rand, _nearest, _scatter
 from .integrator import RenderConfig, _pixel_grid
-from .megakernel import _hit_frame, _key_draws, _nearest, _scatter, _spawn
-from .tables import (_BIG, _NROWS, _TNROWS, SHARED_LIMIT, STREAM_BLOCK,
-                     StreamTables, _camera_vector, _class_parts, _empty,
-                     _padded_counts, _stream_scene_inputs,
-                     fits_record_stream, fits_shared)
+from .tables import (_BIG, _NROWS, _TNROWS, RESIDENT, STREAMED, Layout,
+                     StreamTables, _diff_tables, _padded_counts,
+                     layout_tables, resolve, supports_scene)
 
 __all__ = ["supports_diff", "record_paths", "replay_paths", "render_diff",
-           "render_diff_flat", "RECORD_STREAM_CHUNK", "RECORD_GROUP",
-           "LAUNCHES"]
-
-#: Columns per chunk of the streamed recorder (H100): the forward engines'
-#: chunk, 16 bytes of bound rows in shared memory per 512 columns.
-RECORD_STREAM_CHUNK = 512
-#: Columns per culling block inside a streamed chunk (the forward engines';
-#: ``python -m rayz_tpu_torch.tune record`` times chunk x block, PERF.md).
-RECORD_STREAM_BLOCK = STREAM_BLOCK
+           "render_diff_flat", "RECORD_GROUP", "LAUNCHES"]
 
 #: Sample passes that one resident record launch traces (their rays side
 #: by side) in :func:`render_diff_flat`. A launch lasts as long as its
@@ -92,58 +80,7 @@ def supports_diff(scene: Scene) -> bool:
     checker textures nest one level at most: the replay resolves one
     checker level, like the megakernel, and would shade a deeper nest
     differently, so such scenes are refused rather than degraded."""
-    return ((scene.n_spheres > 0 or scene.n_triangles > 0)
-            and not scene.deep_checker)
-
-
-def _diff_material_cols(scene: Scene, mat: torch.Tensor) -> torch.Tensor:
-    """Differentiable per-primitive material columns [P, 11]: kind, method,
-    fuzz, ior, checker scale, even rgb, odd rgb (checker children resolved
-    one level, like the megakernel; a solid texture gets even == odd ==
-    its color and scale 1)."""
-    dt = scene.sphere_center.dtype
-    mat = mat.long()
-    kind = scene.mat_kind[mat].to(dt)
-    method = scene.mat_method[mat].to(dt)
-    fuzz = scene.mat_fuzz[mat]
-    ior = scene.mat_ior[mat]
-
-    tex = scene.mat_texture[mat].long()
-    solid = scene.tex_kind[tex] == TEX_SOLID
-    base = scene.tex_color[tex]
-    even = scene.tex_color[scene.tex_even[tex].long()]
-    odd = scene.tex_color[scene.tex_odd[tex].long()]
-    ev = torch.where(solid[:, None], base, even)
-    od = torch.where(solid[:, None], base, odd)
-    scale = scene.tex_scale[tex]
-    scale = torch.where(solid, torch.ones_like(scale), scale)
-    return torch.cat([kind[:, None], method[:, None], fuzz[:, None],
-                      ior[:, None], scale[:, None], ev, od], dim=1)
-
-
-def _diff_tables(scene: Scene) -> torch.Tensor:
-    """Per-primitive [N_pad + M_pad, 20] parameter table, built from the
-    scene's leaf tensors so autograd reaches them (the differentiable twin
-    of :func:`rayz_tpu_torch.ops.tables.scene_tables` / ``tri_tables``).
-
-    Geometry (columns 0:9): a sphere is [center(3), velocity(3), radius, 0,
-    0]; a triangle (rows N_pad..) is [v0(3), v1(3), v2(3)], so the replay
-    derives its plane from the raw vertices. Material (columns 9:20): see
-    :func:`_diff_material_cols`. An absent class contributes no rows, so a
-    triangle's row is the sphere count (0 without spheres) plus its
-    column, the index the recorders write."""
-    parts = []
-    if scene.n_spheres > 0:
-        zeros = torch.zeros_like(scene.sphere_radius[:, None])
-        parts.append(torch.cat([
-            scene.sphere_center, scene.sphere_velocity,
-            scene.sphere_radius[:, None], zeros, zeros,
-            _diff_material_cols(scene, scene.sphere_material)], dim=1))
-    if scene.n_triangles > 0:
-        parts.append(torch.cat([
-            scene.tri_v0, scene.tri_v1, scene.tri_v2,
-            _diff_material_cols(scene, scene.tri_material)], dim=1))
-    return torch.cat(parts, dim=0)
+    return supports_scene(scene)
 
 
 # --------------------------------------------------------------------------
@@ -184,11 +121,13 @@ def _reference_bounces(stab, ttab, rays, rand, *, depth: int, t_min: float,
 
 def _record_reference(stab, ttab, rays, rand, *, depth: int, t_min: float,
                       has_motion: bool, tri_base: int,
+                      layout: Optional[Layout] = None,
                       bounds: Optional[StreamTables] = None,
                       stats=None) -> torch.Tensor:
     """Plain torch version of the recorder (same arguments as
-    :func:`_record`; of ``bounds`` it reads only the column maps: the bound
-    rows and ``stats`` change only what the kernel skips or counts).
+    :func:`_record`; of ``bounds`` it reads only the column maps: the
+    layout, the bound rows and ``stats`` change only what the kernel skips
+    or counts).
     :func:`_reference_bounces` over every column of the tables it is given,
     in their order; a streamed layout's winner is written as its column in
     the scene's order. Returns idx [depth, R] int32."""
@@ -217,7 +156,8 @@ def _exact_ties(scene: Scene, rays, rand, got, want, *, depth: int,
     distance q from the ray there, as the sweep computes it. Such a tie is
     broken by column order, which the sort changes; any other difference
     is a fault. Returns bool [rays that differ]."""
-    stab, ttab, _ = _record_inputs(scene, 0)
+    tabs = _record_tables(scene, resolve(scene, "record", stream=0))
+    stab, ttab = tabs.stab, tabs.ttab
     tri_base = _padded_counts(scene, 1)[0]
     part = got != want
     rid = torch.nonzero(part.any(dim=0)).flatten()
@@ -243,11 +183,14 @@ def _exact_ties(scene: Scene, rays, rand, got, want, *, depth: int,
     return tie
 
 
-def _check_record(stab, ttab, rays, rand, depth: int, bounds,
-                  has_motion: bool) -> None:
+def _check_record(stab, ttab, rays, rand, depth: int, layout: Layout,
+                  bounds) -> None:
     dev = rays.device
     tensors = [("stab", stab), ("ttab", ttab), ("rays", rays), ("rand", rand)]
-    if bounds is not None:
+    if layout.mode == STREAMED:
+        if bounds is None:
+            raise ValueError("a streamed recording needs its StreamTables "
+                             "(bounds)")
         tensors += [(k, getattr(bounds, k))
                     for k in ("scb", "tcb", "sblk", "tblk")]
     for name, t in tensors:
@@ -267,14 +210,9 @@ def _check_record(stab, ttab, rays, rand, depth: int, bounds,
         raise ValueError(f"rand must be [{depth}, 5, {r}] with depth >= 1, "
                          f"got {tuple(rand.shape)}")
     n, m = stab.shape[1], ttab.shape[1]
-    if bounds is None:  # the packed sphere geometry and the triangle table
-        smem = 4 * ((9 if has_motion else 4) * n + _TNROWS * m)
-    else:
-        stream, blk = bounds.stream, bounds.blk
-        if blk <= 0 or stream <= 0 or stream % blk or n % stream or \
-                m % stream:
-            raise ValueError("streamed tables must be chunk multiples, "
-                             "chunks block multiples")
+    layout.check("record", n, m)
+    if layout.mode == STREAMED:
+        stream, blk = layout.stream, layout.blk
         for what, t, cols in (("chunk", bounds.scb, n // stream),
                               ("chunk", bounds.tcb, m // stream),
                               ("block", bounds.sblk, n // blk),
@@ -287,10 +225,6 @@ def _check_record(stab, ttab, rays, rand, depth: int, bounds,
                     t.device != dev or not t.is_contiguous():
                 raise ValueError(f"column maps must be contiguous int32 "
                                  f"[{cols}] on {dev}")
-        smem = 16 * (n // stream + m // stream)
-    if smem > SHARED_LIMIT:
-        raise ValueError(f"the record launch needs {smem} bytes of shared "
-                         f"memory (> {SHARED_LIMIT} per block on an H100)")
 
 
 def _record_outputs(depth: int, r: int, dev, resident: bool):
@@ -306,18 +240,17 @@ def _record_outputs(depth: int, r: int, dev, resident: bool):
 
 
 def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
-            has_motion: bool, tri_base: int,
+            has_motion: bool, tri_base: int, layout: Layout,
             bounds: Optional[StreamTables] = None,
             stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Record ``depth`` bounces of the rays ``rays`` [7, R] (origin,
     direction, time) with the randoms ``rand`` [depth, 5, R] through the
     sphere table ``stab`` [17, N] and triangle table ``ttab`` [20, M];
-    a triangle winner is written as ``tri_base`` + its column. ``bounds``
-    None keeps the tables in shared memory; the :class:`StreamTables` the
-    tables come from (sorted, the streamed megakernel's layout without
-    superclusters) streams them from device memory behind its chunk and
-    block bounds and writes each winner's column through its column maps
-    ``sperm``/``tperm``.
+    a triangle winner is written as ``tri_base`` + its column. ``layout``
+    (:func:`~rayz_tpu_torch.ops.tables.resolve`) keeps the tables in shared
+    memory or streams them from device memory behind the chunk and block
+    bounds of ``bounds``, the :class:`StreamTables` they come from, and
+    writes each winner's column through its maps ``sperm``/``tperm``.
     ``stats``, an int64 [8] tensor on the device, receives the kernel's
     work counters (segments, primitive columns tested, block tests, chunk
     tests, chunk tests passed; resident also the re-sweeps in today's
@@ -329,7 +262,8 @@ def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
     plain version's but at the near ties and grazing roots that
     :func:`rayz_tpu_torch.ops.sweep.explain_paths` accepts; the streamed
     kernel's equal them. Returns idx [depth, R] int32."""
-    _check_record(stab, ttab, rays, rand, depth, bounds, has_motion)
+    _check_record(stab, ttab, rays, rand, depth, layout, bounds)
+    streamed = layout.mode == STREAMED
     kw = dict(depth=depth, t_min=t_min, has_motion=has_motion,
               tri_base=tri_base)
     if rays.device.type == "cpu":
@@ -345,77 +279,46 @@ def _record(stab, ttab, rays, rand, *, depth: int, t_min: float,
     r = rays.shape[1]
     b = bounds
     dev = rays.device
-    idx, counter = _record_outputs(depth, r, dev, b is None)
-    ptrs = ([None] * 6 if b is None else
-            [b.scb, b.tcb, b.sblk, b.tblk, b.sperm, b.tperm])
+    idx, counter = _record_outputs(depth, r, dev, not streamed)
+    ptrs = ([b.scb, b.tcb, b.sblk, b.tblk, b.sperm, b.tperm] if streamed
+            else [None] * 6)
     with torch.cuda.device(dev):
         err = lib.rayz_record(
             stab.data_ptr(), stab.shape[1], ttab.data_ptr(), ttab.shape[1],
-            *map(pathrec._ptr, ptrs), 0 if b is None else b.stream,
-            0 if b is None else b.blk, tri_base, rays.data_ptr(),
-            rand.data_ptr(), r, depth, t_min, int(has_motion),
-            idx.data_ptr(), pathrec._ptr(counter), pathrec._ptr(stats),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *map(pathrec._ptr, ptrs), layout.stream, layout.blk, tri_base,
+            rays.data_ptr(), rand.data_ptr(), r, depth, t_min,
+            int(has_motion), idx.data_ptr(), pathrec._ptr(counter),
+            pathrec._ptr(stats), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "record")
-    LAUNCHES["resident" if b is None else "streamed"] += 1
+    LAUNCHES["streamed" if streamed else "resident"] += 1
     return idx
 
 
-def _record_inputs(scene: Scene, stream: int,
+def _record_tables(scene: Scene, layout: Layout,
                    origin: Optional[torch.Tensor] = None):
-    """The record kernel's tables for ``stream`` (0: resident), as f32
-    without autograd: (stab, ttab, bounds). Resident, each class in its own
-    order (``bounds`` None). Streamed, the streamed megakernel's layout
-    (:func:`_stream_scene_inputs`: Morton-sorted, padded to a chunk
-    multiple with poisoned columns, chunks near to far from ``origin`` and
-    blocks of :data:`RECORD_STREAM_BLOCK` near to far inside each, or one
-    block per chunk where the chunk is no multiple of it) and the
-    :class:`StreamTables` as ``bounds``. The order changes which columns
-    the kernel may skip, never a winner but at an exact tie."""
-    if not stream:
-        parts = []
-        for tri, rows, present in ((False, _NROWS, scene.n_spheres > 0),
-                                   (True, _TNROWS, scene.n_triangles > 0)):
-            parts.append(_class_parts(scene, tri)[0].contiguous() if present
-                         else _empty(rows, scene.device))
-        return parts[0], parts[1], None
-    blk = (RECORD_STREAM_BLOCK if stream % RECORD_STREAM_BLOCK == 0
-           else stream)
-    tabs = _stream_scene_inputs(scene, stream, blk,
-                                origin.to(torch.float32))
-    return tabs.stab, tabs.ttab, tabs
-
-
-def _record_setup(scene: Scene, stream: Optional[int],
-                  origin: torch.Tensor):
-    """Resolve the table mode as :func:`record_paths` documents and build
-    its tables once (``origin``, a point [3], orders a streamed layout near
-    to far)."""
-    if stream is None:
-        stream = 0 if fits_shared(scene) else RECORD_STREAM_CHUNK
-    if stream and not fits_record_stream(scene, stream):
-        raise ValueError(
-            f"streamed recorder: the chunk bounds of "
-            f"{sum(_padded_counts(scene, 1))} columns in chunks of {stream} "
-            f"exceed {SHARED_LIMIT} bytes of shared memory; use a larger "
-            "chunk")
+    """The record kernel's tables for ``layout``, f32 without autograd:
+    resident, each class in its own order; streamed, Morton-sorted, chunks
+    and blocks near to far from ``origin`` [3]. The order changes which
+    columns the kernel may skip, never a winner but at an exact tie."""
     with torch.no_grad():
-        return _record_inputs(scene, stream, origin.detach())
+        return layout_tables(scene, layout, None if origin is None
+                             else origin.detach(), memo=False)[0]
 
 
-def _record_rays(scene: Scene, tables, origin, direction, time, rand, *,
-                 max_depth: int, t_min: float,
+def _record_rays(scene: Scene, layout: Layout, tabs, origin, direction,
+                 time, rand, *, max_depth: int, t_min: float,
                  stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`record_paths` over tables :func:`_record_setup` built."""
-    stab, ttab, bounds = tables
+    """:func:`record_paths` over the tables :func:`_record_tables` built for
+    ``layout``."""
     with torch.no_grad():
         f32 = torch.float32
         rays = torch.cat([origin.T.to(f32), direction.T.to(f32),
                           time[None].to(f32)]).contiguous()
         rand = rand.detach().to(f32).contiguous()
-        return _record(stab, ttab, rays, rand, depth=max_depth, t_min=t_min,
-                       has_motion=scene.has_motion,
-                       tri_base=_padded_counts(scene, 1)[0], bounds=bounds,
+        return _record(tabs.stab, tabs.ttab, rays, rand, depth=max_depth,
+                       t_min=t_min, has_motion=scene.has_motion,
+                       tri_base=_padded_counts(scene, 1)[0], layout=layout,
+                       bounds=tabs if layout.mode == STREAMED else None,
                        stats=stats)
 
 
@@ -432,13 +335,16 @@ def record_paths(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
     detached, and the recording runs in f32 whatever the scene's dtype.
 
     ``stream=None`` keeps the tables in shared memory where they fit
-    (:func:`fits_shared`) and streams them in chunks of
-    :data:`RECORD_STREAM_CHUNK` otherwise; ``0`` forces shared memory
-    (raising if the tables do not fit), an int forces that chunk. A
-    streamed layout is ordered near to far from the first ray's origin.
-    ``stats`` as :func:`_record`."""
-    tables = _record_setup(scene, stream, origin[0])
-    return _record_rays(scene, tables, origin, direction, time, rand,
+    (:func:`~rayz_tpu_torch.ops.tables.fits_shared`) and streams them in
+    chunks of :data:`~rayz_tpu_torch.ops.tables.RECORD_STREAM_CHUNK`
+    otherwise; ``0`` forces shared memory (raising if the tables do not
+    fit), an int forces that chunk
+    (:func:`~rayz_tpu_torch.ops.tables.resolve`). A streamed layout is
+    ordered near to far from the first ray's origin. ``stats`` as
+    :func:`_record`."""
+    layout = resolve(scene, "record", stream=stream)
+    tabs = _record_tables(scene, layout, origin[0])
+    return _record_rays(scene, layout, tabs, origin, direction, time, rand,
                         max_depth=max_depth, t_min=t_min, stats=stats)
 
 
@@ -522,41 +428,6 @@ def replay_paths(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
 # the sample passes and the image-level entry point
 # --------------------------------------------------------------------------
 
-def _make_rand(seed: int, pix: torch.Tensor, sample,
-               max_depth: int) -> torch.Tensor:
-    """[max_depth, 5, R] f32 randoms of sample ``sample`` (from 0; an int,
-    or an [R] tensor, one per ray) of the flat pixel ids ``pix``: bounce b
-    draws 5-8 under the megakernel's key
-    ``step_key(slot_key(seed, pixel), sample + 1, b)`` (megakernel.py:375
-    counts samples from 1 and bounces from 0), through :func:`_key_draws`:
-    the unit vector (draws 5-6), u^(1/3) by exp/log (7), the Schlick
-    uniform (8)."""
-    key0 = rng.slot_key(seed, pix)[None, :]
-    bounce = torch.arange(max_depth, device=pix.device)[:, None]
-    key = rng.step_key(key0, torch.as_tensor(sample + 1, device=pix.device),
-                       bounce)
-    return torch.stack(_key_draws(key, rng.draw_bits), dim=1)
-
-
-def _camera_rays(camera: Camera, seed: int, pix: torch.Tensor, sample,
-                 jitter: bool):
-    """The megakernel's camera ray of sample ``sample`` (from 0; an int, or
-    an [R] tensor) of the pixels ``pix``: ``_spawn`` with draws 0-4 under
-    bounce 0's key, in the
-    camera's dtype (an f64 camera spawns in f64 from the f32 draws, so with
-    jitter off the rays are JAX's ``generate_rays`` bit for bit; the
-    recorder takes them rounded to f32). Returns (origin [R, 3], direction
-    [R, 3], time [R])."""
-    cam = _camera_vector(camera, camera.dtype)
-    key0 = rng.slot_key(seed, pix)
-    key = rng.step_key(key0, torch.as_tensor(sample + 1, device=pix.device),
-                       torch.zeros_like(key0))
-    pxf = (pix % camera.width).to(camera.dtype)
-    pyf = (pix // camera.width).to(camera.dtype)
-    o, d, tau = _spawn(cam, pxf, pyf, key, jitter, rng.draw_bits)
-    return torch.stack(o, dim=1), torch.stack(d, dim=1), tau
-
-
 def render_diff_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
                      spp: int, max_depth: int, t_min: float,
                      jitter: bool) -> torch.Tensor:
@@ -576,8 +447,9 @@ def render_diff_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
     pix = (py.long() * camera.width + px.long()).to(torch.int32)
     n = pix.shape[0]
     tab = _diff_tables(scene)
-    tables = _record_setup(scene, None, camera.look_from)
-    group = RECORD_GROUP if tables[2] is None else 1
+    layout = resolve(scene, "record")
+    tabs = _record_tables(scene, layout, camera.look_from)
+    group = RECORD_GROUP if layout.mode == RESIDENT else 1
 
     def inputs(s):
         o, d, tm = _camera_rays(camera, seed, pix, s, jitter)
@@ -604,7 +476,7 @@ def render_diff_flat(scene: Scene, camera: Camera, seed: int, px, py, *,
     acc = None
     for s0 in range(0, spp, group):
         g = min(group, spp - s0)
-        idx = _record_rays(scene, tables, *group_inputs(s0, g),
+        idx = _record_rays(scene, layout, tabs, *group_inputs(s0, g),
                            max_depth=max_depth, t_min=t_min)
         for k in range(g):
             rad = checkpoint(replay_pass, tab, idx[:, k * n:(k + 1) * n],

@@ -11,14 +11,13 @@ PyTorch counterpart of :mod:`rayz_tpu.ops.engine`, three engines:
   integrator (plain torch; the name is the JAX package's): every scene,
   nested checker textures and any size included.
 
-``"auto"`` follows the JAX rule with the H100's limits: nested checker
-textures (the kernels resolve one level) and scenes with no primitive go
-to ``"xla"``; then the
-megakernel for scenes whose tables fit one block's shared memory
-(:func:`fits_shared`), the wavefront for the rest that its streamed launch
-takes (:func:`fits_wavefront`), the streamed megakernel for the few larger
-scenes whose chunk bounds still fit (:func:`fits_stream`), and ``"xla"``
-beyond.
+``"auto"`` follows the JAX rule with the H100's limits, each asked of
+:func:`~rayz_tpu_torch.ops.tables.resolve`: nested checker textures (the
+kernels resolve one level) and scenes with no primitive go to ``"xla"``;
+then the megakernel for scenes whose tables fit one block's shared memory,
+the wavefront for the rest that its streamed launch takes, the streamed
+megakernel for the few larger scenes whose chunk bounds still fit, and
+``"xla"`` beyond.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ import torch
 from ..utils.profiling import span
 from .integrator import RenderConfig, render_jit
 from .megakernel import render_megakernel
-from .tables import fits_shared, fits_stream, fits_wavefront, supports_scene
+from .tables import DEFAULT_STREAM_CHUNK, fits, fits_shared, supports_scene
 from .wavefront import render_wavefront
 
 __all__ = ["render_fast", "pick_engine", "ENGINES"]
@@ -51,9 +50,9 @@ def pick_engine(scene, engine: str = "auto") -> str:
         return "xla"
     if fits_shared(scene):
         return "megakernel"
-    if fits_wavefront(scene):
+    if fits(scene, "wavefront", stream=DEFAULT_STREAM_CHUNK):
         return "wavefront"
-    if fits_stream(scene):
+    if fits(scene, "megakernel"):  # streamed
         return "megakernel"
     return "xla"
 

@@ -12,8 +12,8 @@ checker textures and scenes of any size included.
 
 Random draws are the megakernel's, keyed by (seed, pixel, sample, bounce,
 draw number) (:mod:`rayz_tpu_torch.ops.rng`): each sample's camera ray
-from ``diffkernel._camera_rays`` and each bounce's scatter numbers from
-``diffkernel._make_rand``. So for one seed :func:`render` traces the
+from ``common._camera_rays`` and each bounce's scatter numbers from
+``common._make_rand``. So for one seed :func:`render` traces the
 megakernel's paths, apart from near ties where their arithmetic rounds
 differently, and matches JAX's ``render`` in distribution.
 
@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.camera import Camera
 from ..models.scene import Scene
+from .common import _camera_rays, _make_rand
 from .intersect import intersect
 from .shade import scatter, sky_color
 
@@ -124,8 +125,6 @@ def render_pixels(scene: Scene, camera: Camera, seed: int,
     chunks' ranges, tracing each chunk again (its rays and draws are
     counter-keyed and come out the same). The radiance has the camera's
     dtype; the scene, the camera and ``pix`` share a device."""
-    from .diffkernel import _camera_rays, _make_rand
-
     if camera.device != scene.device:
         raise ValueError(f"camera is on {camera.device}, scene on "
                          f"{scene.device}")

@@ -56,12 +56,11 @@ from ..models.camera import Camera
 from ..models.scene import (DIFFUSE_UNIT_SPHERE, DIFFUSE_UNIT_SPHERE_SURFACE,
                             MAT_DIELECTRIC, MAT_METALLIC, Scene)
 from . import _build, rng
-from .diffkernel import _diff_tables, supports_diff
+from .common import Bits, _hit_frame, _key_draws, _nearest, _scatter, _spawn
 from .integrator import RenderConfig, _pixel_grid
-from .megakernel import (Bits, _BIG, _hit_frame, _key_draws, _nearest,
-                         _scatter, _spawn)
-from .tables import (_NROWS, _TNROWS, SHARED_LIMIT, _camera_vector,
-                     fits_shared, scene_tables, shared_bytes, tri_tables)
+from .tables import (_BIG, _NROWS, _TNROWS, Layout, _camera_vector,
+                     _diff_tables, fits, layout_tables, resolve,
+                     supports_scene)
 
 __all__ = ["render_diff_pp", "render_diff_pp_flat", "record_pp", "replay_pp",
            "replay_pp_fused", "gather_rows", "gather_rows_T",
@@ -97,10 +96,9 @@ _TILE_SUBLANES = 16
 # --------------------------------------------------------------------------
 
 def supports_pp(scene: Scene) -> bool:
-    """Scenes the recorder takes: those :func:`supports_diff` covers whose
-    tables fit one block's shared memory on an H100
-    (:func:`rayz_tpu_torch.ops.tables.fits_shared`)."""
-    return supports_diff(scene) and fits_shared(scene)
+    """Scenes the recorder takes: supported ones whose tables fit one
+    block's shared memory on an H100."""
+    return supports_scene(scene) and fits(scene, "record_pp")
 
 
 def default_iters(spp: int, max_depth: int = 32) -> int:
@@ -164,10 +162,11 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
                             max_depth: int, t_min: float, jitter: bool,
                             has_motion: bool, seed: int, iters: int,
                             init_state=None, want_state: bool = False,
-                            bits: Optional[Bits] = None, stats=None):
+                            bits: Optional[Bits] = None, layout=None,
+                            stats=None):
     """Plain torch version of the recorder (same arguments as
-    :func:`_record_slots`; ``stats`` counts what only the kernel does, so
-    it is not read here), lockstep over all slots like the TPU tile.
+    :func:`_record_slots`; ``layout`` and ``stats`` are the kernel's, so
+    they are not read here), lockstep over all slots like the TPU tile.
     ``bits(key, n)`` supplies draw ``n`` under the per-step keys (default
     :func:`rng.draw_bits`); returning zeros reproduces what the JAX Pallas
     interpreter draws. A slot with no work writes index -2 and zero aux."""
@@ -245,7 +244,8 @@ def _record_slots_reference(cam, stab, ttab, pix, *, width: int, spp: int,
                             frm)
 
 
-def _check_record_inputs(cam, stab, ttab, pix, iters, init_state):
+def _check_record_inputs(cam, stab, ttab, pix, iters, init_state,
+                         layout: Layout):
     dev = pix.device
     for name, t, dtype in (("cam", cam, torch.float32),
                            ("stab", stab, torch.float32),
@@ -281,10 +281,7 @@ def _check_record_inputs(cam, stab, ttab, pix, iters, init_state):
                     or t.shape != shape):
                 raise ValueError(f"init_state {name} must be a contiguous "
                                  f"{dtype} {list(shape)} tensor on {dev}")
-    smem = shared_bytes(stab.shape[1], ttab.shape[1])
-    if smem > SHARED_LIMIT:
-        raise ValueError(f"scene tables need {smem} bytes of shared memory "
-                         f"(> {SHARED_LIMIT} per block on an H100)")
+    layout.check("record_pp", stab.shape[1], ttab.shape[1])
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -293,12 +290,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _record_slots(cam, stab, ttab, pix, *, width: int, spp: int,
                   max_depth: int, t_min: float, jitter: bool,
-                  has_motion: bool, seed: int, iters: int, init_state=None,
-                  want_state: bool = False,
+                  has_motion: bool, seed: int, iters: int, layout: Layout,
+                  init_state=None, want_state: bool = False,
                   stats: Optional[torch.Tensor] = None):
     """Record ``iters`` iterations of the slots ``pix`` (flat pixel ids, -1
     = no pixel): camera vector ``cam`` [18], sphere table ``stab`` [17, N],
     triangle table ``ttab`` [20, M] (0 columns for an absent class),
+    ``layout`` (:func:`~rayz_tpu_torch.ops.tables.resolve` for
+    ``"record_pp"``) holds the launch's shared memory.
     ``init_state`` = (st [7, cap] f32, cnt [3, cap] i32, from [cap] i32)
     to resume (``from``: the sphere column each slot's ray leaves, -1 if
     none, which the kernel tests in the plain version's arithmetic).
@@ -309,7 +308,7 @@ def _record_slots(cam, stab, ttab, pix, *, width: int, spp: int,
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns (idx [iters, cap] i32, aux
     [iters, 13, cap] f32, leftover [cap] i32, (st, cnt) or None)."""
-    _check_record_inputs(cam, stab, ttab, pix, iters, init_state)
+    _check_record_inputs(cam, stab, ttab, pix, iters, init_state, layout)
     kw = dict(width=width, spp=spp, max_depth=max_depth, t_min=t_min,
               jitter=jitter, has_motion=has_motion, seed=seed, iters=iters,
               init_state=init_state, want_state=want_state)
@@ -348,20 +347,16 @@ def _record_slots(cam, stab, ttab, pix, *, width: int, spp: int,
     return idx, aux, left, state
 
 
-def _scene_record_inputs(scene: Scene, camera: Camera):
-    """The recorder's inputs: camera vector [18], sphere table [17, N] and
-    triangle table [20, M] (0 columns for an absent class, not padded),
-    contiguous, built without autograd."""
-    n_pad = int(scene.sphere_radius.shape[0]) if scene.n_spheres > 0 else 0
-    m_pad = int(scene.tri_material.shape[0]) if scene.n_triangles > 0 else 0
-    dev, f32 = scene.device, torch.float32
+def _scene_record_inputs(scene: Scene, camera: Camera,
+                         layout: Optional[Layout] = None):
+    """The recorder's inputs in ``layout`` (by default resolved): camera
+    vector [18], sphere table [17, N] and triangle table [20, M] (0 columns
+    for an absent class, not padded), contiguous, without autograd."""
+    layout = resolve(scene, "record_pp") if layout is None else layout
     with torch.no_grad():
-        stab = (scene_tables(scene) if n_pad
-                else torch.zeros((_NROWS, 0), dtype=f32, device=dev))
-        ttab = (tri_tables(scene) if m_pad
-                else torch.zeros((_TNROWS, 0), dtype=f32, device=dev))
-        cam = _camera_vector(camera)
-    return cam.contiguous(), stab.contiguous(), ttab.contiguous()
+        tabs = layout_tables(scene, layout, memo=False)[0]
+        cam = _camera_vector(camera).contiguous()
+    return cam, tabs.stab, tabs.ttab
 
 
 def record_pp(scene: Scene, camera: Camera, seed: int, pix: torch.Tensor, *,
@@ -385,20 +380,16 @@ def record_pp(scene: Scene, camera: Camera, seed: int, pix: torch.Tensor, *,
     an unroll multiple here (the megakernel's are)."""
     ig = 8 if iters >= 8 else 1
     iters = -(-iters // ig) * ig  # round UP: extra budget, never less
-    if not fits_shared(scene):
-        raise ValueError(
-            f"persistent-path recorder: scene tables exceed one block's "
-            f"{SHARED_LIMIT} bytes of shared memory on an H100, and this "
-            "recorder does not stream; engine='recorded' (the bounce-indexed "
-            "recorder, ops/diffkernel.py) streams such scenes")
+    layout = resolve(scene, "record_pp")
     if init_state is not None and len(init_state) == 2:
         init_state = (*init_state, torch.full_like(pix, -1))
-    cam, stab, ttab = _scene_record_inputs(scene, camera)
+    cam, stab, ttab = _scene_record_inputs(scene, camera, layout)
     idx, aux, left, state = _record_slots(
         cam, stab, ttab, pix,
         width=camera.width, spp=spp, max_depth=max_depth, t_min=t_min,
         jitter=jitter, has_motion=scene.has_motion, seed=int(seed),
-        iters=iters, init_state=init_state, want_state=want_state)
+        iters=iters, layout=layout, init_state=init_state,
+        want_state=want_state)
     if want_state:
         return idx, aux, left, state
     return idx, aux, left
@@ -1290,7 +1281,7 @@ def render_diff_pp(scene: Scene, camera: Camera, seed: int,
     path: such a pixel differs from the megakernel's while its block means
     agree, as with :func:`rayz_tpu_torch.ops.diffkernel.render_diff`
     (PERF.md)."""
-    if not supports_diff(scene):
+    if not supports_scene(scene):
         if scene.deep_checker:
             raise ValueError(
                 "record/replay resolves only ONE level of checker nesting; "

@@ -50,14 +50,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .diffkernel import _record_inputs, _reference_bounces
+from .diffkernel import _record_tables, _reference_bounces
 from .megakernel import _trace_items_reference
 from .pathrec import (_AUX_DX, _AUX_DY, _AUX_DZ, _AUX_FLG, _AUX_OX, _AUX_OY,
                       _AUX_OZ, _AUX_TAU, _record_slots_reference,
                       _scene_record_inputs)
 from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _TG1V, _TG1X, _TG1Y,
                      _TG1Z, _TG2V, _TG2X, _TG2Y, _TG2Z, _TNV0, _TNX, _TNY,
-                     _TNZ, _VV, _VX, _VY, _VZ, sphere_records)
+                     _TNZ, _VV, _VX, _VY, _VZ, resolve, sphere_records)
 
 __all__ = ["pack_spheres", "ray_coef", "coef_terms", "coef_disc",
            "today_terms", "candidates", "near_ties", "explain",
@@ -463,7 +463,8 @@ def explain_paths(scene, rays: torch.Tensor, rand: torch.Tensor,
     if rid.numel() == 0:
         return None
     first = part[:, rid].int().argmax(dim=0)
-    stab, ttab, _ = _record_inputs(scene, 0)
+    tabs = _record_tables(scene, resolve(scene, "record", stream=0))
+    stab, ttab = tabs.stab, tabs.ttab
     ok = torch.zeros(rid.numel(), dtype=torch.bool, device=got.device)
     kw = dict(t_min=t_min, has_motion=scene.has_motion)
     for b, live, (o, d, tau), *_ in _reference_bounces(

@@ -9,36 +9,22 @@ superclusters). Every table equals its JAX twin exactly or within an ulp:
 the sums are written out in the order XLA evaluates them, and every sort is
 stable, as ``jnp.argsort`` is.
 
-The residency rules are re-derived for the H100, whose blocks hold at most
-227 KB (232,448 bytes) of dynamic shared memory:
-
-* :func:`fits_shared`: the megakernel copies the camera vector and the
-  whole tables (and, culled, 4 bound rows per block) into shared memory.
-  It admits at most n_pad = 3,416 spheres or m_pad = 2,904 triangles.
-  :func:`queue_threads` picks the resident queue kernel's block width from
-  its launch's footprint (:func:`queue_shared_bytes`), so a large table
-  still feeds 32 warps an SM.
-* :func:`fits_stream`: the streamed megakernel keeps the camera vector,
-  its warps' staging and the chunk bound rows in shared memory; the
-  tables, their packed records and the block rows stay in device memory
-  and are read through L1/L2. About 7.37 M primitives at the default
-  chunk, 7.29 M with motion.
-* :func:`fits_wavefront`: the wavefront's streamed launch also keeps its
-  warps' counters, column and ray staging, parked ray states and the
-  supercluster bound rows there. About 6.9 M primitives at the default
-  chunk; ``render_fast`` sends larger scenes that :func:`fits_stream`
-  admits to the streamed megakernel.
-* :func:`fits_record_stream`: the bounce-indexed recorder's streamed
-  launch keeps only the chunk bound rows in shared memory. Its resident
-  rule is :func:`fits_shared` (culling off).
-
-They replace the JAX package's ``fits_smem``/``fits_stream``/
-``SMEM_BUDGET``, which are sized for the 1 MiB SMEM of a TPU v5e.
-
-The forward renders (the megakernel's ``_launch_args``, the wavefront's
-table stage) look their tables up in :data:`TABLE_MEMO` and build them only
-for a scene they have not seen unchanged (:class:`Memo`); the recorders
-build theirs on every call.
+Every engine's table layout is decided here, by :func:`resolve`: resident
+in one block's shared memory (culled behind block bounds or not) or
+streamed from device memory in chunks, the unroll, block, chunk and
+supercluster sizes, whether bounds are tested and the launch's shared
+memory, all in a :class:`Layout` that the kernel wrappers read;
+:func:`layout_tables` builds the tables it names. The rules are the
+H100's, whose blocks hold at most 232,448 bytes of dynamic shared memory
+(they replace the JAX package's ``fits_smem``/``fits_stream``/
+``SMEM_BUDGET``, sized for the 1 MiB SMEM of a TPU v5e): resident, the
+megakernel holds n_pad <= 3,416 spheres or m_pad <= 2,904 triangles
+(:func:`fits_shared`, both recorders' rule too), in blocks as wide as keep
+32 warps an SM (:func:`queue_threads`); streamed, the chunk bounds of
+about 7.37 M primitives at the default chunk (7.29 M with motion,
+:func:`fits_stream`), 6.9 M in the wavefront's launch and 7.4 M in the
+recorder's. The forward renders take their tables from :data:`TABLE_MEMO`
+(:class:`Memo`); the recorders build theirs on every call.
 
 Chunk and block sizes of the streamed layout (:data:`DEFAULT_STREAM_CHUNK`,
 :data:`STREAM_BLOCK`) are the H100's own. On the TPU a chunk is a DMA into
@@ -59,7 +45,7 @@ import contextlib
 import dataclasses
 import functools
 import weakref
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,15 +54,14 @@ from ..models.camera import _VECTORS, Camera
 from ..models.scene import _STATIC, MAT_DIELECTRIC, TEX_SOLID, Scene, _round_up
 from ..utils.profiling import span
 
-__all__ = ["supports_scene", "scene_tables", "tri_tables", "fits_shared",
-           "fits_stream", "fits_wavefront", "fits_record_stream",
-           "shared_bytes", "stream_shared_bytes", "queue_shared_bytes",
-           "queue_threads", "sphere_records", "pack_records",
-           "wavefront_shared_bytes", "SHARED_LIMIT", "CAM_WORDS",
-           "WF_HEAD_WORDS", "WF_STAGE_WORDS", "WF_PARK_WORDS",
-           "CULLING_AUTO_THRESHOLD", "DEFAULT_BLOCK",
-           "DEFAULT_STREAM_CHUNK", "STREAM_BLOCK", "Tables", "StreamTables",
-           "Memo", "TABLE_MEMO", "VIEW_MEMO", "clear_memos"]
+__all__ = ["supports_scene", "scene_tables", "tri_tables", "resolve",
+           "fits", "fits_shared", "fits_stream", "layout_tables",
+           "queue_threads", "sphere_records", "pack_records", "Layout",
+           "ENGINES", "MODES", "SHARED_LIMIT", "CAM_WORDS", "WF_HEAD_WORDS",
+           "WF_STAGE_WORDS", "WF_PARK_WORDS", "CULLING_AUTO_THRESHOLD",
+           "DEFAULT_BLOCK", "DEFAULT_STREAM_CHUNK", "STREAM_BLOCK",
+           "RECORD_STREAM_CHUNK", "RECORD_STREAM_BLOCK", "Tables",
+           "StreamTables", "Memo", "TABLE_MEMO", "VIEW_MEMO", "clear_memos"]
 
 # Sphere table rows (one f32 row per attribute, columns = spheres).
 _CX, _CY, _CZ, _CCMR2 = 0, 1, 2, 3
@@ -579,12 +564,6 @@ def _stream_scene_inputs(scene: Scene, stream: int, blk: int,
                         tblk, stream, blk, sc_group, sperm, tperm)
 
 
-def _stream_counts(scene: Scene, stream: int):
-    """Streamed column counts and the supercluster group they imply."""
-    n_r, m_r = _padded_counts(scene, 1, stream)
-    return n_r, m_r, _pick_sc_group(max(n_r, m_r) // stream)
-
-
 # --------------------------------------------------------------------------
 # the memo of a render's tables
 # --------------------------------------------------------------------------
@@ -709,37 +688,95 @@ def tables_stage():
 
 
 # --------------------------------------------------------------------------
-# residency rules (H100)
+# the layout of each engine's launch (H100)
 # --------------------------------------------------------------------------
 
-def shared_bytes(n_pad: int, m_pad: int, blk: int = 0) -> int:
-    """Dynamic shared memory the megakernel asks for in its resident modes:
-    the camera vector and both tables, f32, plus the 4 bound rows of each
-    block when culled (``blk > 0``)."""
-    words = CAM_WORDS + _NROWS * n_pad + _TNROWS * m_pad
+#: The engines :func:`resolve` lays tables out for: the queue megakernel,
+#: the wavefront, the bounce-indexed recorder (``diffkernel``) and the
+#: persistent-path recorder (``pathrec``), each with its refusal of a
+#: launch past :data:`SHARED_LIMIT` (:meth:`Layout.check`).
+ENGINES = {"megakernel": "scene tables need",
+           "wavefront": "wavefront launch needs",
+           "record": "the record launch needs",
+           "record_pp": "scene tables need"}
+#: Table modes, in the order of the kernels' ``mode`` argument.
+MODES = ("resident", "culled", "streamed")
+RESIDENT, CULLED, STREAMED = range(3)
+
+#: Columns per chunk of the streamed recorder: the forward engines' chunk,
+#: 16 bytes of bound rows in shared memory per 512 columns.
+RECORD_STREAM_CHUNK = 512
+#: Columns per culling block inside a streamed chunk of the recorder
+#: (``python -m rayz_tpu_torch.tune record`` times chunk x block, PERF.md).
+RECORD_STREAM_BLOCK = STREAM_BLOCK
+
+
+class Layout(NamedTuple):
+    """One render's or recording's tables as :func:`resolve` lays them out
+    for ``engine``: the mode (:data:`MODES`), the unroll resident tables pad
+    to, the culling block (0: none), the chunk (0: resident), the chunks a
+    supercluster (0: none), whether streamed bounds are tested, both
+    classes' padded column counts, ``smem``, the dynamic shared memory the
+    launch is held to (the wavefront's asks for exactly this; the other
+    kernels' C entry points count their own, at most this), and the
+    threads a block of the megakernel's queue launch (0 elsewhere)."""
+
+    engine: str
+    mode: int
+    unroll: int
+    blk: int
+    stream: int
+    sc_group: int
+    cull: bool
+    n_pad: int
+    m_pad: int
+    smem: int
+    threads: int
+
+    def check(self, engine: str, n_pad: int, m_pad: int) -> None:
+        """Refuse a launch of ``engine`` over tables of ``n_pad`` and
+        ``m_pad`` columns that are not this layout's, or past one block's
+        shared memory."""
+        if (self.engine, self.n_pad, self.m_pad) != (engine, n_pad, m_pad):
+            raise ValueError(f"tables of {n_pad} and {m_pad} columns for the "
+                             f"{engine} are not those of {self}")
+        if self.smem > SHARED_LIMIT:
+            raise ValueError(f"{ENGINES[engine]} {self.smem} bytes of shared "
+                             f"memory (> {SHARED_LIMIT} per block on an H100)")
+
+
+def _launch_bytes(engine: str, n: int, m: int, *, blk: int = 0,
+                  stream: int = 0, sc_group: int = 0,
+                  motion: bool = False) -> int:
+    """Dynamic shared memory of a launch of ``engine`` over ``n`` sphere and
+    ``m`` triangle columns, resident (culled with ``blk``) or streamed in
+    chunks of ``stream``: the camera vector (the wavefront's head also
+    counts its warps' work), then resident the tables and block rows (the
+    recorder: its 16-byte sphere records and the triangle table); streamed,
+    the warps' staging (the wavefront's also parks ray states), and the
+    chunk and supercluster bound rows (the recorder's only these)."""
+    rec = 9 if motion else 4
+    if engine == "record":
+        return (16 * (n // stream + m // stream) if stream
+                else 4 * (rec * n + _TNROWS * m))
+    if stream and engine == "wavefront":
+        words = WF_HEAD_WORDS + WF_STAGE_WORDS + WF_PARK_WORDS
+        for k in (n, m):
+            words += 4 * (k // stream)
+            if _sc_enabled(k, stream, sc_group):
+                words += 4 * (k // (stream * sc_group))
+        return 4 * words
+    if stream:
+        return 4 * (CAM_WORDS + 4 * 32 * rec + 4 * (n // stream + m // stream))
+    words = CAM_WORDS + _NROWS * n + _TNROWS * m
     if blk:
-        words += 4 * (n_pad // blk + m_pad // blk)
+        words += 4 * (n // blk + m // blk)
+    if engine == "wavefront":
+        words += WF_HEAD_WORDS - CAM_WORDS
     return 4 * words
 
 
-def stream_shared_bytes(n_r: int, m_r: int, stream: int,
-                        has_motion: bool) -> int:
-    """Dynamic shared memory of the streamed megakernel: the camera vector,
-    its 4 warps' staging (32 sphere records each, of 9 f32 words with
-    motion, 4 without) and the chunk bound rows of both classes."""
-    stage = 4 * 32 * (9 if has_motion else 4)
-    return 4 * (CAM_WORDS + stage + 4 * (n_r // stream + m_r // stream))
-
-
-def queue_shared_bytes(n_pad: int, m_pad: int, has_motion: bool) -> int:
-    """Dynamic shared memory of the resident queue kernel's launch
-    (``ResidentSweep::smem_bytes``): the camera vector, the sphere geometry
-    as 16-byte records (9 f32 words a column with motion, 4 without) and
-    the triangle table. At most :func:`shared_bytes` of the same tables."""
-    return 4 * (CAM_WORDS + (9 if has_motion else 4) * n_pad
-                + _TNROWS * m_pad)
-
-
+@functools.lru_cache(maxsize=64)
 def queue_threads(smem: int) -> int:
     """Threads a block of the resident queue kernel for a launch of
     ``smem`` bytes of dynamic shared memory: of :data:`QUEUE_WIDTHS`, the
@@ -759,6 +796,142 @@ def queue_threads(smem: int) -> int:
                      SM_SHARED // (smem + BLOCK_RESERVED))
         return blocks * threads // 32
     return max(QUEUE_WIDTHS, key=warps)[0]
+
+
+def _queue_bytes(n: int, m: int, motion: bool) -> int:
+    """Dynamic shared memory of the resident queue kernel's launch
+    (``ResidentSweep::smem_bytes``): the camera vector, the sphere records
+    and the triangle table."""
+    return 4 * (CAM_WORDS + (9 if motion else 4) * n + _TNROWS * m)
+
+
+def _layout(scene: Scene, engine: str, unroll: int, blk: int, stream: int,
+            cull: bool) -> Layout:
+    """The layout of ``engine`` with these sizes: resident (culled with
+    ``blk``) padded to the unroll, or streamed in chunks of ``stream``,
+    the wavefront's chunks grouped into superclusters."""
+    motion = scene.has_motion
+    n, m = _padded_counts(scene, 1 if stream else unroll, stream or blk)
+    g = (_pick_sc_group(max(n, m) // stream)
+         if stream and engine == "wavefront" else 0)
+    smem = _launch_bytes(engine, n, m, blk=blk, stream=stream, sc_group=g,
+                         motion=motion)
+    mode = STREAMED if stream else CULLED if blk else RESIDENT
+    threads = 0
+    if engine == "megakernel":
+        threads = (queue_threads(_queue_bytes(n, m, motion))
+                   if mode == RESIDENT and smem <= SHARED_LIMIT
+                   else QUEUE_WIDTHS[0][0])
+    return Layout(engine, mode, unroll, blk, stream, g, cull, n, m, smem,
+                  threads)
+
+
+def resolve(scene: Scene, engine: str, *, culling: Optional[bool] = None,
+            block_size: int = DEFAULT_BLOCK,
+            stream: Optional[int] = None) -> Layout:
+    """The layout ``engine`` renders or records ``scene`` in: every engine's
+    rules, side by side. ``stream=None`` picks resident or streamed, ``0``
+    forces resident, ``k`` chunks of k columns (a multiple of 16 for the
+    forward engines). The megakernel is resident where :func:`fits_shared`
+    holds at this ``culling`` (culled in blocks of ``block_size`` only with
+    ``culling=True``); the wavefront where its own launch fits, culled from
+    :data:`CULLING_AUTO_THRESHOLD` primitives on unless ``culling`` says
+    otherwise; both recorders, in the scene's order, where
+    :func:`fits_shared` holds. Else they stream: the forward engines in
+    chunks of :data:`DEFAULT_STREAM_CHUNK` and blocks of
+    :data:`STREAM_BLOCK` behind bounds tested unless ``culling=False``
+    (the wavefront's chunks in superclusters), the recorder in chunks of
+    :data:`RECORD_STREAM_CHUNK` and blocks of :data:`RECORD_STREAM_BLOCK`
+    (or one a chunk). Refused here: chunk bounds that do not fit, the
+    megakernel's forced resident layout and the persistent-path
+    recorder's scene that do not; the rest at launch
+    (:meth:`Layout.check`)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of {list(ENGINES)}")
+    if engine.startswith("record"):
+        resident = fits_shared(scene)
+        if engine == "record_pp" and not resident:
+            raise ValueError(
+                f"persistent-path recorder: scene tables exceed one block's "
+                f"{SHARED_LIMIT} bytes of shared memory on an H100, and this "
+                "recorder does not stream; engine='recorded' (the "
+                "bounce-indexed recorder, ops/diffkernel.py) streams such "
+                "scenes")
+        if stream is None:
+            stream = 0 if resident else RECORD_STREAM_CHUNK
+        stream = stream if engine == "record" else 0
+        blk = (RECORD_STREAM_BLOCK if stream % RECORD_STREAM_BLOCK == 0
+               else stream)
+        layout = _layout(scene, engine, 1, blk if stream else 0, stream, True)
+        if layout.smem > SHARED_LIMIT and stream:
+            raise ValueError(
+                f"streamed recorder: the chunk bounds of "
+                f"{sum(_padded_counts(scene, 1))} columns in chunks of "
+                f"{stream} exceed {SHARED_LIMIT} bytes of shared memory; use "
+                "a larger chunk")
+        return layout
+    unroll = _resolve_tiling(scene)
+    cull = culling is not False
+    blk = ((block_size if culling else 0) if engine == "megakernel"
+           else _resolve_blk(scene, culling, block_size))
+    if not stream:
+        layout = _layout(scene, engine, unroll, blk, 0, cull)
+        if layout.smem <= SHARED_LIMIT:
+            return layout
+        if stream is None:
+            stream = DEFAULT_STREAM_CHUNK
+        elif engine == "megakernel":
+            raise ValueError(
+                f"scene tables exceed one block's {SHARED_LIMIT} bytes of "
+                "shared memory; stream them (stream=None picks that)")
+        else:
+            return layout
+    if stream % 16:
+        raise ValueError("stream chunk must be a multiple of 16")
+    blk = STREAM_BLOCK if cull and stream % STREAM_BLOCK == 0 else 0
+    layout = _layout(scene, engine, unroll, blk, stream, cull)
+    cols = layout.n_pad + layout.m_pad
+    if layout.smem > SHARED_LIMIT:
+        raise ValueError(
+            f"streamed megakernel: {cols} columns in chunks of {stream} need "
+            f"more than {SHARED_LIMIT} bytes of chunk bounds in shared "
+            "memory; use a larger chunk" if engine == "megakernel" else
+            f"wavefront: the chunk bounds of {cols} columns in chunks of "
+            f"{stream} need {layout.smem} bytes of shared memory (> "
+            f"{SHARED_LIMIT}); use a larger chunk")
+    return layout
+
+
+def fits(scene: Scene, engine: str, **kw) -> bool:
+    """Whether ``engine`` can run ``scene``: :func:`resolve` refuses nothing
+    at these keywords, and the launch fits one block's shared memory."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of {list(ENGINES)}")
+    try:
+        return resolve(scene, engine, **kw).smem <= SHARED_LIMIT
+    except ValueError:
+        return False
+
+
+def fits_shared(scene: Scene, culling=None,
+                block_size: int = DEFAULT_BLOCK) -> bool:
+    """Whether the megakernel can hold the scene in one block's shared
+    memory on an H100 (n_pad <= 3,416 spheres or m_pad <= 2,904 triangles,
+    culling off), at the layout ``render_megakernel`` resolves: culling off
+    unless ``culling=True``. The flagship needs 34.8 KB, the Cornell box
+    122.9 KB (above the 48 KB default, so the kernel opts in). Both
+    recorders' resident rule too."""
+    blk = block_size if culling else 0
+    counts = _padded_counts(scene, _resolve_tiling(scene), blk)
+    return _launch_bytes("megakernel", *counts, blk=blk) <= SHARED_LIMIT
+
+
+def fits_stream(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:
+    """Whether the streamed megakernel can run the scene in chunks of
+    ``stream``: the camera vector, its warps' staging and the chunk bound
+    rows fit one block's shared memory. About 7.37 M primitives at the
+    default chunk (7.29 M with motion)."""
+    return fits(scene, "megakernel", stream=stream)
 
 
 def sphere_records(stab: torch.Tensor, has_motion: bool):
@@ -782,62 +955,107 @@ def pack_records(stab: torch.Tensor, sblk: torch.Tensor,
     return torch.cat(parts), sblk.T.contiguous()
 
 
-def wavefront_shared_bytes(n_pad: int, m_pad: int, *, blk: int = 0,
-                           stream: int = 0, sc_group: int = 0) -> int:
-    """Dynamic shared memory of the wavefront kernel: its head (the camera
-    and the warps' work counters) and, resident, the tables and block rows;
-    streamed, the warps' column staging, the parked ray states and the
-    chunk and supercluster bound rows."""
-    words = WF_HEAD_WORDS
-    if stream:
-        words += WF_STAGE_WORDS + WF_PARK_WORDS
-        for n in (n_pad, m_pad):
-            words += 4 * (n // stream)
-            if _sc_enabled(n, stream, sc_group):
-                words += 4 * (n // (stream * sc_group))
-        return 4 * words
-    return 4 * (words - CAM_WORDS) + shared_bytes(n_pad, m_pad, blk)
+def _scene_bounds(scene: Scene):
+    """(lo, extent) of the valid primitives' AABBs (sphere motion
+    enclosed): the grid of the wavefront's ray sort."""
+    f32 = torch.float32
+    big = 3e38
+    parts_lo, parts_hi = [], []
+    if scene.n_spheres > 0:
+        c = scene.sphere_center.to(f32)
+        v = scene.sphere_velocity.to(f32)
+        r = scene.sphere_radius.to(f32)[:, None]
+        valid = scene.sphere_valid[:, None]
+        parts_lo.append(torch.where(valid, torch.minimum(c, c + v) - r, big))
+        parts_hi.append(torch.where(valid, torch.maximum(c, c + v) + r, -big))
+    if scene.n_triangles > 0:
+        vs = torch.stack([t.to(f32) for t in (scene.tri_v0, scene.tri_v1,
+                                              scene.tri_v2)])
+        valid = scene.tri_valid[:, None]
+        parts_lo.append(torch.where(valid, vs.amin(0), big))
+        parts_hi.append(torch.where(valid, vs.amax(0), -big))
+    lo = torch.cat(parts_lo).amin(0)
+    hi = torch.cat(parts_hi).amax(0)
+    return lo, torch.clamp_min(hi - lo, 1e-6)
 
 
-def fits_shared(scene: Scene, culling=None,
-                block_size: int = DEFAULT_BLOCK) -> bool:
-    """Whether the megakernel can hold the scene in one block's shared
-    memory on an H100 (n_pad <= 3,416 spheres or m_pad <= 2,904 triangles,
-    culling off), at the layout ``render_megakernel`` resolves: culling off
-    unless ``culling=True``. The flagship needs 34.8 KB, the Cornell box
-    122.9 KB (above the 48 KB default, so the kernel opts in). Same
-    accounting as the launch-time check in the wrapper."""
-    blk = block_size if culling else 0
-    unroll = _resolve_tiling(scene)
-    return shared_bytes(*_padded_counts(scene, unroll, blk),
-                        blk) <= SHARED_LIMIT
+def layout_tables(scene: Scene, layout: Layout,
+                  origin: Optional[torch.Tensor] = None, *,
+                  memo: bool = True):
+    """``(tables, extra)`` of ``layout`` for ``scene``: a :class:`Tables` or
+    a :class:`StreamTables` (ordered near to far from ``origin`` [3]), and
+    the streamed megakernel's packed records, the wavefront's scene bounds
+    or None. With ``memo`` they come through :data:`TABLE_MEMO`, keyed on
+    the layout and, streamed, ``origin``."""
+    def build():
+        if layout.mode == STREAMED:
+            tabs = _stream_scene_inputs(scene, layout.stream, layout.blk,
+                                        origin.to(torch.float32),
+                                        layout.sc_group)
+        else:
+            tabs = _smem_scene_inputs(scene, layout.unroll, layout.blk)
+        if layout.engine == "wavefront":
+            return tabs, _scene_bounds(scene)
+        if layout.engine == "megakernel" and layout.mode == STREAMED:
+            return tabs, pack_records(tabs.stab, tabs.sblk, scene.has_motion)
+        return tabs, None
+
+    if not memo:
+        return build()
+    return memo_tables(scene, origin if layout.mode == STREAMED else None,
+                       (layout.engine, layout.unroll, layout.blk,
+                        layout.stream, layout.sc_group), build)
 
 
-def fits_record_stream(scene: Scene, stream: int) -> bool:
-    """Whether the bounce-indexed recorder can stream the scene in chunks
-    of ``stream`` columns: its streamed launch keeps only the chunk bound
-    rows of both classes (4 words per chunk) in shared memory; the sorted
-    tables, their block rows and the column permutations stay in device
-    memory. About 7.4 M columns at a chunk of 512."""
-    n_r, m_r = _padded_counts(scene, 1, stream)
-    return 16 * (n_r // stream + m_r // stream) <= SHARED_LIMIT
+# --------------------------------------------------------------------------
+# the differentiable parameter table of the record/replay estimators
+# --------------------------------------------------------------------------
+
+def _diff_material_cols(scene: Scene, mat: torch.Tensor) -> torch.Tensor:
+    """Differentiable per-primitive material columns [P, 11]: kind, method,
+    fuzz, ior, checker scale, even rgb, odd rgb (checker children resolved
+    one level, like the megakernel; a solid texture gets even == odd ==
+    its color and scale 1)."""
+    dt = scene.sphere_center.dtype
+    mat = mat.long()
+    kind = scene.mat_kind[mat].to(dt)
+    method = scene.mat_method[mat].to(dt)
+    fuzz = scene.mat_fuzz[mat]
+    ior = scene.mat_ior[mat]
+
+    tex = scene.mat_texture[mat].long()
+    solid = scene.tex_kind[tex] == TEX_SOLID
+    base = scene.tex_color[tex]
+    even = scene.tex_color[scene.tex_even[tex].long()]
+    odd = scene.tex_color[scene.tex_odd[tex].long()]
+    ev = torch.where(solid[:, None], base, even)
+    od = torch.where(solid[:, None], base, odd)
+    scale = scene.tex_scale[tex]
+    scale = torch.where(solid, torch.ones_like(scale), scale)
+    return torch.cat([kind[:, None], method[:, None], fuzz[:, None],
+                      ior[:, None], scale[:, None], ev, od], dim=1)
 
 
-def fits_stream(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:
-    """Whether the streamed megakernel can run the scene: the camera
-    vector, its warps' staging and the chunk bound rows fit one block's
-    shared memory. About 7.37 M primitives at the default chunk (7.29 M
-    with motion)."""
-    n_r, m_r, _ = _stream_counts(scene, stream)
-    return stream_shared_bytes(n_r, m_r, stream,
-                               scene.has_motion) <= SHARED_LIMIT
+def _diff_tables(scene: Scene) -> torch.Tensor:
+    """Per-primitive [N_pad + M_pad, 20] parameter table, built from the
+    scene's leaf tensors so autograd reaches them (the differentiable twin
+    of :func:`scene_tables` / :func:`tri_tables`).
 
-
-def fits_wavefront(scene: Scene, stream: int = DEFAULT_STREAM_CHUNK) -> bool:
-    """Whether the wavefront's streamed launch can run the scene: its head,
-    column and ray staging, parked ray states and the chunk and
-    supercluster bound rows fit one block's shared memory. About 6.9 M
-    primitives at the default chunk."""
-    n_r, m_r, g = _stream_counts(scene, stream)
-    return wavefront_shared_bytes(n_r, m_r, stream=stream,
-                                  sc_group=g) <= SHARED_LIMIT
+    Geometry (columns 0:9): a sphere is [center(3), velocity(3), radius, 0,
+    0]; a triangle (rows N_pad..) is [v0(3), v1(3), v2(3)], so the replay
+    derives its plane from the raw vertices. Material (columns 9:20): see
+    :func:`_diff_material_cols`. An absent class contributes no rows, so a
+    triangle's row is the sphere count (0 without spheres) plus its
+    column, the index the recorders write."""
+    parts = []
+    if scene.n_spheres > 0:
+        zeros = torch.zeros_like(scene.sphere_radius[:, None])
+        parts.append(torch.cat([
+            scene.sphere_center, scene.sphere_velocity,
+            scene.sphere_radius[:, None], zeros, zeros,
+            _diff_material_cols(scene, scene.sphere_material)], dim=1))
+    if scene.n_triangles > 0:
+        parts.append(torch.cat([
+            scene.tri_v0, scene.tri_v1, scene.tri_v2,
+            _diff_material_cols(scene, scene.tri_material)], dim=1))
+    return torch.cat(parts, dim=0)

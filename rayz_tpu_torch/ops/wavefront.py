@@ -44,15 +44,10 @@ from ..models.scene import Scene, _round_up
 from ..utils.profiling import span
 from . import _build, rng
 from .integrator import RenderConfig
-from .megakernel import (Bits, _hit_frame, _key_draws, _mode, _nearest,
-                         _scatter, _spawn)
-from .tables import (_BIG, DEFAULT_BLOCK, DEFAULT_STREAM_CHUNK, SHARED_LIMIT,
-                     STREAM_BLOCK, VIEW_MEMO, StreamTables, _padded_counts,
-                     _patch_inverse, _resolve_blk, _resolve_tiling,
-                     _smem_scene_inputs, _stream_counts, _stream_scene_inputs,
-                     fits_wavefront, memo_camera_vector, memo_tables,
-                     supports_scene, tables_stage, use_patch_order,
-                     wavefront_shared_bytes)
+from .common import Bits, _hit_frame, _key_draws, _nearest, _scatter, _spawn
+from .tables import (_BIG, DEFAULT_BLOCK, STREAMED, VIEW_MEMO, Layout,
+                     _patch_inverse, fits, layout_tables, memo_camera_vector,
+                     resolve, supports_scene, tables_stage, use_patch_order)
 
 __all__ = ["render_wavefront", "supports_wavefront", "LAUNCHES", "ST",
            "WF_BLOCK", "N_SYNC"]
@@ -73,9 +68,9 @@ N_SYNC = 3
 
 
 def supports_wavefront(scene: Scene) -> bool:
-    """Scenes the wavefront renders: supported ones whose streamed layout
-    fits (every resident scene does)."""
-    return supports_scene(scene) and fits_wavefront(scene)
+    """Scenes the wavefront renders: supported ones whose layout fits
+    (about 6.9 M primitives streamed at the default chunk)."""
+    return supports_scene(scene) and fits(scene, "wavefront")
 
 
 class _Rays(NamedTuple):
@@ -103,12 +98,12 @@ def _wf_bounce_reference(tabs, rays: _Rays, st: Optional[torch.Tensor],
                          alive: Optional[torch.Tensor], rid: torch.Tensor, *,
                          bounce: int, loop_bounces: int, t_min: float,
                          jitter: bool, has_motion: bool, seed: int,
-                         cull: bool = True, stats=None,
+                         layout: Optional[Layout] = None, stats=None,
                          bits: Optional[Bits] = None):
     """Plain torch version of one launch (same arguments as
-    :func:`_wf_bounce`; ``cull`` and ``stats`` change only what the kernel
-    skips or counts and are not read here): ``st`` None spawns every ray's
-    camera ray first (padding rays are never alive); then up to
+    :func:`_wf_bounce`; ``layout`` and ``stats`` change only what the
+    kernel skips or counts and are not read here): ``st`` None spawns every
+    ray's camera ray first (padding rays are never alive); then up to
     ``loop_bounces`` bounces, numbered from ``bounce``, run in lockstep over
     all rays, every column of ``tabs`` swept, until none is alive.
     ``bits(key, n)`` replaces the random bits (default
@@ -170,15 +165,8 @@ def _wf_bounce_reference(tabs, rays: _Rays, st: Optional[torch.Tensor],
 # kernel wrapper
 # --------------------------------------------------------------------------
 
-def _smem_bytes(tabs) -> int:
-    if isinstance(tabs, StreamTables):
-        return wavefront_shared_bytes(tabs.n_pad, tabs.m_pad,
-                                      stream=tabs.stream,
-                                      sc_group=tabs.sc_group)
-    return wavefront_shared_bytes(tabs.n_pad, tabs.m_pad, blk=tabs.blk)
-
-
-def _check_inputs(tabs, rays: _Rays, st, alive, rid) -> None:
+def _check_inputs(tabs, layout: Layout, rays: _Rays, st, alive,
+                  rid) -> None:
     dev = rid.device
     named = [("stab", tabs.stab, torch.float32),
              ("ttab", tabs.ttab, torch.float32),
@@ -203,30 +191,28 @@ def _check_inputs(tabs, rays: _Rays, st, alive, rid) -> None:
     if (tabs.stab.shape != (17, tabs.n_pad)
             or tabs.ttab.shape != (20, tabs.m_pad)):
         raise ValueError("tables do not match their padded counts")
-    smem = _smem_bytes(tabs)
-    if smem > SHARED_LIMIT:
-        raise ValueError(f"wavefront launch needs {smem} bytes of shared "
-                         f"memory (> {SHARED_LIMIT} per block on an H100)")
+    layout.check("wavefront", tabs.n_pad, tabs.m_pad)
 
 
 def _wf_bounce(tabs, rays: _Rays, st: Optional[torch.Tensor],
                alive: Optional[torch.Tensor], rid: torch.Tensor, *,
                bounce: int, loop_bounces: int, t_min: float, jitter: bool,
-               has_motion: bool, seed: int, cull: bool = True,
+               has_motion: bool, seed: int, layout: Layout,
                stats: Optional[torch.Tensor] = None):
     """One launch of the wavefront kernel over the rays ``rid`` [r_pad]
     (int32 ray ids, sample * n_px + patch slot; r_pad a multiple of
     :data:`WF_BLOCK`) with their state ``st`` [10, r_pad] and ``alive``
-    [r_pad] int32, or ``st=None`` to spawn the camera rays. ``tabs`` is a
-    :class:`Tables` (resident; culled if ``tabs.blk``) or a
-    :class:`StreamTables`; ``cull=False`` sweeps a streamed table untested.
-    Runs up to ``loop_bounces`` bounces numbered from ``bounce``. ``stats``
-    (int64 [8] on the device) receives the kernel's work counters.
+    [r_pad] int32, or ``st=None`` to spawn the camera rays, over the tables
+    ``tabs`` of ``layout`` (:func:`~rayz_tpu_torch.ops.tables.resolve`),
+    which gives the table mode, the bound tests and the launch's shared
+    memory. Runs up to ``loop_bounces`` bounces numbered from ``bounce``.
+    ``stats`` (int64 [8] on the device) receives the kernel's work
+    counters.
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns (state, alive, radiance)."""
     global LAUNCHES
-    _check_inputs(tabs, rays, st, alive, rid)
+    _check_inputs(tabs, layout, rays, st, alive, rid)
     kw = dict(bounce=bounce, loop_bounces=loop_bounces, t_min=t_min,
               jitter=jitter, has_motion=has_motion, seed=seed)
     if rid.device.type == "cpu":
@@ -243,27 +229,26 @@ def _wf_bounce(tabs, rays: _Rays, st: Optional[torch.Tensor],
     st_out = torch.empty((ST, r_pad), dtype=torch.float32, device=dev)
     alive_out = torch.empty(r_pad, dtype=torch.int32, device=dev)
     rad = torch.empty((3, r_pad), dtype=torch.float32, device=dev)
-    mode = _mode(tabs)
 
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
 
-    if mode == 2:
+    if layout.mode == STREAMED:
         chunk_rows = (tabs.scb, tabs.tcb, tabs.ssc, tabs.tsc)
-        stream = (tabs.stream, tabs.sc_group if tabs.ssc.numel() else 0,
-                  tabs.sc_group if tabs.tsc.numel() else 0)
+        stream = (layout.stream, layout.sc_group if tabs.ssc.numel() else 0,
+                  layout.sc_group if tabs.tsc.numel() else 0)
     else:
         chunk_rows, stream = (None,) * 4, (0, 0, 0)
     with torch.cuda.device(dev):
         err = lib.rayz_wavefront(
             rays.cam.data_ptr(), ptr(tabs.stab), tabs.n_pad, ptr(tabs.ttab),
-            tabs.m_pad, mode, ptr(tabs.sblk), ptr(tabs.tblk), tabs.blk,
-            *map(ptr, chunk_rows), *stream, int(cull), ptr(st), ptr(alive),
-            rid.data_ptr(),
+            tabs.m_pad, layout.mode, ptr(tabs.sblk), ptr(tabs.tblk),
+            layout.blk, *map(ptr, chunk_rows), *stream, int(layout.cull),
+            ptr(st), ptr(alive), rid.data_ptr(),
             rays.slot_pix.data_ptr(), st_out.data_ptr(), alive_out.data_ptr(),
             rad.data_ptr(), r_pad, rays.n_rays, rays.slot_pix.shape[0],
             rays.width, bounce, loop_bounces, t_min, int(jitter),
-            int(has_motion), seed & rng.MASK, _smem_bytes(tabs),
+            int(has_motion), seed & rng.MASK, layout.smem,
             None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "wavefront")
@@ -301,29 +286,6 @@ def _sort_key(st: torch.Tensor, alive: torch.Tensor, lo: torch.Tensor,
     return torch.where(alive > 0, key, 1 << 24)
 
 
-def _scene_bounds(scene: Scene):
-    """(lo, extent) of the valid primitives' AABBs (sphere motion enclosed)."""
-    f32 = torch.float32
-    big = 3e38
-    parts_lo, parts_hi = [], []
-    if scene.n_spheres > 0:
-        c = scene.sphere_center.to(f32)
-        v = scene.sphere_velocity.to(f32)
-        r = scene.sphere_radius.to(f32)[:, None]
-        valid = scene.sphere_valid[:, None]
-        parts_lo.append(torch.where(valid, torch.minimum(c, c + v) - r, big))
-        parts_hi.append(torch.where(valid, torch.maximum(c, c + v) + r, -big))
-    if scene.n_triangles > 0:
-        vs = torch.stack([t.to(f32) for t in (scene.tri_v0, scene.tri_v1,
-                                              scene.tri_v2)])
-        valid = scene.tri_valid[:, None]
-        parts_lo.append(torch.where(valid, vs.amin(0), big))
-        parts_hi.append(torch.where(valid, vs.amax(0), -big))
-    lo = torch.cat(parts_lo).amin(0)
-    hi = torch.cat(parts_hi).amax(0)
-    return lo, torch.clamp_min(hi - lo, 1e-6)
-
-
 def _dead_last(alive: torch.Tensor) -> torch.Tensor:
     """Stable partition order with the live rays first (cumsum + scatter,
     no sort)."""
@@ -350,49 +312,6 @@ def _slot_pixels(camera: Camera) -> torch.Tensor:
     return VIEW_MEMO.get(dev, (), ("slots", w, h), build)
 
 
-def _layout_mode(scene: Scene, culling, block_size: int,
-                 stream: Optional[int]):
-    """``(unroll, blk, stream, sc_group, cull)`` of one render's tables, as
-    ``render_wavefront`` resolves them (see there)."""
-    unroll = _resolve_tiling(scene)
-    blk = _resolve_blk(scene, culling, block_size)
-    if stream is None:
-        resident = wavefront_shared_bytes(*_padded_counts(scene, unroll, blk),
-                                          blk=blk)
-        stream = 0 if resident <= SHARED_LIMIT else DEFAULT_STREAM_CHUNK
-    cull = culling is not False
-    g = 0
-    if stream:
-        if stream % 16:
-            raise ValueError("stream chunk must be a multiple of 16")
-        blk = STREAM_BLOCK if cull and stream % STREAM_BLOCK == 0 else 0
-        n_r, m_r, g = _stream_counts(scene, stream)
-        need = wavefront_shared_bytes(n_r, m_r, stream=stream, sc_group=g)
-        if need > SHARED_LIMIT:
-            raise ValueError(
-                f"wavefront: the chunk bounds of {n_r + m_r} columns in "
-                f"chunks of {stream} need {need} bytes of shared memory (> "
-                f"{SHARED_LIMIT}); use a larger chunk")
-    return unroll, blk, stream, g, cull
-
-
-def _build_layout(scene: Scene, camera: Camera, unroll: int, blk: int,
-                  stream: int, sc_group: int):
-    """The tables of a layout :func:`_layout_mode` resolved."""
-    if not stream:
-        return _smem_scene_inputs(scene, unroll, blk)
-    return _stream_scene_inputs(scene, stream, blk,
-                                camera.look_from.to(torch.float32), sc_group)
-
-
-def _resolve_layout(scene: Scene, camera: Camera, culling, block_size: int,
-                    stream: Optional[int]):
-    """The tables of one render and whether streamed chunks are tested, as
-    ``render_wavefront`` resolves them (see there), built anew."""
-    *mode, cull = _layout_mode(scene, culling, block_size, stream)
-    return _build_layout(scene, camera, *mode), cull
-
-
 def render_wavefront(scene: Scene, camera: Camera, seed: int,
                      config: RenderConfig = RenderConfig(), *,
                      culling: Optional[bool] = None,
@@ -406,12 +325,14 @@ def render_wavefront(scene: Scene, camera: Camera, seed: int,
 
     * ``stream=None`` keeps the tables in shared memory where the kernel's
       resident layout fits and streams them in chunks of
-      :data:`DEFAULT_STREAM_CHUNK` otherwise; ``stream=k`` forces chunks of
-      k columns (a multiple of 16).
+      :data:`~rayz_tpu_torch.ops.tables.DEFAULT_STREAM_CHUNK` otherwise;
+      ``stream=k`` forces chunks of k columns (a multiple of 16).
     * ``culling=None`` culls resident scenes from 2,048 primitives on, in
       blocks of ``block_size``; streamed scenes always test superclusters,
-      chunks and blocks (of :data:`STREAM_BLOCK`); ``culling=False`` turns
-      every bound test off.
+      chunks and blocks (of
+      :data:`~rayz_tpu_torch.ops.tables.STREAM_BLOCK`); ``culling=False``
+      turns every bound test off. The layout is
+      :func:`~rayz_tpu_torch.ops.tables.resolve`'s.
     * ``sort=False`` skips the sort and partitions between the synchronous
       bounces; ``resort=True`` sorts before every one of them instead of
       only before bounce 1.
@@ -435,18 +356,15 @@ def render_wavefront(scene: Scene, camera: Camera, seed: int,
     h, w = camera.height, camera.width
     n_px, spp, max_depth = h * w, config.spp, config.max_depth
     with tables_stage():
-        *mode, cull = _layout_mode(scene, culling, block_size, stream)
-        tabs, lo, extent = memo_tables(
-            scene, camera.look_from if mode[2] else None,
-            ("wavefront", *mode),
-            lambda: (_build_layout(scene, camera, *mode),
-                     *_scene_bounds(scene)))
+        layout = resolve(scene, "wavefront", culling=culling,
+                         block_size=block_size, stream=stream)
+        tabs, (lo, extent) = layout_tables(scene, layout, camera.look_from)
         rays = _Rays(memo_camera_vector(camera), _slot_pixels(camera),
                      n_px * spp, w)
         r_pad = _round_up(rays.n_rays, WF_BLOCK)
         rid = torch.arange(r_pad, dtype=torch.int32, device=dev)
     kw = dict(t_min=config.t_min, jitter=config.jitter,
-              has_motion=scene.has_motion, seed=int(seed), cull=cull,
+              has_motion=scene.has_motion, seed=int(seed), layout=layout,
               stats=stats)
 
     def permute(order, *ts):

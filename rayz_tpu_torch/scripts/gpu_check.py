@@ -24,7 +24,7 @@ Run:  python -m rayz_tpu_torch.scripts.gpu_check [--width 128] [--spp 256]
       [--device cuda]
 
 One ``OK``/``FAIL``/``SKIP`` line per check; exits non-zero on any
-failure. ``SKIP`` only where a ``supports_*``/``fits_*`` predicate
+failure. ``SKIP`` only where a ``supports_*``/``fits`` predicate
 refuses the scene. Runs on the card unless ``--device cpu`` is given (the
 kernels' plain versions, at small sizes only).
 """
@@ -41,7 +41,7 @@ import torch
 import rayz_tpu_torch as rtt
 from rayz_tpu_torch.models.scene import DIFFUSE_UNIT_SPHERE
 from rayz_tpu_torch.ops import diffkernel as dk, pathrec as pr
-from rayz_tpu_torch.ops.tables import fits_record_stream, supports_scene
+from rayz_tpu_torch.ops.tables import fits, supports_scene
 from rayz_tpu_torch.ops.wavefront import supports_wavefront
 from rayz_tpu_torch.scripts import card, resolve
 
@@ -112,13 +112,19 @@ def recorded_tol(spp: int) -> float:
 @contextlib.contextmanager
 def forced_stream(chunk: int):
     """Have record_paths stream every scene in chunks of ``chunk``, as it
-    does the scenes beyond one block's shared memory."""
-    rule, default = dk.fits_shared, dk.RECORD_STREAM_CHUNK
-    dk.fits_shared, dk.RECORD_STREAM_CHUNK = (lambda scene: False), chunk
+    does the scenes beyond one block's shared memory: the recorder's
+    layout is resolved with that chunk wherever it is left to the rule."""
+    resolve = dk.resolve
+
+    def forced(scene, engine, **kw):
+        if engine == "record" and kw.get("stream") is None:
+            kw["stream"] = chunk
+        return resolve(scene, engine, **kw)
+    dk.resolve = forced
     try:
         yield
     finally:
-        dk.fits_shared, dk.RECORD_STREAM_CHUNK = rule, default
+        dk.resolve = resolve
 
 
 def checker_two_ior(width: int, device="cuda"):
@@ -191,7 +197,7 @@ SUPPORTS = {
     "megakernel": lambda scene, kw: supports_scene(scene),
     "wavefront": lambda scene, kw: supports_wavefront(scene),
     "recorded": lambda scene, kw: dk.supports_diff(scene) and (
-        not kw.get("stream") or fits_record_stream(scene, kw["stream"])),
+        not kw.get("stream") or fits(scene, "record", stream=kw["stream"])),
     "recorded-pp": lambda scene, kw: pr.supports_pp(scene),
 }
 

@@ -12,7 +12,8 @@
 wavefront and the streamed megakernel, prints Mrays/s (median of 5 after a
 warm-up, synced), the wavefront's work counters and the share of pixels
 equal to the default layout's image. The block inside a chunk is set by
-rebinding ``STREAM_BLOCK`` in the two engine modules for the sweep.
+rebinding ``tables.STREAM_BLOCK``, which the layout resolver reads, for
+the sweep.
 
 ``record`` times the bounce-indexed recorder's streamed launch on one
 1-spp pass of ``sphere_field`` (512x288, depth 8: one sample pass of
@@ -223,8 +224,7 @@ def _digest(img: torch.Tensor) -> str:
 
 def tiling(ns, chunks, blocks) -> None:
     import rayz_tpu_torch as rtt
-    from rayz_tpu_torch.ops import megakernel as mk, tables as tb
-    from rayz_tpu_torch.ops import wavefront as wf
+    from rayz_tpu_torch.ops import tables as tb
 
     card = _card()
     cfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
@@ -235,7 +235,7 @@ def tiling(ns, chunks, blocks) -> None:
         ref = {}
         for chunk, blk in [default] + [(c, b) for c in chunks for b in blocks
                                        if (c, b) != default]:
-            wf.STREAM_BLOCK = mk.STREAM_BLOCK = blk
+            tb.STREAM_BLOCK = blk
             try:
                 res = {}
                 for eng, fn in (("wavefront", rtt.render_wavefront),
@@ -251,7 +251,7 @@ def tiling(ns, chunks, blocks) -> None:
                 rtt.render_wavefront(scene, cam, 0, cfg, stream=chunk,
                                      stats=stats)
             finally:
-                wf.STREAM_BLOCK = mk.STREAM_BLOCK = default[1]
+                tb.STREAM_BLOCK = default[1]
             st = [int(x) for x in stats.tolist()]
             print(f"[tiling] sphere_field {n} chunk {chunk} block {blk}: "
                   f"wavefront {res['wavefront'][0]:.3f} Mrays/s "
@@ -279,7 +279,7 @@ def _event_ms(fn, n: int = 5) -> float:
 
 def record(n, chunks, blocks) -> None:
     import rayz_tpu_torch as rtt
-    from rayz_tpu_torch.ops import diffkernel as dk
+    from rayz_tpu_torch.ops import diffkernel as dk, tables as tb
 
     card = _card()
     depth = LARGE["depth"]
@@ -288,25 +288,28 @@ def record(n, chunks, blocks) -> None:
                        device="cuda")
     inputs = (*dk._camera_rays(cam, 1, pix, 0, True),
               dk._make_rand(1, pix, 0, depth))
-    default = dk.RECORD_STREAM_BLOCK
+    default = tb.RECORD_STREAM_BLOCK
     ref = None
     for chunk in chunks:
         for blk in blocks:
             if chunk % blk:
                 continue
-            dk.RECORD_STREAM_BLOCK = blk
+            tb.RECORD_STREAM_BLOCK = blk
             try:
                 t0 = time.perf_counter()
-                tabs = dk._record_setup(scene, chunk, cam.look_from)
+                layout = tb.resolve(scene, "record", stream=chunk)
+                tabs = dk._record_tables(scene, layout, cam.look_from)
                 torch.cuda.synchronize()
                 prep = (time.perf_counter() - t0) * 1e3
                 stats = torch.zeros(8, dtype=torch.int64, device="cuda")
-                idx = dk._record_rays(scene, tabs, *inputs, max_depth=depth,
-                                      t_min=1e-3, stats=stats)
+                idx = dk._record_rays(scene, layout, tabs, *inputs,
+                                      max_depth=depth, t_min=1e-3,
+                                      stats=stats)
                 ms = _event_ms(lambda: dk._record_rays(
-                    scene, tabs, *inputs, max_depth=depth, t_min=1e-3))
+                    scene, layout, tabs, *inputs, max_depth=depth,
+                    t_min=1e-3))
             finally:
-                dk.RECORD_STREAM_BLOCK = default
+                tb.RECORD_STREAM_BLOCK = default
             ref = idx if ref is None else ref
             st = [int(x) for x in stats.tolist()]
             print(f"[record] sphere_field {n} chunk {chunk} block {blk}: "
@@ -326,10 +329,11 @@ def record_resident(scene, cam, depth: int = 32) -> dict:
     and the launch's counters (segments, re-sweeps, lane-trips of the
     warps that ran, the ns between the ray counter draining and the
     launch's end, where the tree's kernel counts them)."""
-    from rayz_tpu_torch.ops import diffkernel as dk
+    from rayz_tpu_torch.ops import diffkernel as dk, tables as tb
     dev = cam.device
     pix = torch.arange(cam.width * cam.height, dtype=torch.int32, device=dev)
-    tables = dk._record_setup(scene, 0, cam.look_from)
+    layout = tb.resolve(scene, "record", stream=0)
+    tabs = dk._record_tables(scene, layout, cam.look_from)
     groups = sorted({1, getattr(dk, "RECORD_GROUP", 1)})
     passes = [(*dk._camera_rays(cam, 1, pix, s, True),
                dk._make_rand(1, pix, s, depth))
@@ -339,10 +343,11 @@ def record_resident(scene, cam, depth: int = 32) -> dict:
         o, d, tm = (torch.cat([p[k] for p in passes[:g]]) for k in range(3))
         rand = torch.cat([p[3] for p in passes[:g]], dim=2)
         stats = torch.zeros(8, dtype=torch.int64, device=dev)
-        dk._record_rays(scene, tables, o, d, tm, rand, max_depth=depth,
-                        t_min=1e-3, stats=stats)
+        dk._record_rays(scene, layout, tabs, o, d, tm, rand,
+                        max_depth=depth, t_min=1e-3, stats=stats)
         ms = _event_ms(lambda: dk._record_rays(
-            scene, tables, o, d, tm, rand, max_depth=depth, t_min=1e-3))
+            scene, layout, tabs, o, d, tm, rand, max_depth=depth,
+            t_min=1e-3))
         st = [int(x) for x in stats.tolist()]
         out[str(g)] = dict(ms_per_pass=ms / g, segments=st[0],
                            resweeps=st[5], lane_trips=st[6],

@@ -404,8 +404,7 @@ def test_engine_dispatch(monkeypatch):
                                        budget=3),
                        rtt.render_jit(small, scam, 1, cfg))
     monkeypatch.setattr(engine, "fits_shared", lambda scene: False)
-    monkeypatch.setattr(engine, "fits_wavefront", lambda scene: False)
-    monkeypatch.setattr(engine, "fits_stream", lambda scene: False)
+    monkeypatch.setattr(engine, "fits", lambda scene, eng, **kw: False)
     assert engine.pick_engine(small) == "xla"
 
 

@@ -302,9 +302,10 @@ def test_streamed_equals_resident_mixed():
     rand = torch.from_numpy(_rand(1024, 4))
     kw = dict(max_depth=4, t_min=T_MIN)
     ref = tdk.record_paths(scene, o, d, tm, rand, stream=0, **kw)
-    for stream in (128, tdk.RECORD_STREAM_CHUNK):
-        stab, ttab, b = tdk._record_inputs(scene, stream, o[0])
-        assert stab.shape[1] % stream == 0 and b.scb.shape == (4, 1)
+    for stream in (128, tables.RECORD_STREAM_CHUNK):
+        b = tdk._record_tables(
+            scene, tables.resolve(scene, "record", stream=stream), o[0])
+        assert b.stab.shape[1] % stream == 0 and b.scb.shape == (4, 1)
         got = tdk.record_paths(scene, o, d, tm, rand, stream=stream, **kw)
         assert torch.equal(got, ref)
     assert int((ref >= int(scene.sphere_radius.shape[0])).sum()) > 0
@@ -312,7 +313,8 @@ def test_streamed_equals_resident_mixed():
 
 def _raw_record(scene, o, d, tm, rand, t_min):
     """The plain recorder over the tables in the scene's own order."""
-    stab, ttab, _ = tdk._record_inputs(scene, 0)
+    raw = tdk._record_tables(scene, tables.resolve(scene, "record", stream=0))
+    stab, ttab = raw.stab, raw.ttab
     rays = torch.cat([o.T, d.T, tm[None]]).float().contiguous()
     return rays, tdk._record_reference(
         stab, ttab, rays, rand, depth=rand.shape[0], t_min=t_min,
@@ -344,9 +346,10 @@ def test_sorted_recorder_parts_only_at_ties(name, stream):
     rand = torch.from_numpy(_rand(r, depth))
     got = tdk.record_paths(scene, o, d, tm, rand, max_depth=depth,
                            t_min=t_min, stream=stream)
-    stab, _, b = tdk._record_inputs(scene, stream, o[0])
+    b = tdk._record_tables(
+        scene, tables.resolve(scene, "record", stream=stream), o[0])
     if name == "field":  # the sort moved the columns
-        assert not torch.equal(b.sperm, torch.arange(stab.shape[1],
+        assert not torch.equal(b.sperm, torch.arange(b.stab.shape[1],
                                                      dtype=torch.int32))
     rays, want = _raw_record(scene, o, d, tm, rand, t_min)
     tie = tdk._exact_ties(scene, rays, rand, got, want, depth=depth,
@@ -405,12 +408,17 @@ def test_streamed_beyond_shared_memory():
     scene, cam = rtt.scenes.sphere_field(n=4000, width=16, height=16,
                                          device="cpu")
     assert not tables.fits_shared(scene)
-    assert tables.fits_record_stream(scene, tdk.RECORD_STREAM_CHUNK)
+    layout = tables.resolve(scene, "record")
+    assert layout.mode == tables.STREAMED
+    assert layout.stream == tables.RECORD_STREAM_CHUNK
+    assert tables.fits(scene, "record")
     o, d, tm = _rays(cam, 256)
     rand = torch.from_numpy(_rand(256, 4))
     idx_s = tdk.record_paths(scene, o, d, tm, rand, max_depth=4, t_min=T_MIN)
-    stab, ttab, bounds = tdk._record_inputs(scene, 0)
-    assert bounds is None
+    resident = tables.resolve(scene, "record", stream=0)
+    assert resident.mode == tables.RESIDENT
+    raw = tdk._record_tables(scene, resident)
+    stab, ttab = raw.stab, raw.ttab
     rays = torch.cat([o.T, d.T, tm[None]]).contiguous()
     idx_r = tdk._record_reference(stab, ttab, rays, rand, depth=4,
                                   t_min=T_MIN, has_motion=scene.has_motion,
@@ -443,25 +451,37 @@ def test_fits_record_stream_boundary():
             sphere_radius=torch.ones(n), sphere_valid=torch.ones(n, dtype=bool),
             sphere_material=torch.zeros(n, dtype=torch.int32), n_spheres=n)
 
-    assert tables.fits_record_stream(with_spheres(14528), 1)
-    assert not tables.fits_record_stream(with_spheres(14529), 1)
-    assert tables.fits_record_stream(with_spheres(14528 * 512), 512)
+    assert tables.fits(with_spheres(14528), "record", stream=1)
+    assert not tables.fits(with_spheres(14529), "record", stream=1)
+    assert tables.fits(with_spheres(14528 * 512), "record", stream=512)
 
 
 # ---- 4. golden ----
+
+def _force_stream(monkeypatch, chunk: int):
+    """Have the recorder stream every scene in chunks of ``chunk``, as it
+    does the scenes beyond one block's shared memory: its layout is
+    resolved with that chunk wherever the rule would pick one."""
+    resolve = tdk.resolve
+
+    def forced(scene, engine, **kw):
+        if engine == "record" and kw.get("stream") is None:
+            kw["stream"] = chunk
+        return resolve(scene, engine, **kw)
+    monkeypatch.setattr(tdk, "resolve", forced)
+
 
 @pytest.mark.parametrize("stream", [None, 128], ids=["resident", "stream128"])
 def test_golden(stream, monkeypatch):
     """The golden image through render_diff, resident and (the chunk rule
     forced) streamed in chunks of 128."""
     modes = []
-    record_inputs = tdk._record_inputs
-    monkeypatch.setattr(tdk, "_record_inputs",
-                        lambda sc, s, o: modes.append(s)
-                        or record_inputs(sc, s, o))
+    record_tables = tdk._record_tables
+    monkeypatch.setattr(tdk, "_record_tables",
+                        lambda sc, layout, o: modes.append(layout.stream)
+                        or record_tables(sc, layout, o))
     if stream:
-        monkeypatch.setattr(tdk, "fits_shared", lambda sc: False)
-        monkeypatch.setattr(tdk, "RECORD_STREAM_CHUNK", stream)
+        _force_stream(monkeypatch, stream)
     b = rtt.SceneBuilder()
     e = b.add_solid_texture((0.2, 0.3, 0.1))
     o = b.add_solid_texture((0.9, 0.9, 0.9))
@@ -712,8 +732,7 @@ def test_one_record_launch_per_group(monkeypatch, streamed):
     in LAUNCHES there) over their rays side by side, and the streamed ones
     one pass per call; the tables are built once."""
     if streamed:
-        monkeypatch.setattr(tdk, "fits_shared", lambda scene: False)
-        monkeypatch.setattr(tdk, "RECORD_STREAM_CHUNK", 128)
+        _force_stream(monkeypatch, 128)
     calls = _spy_record(monkeypatch)
     scene, cam = rtt.scenes.random_bouncing(width=8, height=6, device="cpu")
     spp = tdk.RECORD_GROUP + 2
@@ -752,12 +771,15 @@ def test_grouped_recording_changes_nothing(monkeypatch):
 
 def test_record_kernel_raises_off_cpu():
     dev = "meta"
+    scene, _ = rtt.scenes.two_sphere(width=8, device="cpu")
+    layout = tables.resolve(scene, "record")
+    n = layout.n_pad
     with pytest.raises(ValueError, match="no record kernel"):
-        tdk._record(torch.zeros((17, 8), device=dev),
+        tdk._record(torch.zeros((17, n), device=dev),
                     torch.zeros((20, 0), device=dev),
                     torch.zeros((7, 4), device=dev),
                     torch.zeros((2, 5, 4), device=dev), depth=2, t_min=T_MIN,
-                    has_motion=False, tri_base=8)
+                    has_motion=False, tri_base=n, layout=layout)
 
 
 # ---- 9. the kernel on the card ----

@@ -30,7 +30,7 @@ from rayz_tpu.diff import extract_params as jextract, fit as jfit
 from rayz_tpu.diff import pixel_loss as jpixel_loss
 from rayz_tpu.ops.pathrec import render_diff_pp as jrender_diff_pp
 from rayz_tpu_torch.diff import inverse
-from rayz_tpu_torch.ops import _build, pathrec as tpr
+from rayz_tpu_torch.ops import _build, pathrec as tpr, tables
 
 torch.set_num_threads(2)
 
@@ -259,12 +259,14 @@ def test_cuda_path_raises_without_card(monkeypatch):
         tpr._gather_fwd(tab, idx, False)
     with pytest.raises(ValueError, match="no gather kernel"):
         tpr._gather_bwd(torch.zeros((8, 20), device="meta"), idx, 4, False)
-    stab = torch.zeros((17, 8), device="meta")
-    ttab = torch.zeros((20, 0), device="meta")
+    layout = tables.resolve(scene, "record_pp")
+    stab = torch.zeros((17, layout.n_pad), device="meta")
+    ttab = torch.zeros((20, layout.m_pad), device="meta")
     with pytest.raises(ValueError, match="no record kernel"):
         tpr._record_slots(torch.zeros(18, device="meta"), stab, ttab, idx,
                           width=4, spp=1, max_depth=2, t_min=1e-3,
-                          jitter=False, has_motion=False, seed=0, iters=1)
+                          jitter=False, has_motion=False, seed=0, iters=1,
+                          layout=layout)
     k_it, r = 2, 4
     rows = torch.zeros((20, k_it * r), device="meta")
     aux = torch.zeros((k_it, 13, r), device="meta")

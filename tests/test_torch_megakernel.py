@@ -33,7 +33,7 @@ import rayz_tpu as rt
 import rayz_tpu_torch as rtt
 from rayz_tpu.ops.megakernel import render_pallas
 from rayz_tpu_torch.io.image import read_ppm, write_ppm
-from rayz_tpu_torch.ops import engine, megakernel as mk
+from rayz_tpu_torch.ops import engine, megakernel as mk, tables
 
 torch.set_num_threads(2)
 
@@ -263,18 +263,23 @@ def test_wrapper_validates_inputs():
     packed records and hits, and refuses a device with no kernel instead of
     falling back."""
     scene, cam, cfg = _port(_golden_scene)
-    args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
-                               t_min=1e-3, jitter=False, unroll=8,
-                               blk=mk.DEFAULT_BLOCK)
+    launch = dict(spp=1, max_depth=2, t_min=1e-3, jitter=False)
+    culled = tables.resolve(scene, "megakernel", culling=True)
+    args, kw = mk._launch_args(scene, cam, 0, culled, **launch)
     del kw["spp"]
     hits = torch.full((2, 64), -2, dtype=torch.int32)
     out = mk._queue(*args, 64, 0, 1, hits=hits, **kw)
     assert out.shape == (1, 3, 64) and bool((hits[0] >= -1).all())
     with pytest.raises(ValueError, match="hits"):
         mk._queue(*args, 64, 0, 1, hits=hits.long(), **kw)
+    rargs, rkw = mk._launch_args(scene, cam, 0,
+                                 tables.resolve(scene, "megakernel"),
+                                 **launch)
+    del rkw["spp"]
     with pytest.raises(ValueError, match="hits"):
-        mk._queue(*args, 64, 0, 1, hits=hits,
-                  **dict(kw, bounds=None, records=None))
+        mk._queue(*rargs, 64, 0, 1, hits=hits, **rkw)
+    with pytest.raises(ValueError, match="not those of"):
+        mk._queue(*rargs, 64, 0, 1, **dict(rkw, layout=culled))
     with pytest.raises(ValueError, match="8k"):
         mk._queue(args[0], args[1][:, :5].contiguous(), args[2], 64, 0, 1,
                   **kw)
@@ -286,9 +291,9 @@ def test_wrapper_validates_inputs():
                                       tblk=b.tblk.to("meta")))
     with pytest.raises(ValueError, match="no megakernel"):
         mk._queue(*(a.to("meta") for a in args), 64, 0, 1, **meta)
-    args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
-                               t_min=1e-3, jitter=False, unroll=8,
-                               blk=mk.STREAM_BLOCK, stream=128)
+    args, kw = mk._launch_args(
+        scene, cam, 0, tables.resolve(scene, "megakernel", stream=128),
+        **launch)
     del kw["spp"]
     assert mk._queue(*args, 64, 0, 1, **kw).shape == (1, 3, 64)
     with pytest.raises(ValueError, match="packed records"):
@@ -358,9 +363,9 @@ def test_render_megakernel_resolves_modes(monkeypatch):
     real = mk._trace_queue
 
     def spy(*args, **kw):
-        b = kw["bounds"]
-        seen.append((args[3], kw["spp"], mk._mode(b),
-                     getattr(b, "blk", 0), kw["records"] is not None))
+        layout = kw["layout"]
+        seen.append((args[3], kw["spp"], layout.mode, layout.blk,
+                     kw["records"] is not None))
         return real(*args, **kw)
 
     monkeypatch.setattr(mk, "_trace_queue", spy)
@@ -372,12 +377,12 @@ def test_render_megakernel_resolves_modes(monkeypatch):
     rtt.render_megakernel(scene, cam, 0, cfg, stream=256)
     assert seen == [(32, 16, 0, 0, False)] * 2 + [
         (32, 16, 1, mk.DEFAULT_BLOCK, False),
-        (32, 16, 2, mk.STREAM_BLOCK, True)]
+        (32, 16, 2, tables.STREAM_BLOCK, True)]
     seen.clear()
     big, bcam = rtt.scenes.sphere_field(n=3_500, width=8, height=4,
                                         device="cpu")
     rtt.render_megakernel(big, bcam, 0, rtt.RenderConfig(spp=1, max_depth=1))
-    assert seen == [(32, 1, 2, mk.STREAM_BLOCK, True)]
+    assert seen == [(32, 1, 2, tables.STREAM_BLOCK, True)]
 
 
 @pytest.mark.cuda
@@ -405,8 +410,9 @@ def test_wide_resident_build_on_card(cuda_device):
     renders on at least 99.9% of its items (64x64, 4 spp, depth 8); a
     flagship-sized sphere scene keeps 128 threads."""
     scene, cam = rtt.scenes.cornell_box(width=64, device=cuda_device)
-    args, kw = mk._launch_args(scene, cam, 3, spp=4, max_depth=8, t_min=1e-3,
-                               jitter=True, unroll=mk._resolve_tiling(scene))
+    args, kw = mk._launch_args(scene, cam, 3,
+                               tables.resolve(scene, "megakernel"), spp=4,
+                               max_depth=8, t_min=1e-3, jitter=True)
     del kw["spp"]
     n = cam.width * cam.height
     got = mk._queue(*args, n, 0, 4, **kw)

@@ -52,7 +52,7 @@ from rayz_tpu.diff import pixel_loss as jpixel_loss
 from rayz_tpu.parallel import make_mesh as jmake_mesh
 from rayz_tpu.parallel import render_sharded_jit as jrender_sharded_jit
 from rayz_tpu_torch import entry, parallel
-from rayz_tpu_torch.ops import megakernel as mk
+from rayz_tpu_torch.ops import megakernel as mk, tables
 from rayz_tpu_torch.parallel import multihost
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -202,23 +202,20 @@ def test_offset_queue_plain_version(mode):
     """_queue (plain) at p0 > 0 equals the rows of the p0 = 0 launch, and
     two halves folded are the one-launch render."""
     scene, cam = worker.small_scene()
-    unroll, blk, stream, cull = mk._resolve_mode(scene, cam, mode.get(
-        "culling"), mk.DEFAULT_BLOCK, None)
-    args, kw = mk._launch_args(scene, cam, 5, spp=2, max_depth=4,
-                               t_min=1e-3, jitter=True, unroll=unroll,
-                               blk=blk, stream=stream, cull=cull)
+    layout = tables.resolve(scene, "megakernel", **mode)
+    args, kw = mk._launch_args(scene, cam, 5, layout, spp=2, max_depth=4,
+                               t_min=1e-3, jitter=True)
     del kw["spp"]
     n = cam.width * cam.height
     whole = mk._queue(*args, n, 0, 2, **kw)
     for p0 in (1, 100, n - 1):
         part = mk._queue(*args, n - p0, 0, 2, p0=p0, **kw)
         assert torch.equal(part, whole[:, :, p0:])
-    flat = mk._trace_shard_queue(scene, cam, 5, n, spp=2, max_depth=4,
-                                 t_min=1e-3, jitter=True, unroll=unroll,
-                                 blk=blk)
+    flat = mk._trace_shard_queue(scene, cam, 5, n, layout, spp=2,
+                                 max_depth=4, t_min=1e-3, jitter=True)
     halves = torch.cat([mk._trace_shard_queue(
-        scene, cam, 5, p1 - p0, spp=2, max_depth=4, t_min=1e-3, jitter=True,
-        unroll=unroll, blk=blk, p0=p0) for p0, p1 in ((0, 90), (90, n))])
+        scene, cam, 5, p1 - p0, layout, spp=2, max_depth=4, t_min=1e-3,
+        jitter=True, p0=p0) for p0, p1 in ((0, 90), (90, n))])
     assert torch.equal(halves, flat)
     with pytest.raises(ValueError, match="nothing to trace"):
         mk._queue(*args, n, 0, 2, p0=-1, **kw)

@@ -4,6 +4,7 @@ imports without JAX. Everything here must match exactly (atol 0): both
 packages build from the same float64 numpy values and the same op order."""
 
 import dataclasses
+import functools
 import io
 import os
 import subprocess
@@ -95,17 +96,19 @@ def test_padded_tables_and_shared_memory_rule():
     scene, _ = rtt.scenes.random_bouncing(width=16, device="cpu")
     stab, ttab, n_pad, m_pad = tables._smem_scene_inputs(scene, 8)[:4]
     assert (n_pad, m_pad) == (512, 0) and ttab.shape == (20, 0)
-    assert tables.shared_bytes(n_pad, m_pad) - 4 * tables.CAM_WORDS == 34_816
+    resident = functools.partial(tables._launch_bytes, "megakernel")
+    assert resident(n_pad, m_pad) - 4 * tables.CAM_WORDS == 34_816
+    assert tables.resolve(scene, "megakernel").smem == resident(n_pad, m_pad)
     assert tables.fits_shared(scene)
     box, _ = rtt.scenes.cornell_box(width=16, device="cpu")
-    assert tables.shared_bytes(0, 1536) - 4 * tables.CAM_WORDS == 122_880
+    assert resident(0, 1536) - 4 * tables.CAM_WORDS == 122_880
     assert tables.fits_shared(box)
     big, _ = rtt.scenes.sphere_field(n=14_000, width=16, device="cpu")
     assert not tables.fits_shared(big)
     # the boundary: 4 * (20 + 17 * n_pad + 20 * m_pad) <= 232,448 bytes
     limit = tables.SHARED_LIMIT
-    assert tables.shared_bytes(3416, 0) <= limit < tables.shared_bytes(3424, 0)
-    assert tables.shared_bytes(0, 2904) <= limit < tables.shared_bytes(0, 2912)
+    assert resident(3416, 0) <= limit < resident(3424, 0)
+    assert resident(0, 2904) <= limit < resident(0, 2912)
     for n, fits in ((3416, True), (3417, False)):
         b = rtt.SceneBuilder()
         m = b.add_diffuse(color=(0.5, 0.5, 0.5))

@@ -17,7 +17,7 @@ import rayz_tpu_torch as rtt
 from benchmark import scene as bs
 from benchmark.traffic import render as bench_render
 from rayz_tpu_torch.models import scene as sm
-from rayz_tpu_torch.ops import engine, tables, wavefront
+from rayz_tpu_torch.ops import engine, tables
 
 torch.set_num_threads(2)
 
@@ -92,9 +92,12 @@ def test_auto_picks_the_wavefront_over_streamed_tables(small):
     _, _, scene, camera = small
     assert scene.n_spheres == N + 1
     assert engine.pick_engine(scene, "auto") == "wavefront"
-    tabs, cull = wavefront._resolve_layout(scene, camera, None,
-                                           tables.DEFAULT_BLOCK, None)
-    assert isinstance(tabs, tables.StreamTables) and tabs.stream and cull
+    layout = tables.resolve(scene, "wavefront")
+    assert layout.mode == tables.STREAMED and layout.stream and layout.cull
+    tabs, _ = tables.layout_tables(scene, layout, camera.look_from,
+                                   memo=False)
+    assert isinstance(tabs, tables.StreamTables)
+    assert tabs.stream == layout.stream
 
 
 def test_render_within_the_cells_limit_of_the_reference(small):

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import rayz_tpu_torch as rtt
-from rayz_tpu_torch.ops import diffkernel as dk, megakernel as mk
+from rayz_tpu_torch.ops import common, diffkernel as dk, megakernel as mk
 from rayz_tpu_torch.ops import pathrec as pr, sweep as sw, tables
 from rayz_tpu_torch.ops.tables import _BIG, _pad_poison, _CCMR2
 
@@ -126,7 +126,7 @@ def test_streamed_records_reproduce_todays_terms(motion):
         v, vv = recs[4 * n:8 * n].view(n, 4), recs[8 * n:]
         cx, cy, cz = cx + tau * v[:, 0], cy + tau * v[:, 1], cz + tau * v[:, 2]
         ccmr2 = ccmr2 + v[:, 3] * tau + vv * (tau * tau)
-    want = mk._sphere_at(stab, slice(None), tau, tau * tau, motion)
+    want = common._sphere_at(stab, slice(None), tau, tau * tau, motion)
     for got, ref in zip((cx, cy, cz, ccmr2), want):
         assert torch.equal(got.expand_as(ref), ref)
 
@@ -157,7 +157,7 @@ def test_range_sweep_matches_sequential_and_today(motion):
     assert all(torch.equal(a, b) for a, b in zip(one, seq))
     assert bool((one.best >= 0).any()) and bool((one.second >= 0).any())
     a = coef.a
-    qb, best, _ = mk._sweep(stab, torch.zeros((20, 0)), o, d, tau, a,
+    qb, best, _ = common._sweep(stab, torch.zeros((20, 0)), o, d, tau, a,
                             -coef.ndo, coef.o2, coef.tmin_a, tau * tau,
                             motion)
     differ = one.best != best
@@ -169,7 +169,7 @@ def test_range_sweep_matches_sequential_and_today(motion):
     assert bool(ok.all())
 
 
-@pytest.mark.parametrize("mode", [dict(blk=64), dict(stream=128, blk=32)],
+@pytest.mark.parametrize("mode", [dict(culling=True), dict(stream=128)],
                          ids=["culled", "streamed"])
 def test_explain_items(mode):
     """explain_items holds the culled and streamed queue's winners per
@@ -178,8 +178,11 @@ def test_explain_items(mode):
     a swap of the duplicated sphere's column accepted, a jump to the
     farther sphere refused, equal recordings None."""
     scene, cam = _tie_scene()
-    args, kw = mk._launch_args(scene, cam, 1, spp=2, max_depth=3,
-                               t_min=1e-3, jitter=False, unroll=8, **mode)
+    layout = tables.resolve(scene, "megakernel", **mode)
+    assert (layout.unroll, layout.blk) == (8, 32 if mode.get("stream")
+                                           else 64)
+    args, kw = mk._launch_args(scene, cam, 1, layout, spp=2, max_depth=3,
+                               t_min=1e-3, jitter=False)
     del kw["spp"]
     stab = args[1]
     pair = torch.nonzero(stab[2] == -3.0).flatten().tolist()
@@ -205,12 +208,14 @@ def test_queue_fold_matches_slot_sums():
     (random_bouncing 8x8, 4 spp, depth 4, real random bits); so does the
     render, and the CPU launches no kernel."""
     scene, cam = rtt.scenes.random_bouncing(width=8, height=8, device="cpu")
-    args, kw = mk._launch_args(scene, cam, 5, spp=4, max_depth=4,
-                               t_min=1e-3, jitter=True, unroll=8)
-    del kw["bounds"], kw["records"], kw["cull"]
+    layout = tables.resolve(scene, "megakernel")
+    assert layout.unroll == 8
+    args, kw = mk._launch_args(scene, cam, 5, layout, spp=4, max_depth=4,
+                               t_min=1e-3, jitter=True)
+    del kw["layout"], kw["bounds"], kw["records"]
     want = mk._trace_slots_reference(*args, _slots(64), **kw)
     before = (mk.LAUNCHES, dict(mk.MODE_LAUNCHES))
-    got = mk._trace_queue(*args, 64, **kw)
+    got = mk._trace_queue(*args, 64, layout=layout, **kw)
     assert (mk.LAUNCHES, mk.MODE_LAUNCHES) == before
     assert torch.equal(got, want[:, :64])
     assert (got > 0).any()
@@ -225,10 +230,9 @@ def test_queue_fold_matches_slot_sums():
         acc = acc + rad
     assert torch.equal(acc, got)
     cfg = rtt.RenderConfig(spp=4, max_depth=4)
-    args, kw = mk._launch_args(scene, cam, 5, spp=4, max_depth=4,
-                               t_min=1e-3, jitter=True,
-                               unroll=mk._resolve_tiling(scene))
-    del kw["bounds"], kw["records"], kw["cull"]
+    args, kw = mk._launch_args(scene, cam, 5, layout, spp=4, max_depth=4,
+                               t_min=1e-3, jitter=True)
+    del kw["layout"], kw["bounds"], kw["records"]
     sums = mk._trace_slots_reference(*args, _slots(64), **kw)
     img = rtt.render_megakernel(scene, cam, 5, cfg)
     assert torch.equal(img, (sums[:, :64].T.reshape(8, 8, 3) / 4.0))
@@ -239,9 +243,9 @@ def test_queue_groups_keep_the_fold_order(monkeypatch):
     fold carries each pixel's sum from group to group, so the sums do not
     change."""
     scene, cam = rtt.scenes.random_bouncing(width=6, height=4, device="cpu")
-    args, kw = mk._launch_args(scene, cam, 9, spp=5, max_depth=3,
-                               t_min=1e-3, jitter=True, unroll=8)
-    del kw["bounds"], kw["records"], kw["cull"]
+    args, kw = mk._launch_args(scene, cam, 9,
+                               tables.resolve(scene, "megakernel"), spp=5,
+                               max_depth=3, t_min=1e-3, jitter=True)
     whole = mk._trace_queue(*args, 24, **kw)
     monkeypatch.setattr(mk, "QUEUE_BYTES", 2 * 12 * 24)
     assert mk._queue_group(5, 24) == 2
@@ -314,9 +318,9 @@ def test_render_megakernel_queue_stats_refuse_on_cpu():
     """The queue's wrapper checks its inputs; a non-CPU, non-CUDA tensor
     raises instead of falling back."""
     scene, cam = rtt.scenes.random_bouncing(width=4, height=4, device="cpu")
-    args, kw = mk._launch_args(scene, cam, 0, spp=1, max_depth=2,
-                               t_min=1e-3, jitter=False, unroll=8)
-    del kw["bounds"], kw["records"], kw["cull"]
+    args, kw = mk._launch_args(scene, cam, 0,
+                               tables.resolve(scene, "megakernel"), spp=1,
+                               max_depth=2, t_min=1e-3, jitter=False)
     with pytest.raises(ValueError, match="nothing to trace"):
         mk._trace_queue(*args, 0, **kw)
     with pytest.raises(ValueError, match="8k"):
@@ -351,6 +355,7 @@ def test_states_carry_the_sphere_left():
     assert torch.equal(pair[0], more[0]) and len(pair[3]) == 3
     with pytest.raises(ValueError, match="init_state"):
         pr._record_slots(*pr._scene_record_inputs(scene, cam), pix,
+                         layout=tables.resolve(scene, "record_pp"),
                          width=cam.width, has_motion=scene.has_motion,
                          seed=2, iters=8, init_state=(st, cnt), **kw)
 

@@ -11,6 +11,7 @@ build from the same float32 values in the same order; the rows agree bit
 for bit today)."""
 
 import dataclasses
+import functools
 import gc
 import weakref
 
@@ -23,7 +24,7 @@ import rayz_tpu as rt
 import rayz_tpu_torch as rtt
 from rayz_tpu.ops import megakernel as jmk
 from rayz_tpu.ops import wavefront as jwf
-from rayz_tpu_torch.ops import megakernel as mk, tables, wavefront as twf
+from rayz_tpu_torch.ops import tables, wavefront as twf
 
 torch.set_num_threads(2)
 
@@ -131,7 +132,8 @@ def test_culled_resident_layout_matches_jax(name):
 @pytest.mark.parametrize("name", SCENES)
 def test_streamed_layout_matches_jax(name, stream, blk):
     (js, jc), (ts, tc) = _pair(name)
-    n_r, m_r, g = tables._stream_counts(ts, stream)
+    lay = tables.resolve(ts, "wavefront", stream=stream)
+    n_r, m_r, g = lay.n_pad, lay.m_pad, lay.sc_group
     jn_r = -(-_counts(js)[0] // stream) * stream
     jm_r = -(-_counts(js)[1] // stream) * stream
     assert (n_r, m_r, g) == (jn_r, jm_r,
@@ -174,7 +176,7 @@ def test_small_helpers_match_jax():
             assert (tables._resolve_blk(ts, culling, 64)
                     == jmk._resolve_blk(js, culling, 64))
         jlo, jspan = jwf._scene_bounds(js)
-        tlo, tspan = twf._scene_bounds(ts)
+        tlo, tspan = tables._scene_bounds(ts)
         np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
         np.testing.assert_array_equal(tspan.numpy(), np.asarray(jspan))
 
@@ -196,47 +198,45 @@ def test_sort_key_matches_jax():
 
 
 def test_streamed_residency_rule():
-    """fits_wavefront counts the wavefront's streamed launch's shared
-    memory: the head (camera and the warps' counters), the warps' column
-    and ray staging, the parked ray states and the chunk and supercluster
-    bound rows. At the default chunk of 512 a 100k-sphere field (196
-    chunks in 49 superclusters) needs 19,488 bytes; the rule gives out
-    near 6.9 M columns. fits_stream counts the streamed megakernel's (the
-    camera, its warps' staging of 4 words a record, 9 with motion, and the
-    chunk bound rows) and gives out near 7.37 M columns (7.29 M with
-    motion); fits_shared stops at n_pad 3,416."""
+    """The wavefront's streamed layout counts its launch's shared memory:
+    the head (camera and the warps' counters), the warps' column and ray
+    staging, the parked ray states and the chunk and supercluster bound
+    rows. At the default chunk of 512 a 100k-sphere field (196 chunks in
+    49 superclusters) needs 19,488 bytes; the rule gives out near 6.9 M
+    columns. The streamed megakernel's counts the camera, its warps'
+    staging of 4 words a record, 9 with motion, and the chunk bound rows,
+    and gives out near 7.37 M columns (7.29 M with motion); fits_shared
+    stops at n_pad 3,416."""
     chunk = tables.DEFAULT_STREAM_CHUNK
     assert chunk == 512
-    assert tables._stream_counts(
-        rtt.scenes.sphere_field(n=100_000, width=8, device="cpu")[0],
-        chunk) == (100_352, 0, 4)
-    assert tables.wavefront_shared_bytes(
-        100_352, 0, stream=chunk, sc_group=4) == 4 * (
-            52 + 3072 + 768 + 4 * (196 + 49))
-    assert tables.wavefront_shared_bytes(
-        13_500 * chunk, 0, stream=chunk, sc_group=0) <= tables.SHARED_LIMIT
-    assert tables.wavefront_shared_bytes(
-        13_600 * chunk, 0, stream=chunk, sc_group=0) > tables.SHARED_LIMIT
-    assert tables.stream_shared_bytes(100_352, 0, chunk, False) == 4 * (
-        20 + 4 * 32 * 4 + 4 * 196)
-    assert tables.stream_shared_bytes(100_352, 0, chunk, True) == 4 * (
-        20 + 4 * 32 * 9 + 4 * 196)
+    field100k, _ = rtt.scenes.sphere_field(n=100_000, width=8, device="cpu")
+    lay = tables.resolve(field100k, "wavefront")
+    assert (lay.n_pad, lay.m_pad, lay.sc_group, lay.stream) == (
+        100_352, 0, 4, chunk)
+    assert lay.smem == 4 * (52 + 3072 + 768 + 4 * (196 + 49))
+    wf_bytes = functools.partial(tables._launch_bytes, "wavefront",
+                                 stream=chunk, sc_group=0)
+    assert wf_bytes(13_500 * chunk, 0) <= tables.SHARED_LIMIT
+    assert wf_bytes(13_600 * chunk, 0) > tables.SHARED_LIMIT
+    mk_bytes = functools.partial(tables._launch_bytes, "megakernel",
+                                 stream=chunk)
+    assert mk_bytes(100_352, 0) == 4 * (20 + 4 * 32 * 4 + 4 * 196)
+    assert mk_bytes(100_352, 0, motion=True) == 4 * (20 + 4 * 32 * 9
+                                                     + 4 * 196)
     for motion, fits in ((False, 14_395), (True, 14_235)):
-        assert tables.stream_shared_bytes(
-            fits * chunk, 0, chunk, motion) <= tables.SHARED_LIMIT
-        assert tables.stream_shared_bytes(
-            (fits + 1) * chunk, 0, chunk, motion) > tables.SHARED_LIMIT
+        assert mk_bytes(fits * chunk, 0, motion=motion) <= tables.SHARED_LIMIT
+        assert mk_bytes((fits + 1) * chunk, 0,
+                        motion=motion) > tables.SHARED_LIMIT
     field, _ = rtt.scenes.sphere_field(n=3500, width=8, device="cpu")
     assert tables.fits_stream(field) and not tables.fits_shared(field)
-    assert tables.fits_wavefront(field)
+    assert tables.fits(field, "wavefront")
     assert tables.fits_shared(field, culling=False, block_size=64) is False
 
 
 def _resident_bytes(scene):
     """The resident queue launch's shared memory for ``scene``'s tables."""
-    tabs = tables._smem_scene_inputs(scene, tables._resolve_tiling(scene), 0)
-    return tables.queue_shared_bytes(tabs.stab.shape[1], tabs.ttab.shape[1],
-                                     scene.has_motion)
+    lay = tables.resolve(scene, "megakernel")
+    return tables._queue_bytes(lay.n_pad, lay.m_pad, scene.has_motion)
 
 
 @pytest.mark.parametrize("scene, smem, threads", [
@@ -257,11 +257,164 @@ def test_queue_width_rule(scene, smem, threads):
     if scene:
         scene, _ = getattr(rtt.scenes, scene)(width=8, device="cpu")
         assert _resident_bytes(scene) == smem
+        assert tables.resolve(scene, "megakernel").threads == threads
     if threads is None:
         with pytest.raises(ValueError, match="exceed"):
             tables.queue_threads(smem)
     else:
         assert tables.queue_threads(smem) == threads
+
+
+def _spheres(n: int):
+    """A scene of ``n`` unit spheres at the origin, built without a
+    builder (the columns count, not their contents)."""
+    scene, _ = rtt.scenes.two_sphere(width=8, device="cpu")
+    z = torch.zeros((n, 3))
+    return dataclasses.replace(
+        scene, sphere_center=z, sphere_velocity=z,
+        sphere_radius=torch.ones(n), sphere_valid=torch.ones(n, dtype=bool),
+        sphere_material=torch.zeros(n, dtype=torch.int32), n_spheres=n)
+
+
+def _line(n: int):
+    """``n`` small spheres in a row (n_pad = n where n is a multiple of 8)."""
+    b = rtt.SceneBuilder()
+    m = b.add_diffuse(color=(0.5, 0.5, 0.5))
+    for i in range(n):
+        b.add_sphere((float(i), 0.0, 0.0), 0.1, m)
+    return b.build(device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_scene(name: str):
+    kind, _, n = name.partition("_")
+    if kind == "line":
+        return _line(int(n))
+    if kind == "spheres":
+        return _spheres(int(n))
+    if kind == "field":
+        return rtt.scenes.sphere_field(n=int(n), width=8, device="cpu")[0]
+    return getattr(rtt.scenes, {"flagship": "random_bouncing"}.get(
+        name, name))(width=8, device="cpu")[0]
+
+
+#: (scene, engine, resolve's keywords, the layout's (mode, unroll, blk,
+#: stream, sc_group, cull, n_pad, m_pad, smem, threads) or the start of the
+#: refusal). The values are those the per-engine resolvers this one
+#: replaced gave: the megakernel's, the wavefront's, the bounce-indexed
+#: recorder's (its launch's bytes as its wrapper counted them) and the
+#: persistent-path recorder's rule. Boundaries: n_pad 3,416/3,417 (the
+#: resident rule), 14,528/14,529 recorder columns at chunk 1, 14,395/14,396
+#: chunks of the streamed megakernel, and the wavefront's 13,552 (grouped
+#: into superclusters, over), 13,553 (no group, under) and 13,554 chunks.
+LAYOUTS = [
+    ("flagship", "megakernel", dict(),
+     (0, 8, 0, 0, 0, True, 512, 0, 34896, 128)),
+    ("flagship", "megakernel", dict(culling=True),
+     (1, 8, 64, 0, 0, True, 512, 0, 35024, 128)),
+    ("flagship", "megakernel", dict(stream=128),
+     (2, 8, 32, 128, 0, True, 512, 0, 4752, 128)),
+    ("flagship", "megakernel", dict(stream=128, culling=False),
+     (2, 8, 0, 128, 0, False, 512, 0, 4752, 128)),
+    ("flagship", "megakernel", dict(stream=100),
+     "stream chunk must be a multiple of 16"),
+    ("flagship", "wavefront", dict(),
+     (0, 8, 0, 0, 0, True, 512, 0, 35024, 0)),
+    ("flagship", "wavefront", dict(stream=128),
+     (2, 8, 32, 128, 2, True, 512, 0, 15664, 0)),
+    ("flagship", "record", dict(),
+     (0, 1, 0, 0, 0, True, 512, 0, 18432, 0)),
+    ("flagship", "record", dict(stream=128),
+     (2, 1, 32, 128, 0, True, 512, 0, 64, 0)),
+    ("flagship", "record_pp", dict(),
+     (0, 1, 0, 0, 0, True, 512, 0, 34896, 0)),
+    ("cornell_box", "megakernel", dict(),
+     (0, 16, 0, 0, 0, True, 0, 1536, 122960, 1024)),
+    ("cornell_box", "wavefront", dict(),
+     (0, 16, 0, 0, 0, True, 0, 1536, 123088, 0)),
+    ("cornell_box", "record", dict(),
+     (0, 1, 0, 0, 0, True, 0, 1536, 122880, 0)),
+    ("cornell_box", "record_pp", dict(),
+     (0, 1, 0, 0, 0, True, 0, 1536, 122960, 0)),
+    ("field_3000", "megakernel", dict(),
+     (0, 8, 0, 0, 0, True, 3072, 0, 208976, 1024)),
+    ("field_3000", "megakernel", dict(culling=True),
+     (1, 8, 64, 0, 0, True, 3072, 0, 209744, 128)),
+    ("field_3000", "wavefront", dict(),
+     (1, 8, 64, 0, 0, True, 3072, 0, 209872, 0)),
+    ("field_3000", "wavefront", dict(culling=False),
+     (0, 8, 0, 0, 0, False, 3072, 0, 209104, 0)),
+    ("field_3000", "record", dict(),
+     (0, 1, 0, 0, 0, True, 3072, 0, 49152, 0)),
+    ("field_100000", "megakernel", dict(),
+     (2, 8, 32, 512, 0, True, 100352, 0, 5264, 128)),
+    ("field_100000", "megakernel", dict(stream=0),
+     "scene tables exceed one block's 232448 bytes"),
+    ("field_100000", "wavefront", dict(),
+     (2, 8, 32, 512, 4, True, 100352, 0, 19488, 0)),
+    ("field_100000", "record", dict(),
+     (2, 1, 32, 512, 0, True, 100352, 0, 3136, 0)),
+    ("field_100000", "record_pp", dict(),
+     "persistent-path recorder: scene tables exceed"),
+    ("line_3416", "megakernel", dict(),
+     (0, 8, 0, 0, 0, True, 3416, 0, 232368, 1024)),
+    ("line_3416", "record", dict(),
+     (0, 1, 0, 0, 0, True, 3416, 0, 54656, 0)),
+    ("line_3416", "record_pp", dict(),
+     (0, 1, 0, 0, 0, True, 3416, 0, 232368, 0)),
+    ("line_3417", "megakernel", dict(),
+     (2, 8, 32, 512, 0, True, 3584, 0, 2240, 128)),
+    ("line_3417", "megakernel", dict(stream=0),
+     "scene tables exceed one block's 232448 bytes"),
+    ("line_3417", "record", dict(),
+     (2, 1, 32, 512, 0, True, 3584, 0, 112, 0)),
+    ("line_3417", "record_pp", dict(),
+     "persistent-path recorder: scene tables exceed"),
+    ("spheres_14528", "record", dict(stream=1),
+     (2, 1, 1, 1, 0, True, 14528, 0, 232448, 0)),
+    ("spheres_14529", "record", dict(stream=1),
+     "streamed recorder: the chunk bounds of 14529 columns"),
+    ("spheres_230320", "megakernel", dict(stream=16),
+     (2, 8, 0, 16, 0, True, 230320, 0, 232448, 128)),
+    ("spheres_230336", "megakernel", dict(stream=16),
+     "streamed megakernel: 230336 columns"),
+    ("spheres_216832", "wavefront", dict(stream=16),
+     "wavefront: the chunk bounds of 216832 columns"),
+    ("spheres_216848", "wavefront", dict(stream=16),
+     (2, 8, 0, 16, 0, True, 216848, 0, 232416, 0)),
+    ("spheres_216864", "wavefront", dict(stream=16),
+     "wavefront: the chunk bounds of 216864 columns"),
+]
+
+
+@pytest.mark.parametrize(
+    "name, engine, kw, want", LAYOUTS,
+    ids=[f"{n}-{e}-" + ("-".join(f"{k}{v}" for k, v in kw.items()) or "auto")
+         for n, e, kw, _ in LAYOUTS])
+def test_resolve_pins_every_engines_layout(name, engine, kw, want):
+    """resolve's layout, or its refusal, for each engine on the flagship,
+    the Cornell box, sphere_field 3,000 and 100k and at each boundary; the
+    queries agree with it (fits: a layout whose launch fits)."""
+    scene = _layout_scene(name)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            tables.resolve(scene, engine, **kw)
+        assert not tables.fits(scene, engine, **kw)
+        return
+    layout = tables.resolve(scene, engine, **kw)
+    assert layout.engine == engine
+    assert tuple(layout)[1:] == want
+    assert tables.fits(scene, engine, **kw) == (
+        layout.smem <= tables.SHARED_LIMIT)
+    if engine == "megakernel" and not kw:
+        assert tables.fits_shared(scene) == (layout.mode == tables.RESIDENT)
+
+
+def test_resolve_refuses_an_unknown_engine():
+    scene = _layout_scene("flagship")
+    for query in (tables.resolve, tables.fits):
+        with pytest.raises(ValueError, match="unknown engine"):
+            query(scene, "pallas")
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -359,10 +512,9 @@ def test_memo_second_render_hits_bit_for_bit(path, memo, monkeypatch):
 
     def refuse(*args, **kw):
         raise AssertionError("a hit built tables")
-    for mod, name in ((mk, "_smem_scene_inputs"),
-                      (mk, "_stream_scene_inputs"), (mk, "pack_records"),
-                      (twf, "_smem_scene_inputs"),
-                      (twf, "_stream_scene_inputs"), (twf, "_scene_bounds"),
+    for mod, name in ((tables, "_smem_scene_inputs"),
+                      (tables, "_stream_scene_inputs"),
+                      (tables, "pack_records"), (tables, "_scene_bounds"),
                       (tables, "_camera_vector"), (tables, "scene_tables"),
                       (tables, "tri_tables"), (twf.np, "argsort")):
         monkeypatch.setattr(mod, name, refuse)

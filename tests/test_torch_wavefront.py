@@ -170,20 +170,23 @@ def test_dispatch(monkeypatch):
     # integrator (both raised until it was ported)
     assert engine.pick_engine(b.build(device="cpu")) == "xla"
     # beyond the wavefront's shared memory, the streamed megakernel
-    monkeypatch.setattr(engine, "fits_wavefront", lambda scene: False)
+    fits = engine.fits
+    monkeypatch.setattr(engine, "fits", lambda scene, eng, **kw: (
+        eng == "megakernel" and fits(scene, eng, **kw)))
     assert engine.pick_engine(big) == "megakernel"
-    monkeypatch.setattr(engine, "fits_stream", lambda scene: False)
+    monkeypatch.setattr(engine, "fits", lambda scene, eng, **kw: False)
     assert engine.pick_engine(big) == "xla"
 
 
 def test_wrapper_validates_inputs():
     scene, cam, cfg = _port(_golden_scene)
-    tabs, _ = wf._resolve_layout(scene, cam, None, 64, None)
+    layout = tables.resolve(scene, "wavefront")
+    tabs, _ = tables.layout_tables(scene, layout, cam.look_from, memo=False)
     rays = wf._Rays(tables._camera_vector(cam).contiguous(),
                     wf._slot_pixels(cam), 96 * 64, 96)
     rid = torch.arange(6144, dtype=torch.int32)
     kw = dict(bounce=0, loop_bounces=1, t_min=1e-3, jitter=False,
-              has_motion=False, seed=0)
+              has_motion=False, seed=0, layout=layout)
     st, alive, rad = wf._wf_bounce(tabs, rays, None, None, rid, **kw)
     assert st.shape == (wf.ST, 6144) and alive.dtype == torch.int32
     assert rad.shape == (3, 6144)
@@ -195,6 +198,10 @@ def test_wrapper_validates_inputs():
     mrays = wf._Rays(rays.cam.to("meta"), rays.slot_pix.to("meta"), 6144, 96)
     with pytest.raises(ValueError, match="no wavefront kernel"):
         wf._wf_bounce(meta, mrays, None, None, rid.to("meta"), **kw)
+    streamed = tables.resolve(scene, "wavefront", stream=128)
+    with pytest.raises(ValueError, match="not those of"):
+        wf._wf_bounce(tabs, rays, None, None, rid,
+                      **dict(kw, layout=streamed))
 
 
 @pytest.mark.parametrize("name", ["field", "box"])
@@ -209,7 +216,8 @@ def test_streamed_launch_shared_memory(name):
     scene, cam = (rtt.scenes.sphere_field(n=3000, width=16, device="cpu")
                   if name == "field"
                   else rtt.scenes.cornell_box(width=16, device="cpu"))
-    tabs, _ = wf._resolve_layout(scene, cam, None, tables.DEFAULT_BLOCK, 128)
+    layout = tables.resolve(scene, "wavefront", stream=128)
+    tabs, _ = tables.layout_tables(scene, layout, cam.look_from, memo=False)
     rows = sum(4 * (n // 128 + (n // (128 * tabs.sc_group)
                                 if tables._sc_enabled(n, 128, tabs.sc_group)
                                 else 0))
@@ -218,7 +226,7 @@ def test_streamed_launch_shared_memory(name):
     assert tables.WF_HEAD_WORDS == 20 + 8 * warps
     assert tables.WF_STAGE_WORDS == warps * (32 * 12 + 32 * 12)
     assert tables.WF_PARK_WORDS == wf.WF_BLOCK * 6
-    assert wf._smem_bytes(tabs) == 4 * (
+    assert layout.smem == 4 * (
         tables.WF_HEAD_WORDS + tables.WF_STAGE_WORDS + tables.WF_PARK_WORDS
         + rows)
 
