@@ -790,13 +790,16 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
     """Kernel 1 as the main path runs it: the flagship's one queue launch
     (all 64 samples) and its fold, each against its plain version on the
     same inputs; the queue's counters (segments, the warps' lane-trips,
-    re-sweeps, atomics); the bounds over this render's segments."""
+    re-sweeps, atomics, the segments the drain swept a column per lane);
+    the bounds over this render's segments. Then the preview's 1-spp
+    launch: its time, its items against the plain version and its
+    counters."""
     n = cam.width * cam.height
     args, kw = mk._launch_args(scene, cam, 1, tb.resolve(scene, "megakernel"),
                                spp=cfg.spp, max_depth=cfg.max_depth,
                                t_min=cfg.t_min, jitter=cfg.jitter)
     del kw["spp"]
-    stats = torch.zeros(8, dtype=torch.int64, device=dev)
+    stats = torch.zeros(mk.QUEUE_STATS, dtype=torch.int64, device=dev)
     out = mk._queue(*args, n, 0, cfg.spp, stats=stats, **kw)
     q_ms = event_ms(lambda: mk._queue(*args, n, 0, cfg.spp, **kw), 3)
     out_p, p_s = timed(lambda: mk._queue_reference(*args, n, 0, cfg.spp,
@@ -824,6 +827,12 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
     off = offset_launches(args, kw, n, cfg.spp, out, out_p, acc)
     st = [int(x) for x in stats.tolist()]
     seg, resweeps, lane_trips, claimed = st[0], st[5], st[6], st[7]
+    st1 = torch.zeros_like(stats)
+    one = mk._queue(*args, n, 0, 1, stats=st1, **kw)
+    one_ms = event_ms(lambda: mk._queue(*args, n, 0, 1, **kw), 10)
+    one_p = mk._queue_reference(*args, n, 0, 1, **kw)
+    one_items = float((one == one_p).all(dim=1).double().mean())
+    st1 = [int(x) for x in st1.tolist()]
     q_bound = bound(nbytes(*args, out), seg * args[1].shape[1]
                     * prim_ops(scene))
     f_bound = bound(nbytes(out) + 2 * nbytes(acc), out.numel())
@@ -856,7 +865,21 @@ def flagship_kernels(scene, cam, cfg, img, dev) -> dict:
                       f"segments); {claimed // mk.QUEUE_RUN} atomics for "
                       f"{out.shape[0] * n} items "
                       f"({claimed / mk.QUEUE_RUN / (out.shape[0] * n):.4f} "
-                      f"per item)")
+                      f"per item); the drain swept {st[8]} segments a "
+                      f"column per lane ({st[8] / seg:.4f} of segments), "
+                      f"lane efficiency {seg / lane_trips:.4f} (segments / "
+                      f"lane-trips)")
+    phase("flagship", f"the 1-spp launch (the preview's): kernel {one_ms:.3f}"
+                      f" ms, {one_items:.4%} of its {n} items' radiance "
+                      f"bit-identical to plain; {st1[0]} segments in "
+                      f"{st1[6]} lane-trips (lane efficiency "
+                      f"{st1[0] / st1[6]:.4f}), {st1[8]} swept a column per "
+                      f"lane ({st1[8] / st1[0]:.4f} of segments), {st1[5]} "
+                      f"re-sweeps")
+    if one_items < PIXEL_MATCH or not 0 < st1[8] <= st1[0]:
+        raise AssertionError(f"flagship 1-spp launch: {one_items:.5%} of "
+                             f"items equal to plain, {st1[8]} of {st1[0]} "
+                             "segments swept a column per lane")
     phase("flagship", f"row 1 as the main path runs it: {2} launches, "
                       f"{q_ms + f_ms:.3f} ms of kernel time; bound "
                       f"{r_bound[0]:.4f} ms ({r_bound[1]}: {seg} segments x "
@@ -1211,7 +1234,7 @@ def mode_compare(scene, cam, cfg, seed, dev, label: str, **layout) -> tuple:
     hk = torch.full((cfg.max_depth, ns * n), -2, dtype=torch.int32,
                     device=dev)
     hp = hk.clone()
-    stats = torch.zeros(8, dtype=torch.int64, device=dev)
+    stats = torch.zeros(mk.QUEUE_STATS, dtype=torch.int64, device=dev)
     k_out = mk._queue(*args, n, 0, ns, stats=stats, hits=hk, **kw)
     k_ms = event_ms(lambda: mk._queue(*args, n, 0, ns, **kw), 3)
     p_out, p_s = timed(lambda: mk._queue_reference(*args, n, 0, ns,

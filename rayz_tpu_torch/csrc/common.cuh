@@ -394,6 +394,34 @@ __device__ __forceinline__ float coef_disc(const S& s, int j,
   return disc;
 }
 
+// Record j of `s`, reported as column `col`, into the sweep's state (below).
+template <bool kMotion, bool kWide = false, typename S>
+__device__ __forceinline__ void packed_column(const S& s, int j, int col,
+                                              const RayCoef& c, float& qb,
+                                              int& best, float& q2,
+                                              int& second, int& graze) {
+  float hb;
+  bool grazing;
+  const float disc = coef_disc<kMotion, kWide>(s, j, c, hb, grazing);
+  if (grazing) graze = col;
+  if (disc >= 0.0f) {
+    const float rt = sqrt_approx(disc);
+    const float q1 = hb - rt;
+    const float qv = (q1 >= c.tmin_a) ? q1 : hb + rt;
+    if (qv >= c.tmin_a && qv < q2) {
+      if (qv < qb) {
+        q2 = qb;
+        second = best;
+        qb = qv;
+        best = col;
+      } else {
+        q2 = qv;
+        second = col;
+      }
+    }
+  }
+}
+
 // Nearest-hit sweep over the records [j0, j1) of `s`, reported as columns
 // j + off: sweep_spheres' loop (a shrinking q_best, ties keep the earlier
 // column) in the coefficient form, also keeping the runner-up (`second`,
@@ -409,28 +437,9 @@ __device__ __forceinline__ void sweep_packed(const S& s, int j0, int j1,
                                              float& qb, int& best, float& q2,
                                              int& second, int& graze) {
 #pragma unroll 8
-  for (int j = j0; j < j1; ++j) {
-    float hb;
-    bool grazing;
-    const float disc = coef_disc<kMotion, kWide>(s, j, c, hb, grazing);
-    if (grazing) graze = j + off;
-    if (disc >= 0.0f) {
-      const float rt = sqrt_approx(disc);
-      const float q1 = hb - rt;
-      const float qv = (q1 >= c.tmin_a) ? q1 : hb + rt;
-      if (qv >= c.tmin_a && qv < q2) {
-        if (qv < qb) {
-          q2 = qb;
-          second = best;
-          qb = qv;
-          best = j + off;
-        } else {
-          q2 = qv;
-          second = j + off;
-        }
-      }
-    }
-  }
+  for (int j = j0; j < j1; ++j)
+    packed_column<kMotion, kWide>(s, j, j + off, c, qb, best, q2, second,
+                                  graze);
 }
 
 // The whole table of n packed columns.
@@ -441,6 +450,92 @@ __device__ __forceinline__ void sweep_packed(const PackedSpheres& s, int n,
                                              int& graze) {
   float q2 = kBig;
   sweep_packed<kMotion>(s, 0, n, 0, c, qb, best, q2, second, graze);
+}
+
+// Lane src's ray and its terms, broadcast to the warp.
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  constexpr unsigned kAll = 0xffffffffu;
+  return Ray{__shfl_sync(kAll, r.ox, src), __shfl_sync(kAll, r.oy, src),
+             __shfl_sync(kAll, r.oz, src), __shfl_sync(kAll, r.dx, src),
+             __shfl_sync(kAll, r.dy, src), __shfl_sync(kAll, r.dz, src),
+             __shfl_sync(kAll, r.tau, src)};
+}
+__device__ __forceinline__ RayTerms shfl_terms(const RayTerms& t, int src) {
+  constexpr unsigned kAll = 0xffffffffu;
+  return RayTerms{__shfl_sync(kAll, t.a, src),
+                  __shfl_sync(kAll, t.d_dot_o, src),
+                  __shfl_sync(kAll, t.o2, src),
+                  __shfl_sync(kAll, t.tmin_a, src),
+                  __shfl_sync(kAll, t.tau2, src)};
+}
+
+// The warp's smallest (q, column) over the lanes' candidates, each lane's
+// from its own columns lane, lane + 32, ... (col -1: none; an accepted q is
+// >= t_min |d|^2 >= 0, so its bits order as its value, and + 0.0f turns a
+// -0 into +0): the column, -1 where no lane has one, and in `qm` its q, read
+// from its lane bit for bit (kBig where none). Warp-uniform call.
+__device__ __forceinline__ int warp_min_column(float q, int col, float& qm) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const unsigned key = col >= 0 ? __float_as_uint(q + 0.0f) : 0xffffffffu;
+  const unsigned k = __reduce_min_sync(kAll, key);
+  const unsigned j = __reduce_min_sync(
+      kAll, key == k ? static_cast<unsigned>(col) : 0xffffffffu);
+  const int jm = k == 0xffffffffu ? -1 : static_cast<int>(j);
+  qm = __shfl_sync(kAll, q, jm & 31);
+  if (jm < 0) qm = kBig;
+  return jm;
+}
+
+// What a lane-split sweep gives lane src: the winner's q and column, the
+// runner-up's column and the grazing column (-1 where none).
+struct LaneWinners {
+  float qb;
+  int best, second, graze;
+};
+
+// sweep_packed over all n records, for each lane of `live` in turn, by the
+// whole warp, a column per lane (warp-uniform call; the resident
+// megakernel's drain, where few of a warp's lanes still trace). Lane src's
+// ray is broadcast by shuffles and its coefficient vectors formed in every
+// lane by ray_coef (the same bits); each lane runs packed_column, the
+// sequential sweep's per-column code, over the columns lane, lane + 32, ...
+// (interleaved 16-byte records: one LDS.128 a column reads 32 neighbouring
+// records, free of bank conflicts); then warp reductions merge the lanes'
+// states: the winner is the smallest (q, column) of the lanes' winners, the
+// runner-up the smallest of the others' winners and the winner's lane's
+// runner-up (the two lexicographically smallest pairs over all columns,
+// which is what the sequential sweep keeps), the grazing column the
+// largest of the lanes' (the sequential sweep's last). Lane src receives
+// sweep_packed's qb, best, second and graze from qb = kBig, best = -1, bit
+// for bit (its q2 is not kept); a lane not in `live` receives no winner.
+// Not inlined: its registers (the broadcast coefficients, the records in
+// flight) then leave the caller's per-lane sweep its own allocation, and
+// the call's register saves fall on the drain's trips alone.
+template <bool kMotion>
+__device__ __noinline__ LaneWinners sweep_packed_lanes(PackedSpheres s,
+                                                       int n, unsigned live,
+                                                       Ray r, RayTerms t) {
+  const int lane = threadIdx.x & 31;
+  LaneWinners out{kBig, -1, -1, -1};
+  while (live) {
+    const int src = __ffs(live) - 1;
+    live &= live - 1;
+    const RayCoef c = ray_coef(shfl_ray(r, src), shfl_terms(t, src));
+    float q1 = kBig, q2 = kBig;
+    int b1 = -1, b2 = -1, g = -1;
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32)
+      packed_column<kMotion>(s, j, j, c, q1, b1, q2, b2, g);
+    float qw;
+    const int w = warp_min_column(q1, b1, qw);
+    // the winner's lane offers its runner-up, the others their winners
+    const bool won = w >= 0 && b1 == w;
+    float qs;
+    const int sc = warp_min_column(won ? q2 : q1, won ? b2 : b1, qs);
+    const int gz = __reduce_max_sync(0xffffffffu, g);
+    if (lane == src) out = LaneWinners{qw, w, sc, gz};
+  }
+  return out;
 }
 
 // Sphere j's centre at the ray's time and |c|^2 - r^2, from the packed
@@ -501,6 +596,44 @@ __device__ __forceinline__ void sweep_today(const S& s, int j0, int j1,
       best = j + off;
     }
   }
+}
+
+// sweep_today over all n records from qb = kBig, best = -1, for each lane
+// of `sweepers` in turn, by the whole warp, a column per lane (warp-uniform
+// call): each lane tests the columns lane, lane + 32, ... with
+// sweep_spheres' expressions against the broadcast ray, and the warp keeps
+// the smallest q, then the lowest column: lane src receives sweep_today's
+// winner and q bit for bit (`qb`, `best`; a lane not in `sweepers` kBig
+// and -1). Not inlined, as sweep_packed_lanes.
+template <bool kMotion>
+__device__ __noinline__ LaneWinners sweep_today_lanes(PackedSpheres s, int n,
+                                                      unsigned sweepers,
+                                                      Ray r, RayTerms t) {
+  const int lane = threadIdx.x & 31;
+  LaneWinners out{kBig, -1, -1, -1};
+  while (sweepers) {
+    const int src = __ffs(sweepers) - 1;
+    sweepers &= sweepers - 1;
+    const Ray rs = shfl_ray(r, src);
+    const RayTerms ts = shfl_terms(t, src);
+    float q = kBig;
+    int b = -1;
+    for (int j = lane; j < n; j += 32) {
+      float qv;
+      bool first;
+      if (sphere_root<kMotion>(s, j, rs, ts, qv, first) && qv < q) {
+        q = qv;
+        b = j;
+      }
+    }
+    float qm;
+    const int jm = warp_min_column(q, b, qm);
+    if (lane == src) {
+      out.qb = qm;
+      out.best = jm;
+    }
+  }
+  return out;
 }
 
 // Column j against the winner (q_best, best) in today's arithmetic: it

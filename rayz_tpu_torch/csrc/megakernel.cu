@@ -35,7 +35,11 @@
 //    triangle table in shared memory, every column swept by
 //    rz::sweep_packed (the quadratic in the coefficient form as fused
 //    multiply-adds, 42-43 SASS instructions a column where sweep_spheres
-//    issued 63-64), the winner settled in today's arithmetic.
+//    issued 63-64), the winner settled in today's arithmetic. In the
+//    kBlock build, on a loop trip where at most kColumnsUpTo of a warp's
+//    lanes trace (the drain: a 1-spp launch kept 36% of its lane-trips
+//    busy), the warp sweeps their rays in turn, a column per lane
+//    (rz::sweep_packed_lanes), to the same winners.
 //  * CulledSweep (the TPU's _culled_loop): the Morton-sorted geometry
 //    packed in shared memory with the blocks' bounding spheres; each lane
 //    sweeps in the packed form the blocks its own bound test passes (the
@@ -88,8 +92,17 @@ constexpr int kWarps = kBlock / 32;
 constexpr int kWide = 1024;
 constexpr int kRun = 64;     // items a warp claims with one atomicAdd
 // A streamed block is swept a column per lane when at most this many of the
-// warp's rays entered it, else a ray per lane.
+// warp's rays entered it, else a ray per lane; so is the resident table on a
+// loop trip where at most this many of the warp's lanes trace (the drain).
+// A column per lane costs a ray about 1/32 of a per-lane trip's issue
+// slots, plus its shuffles and reductions. On an H100 the flagship's 1-spp
+// launch took 1.33 ms with the drain at up to 8 live lanes, 1.24 at 16,
+// 1.23 at 24 and 1.24 at 28 (2.82 without it).
 constexpr int kColumnsUpTo = 16;
+// The stats slot of the segments whose spheres the resident sweep took a
+// column per lane (the megakernel's stats are [9]; slots 0-7 as
+// rayz_megakernel_queue lists them).
+constexpr int kStatColumnSegments = 8;
 // Staging words per warp of the streamed sweep: 32 records of 9 words with
 // motion (c and v as float4, |v|^2), 4 without.
 template <bool kMotion>
@@ -111,7 +124,7 @@ struct QueueParams {
   bool jitter;
   unsigned long long* counter;  // items claimed so far (0 at launch)
   float* out;                   // [n_samples, 3, n_pix]
-  unsigned long long* stats;    // [8] or null
+  unsigned long long* stats;    // [9] or null
   // the culled and streamed modes
   const float* sblk;  // [4, n_pad / blk] sphere block rows
   const float* tblk;  // [4, m_pad / blk] triangle block rows
@@ -142,14 +155,20 @@ __device__ __forceinline__ uint32_t shared_addr(const void* p) {
 // The resident tables in shared memory: the camera vector, the sphere
 // geometry packed for sweep_packed, the triangle table row-major. Its
 // segment sweep: sweep_packed, its winner settled in today's arithmetic
-// (settle_winner), then the triangles. Built at kBlock threads (8 blocks an
-// SM) and kWide (one block an SM), both at 64 registers a thread.
+// (settle_winner), then the triangles; in the kBlock build, on a trip
+// where few of the warp's lanes trace (drain), the spheres a column per
+// lane instead, with the same winners. Built at kBlock threads (8 blocks
+// an SM) and kWide (one block an SM), both at 64 registers a thread.
 template <bool kMotion, int kWidth>
 struct ResidentSweep {
   static constexpr int kMode = kResident;
   static constexpr bool kHasMotion = kMotion;
   static constexpr int kThreads = kWidth;
   static constexpr int kMinBlocks = kWidth == kBlock ? 8 : 1;
+  // The drain is built at kBlock threads only: carried by the kWide build,
+  // which never took it on the Cornell box (no spheres), it cost that
+  // scene's renders 1.7% (H100, 39.30-39.63 against 38.60-38.66 Mrays/s).
+  static constexpr bool kDrain = kWidth == kBlock;
   rz::PackedSpheres ps;
   const float* tri;   // [20, m] in shared memory
   int n, m;
@@ -166,6 +185,46 @@ struct ResidentSweep {
         stats)
       atomicAdd(stats + rz::kStatResweeps, 1ull);
     rz::sweep_triangles(tri, m, r, t, qb, best, is_tri);
+  }
+
+  // The segment sweep where few lanes trace (warp-uniform call: every lane,
+  // `active` where its lane traces a segment): the live rays' spheres by
+  // the whole warp, a ray at a time and a column per lane
+  // (rz::sweep_packed_lanes), each winner settled by its own lane, a
+  // re-sweep in today's arithmetic a column per lane too
+  // (rz::sweep_today_lanes), then each lane's triangles. The winners are
+  // operator()'s, bit for bit.
+  __device__ __forceinline__ void drain(bool active, const rz::Ray& r,
+                                        const rz::RayTerms& t, int from,
+                                        float& qb, int& best,
+                                        bool& is_tri) const {
+    const unsigned live = __ballot_sync(kFull, active);
+    const rz::LaneWinners lw =
+        rz::sweep_packed_lanes<kMotion>(ps, n, live, r, t);
+    qb = lw.qb;
+    best = lw.best;
+    // settle_winner's re-sweep, deferred to the whole warp
+    const bool again =
+        active && rz::settle_winner_by<kMotion>(
+                      ps, from, r, t, rz::ray_coef(r, t), qb, best,
+                      lw.second, lw.graze, [](float&, int&) {});
+    const unsigned resweep = __ballot_sync(kFull, again);
+    if (resweep) {
+      const rz::LaneWinners rw =
+          rz::sweep_today_lanes<kMotion>(ps, n, resweep, r, t);
+      if (again) {
+        qb = rw.qb;
+        best = rw.best;
+      }
+    }
+    if (stats && (threadIdx.x & 31) == 0) {
+      atomicAdd(stats + kStatColumnSegments,
+                static_cast<unsigned long long>(__popc(live)));
+      if (resweep)
+        atomicAdd(stats + rz::kStatResweeps,
+                  static_cast<unsigned long long>(__popc(resweep)));
+    }
+    if (active) rz::sweep_triangles(tri, m, r, t, qb, best, is_tri);
   }
 
   static __device__ __forceinline__ ResidentSweep stage(const QueueParams& p,
@@ -199,6 +258,7 @@ template <bool kMotion>
 struct CulledSweep {
   static constexpr int kMode = kCulled;
   static constexpr bool kHasMotion = kMotion;
+  static constexpr bool kDrain = false;
   static constexpr int kMinBlocks = 4;
   static constexpr int kThreads = kBlock;
   rz::PackedSpheres ps;
@@ -313,6 +373,7 @@ template <bool kMotion>
 struct StreamSweep {
   static constexpr int kMode = kStreamed;
   static constexpr bool kHasMotion = kMotion;
+  static constexpr bool kDrain = false;
   static constexpr int kMinBlocks = 4;
   static constexpr int kThreads = kBlock;
   StreamRecords recs;
@@ -496,6 +557,79 @@ struct StreamSweep {
   }
 };
 
+// A lane's path in the queue kernel: its ray, throughput, radiance so far,
+// bounces left, its item (sample, local pixel, key) and the sphere its ray
+// leaves; `spawn` until its camera ray is made.
+struct Path {
+  rz::Ray r{};  // lanes without an item enter the drain with it
+  float thx = 0.0f, thy = 0.0f, thz = 0.0f, ar = 0.0f, ag = 0.0f, ab = 0.0f;
+  int depth = 0, pix = 0, sample = 0, from = -1;
+  uint32_t key0 = 0;
+  bool active = false, spawn = false;
+};
+
+// One loop trip of a lane of megakernel_queue (the lanes the sweep runs
+// for: those tracing a segment, or with kDrainTrip the whole warp, which
+// then sweeps a column per lane): spawn the camera ray of a new item, sweep
+// the segment, shade it, and write the radiance of a path that ended.
+template <bool kDrainTrip, typename Sweep>
+__device__ __forceinline__ void trace_trip(const Sweep& sweep,
+                                           const QueueParams& p,
+                                           const float* smem,
+                                           unsigned long long total, Path& q,
+                                           unsigned int& segments,
+                                           rz::Work& w) {
+  constexpr bool kWarp = Sweep::kMode == kStreamed;
+  if (q.active) ++segments;
+  const uint32_t key =
+      rz::step_key(q.key0, q.sample + 1, p.max_depth - q.depth);
+  if (q.active && q.spawn) {
+    const int gpix = p.p0 + q.pix;
+    rz::camera_ray(smem, static_cast<float>(gpix % p.width),
+                   static_cast<float>(gpix / p.width), p.jitter, key, q.r);
+    q.thx = q.thy = q.thz = 1.0f;
+    q.ar = q.ag = q.ab = 0.0f;
+    q.spawn = false;
+    q.from = -1;
+  }
+  const rz::RayTerms t = rz::ray_terms(q.r, p.t_min);
+  float qb = rz::kBig;
+  int best = -1;
+  bool is_tri = false;
+  if constexpr (kDrainTrip)
+    sweep.drain(q.active, q.r, t, q.from, qb, best, is_tri);
+  else if constexpr (Sweep::kMode == kResident)
+    sweep(q.r, t, q.from, qb, best, is_tri);
+  else if constexpr (kWarp)
+    sweep(q.active, q.r, t, q.from, qb, best, is_tri, w);
+  else
+    sweep(q.r, t, q.from, qb, best, is_tri, w);
+  if ((kWarp || kDrainTrip) && !q.active) return;
+  if constexpr (Sweep::kMode != kResident) {
+    if (p.hits)
+      p.hits[static_cast<size_t>(p.max_depth - q.depth) * total +
+             static_cast<size_t>(q.sample - p.s0) * p.n_pix + q.pix] =
+          is_tri ? p.n_pad + best : best;
+  }
+  if (rz::shade<Sweep::kHasMotion>(p.stab, p.n_pad, sweep.tri, p.m_pad, q.r,
+                                   t, qb, best, is_tri, rz::KeyDraws{key},
+                                   q.thx, q.thy, q.thz, q.ar, q.ag,
+                                   q.ab) == rz::Bounce::kContinued) {
+    q.depth -= 1;
+    q.active = q.depth > 0;  // depth exhausted -> black
+    q.from = is_tri ? -1 : best;
+  } else {
+    q.active = false;  // the sky, or absorbed
+  }
+  if (!q.active) {
+    float* o = p.out + static_cast<size_t>(q.sample - p.s0) * 3 * p.n_pix +
+               q.pix;
+    o[0] = q.ar;
+    o[static_cast<size_t>(p.n_pix)] = q.ag;
+    o[2 * static_cast<size_t>(p.n_pix)] = q.ab;
+  }
+}
+
 // A persistent grid whose lanes take (sample, pixel) items from one counter
 // in device memory (sample-major, so a warp's items are neighbouring pixels
 // of one sample). A warp claims kRun items with one atomicAdd and hands them
@@ -509,7 +643,14 @@ struct StreamSweep {
 // _trace_slots_reference), so the schedule changes no bit of the image.
 // The resident and culled sweeps run per lane (a lane with no item skips
 // the segment); the streamed sweep votes across the warp, so every lane
-// enters it.
+// enters it. The resident kBlock build's warp leaves the loop for its
+// drain once it has no item left to hand out and at most kColumnsUpTo
+// lanes trace: from there on its live lanes only end, and every trip sweeps
+// their spheres a column per lane (ResidentSweep::drain). The drain is a
+// loop of its own: inside the main loop, its code slowed every per-lane
+// trip (H100, the flagship at 64 spp: 36.20 ms with the drain compiled in
+// but never taken, against 34.43 ms without it; 35.57 against 34.15-34.40
+// as a loop of its own, which the drain wins back, 34.04).
 template <typename Sweep>
 __global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
     megakernel_queue(QueueParams p) {
@@ -526,15 +667,11 @@ __global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
   int run_left = 0;
   bool drained = false;
 
-  rz::Ray r;
-  float thx = 0.0f, thy = 0.0f, thz = 0.0f, ar = 0.0f, ag = 0.0f, ab = 0.0f;
-  int depth = 0, pix = 0, sample = 0, from = -1;
-  uint32_t key0 = 0;
-  bool active = false, spawn = false;
+  Path q;
   unsigned int segments = 0, trips = 0;
   rz::Work w;
   while (true) {
-    const unsigned need = __ballot_sync(kFull, !active);
+    const unsigned need = __ballot_sync(kFull, !q.active);
     if (need) {
       const int k = __popc(need);
       const bool refill = k > run_left && !drained;
@@ -544,7 +681,7 @@ __global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
           fresh = atomicAdd(p.counter, static_cast<unsigned long long>(kRun));
         fresh = __shfl_sync(kFull, fresh, 0);
       }
-      if (!active) {
+      if (!q.active) {
         const int rank = __popc(need & ((1u << lane) - 1u));
         unsigned long long item = total;
         if (rank < run_left)
@@ -552,11 +689,11 @@ __global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
         else if (refill)
           item = fresh + (rank - run_left);
         if (item < total) {
-          sample = p.s0 + static_cast<int>(item / p.n_pix);
-          pix = static_cast<int>(item % p.n_pix);  // local; global p0 + pix
-          key0 = rz::slot_key(p.seed, p.p0 + pix);
-          depth = p.max_depth;
-          active = spawn = true;
+          q.sample = p.s0 + static_cast<int>(item / p.n_pix);
+          q.pix = static_cast<int>(item % p.n_pix);  // local; global p0 + pix
+          q.key0 = rz::slot_key(p.seed, p.p0 + q.pix);
+          q.depth = p.max_depth;
+          q.active = q.spawn = true;
         }
       }
       if (refill) {
@@ -567,53 +704,21 @@ __global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
         run_left = run_left > k ? run_left - k : 0;
       }
     }
-    if (!__any_sync(kFull, active)) break;
+    if (!__any_sync(kFull, q.active)) break;
+    // to the drain: no item left to hand out, few lanes tracing
+    if constexpr (Sweep::kDrain) {
+      if (drained && run_end - run_left >= total && sweep.n > 0 &&
+          __popc(__ballot_sync(kFull, q.active)) <= kColumnsUpTo)
+        break;
+    }
     ++trips;
-    if (!kWarp && !active) continue;
-    if (active) ++segments;
-    const uint32_t key = rz::step_key(key0, sample + 1, p.max_depth - depth);
-    if (active && spawn) {
-      const int gpix = p.p0 + pix;
-      rz::camera_ray(smem, static_cast<float>(gpix % p.width),
-                     static_cast<float>(gpix / p.width), p.jitter, key, r);
-      thx = thy = thz = 1.0f;
-      ar = ag = ab = 0.0f;
-      spawn = false;
-      from = -1;
-    }
-    const rz::RayTerms t = rz::ray_terms(r, p.t_min);
-    float qb = rz::kBig;
-    int best = -1;
-    bool is_tri = false;
-    if constexpr (Sweep::kMode == kResident)
-      sweep(r, t, from, qb, best, is_tri);
-    else if constexpr (kWarp)
-      sweep(active, r, t, from, qb, best, is_tri, w);
-    else
-      sweep(r, t, from, qb, best, is_tri, w);
-    if (kWarp && !active) continue;
-    if constexpr (Sweep::kMode != kResident) {
-      if (p.hits)
-        p.hits[static_cast<size_t>(p.max_depth - depth) * total +
-               static_cast<size_t>(sample - p.s0) * p.n_pix + pix] =
-            is_tri ? p.n_pad + best : best;
-    }
-    if (rz::shade<Sweep::kHasMotion>(p.stab, p.n_pad, sweep.tri, p.m_pad, r,
-                                     t, qb, best, is_tri, rz::KeyDraws{key},
-                                     thx, thy, thz, ar, ag,
-                                     ab) == rz::Bounce::kContinued) {
-      depth -= 1;
-      active = depth > 0;  // depth exhausted -> black
-      from = is_tri ? -1 : best;
-    } else {
-      active = false;  // the sky, or absorbed
-    }
-    if (!active) {
-      float* o = p.out + static_cast<size_t>(sample - p.s0) * 3 * p.n_pix +
-                 pix;
-      o[0] = ar;
-      o[static_cast<size_t>(p.n_pix)] = ag;
-      o[2 * static_cast<size_t>(p.n_pix)] = ab;
+    if (!kWarp && !q.active) continue;
+    trace_trip<false>(sweep, p, smem, total, q, segments, w);
+  }
+  if constexpr (Sweep::kDrain) {
+    while (__any_sync(kFull, q.active)) {
+      ++trips;
+      trace_trip<true>(sweep, p, smem, total, q, segments, w);
     }
   }
   if (p.stats) {
@@ -702,11 +807,13 @@ cudaError_t launch_resident(const QueueParams& p, bool motion,
 // n_pix) of the image (keys and camera rays from the global pixel; `out`,
 // `hits` and the items indexed by the local pixel):
 // `counter` is one zeroed uint64, `out` [n_samples, 3, n_pix] f32, `stats`
-// null or [8] uint64 (segments at 0; culled and streamed also primitive
+// null or [9] uint64 (segments at 0; culled and streamed also primitive
 // tests at 1, block bound tests at 2, chunk bound tests at 3 and those that
-// passed at 4; re-sweeps at rz::kStatResweeps, the warps'
-// lane-trips at rz::kStatLaneTrips). mode: 0 resident, 1 culled (sblk/tblk,
-// blk), 2 streamed (scb/tcb, recs/brecs, sblk/tblk with blk, stream, cull).
+// passed at 4; re-sweeps at rz::kStatResweeps, the warps' lane-trips at
+// rz::kStatLaneTrips, 7 the caller's; resident also the segments swept a
+// column per lane at kStatColumnSegments). mode: 0 resident, 1 culled
+// (sblk/tblk, blk), 2 streamed (scb/tcb, recs/brecs, sblk/tblk with blk,
+// stream, cull).
 // `hits` null or [max_depth, n_samples * n_pix] int32 (culled and streamed:
 // each traced segment's winner). `threads` per block: kBlock, or kWide in the
 // resident mode. `grid` receives the blocks.

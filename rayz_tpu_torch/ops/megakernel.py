@@ -82,6 +82,9 @@ MODE_LAUNCHES = dict.fromkeys(MODES + ("fold",), 0)
 #: atomics.
 QUEUE_RUN = 64
 
+#: Slots of the queue launch's ``stats`` counters (see :func:`_queue`).
+QUEUE_STATS = 9
+
 #: Most bytes of the queue's per-(sample, pixel) radiance buffer; a render
 #: that needs more runs its samples in groups, folded in order.
 QUEUE_BYTES = 1 << 28
@@ -373,11 +376,13 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
     came from, gives their block rows) or streamed (``bounds``, the
     :class:`StreamTables`, gives the chunk and block rows, the tables stay
     in device memory; ``records`` its packed records). ``stats``, an int64
-    [8] tensor on the device, receives the ray segments (0), in the culled
-    and streamed modes the primitive tests (1), block bound tests (2),
-    chunk bound tests (3) and those that passed (4), the re-sweeps in
-    today's arithmetic (5), the lane-trips of the warps that ran (6) and
-    the items claimed from the counter (7; :data:`QUEUE_RUN` per atomic).
+    [:data:`QUEUE_STATS`] tensor on the device, receives the ray segments
+    (0), in the culled and streamed modes the primitive tests (1), block
+    bound tests (2), chunk bound tests (3) and those that passed (4), the
+    re-sweeps in today's arithmetic (5), the lane-trips of the warps that
+    ran (6), the items claimed from the counter (7; :data:`QUEUE_RUN` per
+    atomic) and, in the resident mode, the segments whose spheres a warp
+    swept a column per lane, where few of its lanes traced (8).
     ``hits`` [max_depth, n_samples * n_pix] int32 (culled and streamed)
     receives each traced segment's winner (see
     :func:`_trace_items_reference`).
@@ -413,8 +418,9 @@ def _queue(cam: torch.Tensor, stab: torch.Tensor, ttab: torch.Tensor,
         raise ValueError(f"no megakernel for device {dev}")
     if stats is not None and (stats.device != dev
                               or stats.dtype != torch.int64
-                              or stats.shape != (8,)):
-        raise ValueError("stats must be an int64 [8] tensor on cam's device")
+                              or stats.shape != (QUEUE_STATS,)):
+        raise ValueError(f"stats must be an int64 [{QUEUE_STATS}] tensor on "
+                         "cam's device")
     lib, _ = _build.load()
     out = torch.empty((n_samples, 3, n_pix), dtype=torch.float32, device=dev)
     counter = torch.zeros(1, dtype=torch.int64, device=dev)

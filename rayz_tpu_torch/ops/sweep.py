@@ -23,7 +23,9 @@ columns graze the ray.
   :func:`coef_disc` repeats the kernel's float32 chains of fused
   multiply-adds; :func:`packed_sweep` is the column-range sweep's state
   (winner, runner-up, grazing column) carried over ranges of columns, as
-  the culled kernel sweeps its blocks.
+  the culled kernel sweeps its blocks, and :func:`packed_sweep_lanes` the
+  same state found a column per lane and merged across the warp, as the
+  resident megakernel sweeps where few of a warp's lanes trace.
 * :func:`candidates` bounds, per ray and candidate column, the float32
   rounding of the root test, and :func:`near_ties` is the rule that accepts
   a difference between two recordings: at the first bounce where they part,
@@ -61,7 +63,8 @@ from .tables import (_BIG, _CCMR2, _CV2, _CX, _CY, _CZ, _TG1V, _TG1X, _TG1Y,
 
 __all__ = ["pack_spheres", "ray_coef", "coef_terms", "coef_disc",
            "today_terms", "candidates", "near_ties", "explain",
-           "explain_paths", "explain_items", "packed_sweep", "GRAZE",
+           "explain_paths", "explain_items", "packed_sweep",
+           "packed_sweep_lanes", "GRAZE",
            "GRAZE_WIDE", "TIE_GAMMA"]
 
 #: Unit roundoff of float32.
@@ -182,19 +185,30 @@ class PackedState(NamedTuple):
 
 
 def packed_sweep(packed, coef: RayCoef, j0: int, j1: int,
-                 state: Optional[PackedState] = None) -> PackedState:
+                 state: Optional[PackedState] = None, *,
+                 wide: bool = True) -> PackedState:
     """Plain torch version of the column-range ``rz::sweep_packed`` of the
     culled megakernel over the records [j0, j1) of ``packed`` for the rays
     ``coef``, continuing ``state`` (None: a fresh sweep), as the kernel
     sweeps its blocks in turn: its float32 chains (:func:`coef_disc`, the
-    wide grazing band) and root rule, the winner the first column of the
-    smallest q, the runner-up the next in (q, column) order, the grazing
-    column the last. The kernel's square root is ``sqrt.approx``, here the
-    IEEE one, so a root within an ulp of another may rank otherwise."""
+    wide grazing band, or with ``wide=False`` the resident kernels' narrow
+    one) and root rule, the winner the first column of the smallest q, the
+    runner-up the next in (q, column) order, the grazing column the last.
+    The kernel's square root is ``sqrt.approx``, here the IEEE one, so a
+    root within an ulp of another may rank otherwise."""
+    return _sweep_columns(packed, coef,
+                          torch.arange(j0, j1, device=packed[0].device),
+                          state, wide)
+
+
+def _sweep_columns(packed, coef: RayCoef, cols: torch.Tensor,
+                   state: Optional[PackedState], wide: bool) -> PackedState:
+    """:func:`packed_sweep` over the records ``cols`` (increasing column
+    numbers), in that order."""
     c, v, vv = packed
-    sub = (c[j0:j1], None if v is None else v[j0:j1],
-           None if vv is None else vv[j0:j1])
-    disc, hb, grazing = coef_disc(sub, coef, wide=True)
+    sub = (c[cols], None if v is None else v[cols],
+           None if vv is None else vv[cols])
+    disc, hb, grazing = coef_disc(sub, coef, wide=wide)
     r, k = disc.shape
     dev = disc.device
     if state is None:
@@ -202,20 +216,20 @@ def packed_sweep(packed, coef: RayCoef, j0: int, j1: int,
         none = torch.full((r,), -1, dtype=torch.int64, device=dev)
         state = PackedState(big, none, big.clone(), none.clone(),
                             none.clone())
+    if k == 0:
+        return state
     rt = torch.sqrt(torch.clamp_min(disc, 0.0))
     q1 = hb - rt
     tm = coef.tmin_a[:, None]
     qv = torch.where(q1 >= tm, q1, hb + rt)
     ok = (disc >= 0.0) & (qv >= tm) & (qv < _BIG)
     q = torch.where(ok, qv, torch.full_like(qv, float("inf")))
-    cols = torch.arange(j0, j1, device=dev)
     qa, ia = q.min(dim=1)  # the first column of the smallest q
     q_rest = q.scatter(1, ia[:, None], float("inf"))
     qc, ic = q_rest.min(dim=1)
     has_a, has_c = torch.isfinite(qa), torch.isfinite(qc)
     ja, jc = cols[ia], cols[ic]
-    last = torch.where(grazing, cols[None, :], -1).amax(dim=1) \
-        if k else torch.full((r,), -1, device=dev)
+    last = torch.where(grazing, cols[None, :], -1).amax(dim=1)
     graze = torch.where(last >= 0, last, state.graze)
     new_min = has_a & (qa < state.qb)
     c_second = has_c & (qc < state.qb)
@@ -227,6 +241,43 @@ def packed_sweep(packed, coef: RayCoef, j0: int, j1: int,
     return PackedState(torch.where(new_min, qa, state.qb),
                        torch.where(new_min, ja, state.best), q2, second,
                        graze)
+
+
+def _lane_min(q: torch.Tensor, col: torch.Tensor):
+    """``rz::warp_min_column`` over the lanes' candidates ``q``, ``col``
+    [32, R] (col -1: none): the smallest q, then the lowest column, and
+    that column's q read from its lane (col % 32); -1 and _BIG where no
+    lane has one."""
+    inf = torch.full_like(q, float("inf"))
+    key = torch.where(col >= 0, q, inf)
+    k = key.min(dim=0).values
+    found = torch.isfinite(k)
+    jm = torch.where((key == k) & (col >= 0), col,
+                     torch.full_like(col, 1 << 40)).min(dim=0).values
+    jm = torch.where(found, jm, -1)
+    rows = torch.arange(q.shape[1], device=q.device)
+    qm = q[torch.remainder(jm, 32), rows]
+    return torch.where(found, qm, torch.full_like(qm, _BIG)), jm
+
+
+def packed_sweep_lanes(packed, coef: RayCoef, n: int) -> PackedState:
+    """Plain torch version of ``rz::sweep_packed_lanes``, the resident
+    megakernel's drain: a warp sweeps one ray's n records a column per lane
+    (lane l the columns l, l + 32, ... in order, each lane's own sequential
+    state, the resident form's narrow grazing band), then merges the lanes'
+    states: the winner the smallest (q, column) of the lanes' winners, the
+    runner-up the smallest of the other lanes' winners and the winning
+    lane's runner-up, the grazing column the largest. Returns the state
+    ``packed_sweep(packed, coef, 0, n, wide=False)`` keeps."""
+    dev = packed[0].device
+    st = [_sweep_columns(packed, coef, torch.arange(lane, n, 32, device=dev),
+                         None, False) for lane in range(32)]
+    qb, best, q2, second, graze = (torch.stack(x) for x in zip(*st))
+    qw, w = _lane_min(qb, best)
+    won = (w >= 0) & (best == w)
+    qs, sc = _lane_min(torch.where(won, q2, qb),
+                       torch.where(won, second, best))
+    return PackedState(qw, w, qs, sc, graze.amax(dim=0))
 
 
 def today_terms(stab: torch.Tensor, o, d, tau, has_motion: bool,

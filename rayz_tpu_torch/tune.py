@@ -29,7 +29,9 @@ package; each round runs one child process per tree, in alternating order,
 which builds that tree's kernels (once, into ``TREE/build/kernels``) and
 prints the flagship and the Cornell box forward (``random_bouncing`` and
 ``cornell_box`` 512x512, 64 spp, depth 32, through ``render_fast``: the
-tree's default schedule) and the streamed megakernel and ``render_fast``
+tree's default schedule), the flagship's queue launch at 64 and 1 spp
+(``flagship_queue``: CUDA-event ms, counters, the drain's column sweeps and
+the image's digest) and the streamed megakernel and ``render_fast``
 (the wavefront) on ``sphere_field`` 100k, with a digest of each image, and
 each of the wavefront render's four launches (``wavefront_launches``); the
 ``recorded-pp`` train step at bench.py's ``fwdbwd`` shape (two
@@ -399,14 +401,52 @@ def wavefront_launches(scene, cam, cfg, runs: int = 3) -> dict:
                 stats=[int(x) for x in stats.tolist()])
 
 
+def _queue_stats(dev) -> torch.Tensor:
+    """Zeroed counters for a queue launch of the tree under test: as many
+    slots as its ``megakernel.QUEUE_STATS`` (8 in trees that predate it)."""
+    from rayz_tpu_torch.ops import megakernel as mk
+    return torch.zeros(getattr(mk, "QUEUE_STATS", 8), dtype=torch.int64,
+                       device=dev)
+
+
+def flagship_queue(scene, cam) -> dict:
+    """The flagship's queue launch as the render and the preview run it
+    (512x512, depth 32, seed 1; 64 and 1 spp, one launch each), its tables
+    built beforehand: per spp the CUDA-event ms of the launch (mean of
+    10 after a warm-up), its counters (segments, re-sweeps, lane-trips,
+    and where the tree's kernel counts them the segments its drain swept
+    a column per lane) and the digest of ``render_fast``'s image."""
+    import rayz_tpu_torch as rtt
+    from rayz_tpu_torch.ops import megakernel as mk, tables as tb
+    n = cam.width * cam.height
+    out = {}
+    for spp in (64, 1):
+        cfg = rtt.RenderConfig(spp=spp, max_depth=32)
+        args, kw = mk._launch_args(scene, cam, 1,
+                                   tb.resolve(scene, "megakernel"), spp=spp,
+                                   max_depth=32, t_min=cfg.t_min,
+                                   jitter=cfg.jitter)
+        del kw["spp"]
+        stats = _queue_stats(cam.device)
+        mk._queue(*args, n, 0, spp, stats=stats, **kw)
+        ms = _event_ms(lambda: mk._queue(*args, n, 0, spp, **kw), 10)
+        st = [int(x) for x in stats.tolist()]
+        out[str(spp)] = dict(ms=ms, segments=st[0], resweeps=st[5],
+                             lane_trips=st[6],
+                             columns=st[8] if len(st) > 8 else None,
+                             digest=_digest(rtt.render_fast(scene, cam, 1,
+                                                            cfg)))
+    return out
+
+
 def mode_render(scene, cam, cfg, runs: int = 3, **kw) -> dict:
     """One ``render_megakernel`` (keywords ``kw``: a culled or streamed
     mode) with each of its kernel launches bracketed by CUDA events, over
     ``runs`` renders after a warm-up: the launches per render, the median of
     their summed ms, the render's device span and Mrays/s; then the work
-    counters of one render ([8]: segments, primitive tests, block bound
-    tests, chunk bound tests and how many passed, re-sweeps, lane-trips)
-    and the image's digest. The launches are those of the wrappers
+    counters of one render (``_queue_stats``: segments, primitive tests,
+    block bound tests, chunk bound tests and how many passed, re-sweeps,
+    lane-trips) and the image's digest. The launches are those of the wrappers
     ``_queue`` and ``_fold``."""
     import rayz_tpu_torch as rtt
     from rayz_tpu_torch.ops import megakernel as mk
@@ -445,7 +485,7 @@ def mode_render(scene, cam, cfg, runs: int = 3, **kw) -> dict:
                 per.append(sum(a.elapsed_time(b) for a, b in marks))
                 spans.append(s.elapsed_time(e))
                 counts.append(len(marks))
-        stats.append(torch.zeros(8, dtype=torch.int64, device=cam.device))
+        stats.append(_queue_stats(cam.device))
         img = rtt.render_megakernel(scene, cam, 0, cfg, **kw)
     finally:
         for n in names:
@@ -481,6 +521,7 @@ def render() -> None:
         return rtt.render_fast(scene, cam, s, cfg)
     out["forward"] = _mrays(512 * 512 * 64, run)
     out["forward_digest"] = _digest(run(1))
+    out["flagship_queue"] = flagship_queue(scene, cam)
     box, bcam = rtt.scenes.cornell_box(width=512)
 
     def crun(s):
@@ -587,6 +628,18 @@ def _record_line(res: dict) -> str:
         for g, v in res["record_resident"].items())
 
 
+def _queue_line(res: dict) -> str:
+    """The flagship's queue launches of one A/B child, as text."""
+    return "flagship queue launch, " + "; ".join(
+        f"{spp} spp {v['ms']:.4f} ms (digest {v['digest']}), "
+        f"{v['segments']} segments, lane efficiency "
+        f"{v['segments'] / v['lane_trips']:.4f}, re-sweeps {v['resweeps']}"
+        + ("" if v["columns"] is None else
+           f", {v['columns']} swept a column per lane "
+           f"({v['columns'] / v['segments']:.4f})")
+        for spp, v in res["flagship_queue"].items())
+
+
 def _wavefront_line(res: dict) -> str:
     """The 100k wavefront render's launches of one A/B child, as text."""
     wl = res["wavefront_launches"]
@@ -661,6 +714,8 @@ def ab(trees, rounds: int) -> None:
                   + f" ms; recorded step peak "
                   f"{res['recorded_step_peak_gb']:.3f} GB | {card}",
                   flush=True)
+            print(f"[ab] round {k} {t}: " + _queue_line(res) + f" | {card}",
+                  flush=True)
             print(f"[ab] round {k} {t}: " + _record_line(res)
                   + "; " + _wavefront_line(res) + f" | {card}", flush=True)
             print(f"[ab] round {k} {t}: " + _mode_line(res) + f" | {card}",
@@ -679,6 +734,9 @@ def ab(trees, rounds: int) -> None:
         series = [(f"record_resident, {g} per launch, ms a pass",
                    [r["record_resident"][g]["ms_per_pass"]
                     for r in runs[t]]) for g in first["record_resident"]]
+        series += [(f"flagship queue launch, {spp} spp, ms",
+                    [r["flagship_queue"][spp]["ms"] for r in runs[t]])
+                   for spp in first["flagship_queue"]]
         series += [("wavefront launches (sum) ms",
                     [sum(r["wavefront_launches"]["launch_ms"])
                      for r in runs[t]])]

@@ -427,3 +427,36 @@ def test_wide_resident_build_on_card(cuda_device):
                                             device=cuda_device)
     rtt.render_megakernel(scene, cam, 0, rtt.RenderConfig(spp=1, max_depth=4))
     assert mk.QUEUE_BLOCK == 128
+
+
+@pytest.mark.cuda
+def test_resident_drain_on_card(cuda_device):
+    """The resident queue's drain: a warp with few live lanes sweeps their
+    spheres a column per lane. The flagship scene at 128x128, 1 spp, depth
+    32 takes it (its counter, stats slot 8, above 0 and at most the
+    segments) and renders what ``_queue_reference`` renders on at least
+    99.9% of its items, as the per-lane sweep does; the Cornell box, which
+    has no spheres, never takes it."""
+    def launch(scene, cam, depth):
+        args, kw = mk._launch_args(scene, cam, 3,
+                                   tables.resolve(scene, "megakernel"),
+                                   spp=1, max_depth=depth, t_min=1e-3,
+                                   jitter=True)
+        del kw["spp"]
+        n = cam.width * cam.height
+        stats = torch.zeros(mk.QUEUE_STATS, dtype=torch.int64,
+                            device=cuda_device)
+        got = mk._queue(*args, n, 0, 1, stats=stats, **kw)
+        torch.cuda.synchronize()
+        return got, [int(x) for x in stats.tolist()], args, kw, n
+
+    scene, cam = rtt.scenes.random_bouncing(width=128, height=128,
+                                            device=cuda_device)
+    got, st, args, kw, n = launch(scene, cam, 32)
+    assert 0 < st[8] <= st[0], st
+    want = mk._queue_reference(*args, n, 0, 1, **kw)
+    same = float((got == want).all(dim=1).double().mean())
+    assert same >= 0.999, same
+    box, bcam = rtt.scenes.cornell_box(width=64, device=cuda_device)
+    _, st, *_ = launch(box, bcam, 8)
+    assert st[0] > 0 and st[8] == 0, st

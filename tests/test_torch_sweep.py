@@ -169,6 +169,76 @@ def test_range_sweep_matches_sequential_and_today(motion):
     assert bool(ok.all())
 
 
+def _drain_rays(stab: torch.Tensor, g, motion: bool):
+    """Rays for the lane-split sweep on the flagship's table ``stab``
+    (column 1 the sphere of radius 1 at (0, 1, 0), copied into columns 4
+    and 33): random rays through the scene, rays from above onto the
+    copies (exact ties in q on two lanes and within one lane), rays
+    tangent to them (grazing on two lanes) and rays into the sky."""
+    r = 256
+    o = g.uniform(-12, 12, (r, 3)) * [1, 0, 1] + [0, 3, 0]
+    o[:, 1] += g.uniform(0, 4, r)
+    d = g.standard_normal((r, 3))
+    top = np.stack([g.uniform(-0.5, 0.5, r), np.full(r, 20.0),
+                    g.uniform(-0.5, 0.5, r)], 1)
+    down = np.stack([g.uniform(-0.02, 0.02, r), np.full(r, -1.0),
+                     g.uniform(-0.02, 0.02, r)], 1)
+    tan = np.stack([np.ones(r) + g.uniform(-1e-7, 1e-7, r),
+                    np.full(r, 20.0), np.zeros(r)], 1)
+    straight = np.tile([0.0, -1.0, 0.0], (r, 1))
+    sky = np.tile([0.0, 5.0, 0.0], (r, 1))
+    up = g.standard_normal((r, 3)) * [0.1, 0, 0.1] + [0, 1, 0]
+    o = np.concatenate([o, top, tan, sky])
+    d = np.concatenate([d, down, straight, up])
+    tau = g.random(o.shape[0]) if motion else np.zeros(o.shape[0])
+    # the copies of sphere 1 must not move, so that tau changes no tie
+    assert float(stab[4:9, 1].abs().max()) == 0.0
+    return (tuple(torch.from_numpy(o[:, k]).float() for k in range(3)),
+            tuple(torch.from_numpy(d[:, k]).float() for k in range(3)),
+            torch.from_numpy(tau).float())
+
+
+@pytest.mark.parametrize("n", [512, 300], ids=["n512", "n300"])
+@pytest.mark.parametrize("motion", [False, True], ids=["static", "motion"])
+def test_lane_split_sweep_matches_sequential(motion, n):
+    """The resident megakernel's drain (rz::sweep_packed_lanes): a warp
+    sweeping one ray's table a column per lane and merging the lanes'
+    states by (q, column) keeps the sequential packed sweep's state (qb,
+    best, q2, second, graze; the resident narrow grazing band) bit for bit,
+    over the flagship's packed table (and its first 300 columns, not a
+    multiple of 32), with exact q ties on two lanes and within one lane,
+    grazing columns on two lanes, and rays that some, all or no lanes
+    accept."""
+    scene, cam = rtt.scenes.random_bouncing(width=8, height=8, device="cpu")
+    args, _ = mk._launch_args(scene, cam, 0,
+                              tables.resolve(scene, "megakernel"), spp=1,
+                              max_depth=2, t_min=1e-3, jitter=False)
+    stab = args[1].clone()
+    assert stab.shape[1] == 512 and scene.has_motion
+    stab[:, 4] = stab[:, 1]
+    stab[:, 33] = stab[:, 1]
+    stab = stab[:, :n].contiguous()
+    o, d, tau = _drain_rays(stab, np.random.default_rng(11), motion)
+    packed = sw.pack_spheres(stab, motion)
+    coef = sw.ray_coef(o, d, tau, 1e-3)
+    seq = sw.packed_sweep(packed, coef, 0, n, wide=False)
+    lanes = sw.packed_sweep_lanes(packed, coef, n)
+    for a, b in zip(seq, lanes):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # what the cases cover
+    assert bool(((seq.best == 1) & (seq.second == 4)).any())  # exact ties
+    assert bool((seq.graze == 33).any())  # grazing on lanes 1 and 4
+    disc, hb, _ = sw.coef_disc(packed, coef)
+    rt = torch.sqrt(torch.clamp_min(disc, 0.0))
+    tm = coef.tmin_a[:, None]
+    q = torch.where(hb - rt >= tm, hb - rt, hb + rt)
+    acc = (disc >= 0.0) & (q >= tm)
+    per_lane = torch.stack([acc[:, k::32].any(1) for k in range(32)], 1)
+    count = per_lane.sum(1)
+    assert bool(((count > 0) & (count < 32)).any())
+    assert bool((count == 0).any()) and bool((seq.best == -1).any())
+
+
 @pytest.mark.parametrize("mode", [dict(culling=True), dict(stream=128)],
                          ids=["culled", "streamed"])
 def test_explain_items(mode):
