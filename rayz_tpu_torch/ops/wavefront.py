@@ -392,7 +392,7 @@ def render_wavefront(scene: Scene, camera: Camera, seed: int,
         with span("sort"):
             st, alive, rid, radbuf = permute(_dead_last(alive), st, alive,
                                              rid, radbuf)
-        with span("bounce"):
+        with span("tail"):
             _, _, rad = _wf_bounce(tabs, rays, st, alive, rid, bounce=n_sync,
                                    loop_bounces=max_depth - n_sync, **kw)
             radbuf = radbuf + rad

@@ -38,8 +38,12 @@ and us/ray from the camera-ray count (rayz.zig:24-34). Here:
   - ``rayz.tables`` and ``rayz.tables_built``, as the megakernel's: the
     (streamed) tables, the scene's bounds, the camera vector, the slot ->
     pixel table and the ray ids;
-  - ``rayz.bounce``: each launch with its input checks, and the addition
-    of its radiance (one a synchronous bounce, one for the tail);
+  - ``rayz.bounce``: each synchronous bounce's launch with its input
+    checks, and the addition of its radiance (one a bounce, the first
+    ``ops/wavefront.py``'s ``N_SYNC`` = 3);
+  - ``rayz.tail``: the same for the tail launch, which carries every
+    bounce after the synchronous ones, unsorted (one where ``max_depth``
+    exceeds ``N_SYNC``);
   - ``rayz.sort``: each sort or dead-last partition between launches with
     its permutation of the ray planes;
   - ``rayz.finish``: the radiance scattered back to ray order, the sum

@@ -3,8 +3,10 @@ under a ``torch.profiler``, a megakernel render through ``render_fast``
 records five flat stages, ``rayz.dispatch`` (2), ``rayz.tables`` (1),
 ``rayz.queue`` and ``rayz.fold`` (one each a sample group) and
 ``rayz.finish`` (1), and a wavefront render ``rayz.dispatch`` (1),
-``rayz.tables`` (1), ``rayz.bounce`` (one a launch), ``rayz.sort`` (one a
-sort or partition between launches) and ``rayz.finish`` (1), as
+``rayz.tables`` (1), ``rayz.bounce`` (one a synchronous launch),
+``rayz.tail`` (the tail launch, where the depth passes the synchronous
+bounces), ``rayz.sort`` (one a sort or partition between launches) and
+``rayz.finish`` (1), as
 ``user_annotation`` events inside the caller's own annotation; a render
 that builds its scene's tables (the first of a scene) records an empty
 ``rayz.tables_built`` right after ``rayz.tables``, one that finds them in
@@ -27,7 +29,7 @@ from rayz_tpu_torch.utils import profiling
 torch.set_num_threads(2)
 
 STAGES = ("dispatch", "tables", "queue", "fold", "finish")
-WF_STAGES = ("dispatch", "tables", "bounce", "sort", "finish")
+WF_STAGES = ("dispatch", "tables", "bounce", "tail", "sort", "finish")
 CFG = rtt.RenderConfig(spp=3, max_depth=3)
 
 
@@ -129,11 +131,12 @@ def test_megakernel_render_records_five_flat_stages(tmp_path, monkeypatch,
     # bounces 0, 1, 2 and the tail; a sort before bounce 1, a partition
     # before bounce 2 and one before the tail
     (8, True, ["bounce", "sort", "bounce", "sort", "bounce", "sort",
-               "bounce"]),
+               "tail"]),
+    # no tail at a depth of three or less
     (3, True, ["bounce", "sort", "bounce", "sort", "bounce"]),
     (2, True, ["bounce", "sort", "bounce"]),
     # without the sort only the tail's partition is left
-    (8, False, ["bounce", "bounce", "bounce", "sort", "bounce"]),
+    (8, False, ["bounce", "bounce", "bounce", "sort", "tail"]),
 ])
 def test_wavefront_render_records_flat_stages(tmp_path, depth, sort, order):
     scene, cam = _scene()
@@ -144,8 +147,10 @@ def test_wavefront_render_records_flat_stages(tmp_path, depth, sort, order):
     assert got == ["dispatch", "tables", "tables_built"] + order + ["finish"]
     if depth == 8 and sort:
         assert collections.Counter(got) == {
-            "dispatch": 1, "tables": 1, "tables_built": 1, "bounce": 4,
-            "sort": 3, "finish": 1}
+            "dispatch": 1, "tables": 1, "tables_built": 1, "bounce": 3,
+            "tail": 1, "sort": 3, "finish": 1}
+    if depth <= 3:
+        assert "tail" not in got
 
 
 @pytest.mark.parametrize("engine", ["megakernel", "wavefront"])
