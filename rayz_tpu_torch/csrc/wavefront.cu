@@ -8,7 +8,11 @@
 // material scatter), emitting each ray's new state, alive flag and the
 // radiance it added. The host sorts and partitions the rays between
 // launches (ops/wavefront.py), so a warp's rays are coherent and its bound
-// tests prune on every bounce.
+// tests prune on every bounce. The bounce launches give each thread one
+// slot; the tail launch (loop_bounces > 1, its own instantiation) is a ray
+// queue over a persistent grid (tail_queue): a lane whose path ends takes
+// the next live slot, so the tail's long paths no longer hold warps whose
+// other lanes have ended.
 //
 // What bounds it on the H100: the same FP32 quadratic per primitive as the
 // megakernel, times the primitives that survive the bound tests, and the
@@ -62,6 +66,12 @@
 // scatter. A ray therefore follows the path the megakernel traces for the
 // same pixel and sample, and the two engines render the same image.
 //
+// `stats` (optional, [8] uint64): segments (0), primitive tests (1), bound
+// tests (2), votes (3) and those passed (4), the lane slots of primitive
+// tests (6, rz::kStatLaneTrips); the tail launch also its warps' trips (5:
+// segments / (32 * trips) is its live-lane share) and the rays its lanes
+// took after their first (7).
+//
 // C interface for ctypes (see ops/_build.py): rayz_wavefront returns the
 // cudaError_t of its launch.
 
@@ -90,6 +100,9 @@ constexpr int kColumnsUpTo = 16;
 constexpr int kParkWords = 6;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = 3.0e38f;
+// Slots a warp of the tail launch claims with one atomicAdd once a claim
+// found no live slot.
+constexpr int kRun = 32;
 
 enum : int { kResident = 0, kCulled = 1, kStreamed = 2 };
 
@@ -110,6 +123,7 @@ struct WfParams {
   float* st_out;        // [10, r_pad]
   int* alive_out;       // [r_pad]
   float* rad;           // [3, r_pad] radiance added by this launch
+  unsigned long long* counter;  // [1] the tail's slot counter, zeroed
   unsigned long long* stats;  // [8] work counters or null
   int n_pad, m_pad, blk, stream, sc_s, sc_t;  // sc_*: 0 = no superclusters
   int r_pad, n_rays, n_px, width;
@@ -181,8 +195,9 @@ struct Hit {
 // The warp's work counters in shared memory (null: not counting), kept by
 // lane 0 from the warp's ballots, so that no lane carries them in
 // registers through the sweeps.
+// Slot 6 is rz::kStatLaneTrips; 5 and 7 count only in the tail launch.
 enum : int { kSegments = 0, kPrims = 1, kBounds = 2, kVotes = 3,
-             kPassed = 4 };
+             kPassed = 4, kTailTrips = 5, kTailAgain = 7 };
 
 __device__ __forceinline__ void count(unsigned int* cnt, int slot,
                                       unsigned int n) {
@@ -453,177 +468,64 @@ __device__ __forceinline__ void sweep_stream(
   }
 }
 
-// At most 72 registers a thread (7 blocks of 128 an SM): the sweep waits on
-// its loads, square roots and shuffles, which resident warps hide; at 64
-// registers (8 blocks) the spills cost more than the eighth block gains
-// (PERF.md).
-template <bool kMotion, int kMode>
-__global__ void __launch_bounds__(kBlock, 7) wavefront_kernel(WfParams p) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* s_cam = smem;
-  float* s_tab = smem + kHeadWords;
-  for (int i = threadIdx.x; i < 18; i += kBlock) s_cam[i] = p.cam[i];
-  unsigned int* cnt = nullptr;
-  if (p.stats) {
-    cnt = reinterpret_cast<unsigned int*>(smem + 20) +
-          (threadIdx.x >> 5) * kCount;
-    if ((threadIdx.x & 31) < kCount) cnt[threadIdx.x & 31] = 0u;
-  }
+// The launch's tables as its warps read them: in shared memory (resident,
+// culled) or device memory (streamed, whose chunk and supercluster bound
+// rows sit in shared memory beside each warp's staging buffer and each
+// thread's parked words).
+struct Staged {
   const float* sph;
   const float* tri;
-  const float* sbl = nullptr;
-  const float* tbl = nullptr;
-  const float* scb = nullptr;
-  const float* tcb = nullptr;
-  const float* ssc = nullptr;
-  const float* tsc = nullptr;
-  float4* stage = nullptr;
-  float* park = nullptr;
-  if constexpr (kMode == kStreamed) {
-    // the warps' staging buffers, the parked states, then the bound rows
-    // of the chunks and superclusters, both classes
-    stage = reinterpret_cast<float4*>(s_tab) +
-            (threadIdx.x >> 5) * (kStageWords / 4);
-    park = s_tab + kWarps * kStageWords + threadIdx.x;
-    const int ncs = p.n_pad / p.stream;
-    const int nct = p.m_pad / p.stream;
-    const int nss = p.sc_s ? ncs / p.sc_s : 0;
-    const int nst = p.sc_t ? nct / p.sc_t : 0;
-    float* s_scb = s_tab + kWarps * kStageWords + kBlock * kParkWords;
-    float* s_tcb = s_scb + 4 * ncs;
-    float* s_ssc = s_tcb + 4 * nct;
-    float* s_tsc = s_ssc + 4 * nss;
-    for (int i = threadIdx.x; i < 4 * ncs; i += kBlock) s_scb[i] = p.scb[i];
-    for (int i = threadIdx.x; i < 4 * nct; i += kBlock) s_tcb[i] = p.tcb[i];
-    for (int i = threadIdx.x; i < 4 * nss; i += kBlock) s_ssc[i] = p.ssc[i];
-    for (int i = threadIdx.x; i < 4 * nst; i += kBlock) s_tsc[i] = p.tsc[i];
-    scb = s_scb;
-    tcb = s_tcb;
-    ssc = s_ssc;
-    tsc = s_tsc;
-    sph = p.stab;
-    tri = p.ttab;
-    sbl = p.sblk;
-    tbl = p.tblk;
-  } else {
-    float* s_sph = s_tab;
-    float* s_tri = s_sph + rz::kSRows * p.n_pad;
-    for (int i = threadIdx.x; i < rz::kSRows * p.n_pad; i += kBlock)
-      s_sph[i] = p.stab[i];
-    for (int i = threadIdx.x; i < rz::kTRows * p.m_pad; i += kBlock)
-      s_tri[i] = p.ttab[i];
-    if constexpr (kMode == kCulled) {
-      float* s_sbl = s_tri + rz::kTRows * p.m_pad;
-      float* s_tbl = s_sbl + 4 * (p.n_pad / p.blk);
-      for (int i = threadIdx.x; i < 4 * (p.n_pad / p.blk); i += kBlock)
-        s_sbl[i] = p.sblk[i];
-      for (int i = threadIdx.x; i < 4 * (p.m_pad / p.blk); i += kBlock)
-        s_tbl[i] = p.tblk[i];
-      sbl = s_sbl;
-      tbl = s_tbl;
-    }
-    sph = s_sph;
-    tri = s_tri;
-  }
-  __syncthreads();  // the last block barrier: the warps run on alone
+  const float* sbl;
+  const float* tbl;
+  const float* scb;
+  const float* tcb;
+  const float* ssc;
+  const float* tsc;
+  float4* stage;
+  float* park;
+};
 
-  // r_pad is a multiple of the block: every thread owns a ray slot
-  const size_t i = static_cast<size_t>(blockIdx.x) * kBlock + threadIdx.x;
+// Slot i's ray as the launch receives it: the megakernel's camera ray
+// (draws 0-4 at bounce 0) where st_in is null, else its state; its sample
+// number (from 1) and slot key. Returns its alive flag (padding rays are
+// never alive).
+__device__ __forceinline__ bool load_ray(const WfParams& p,
+                                         const float* s_cam, size_t i,
+                                         int& sample, uint32_t& key0,
+                                         rz::Ray& r, float& thx, float& thy,
+                                         float& thz) {
   const size_t rp = static_cast<size_t>(p.r_pad);
   const int rid = p.rid[i];
   const int pix = p.slot_pix[rid % p.n_px];
-  const int sample = rid / p.n_px + 1;
-  const uint32_t key0 = rz::slot_key(p.seed, pix);
-
-  rz::Ray r;
-  float thx, thy, thz;
-  bool active;
+  sample = rid / p.n_px + 1;
+  key0 = rz::slot_key(p.seed, pix);
   if (p.st_in == nullptr) {
-    // ---- camera ray: the megakernel's spawn (draws 0-4 at bounce 0) ----
     rz::camera_ray(s_cam, static_cast<float>(pix % p.width),
                    static_cast<float>(pix / p.width), p.jitter,
                    rz::step_key(key0, sample, 0), r);
     thx = thy = thz = 1.0f;
-    active = rid < p.n_rays;  // padding rays are never alive
-  } else {
-    const float* st = p.st_in + i;
-    r.ox = st[0 * rp];
-    r.oy = st[1 * rp];
-    r.oz = st[2 * rp];
-    r.dx = st[3 * rp];
-    r.dy = st[4 * rp];
-    r.dz = st[5 * rp];
-    r.tau = st[6 * rp];
-    thx = st[7 * rp];
-    thy = st[8 * rp];
-    thz = st[9 * rp];
-    active = p.alive_in[i] > 0;
+    return rid < p.n_rays;
   }
+  const float* st = p.st_in + i;
+  r.ox = st[0 * rp];
+  r.oy = st[1 * rp];
+  r.oz = st[2 * rp];
+  r.dx = st[3 * rp];
+  r.dy = st[4 * rp];
+  r.dz = st[5 * rp];
+  r.tau = st[6 * rp];
+  thx = st[7 * rp];
+  thy = st[8 * rp];
+  thz = st[9 * rp];
+  return p.alive_in[i] > 0;
+}
 
-  float ar = 0.0f, ag = 0.0f, ab = 0.0f;
-  // One bounce per trip; the tail launch runs up to loop_bounces. The
-  // condition is a warp vote: a tile with no live ray is done (the TPU's
-  // dead-tile skip and its tail-loop condition).
-  for (int it = 0; it < p.loop_bounces; ++it) {
-    const unsigned int live = __ballot_sync(kFull, active);
-    if (!live) break;
-    count(cnt, kSegments, __popc(live));
-    const rz::RayTerms t = rz::ray_terms(r, p.t_min);
-    Hit h;
-    if constexpr (kMode == kResident) {
-      if (active) {
-        sweep_cols<kMotion, false>(sph, p.n_pad, 0, p.n_pad, r, t, h);
-        sweep_cols<kMotion, true>(tri, p.m_pad, 0, p.m_pad, r, t, h);
-      }
-      count(cnt, kPrims, (p.n_pad + p.m_pad) * __popc(live));
-    } else {
-      const Tile tile = tile_bound(r, active);
-      if constexpr (kMode == kCulled) {
-        for (int pass = 0; pass < 2; ++pass) {
-          sweep_blocks<kMotion, false>(sph, p.n_pad, sbl, p.n_pad / p.blk,
-                                       p.blk, 0, p.n_pad / p.blk, pass, tile,
-                                       active, nullptr, r, t, h, cnt, true);
-        }
-        for (int pass = 0; pass < 2; ++pass) {
-          sweep_blocks<kMotion, true>(tri, p.m_pad, tbl, p.m_pad / p.blk,
-                                      p.blk, 0, p.m_pad / p.blk, pass, tile,
-                                      active, nullptr, r, t, h, cnt, true);
-        }
-      } else {
-        // the warp's rays and their terms, for sweep_columns
-        float4* rs = stage + 96 + (threadIdx.x & 31);
-        rs[0] = make_float4(r.ox, r.oy, r.oz, r.dx);
-        rs[32] = make_float4(r.dy, r.dz, r.tau, t.a);
-        rs[64] = make_float4(t.d_dot_o, t.o2, t.tmin_a, t.tau2);
-        // cold through the sweep: parked in shared memory
-        park[0 * kBlock] = thx;
-        park[1 * kBlock] = thy;
-        park[2 * kBlock] = thz;
-        park[3 * kBlock] = ar;
-        park[4 * kBlock] = ag;
-        park[5 * kBlock] = ab;
-        sweep_stream<kMotion, false>(sph, p.n_pad, scb, ssc, p.sc_s, sbl, p,
-                                     tile, active, stage, r, t, h, cnt);
-        sweep_stream<kMotion, true>(tri, p.m_pad, tcb, tsc, p.sc_t, tbl, p,
-                                    tile, active, stage, r, t, h, cnt);
-        thx = park[0 * kBlock];
-        thy = park[1 * kBlock];
-        thz = park[2 * kBlock];
-        ar = park[3 * kBlock];
-        ag = park[4 * kBlock];
-        ab = park[5 * kBlock];
-      }
-    }
-    if (active) {
-      const uint32_t key = rz::step_key(key0, sample, p.bounce + it);
-      active = rz::shade<kMotion>(sph, p.n_pad, tri, p.m_pad, r, t, h.qb,
-                                  h.best, h.is_tri, rz::KeyDraws{key}, thx,
-                                  thy, thz, ar, ag,
-                                  ab) == rz::Bounce::kContinued;
-    }
-  }
-
+// Slot i's outputs: the ray's state, alive flag and the radiance it added.
+__device__ __forceinline__ void store_ray(const WfParams& p, size_t i,
+                                          const rz::Ray& r, float thx,
+                                          float thy, float thz, float ar,
+                                          float ag, float ab, bool active) {
+  const size_t rp = static_cast<size_t>(p.r_pad);
   float* st = p.st_out + i;
   st[0 * rp] = r.ox;
   st[1 * rp] = r.oy;
@@ -639,6 +541,283 @@ __global__ void __launch_bounds__(kBlock, 7) wavefront_kernel(WfParams p) {
   p.rad[0 * rp + i] = ar;
   p.rad[1 * rp + i] = ag;
   p.rad[2 * rp + i] = ab;
+}
+
+// Dead slot i's outputs: its state as it came in, alive 0, no radiance.
+__device__ __forceinline__ void pass_through(const WfParams& p,
+                                             const float* s_cam, size_t i) {
+  const size_t rp = static_cast<size_t>(p.r_pad);
+  if (p.st_in == nullptr) {  // the camera ray of a padding slot
+    int sample;
+    uint32_t key0;
+    rz::Ray r;
+    float thx, thy, thz;
+    load_ray(p, s_cam, i, sample, key0, r, thx, thy, thz);
+    store_ray(p, i, r, thx, thy, thz, 0.0f, 0.0f, 0.0f, false);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 10; ++k) p.st_out[k * rp + i] = p.st_in[k * rp + i];
+  p.alive_out[i] = 0;
+  p.rad[0 * rp + i] = 0.0f;
+  p.rad[1 * rp + i] = 0.0f;
+  p.rad[2 * rp + i] = 0.0f;
+}
+
+// One bounce of the warp's rays (every lane calls it; `live` is the ballot
+// of `active`, the lanes that trace): the nearest hit in the launch's table
+// mode, then the shading with the ray's key for bounce `bounce`.
+// Streamed, each thread's throughput and radiance wait in shared memory
+// through the sweep.
+template <bool kMotion, int kMode>
+__device__ __forceinline__ void trace_bounce(
+    const WfParams& p, const Staged& s, unsigned int* cnt, unsigned int live,
+    rz::Ray& r, float& thx, float& thy, float& thz, float& ar, float& ag,
+    float& ab, bool& active, uint32_t key0, int sample, int bounce) {
+  const rz::RayTerms t = rz::ray_terms(r, p.t_min);
+  Hit h;
+  if constexpr (kMode == kResident) {
+    if (active) {
+      sweep_cols<kMotion, false>(s.sph, p.n_pad, 0, p.n_pad, r, t, h);
+      sweep_cols<kMotion, true>(s.tri, p.m_pad, 0, p.m_pad, r, t, h);
+    }
+    count(cnt, kPrims, (p.n_pad + p.m_pad) * __popc(live));
+  } else {
+    const Tile tile = tile_bound(r, active);
+    if constexpr (kMode == kCulled) {
+      for (int pass = 0; pass < 2; ++pass) {
+        sweep_blocks<kMotion, false>(s.sph, p.n_pad, s.sbl, p.n_pad / p.blk,
+                                     p.blk, 0, p.n_pad / p.blk, pass, tile,
+                                     active, nullptr, r, t, h, cnt, true);
+      }
+      for (int pass = 0; pass < 2; ++pass) {
+        sweep_blocks<kMotion, true>(s.tri, p.m_pad, s.tbl, p.m_pad / p.blk,
+                                    p.blk, 0, p.m_pad / p.blk, pass, tile,
+                                    active, nullptr, r, t, h, cnt, true);
+      }
+    } else {
+      // the warp's rays and their terms, for sweep_columns
+      float4* rs = s.stage + 96 + (threadIdx.x & 31);
+      rs[0] = make_float4(r.ox, r.oy, r.oz, r.dx);
+      rs[32] = make_float4(r.dy, r.dz, r.tau, t.a);
+      rs[64] = make_float4(t.d_dot_o, t.o2, t.tmin_a, t.tau2);
+      // cold through the sweep: parked in shared memory
+      float* park = s.park;
+      park[0 * kBlock] = thx;
+      park[1 * kBlock] = thy;
+      park[2 * kBlock] = thz;
+      park[3 * kBlock] = ar;
+      park[4 * kBlock] = ag;
+      park[5 * kBlock] = ab;
+      sweep_stream<kMotion, false>(s.sph, p.n_pad, s.scb, s.ssc, p.sc_s,
+                                   s.sbl, p, tile, active, s.stage, r, t, h,
+                                   cnt);
+      sweep_stream<kMotion, true>(s.tri, p.m_pad, s.tcb, s.tsc, p.sc_t,
+                                  s.tbl, p, tile, active, s.stage, r, t, h,
+                                  cnt);
+      thx = park[0 * kBlock];
+      thy = park[1 * kBlock];
+      thz = park[2 * kBlock];
+      ar = park[3 * kBlock];
+      ag = park[4 * kBlock];
+      ab = park[5 * kBlock];
+    }
+  }
+  if (active) {
+    const uint32_t key = rz::step_key(key0, sample, bounce);
+    active = rz::shade<kMotion>(s.sph, p.n_pad, s.tri, p.m_pad, r, t, h.qb,
+                                h.best, h.is_tri, rz::KeyDraws{key}, thx, thy,
+                                thz, ar, ag, ab) == rz::Bounce::kContinued;
+  }
+}
+
+// The tail launch's schedule (loop_bounces > 1): a ray queue over the
+// slots. A warp claims as many slots as it has free lanes from the counter
+// with one atomicAdd; its lanes read their alive flags, write each dead
+// slot through (its state unchanged, alive 0, radiance 0) and the warp
+// hands the live slots to its free lanes in slot order (__ballot_sync,
+// __popc, __fns). Once a claim finds no live slot, the warp claims kRun
+// slots at a time, which any lane writes through. A warp keeps no live
+// slots its lanes cannot take yet: with runs of 32 such a backlog held the
+// Next Week's last live rays while other warps emptied (H100: the share of
+// live lanes fell over the last 14 ms of a 68-ms launch; PERF.md). A lane
+// carries its ray's own bounce count b and draws with
+// step_key(key0, sample, bounce + b), the keys the one-slot-per-thread
+// schedule gives that ray; when the path ends or reaches loop_bounces the
+// lane writes the slot's outputs and takes the next live slot on the
+// warp's next trip. So no lane waits for the longest path of its warp:
+// with a thread per slot 23.8% of the Next Week tail's lane-trips
+// carried a ray, with the queue 86.7% (H100; PERF.md). The host's
+// dead-last partition puts the live slots first, so the live rays are
+// claimed first; the outputs do not depend on it. Counts the warp's trips
+// (kTailTrips) and the rays a lane took after its first (kTailAgain).
+template <bool kMotion, int kMode>
+__device__ __forceinline__ void tail_queue(const WfParams& p,
+                                           const float* s_cam,
+                                           const Staged& s,
+                                           unsigned int* cnt) {
+  const int lane = threadIdx.x & 31;
+  const unsigned int below = (1u << lane) - 1u;
+  // the warp's claim (warp-uniform): bit j of `pending` is live slot run +
+  // j, not yet handed out; `dead` once a claim found no live slot, drained
+  // once a claim passed the end
+  unsigned int run = 0u, pending = 0u;
+  bool drained = false, dead = false;
+
+  unsigned int slot = 0u;
+  int sample = 0, b = 0;
+  uint32_t key0 = 0u;
+  rz::Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float thx = 0.0f, thy = 0.0f, thz = 0.0f;
+  float ar = 0.0f, ag = 0.0f, ab = 0.0f;
+  bool active = false, took = false;
+  while (true) {
+    // hand the free lanes the next live slots
+    while (true) {
+      const unsigned int need = __ballot_sync(kFull, !active);
+      if (!need) break;
+      if (!pending) {
+        if (drained) break;
+        // a slot for each free lane; a whole run after a claim that found
+        // no live slot (the dead slots the partition put last)
+        const int want = dead ? kRun : __popc(need);
+        unsigned long long base = 0;
+        if (lane == 0) base = atomicAdd(p.counter, 0ull + want);
+        base = __shfl_sync(kFull, base, 0);
+        if (base >= static_cast<unsigned int>(p.r_pad)) {
+          drained = true;
+          break;
+        }
+        run = static_cast<unsigned int>(base);
+        const size_t j = run + lane;
+        const bool mine = lane < want && j < static_cast<size_t>(p.r_pad);
+        const bool live =
+            mine && (p.st_in ? p.alive_in[j] > 0 : p.rid[j] < p.n_rays);
+        pending = __ballot_sync(kFull, live);
+        if (mine && !live) pass_through(p, s_cam, j);
+        dead = !pending;
+        continue;
+      }
+      const int n = __popc(pending);
+      const bool got = !active && __popc(need & below) < n;
+      if (got) {
+        slot = run + __fns(pending, 0, __popc(need & below) + 1);
+        active = load_ray(p, s_cam, slot, sample, key0, r, thx, thy, thz);
+        ar = ag = ab = 0.0f;
+        b = 0;
+      }
+      if (cnt)
+        count(cnt, kTailAgain, __popc(__ballot_sync(kFull, got && took)));
+      took = took || got;
+      const int k = __popc(need);
+      pending = k < n ? pending & (~0u << __fns(pending, 0, k + 1)) : 0u;
+    }
+    const unsigned int live = __ballot_sync(kFull, active);
+    if (!live) break;
+    count(cnt, kSegments, __popc(live));
+    count(cnt, kTailTrips, 1);
+    trace_bounce<kMotion, kMode>(p, s, cnt, live, r, thx, thy, thz, ar, ag,
+                                 ab, active, key0, sample, p.bounce + b);
+    if ((live >> lane) & 1u) {
+      ++b;
+      if (!active || b == p.loop_bounces) {
+        store_ray(p, slot, r, thx, thy, thz, ar, ag, ab, active);
+        active = false;
+      }
+    }
+  }
+}
+
+// At most 72 registers a thread (7 blocks of 128 an SM): the sweep waits on
+// its loads, square roots and shuffles, which resident warps hide; at 64
+// registers (8 blocks) the spills cost more than the eighth block gains
+// (PERF.md). kTail: the tail launch's ray queue (tail_queue) over a
+// persistent grid; else a thread per slot (the bounce launches), one
+// bounce a trip up to loop_bounces.
+template <bool kMotion, int kMode, bool kTail>
+__global__ void __launch_bounds__(kBlock, 7) wavefront_kernel(WfParams p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* s_cam = smem;
+  float* s_tab = smem + kHeadWords;
+  for (int i = threadIdx.x; i < 18; i += kBlock) s_cam[i] = p.cam[i];
+  unsigned int* cnt = nullptr;
+  if (p.stats) {
+    cnt = reinterpret_cast<unsigned int*>(smem + 20) +
+          (threadIdx.x >> 5) * kCount;
+    if ((threadIdx.x & 31) < kCount) cnt[threadIdx.x & 31] = 0u;
+  }
+  Staged s{};
+  if constexpr (kMode == kStreamed) {
+    // the warps' staging buffers, the parked states, then the bound rows
+    // of the chunks and superclusters, both classes
+    s.stage = reinterpret_cast<float4*>(s_tab) +
+              (threadIdx.x >> 5) * (kStageWords / 4);
+    s.park = s_tab + kWarps * kStageWords + threadIdx.x;
+    const int ncs = p.n_pad / p.stream;
+    const int nct = p.m_pad / p.stream;
+    const int nss = p.sc_s ? ncs / p.sc_s : 0;
+    const int nst = p.sc_t ? nct / p.sc_t : 0;
+    float* s_scb = s_tab + kWarps * kStageWords + kBlock * kParkWords;
+    float* s_tcb = s_scb + 4 * ncs;
+    float* s_ssc = s_tcb + 4 * nct;
+    float* s_tsc = s_ssc + 4 * nss;
+    for (int i = threadIdx.x; i < 4 * ncs; i += kBlock) s_scb[i] = p.scb[i];
+    for (int i = threadIdx.x; i < 4 * nct; i += kBlock) s_tcb[i] = p.tcb[i];
+    for (int i = threadIdx.x; i < 4 * nss; i += kBlock) s_ssc[i] = p.ssc[i];
+    for (int i = threadIdx.x; i < 4 * nst; i += kBlock) s_tsc[i] = p.tsc[i];
+    s.scb = s_scb;
+    s.tcb = s_tcb;
+    s.ssc = s_ssc;
+    s.tsc = s_tsc;
+    s.sph = p.stab;
+    s.tri = p.ttab;
+    s.sbl = p.sblk;
+    s.tbl = p.tblk;
+  } else {
+    float* s_sph = s_tab;
+    float* s_tri = s_sph + rz::kSRows * p.n_pad;
+    for (int i = threadIdx.x; i < rz::kSRows * p.n_pad; i += kBlock)
+      s_sph[i] = p.stab[i];
+    for (int i = threadIdx.x; i < rz::kTRows * p.m_pad; i += kBlock)
+      s_tri[i] = p.ttab[i];
+    if constexpr (kMode == kCulled) {
+      float* s_sbl = s_tri + rz::kTRows * p.m_pad;
+      float* s_tbl = s_sbl + 4 * (p.n_pad / p.blk);
+      for (int i = threadIdx.x; i < 4 * (p.n_pad / p.blk); i += kBlock)
+        s_sbl[i] = p.sblk[i];
+      for (int i = threadIdx.x; i < 4 * (p.m_pad / p.blk); i += kBlock)
+        s_tbl[i] = p.tblk[i];
+      s.sbl = s_sbl;
+      s.tbl = s_tbl;
+    }
+    s.sph = s_sph;
+    s.tri = s_tri;
+  }
+  __syncthreads();  // the last block barrier: the warps run on alone
+
+  if constexpr (kTail) {
+    tail_queue<kMotion, kMode>(p, s_cam, s, cnt);
+  } else {
+    // r_pad is a multiple of the block: every thread owns a ray slot
+    const size_t i = static_cast<size_t>(blockIdx.x) * kBlock + threadIdx.x;
+    int sample;
+    uint32_t key0;
+    rz::Ray r;
+    float thx, thy, thz;
+    bool active = load_ray(p, s_cam, i, sample, key0, r, thx, thy, thz);
+    float ar = 0.0f, ag = 0.0f, ab = 0.0f;
+    // One bounce per trip, up to loop_bounces. The condition is a warp
+    // vote: a tile with no live ray is done (the TPU's dead-tile skip).
+    for (int it = 0; it < p.loop_bounces; ++it) {
+      const unsigned int live = __ballot_sync(kFull, active);
+      if (!live) break;
+      count(cnt, kSegments, __popc(live));
+      trace_bounce<kMotion, kMode>(p, s, cnt, live, r, thx, thy, thz, ar, ag,
+                                   ab, active, key0, sample, p.bounce + it);
+    }
+    store_ray(p, i, r, thx, thy, thz, ar, ag, ab, active);
+  }
   if (cnt && (threadIdx.x & 31) == 0) {
     for (int k = 0; k < kCount; ++k)
       if (cnt[k])
@@ -646,23 +825,43 @@ __global__ void __launch_bounds__(kBlock, 7) wavefront_kernel(WfParams p) {
   }
 }
 
-template <bool kMotion, int kMode>
+// The bounce launches: a block per 128 slots. The tail launch (kTail): as
+// many blocks as the card holds at once (the occupancy of that build at its
+// shared memory), at most one per kBlock slots.
+template <bool kMotion, int kMode, bool kTail>
 cudaError_t launch(const WfParams& p, size_t smem, cudaStream_t s) {
+  const auto kernel = wavefront_kernel<kMotion, kMode, kTail>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        wavefront_kernel<kMotion, kMode>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  wavefront_kernel<kMotion, kMode><<<p.r_pad / kBlock, kBlock, smem, s>>>(p);
+  int blocks = p.r_pad / kBlock;
+  if constexpr (kTail) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBlock, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm * sms < blocks) blocks = per_sm * sms;
+    if (blocks <= 0) return cudaErrorInvalidConfiguration;
+  }
+  kernel<<<blocks, kBlock, smem, s>>>(p);
   return cudaGetLastError();
 }
 
 template <int kMode>
 cudaError_t launch_mode(const WfParams& p, bool motion, size_t smem,
                         cudaStream_t s) {
-  return motion ? launch<true, kMode>(p, smem, s)
-                : launch<false, kMode>(p, smem, s);
+  if (p.loop_bounces > 1)
+    return motion ? launch<true, kMode, true>(p, smem, s)
+                  : launch<false, kMode, true>(p, smem, s);
+  return motion ? launch<true, kMode, false>(p, smem, s)
+                : launch<false, kMode, false>(p, smem, s);
 }
 
 }  // namespace
@@ -670,7 +869,9 @@ cudaError_t launch_mode(const WfParams& p, bool motion, size_t smem,
 // mode: 0 resident, 1 culled (sblk/tblk, blk), 2 streamed (scb/tcb,
 // ssc/tsc with sc_s/sc_t, sblk/tblk with blk, stream, cull). st_in null =
 // spawn the camera rays. smem_bytes: the wrapper's accounting of the
-// dynamic shared memory (ops/tables.py wavefront_shared_bytes).
+// dynamic shared memory (ops/tables.py wavefront_shared_bytes). counter: a
+// zeroed uint64, the tail launch's (loop_bounces > 1) slot counter; null
+// for the bounce launches.
 extern "C" int rayz_wavefront(
     const float* cam, const float* stab, int n_pad, const float* ttab,
     int m_pad, int mode, const float* sblk, const float* tblk, int blk,
@@ -679,8 +880,11 @@ extern "C" int rayz_wavefront(
     const int* alive_in, const int* rid, const int* slot_pix, float* st_out,
     int* alive_out, float* rad, int r_pad, int n_rays, int n_px, int width,
     int bounce, int loop_bounces, float t_min, int jitter, int has_motion,
-    unsigned int seed, int smem_bytes, void* stats, void* stream) {
-  if (r_pad % kBlock) return static_cast<int>(cudaErrorInvalidValue);
+    unsigned int seed, int smem_bytes, void* counter, void* stats,
+    void* stream) {
+  if (r_pad % kBlock || loop_bounces < 1 ||
+      (loop_bounces > 1) != (counter != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   WfParams p;
   p.cam = cam;
   p.stab = stab;
@@ -698,6 +902,7 @@ extern "C" int rayz_wavefront(
   p.st_out = st_out;
   p.alive_out = alive_out;
   p.rad = rad;
+  p.counter = static_cast<unsigned long long*>(counter);
   p.stats = static_cast<unsigned long long*>(stats);
   p.n_pad = n_pad;
   p.m_pad = m_pad;

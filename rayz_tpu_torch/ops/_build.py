@@ -107,7 +107,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rayz_replay_bwd.restype = i
     lib.rayz_wavefront.argtypes = [p, p, i, p, i, i, p, p, i, p, p, p, p, i,
                                    i, i, i, p, p, p, p, p, p, p, i, i, i, i,
-                                   i, i, f, i, i, u, i, p, p]
+                                   i, i, f, i, i, u, i, p, p, p]
     lib.rayz_wavefront.restype = i
     lib.rayz_record.argtypes = [p, i, p, i, p, p, p, p, p, p, i, i, i, p, p,
                                 i, i, f, i, p, p, p, p]

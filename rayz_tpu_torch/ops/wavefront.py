@@ -14,7 +14,7 @@ instead:
   bounces only partition the dead rays to the back (stable), so live tiles
   stay dense and coherent;
 * after three synchronous bounces one tail launch runs the survivors to full
-  depth.
+  depth, as a ray queue: a lane whose path ends takes the next live ray.
 
 :func:`_wf_bounce_reference` is the plain torch version of one launch (every
 column swept; the culled and streamed sweeps are conservative, so they find
@@ -65,6 +65,12 @@ WF_BLOCK = 128
 
 #: Synchronous bounces before the tail launch.
 N_SYNC = 3
+
+#: Work counters of a launch (``stats``): segments (0), primitive tests (1),
+#: bound tests (2), warp votes (3) and those passed (4), the lane slots of
+#: primitive tests (6); in the tail launch also its warps' trips (5) and the
+#: rays its lanes took after their first (7).
+WF_STATS = 8
 
 
 def supports_wavefront(scene: Scene) -> bool:
@@ -194,6 +200,28 @@ def _check_inputs(tabs, layout: Layout, rays: _Rays, st, alive,
     layout.check("wavefront", tabs.n_pad, tabs.m_pad)
 
 
+def _check_launch(rid: torch.Tensor, bounce: int, loop_bounces: int,
+                  stats: Optional[torch.Tensor]) -> None:
+    if bounce < 0 or loop_bounces < 1:
+        raise ValueError(f"bounces [{bounce}, {bounce + loop_bounces}) are "
+                         "not a launch: bounce >= 0 and loop_bounces >= 1")
+    if stats is not None and (stats.device != rid.device
+                              or stats.dtype != torch.int64
+                              or stats.shape != (WF_STATS,)):
+        raise ValueError(f"stats must be an int64 [{WF_STATS}] tensor on "
+                         "rid's device")
+
+
+def _tail_counter(loop_bounces: int, dev) -> Optional[torch.Tensor]:
+    """The slot counter of a launch that runs ``loop_bounces`` > 1 bounces
+    (a zeroed int64 [1] on ``dev``): the kernel takes that launch as a ray
+    queue over a persistent grid, whose warps claim slots from it.
+    None for a launch of one bounce, a thread per slot."""
+    if loop_bounces > 1:
+        return torch.zeros(1, dtype=torch.int64, device=dev)
+    return None
+
+
 def _wf_bounce(tabs, rays: _Rays, st: Optional[torch.Tensor],
                alive: Optional[torch.Tensor], rid: torch.Tensor, *,
                bounce: int, loop_bounces: int, t_min: float, jitter: bool,
@@ -205,27 +233,27 @@ def _wf_bounce(tabs, rays: _Rays, st: Optional[torch.Tensor],
     [r_pad] int32, or ``st=None`` to spawn the camera rays, over the tables
     ``tabs`` of ``layout`` (:func:`~rayz_tpu_torch.ops.tables.resolve`),
     which gives the table mode, the bound tests and the launch's shared
-    memory. Runs up to ``loop_bounces`` bounces numbered from ``bounce``.
-    ``stats`` (int64 [8] on the device) receives the kernel's work
-    counters.
+    memory. Runs up to ``loop_bounces`` bounces numbered from ``bounce``:
+    one (a bounce launch) a thread per slot, more (the tail launch) as a
+    ray queue whose lanes take the next live slot when a path ends
+    (:func:`_tail_counter`); the outputs are the same. ``stats`` (int64
+    [:data:`WF_STATS`] on the device) receives the kernel's work counters.
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors run the plain version. Returns (state, alive, radiance)."""
     global LAUNCHES
     _check_inputs(tabs, layout, rays, st, alive, rid)
+    _check_launch(rid, bounce, loop_bounces, stats)
     kw = dict(bounce=bounce, loop_bounces=loop_bounces, t_min=t_min,
               jitter=jitter, has_motion=has_motion, seed=seed)
     if rid.device.type == "cpu":
         return _wf_bounce_reference(tabs, rays, st, alive, rid, **kw)
     if rid.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {rid.device}")
-    if stats is not None and (stats.device != rid.device
-                              or stats.dtype != torch.int64
-                              or stats.shape != (8,)):
-        raise ValueError("stats must be an int64 [8] tensor on rid's device")
     lib, _ = _build.load()
     r_pad = rid.shape[0]
     dev = rid.device
+    counter = _tail_counter(loop_bounces, dev)
     st_out = torch.empty((ST, r_pad), dtype=torch.float32, device=dev)
     alive_out = torch.empty(r_pad, dtype=torch.int32, device=dev)
     rad = torch.empty((3, r_pad), dtype=torch.float32, device=dev)
@@ -248,8 +276,8 @@ def _wf_bounce(tabs, rays: _Rays, st: Optional[torch.Tensor],
             rays.slot_pix.data_ptr(), st_out.data_ptr(), alive_out.data_ptr(),
             rad.data_ptr(), r_pad, rays.n_rays, rays.slot_pix.shape[0],
             rays.width, bounce, loop_bounces, t_min, int(jitter),
-            int(has_motion), seed & rng.MASK, layout.smem,
-            None if stats is None else stats.data_ptr(),
+            int(has_motion), seed & rng.MASK, layout.smem, ptr(counter),
+            ptr(stats),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "wavefront")
     LAUNCHES += 1
@@ -336,8 +364,8 @@ def render_wavefront(scene: Scene, camera: Camera, seed: int,
     * ``sort=False`` skips the sort and partitions between the synchronous
       bounces; ``resort=True`` sorts before every one of them instead of
       only before bounce 1.
-    * ``stats`` (int64 [8] on the card) sums the kernel's work counters over
-      the render's launches.
+    * ``stats`` (int64 [:data:`WF_STATS`] on the card) sums the kernel's
+      work counters over the render's launches.
 
     Any of these changes only the order of the work, not the image (up to
     exact ties). The tables and the scene's bounds (keyed on the scene, and

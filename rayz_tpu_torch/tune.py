@@ -5,6 +5,7 @@
     python -m rayz_tpu_torch.tune record [--n 100000] [--chunks 256,512,1024]
         [--blocks 16,32,64]
     python -m rayz_tpu_torch.tune ab TREE [TREE ...] [--rounds 4]
+        [--part all|wavefront]
 
 ``tiling`` sweeps the streamed layout's chunk and block sizes on
 ``sphere_field`` at 512x288, 16 spp, depth 8 (the large-scene path of
@@ -33,7 +34,9 @@ tree's default schedule), the flagship's queue launch at 64 and 1 spp
 (``flagship_queue``: CUDA-event ms, counters, the drain's column sweeps and
 the image's digest) and the streamed megakernel and ``render_fast``
 (the wavefront) on ``sphere_field`` 100k, with a digest of each image, and
-each of the wavefront render's four launches (``wavefront_launches``); the
+each of the wavefront render's four launches (``wavefront_launches``: CUDA
+events, work counters, the tail's live-lane share) on the 100k field and
+on the Next Week's final scene (the benchmark's ``next_week_final``); the
 ``recorded-pp`` train step at bench.py's ``fwdbwd`` shape (two
 value-and-gradient micro-batches of 32 spp on the flagship, gradients
 summed) and the ``"recorded"`` engine's value and gradient at 2 spp (host
@@ -53,7 +56,9 @@ counter drained), its streamed pass on the 100k scene (``record_paths``,
 milliseconds; and once per tree the sweep kernels' ptxas report and the
 sphere and triangle sweeps' SASS instructions per column (``sass_sweep``).
 The child runs this file's code against the tree's package, so trees that
-predate a measurement are measured too. Lines start with ``[tiling]``, ``[record]``
+predate a measurement are measured too. ``--part wavefront`` runs only the
+wavefront's part (the kernels' ptxas report and the launches of both
+scenes, ``wavefront_part``). Lines start with ``[tiling]``, ``[record]``
 or ``[ab]``; each names the card and its power limit.
 """
 
@@ -121,10 +126,18 @@ SWEEP_KERNELS = (("record_pp", "record_pp_kernelILb1", _ROOTS),
 #: The sweep loops' #pragma unroll.
 SWEEP_UNROLL = 8
 #: Further kernels whose ptxas report ``ptxas_facts`` keeps: the streamed
-#: wavefront without motion (the 100k scene's), and the queue kernel on its
-#: culled and streamed sweeps without motion (``sphere_field``'s).
+#: wavefront's bounce launches (a thread per slot) and, in trees that have
+#: it, its tail launch's ray queue, without motion (the 100k scene's) and
+#: with it (the Next Week's), and the queue kernel on its culled and
+#: streamed sweeps without motion (``sphere_field``'s).
 REPORT_KERNELS = (("wavefront_kernel<false, streamed>",
-                   "wavefront_kernelILb0ELi2E"),
+                   "wavefront_kernelILb0ELi2E(EE|Lb0E)"),
+                  ("wavefront_kernel<true, streamed>",
+                   "wavefront_kernelILb1ELi2E(EE|Lb0E)"),
+                  ("wavefront_kernel<false, streamed, tail>",
+                   "wavefront_kernelILb0ELi2ELb1E"),
+                  ("wavefront_kernel<true, streamed, tail>",
+                   "wavefront_kernelILb1ELi2ELb1E"),
                   ("megakernel_queue<CulledSweep<false>>",
                    "CulledSweepILb0E"),
                   ("megakernel_queue<StreamSweep<false>>",
@@ -359,18 +372,23 @@ def record_resident(scene, cam, depth: int = 32) -> dict:
 
 
 def wavefront_launches(scene, cam, cfg, runs: int = 3) -> dict:
-    """The 100k render through ``render_wavefront`` with each of its
-    launches bracketed by CUDA events (median ms per launch over ``runs``
-    renders after a warm-up), the device span of the whole render (its
-    sorts, permutes and scatter-back are the span less the launches), and
-    the work counters of one render ([8]: segments, primitive tests, bound
-    tests, votes, votes passed, and where the tree's kernel counts them,
-    at 6 the lane slots its warps spent on primitive tests)."""
+    """A render through ``render_wavefront`` with each of its launches
+    bracketed by CUDA events (median ms per launch over ``runs`` renders
+    after a warm-up), the device span of the whole render (its sorts,
+    permutes and scatter-back are the span less the launches), and the
+    work counters of one render, summed ([8]: segments, primitive tests,
+    bound tests, votes, votes passed, and where the tree's kernel counts
+    them, at 6 the lane slots its warps spent on primitive tests, at 5
+    and 7 the tail's warp trips and the rays its lanes took after their
+    first) and launch by launch (``launch_stats``)."""
     from rayz_tpu_torch.ops import wavefront as wf
     kernel = wf._wf_bounce
-    marks = []
+    marks, counted = [], []
 
     def timed_launch(*a, **kw):
+        if kw.get("stats") is not None:
+            counted.append(torch.zeros_like(kw["stats"]))
+            kw = dict(kw, stats=counted[-1])
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         res = kernel(*a, **kw)
@@ -391,14 +409,49 @@ def wavefront_launches(scene, cam, cfg, runs: int = 3) -> dict:
             if k:
                 per.append([a.elapsed_time(b) for a, b in marks])
                 spans.append(s.elapsed_time(e))
+        stats = torch.zeros(8, dtype=torch.int64, device=cam.device)
+        wf.render_wavefront(scene, cam, 0, cfg, stats=stats)
     finally:
         wf._wf_bounce = kernel
-    stats = torch.zeros(8, dtype=torch.int64, device=cam.device)
-    wf.render_wavefront(scene, cam, 0, cfg, stats=stats)
+    launch_stats = [[int(x) for x in c.tolist()] for c in counted]
     launch_ms = [statistics.median(x) for x in zip(*per)]
     return dict(launch_ms=launch_ms, span_ms=statistics.median(spans),
                 glue_ms=statistics.median(spans) - sum(launch_ms),
-                stats=[int(x) for x in stats.tolist()])
+                stats=[sum(c) for c in zip(*launch_stats)],
+                launch_stats=launch_stats)
+
+
+def next_week_scene():
+    """The Next Week's final scene and its render settings as the
+    benchmark's ``next_week_final.render`` runs them (800x800, 16 spp,
+    depth 40; ``benchmark/configs/next_week_final.json`` through
+    ``benchmark.scene``, read from beside this file's package)."""
+    import rayz_tpu_torch as rtt
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.append(root)
+    from benchmark import scene as bs
+    with open(os.path.join(root, "benchmark", "configs",
+                           "next_week_final.json")) as fh:
+        cfg = json.load(fh)
+    scene, cam = bs.program_scene(bs.inputs(cfg), cfg, "cuda")
+    return scene, cam, rtt.RenderConfig(spp=16, max_depth=cfg["max_depth"],
+                                        t_min=cfg["t_min"])
+
+
+def wavefront_part() -> dict:
+    """The wavefront's measurements: the wavefront kernels' ptxas report
+    and ``wavefront_launches`` on ``sphere_field`` 100k (512x288, 16 spp,
+    depth 8) and on the Next Week's final scene (``next_week_scene``)."""
+    import rayz_tpu_torch as rtt
+    from rayz_tpu_torch.ops import _build
+    _, info = _build.load()
+    field, fcam = rtt.scenes.sphere_field(n=100_000, width=LARGE["width"])
+    fcfg = rtt.RenderConfig(spp=LARGE["spp"], max_depth=LARGE["depth"])
+    return {"ptxas": {k: v for k, v in ptxas_facts(info.log).items()
+                      if k.startswith("wavefront")},
+            "wavefront_launches": wavefront_launches(field, fcam, fcfg),
+            "next_week_launches": wavefront_launches(*next_week_scene())}
 
 
 def _queue_stats(dev) -> torch.Tensor:
@@ -538,6 +591,7 @@ def render() -> None:
         out[label] = _mrays(fcam.width * fcam.height * fcfg.spp, frun)
         out[label + "_digest"] = _digest(frun(1))
     out["wavefront_launches"] = wavefront_launches(field, fcam, fcfg)
+    out["next_week_launches"] = wavefront_launches(*next_week_scene())
     for label, n, width, kw in MODE_PATHS:
         mscene, mcam = ((field, fcam) if n == 100_000 else
                         rtt.scenes.sphere_field(n=n, width=width))
@@ -640,18 +694,53 @@ def _queue_line(res: dict) -> str:
         for spp, v in res["flagship_queue"].items())
 
 
-def _wavefront_line(res: dict) -> str:
-    """The 100k wavefront render's launches of one A/B child, as text."""
-    wl = res["wavefront_launches"]
+def tail_share(stats) -> str:
+    """The tail launch's live-lane share from its counters: segments over
+    32 lanes a warp trip (slots 0 and 5), and the rays its lanes took
+    after their first (7); "not counted" in a tree whose kernel does not
+    count its trips."""
+    if not stats[5]:
+        return "live-lane share not counted"
+    return (f"live-lane share {stats[0] / (32 * stats[5]):.4f} ({stats[0]} "
+            f"segments, {stats[5]} warp trips), {stats[7]} rays taken after "
+            "a lane's first")
+
+
+def _wavefront_line(res: dict, key: str = "wavefront_launches",
+                    label: str = "wavefront") -> str:
+    """A wavefront render's launches of one A/B child, as text."""
+    wl = res[key]
     s = wl["stats"]
-    return (f"wavefront launches " + ", ".join(
+    return (f"{label} launches " + ", ".join(
         f"{ms:.3f}" for ms in wl["launch_ms"])
         + f" ms (sum {sum(wl['launch_ms']):.3f}), render span "
         f"{wl['span_ms']:.3f} ms, sorts/permutes/scatter {wl['glue_ms']:.3f} "
         f"ms; {s[0]} segments, {s[1] / max(s[0], 1):.1f} primitive and "
         f"{s[2] / max(s[0], 1):.1f} bound tests per segment, votes {s[3]} "
         f"({s[4]} passed)"
-        + (f", sweep lanes idle {1 - s[1] / s[6]:.4f}" if s[6] else ""))
+        + (f", sweep lanes idle {1 - s[1] / s[6]:.4f}" if s[6] else "")
+        + ("; tail " + tail_share(wl["launch_stats"][-1])
+           if len(wl["launch_stats"]) > 3 else ""))
+
+
+def _wavefront_lines(res: dict) -> str:
+    """The 100k field's and the Next Week's wavefront launches."""
+    return (_wavefront_line(res) + "; " + _wavefront_line(
+        res, "next_week_launches", "next week"))
+
+
+def _wavefront_series(runs: list) -> list:
+    """(name, values over rounds) of each wavefront launch of both
+    scenes, and their sums."""
+    out = []
+    for key, label in (("wavefront_launches", "wavefront"),
+                       ("next_week_launches", "next week")):
+        out += [(f"{label} launches (sum) ms",
+                 [sum(r[key]["launch_ms"]) for r in runs])]
+        out += [(f"{label} launch {i} ms",
+                 [r[key]["launch_ms"][i] for r in runs])
+                for i in range(len(runs[0][key]["launch_ms"]))]
+    return out
 
 
 def _mode_line(res: dict) -> str:
@@ -672,7 +761,7 @@ def _mode_line(res: dict) -> str:
     return "megakernel modes: " + "; ".join(parts)
 
 
-def ab(trees, rounds: int) -> None:
+def ab(trees, rounds: int, part: str = "all") -> None:
     card = _card()
     builds = [subprocess.Popen(
         [sys.executable, "-c", "from rayz_tpu_torch.ops import _build; "
@@ -692,11 +781,15 @@ def ab(trees, rounds: int) -> None:
     runs = {t: [] for t in trees}
     for k in range(rounds):
         for t in (trees if k % 2 == 0 else trees[::-1]):
-            proc = _child(t, "render")
+            proc = _child(t, "render" if part == "all" else part)
             if proc.returncode:
                 raise RuntimeError(f"{t} failed:\n{proc.stdout}{proc.stderr}")
             res = json.loads(proc.stdout.strip().splitlines()[-1])
             runs[t].append(res)
+            if part == "wavefront":
+                print(f"[ab] round {k} {t}: " + _wavefront_lines(res)
+                      + f" | {card}", flush=True)
+                continue
             print(f"[ab] round {k} {t}: "
                   + ", ".join(f"{key} {statistics.median(res[key]):.3f} "
                               f"(digest {res[key + '_digest']})"
@@ -717,11 +810,18 @@ def ab(trees, rounds: int) -> None:
             print(f"[ab] round {k} {t}: " + _queue_line(res) + f" | {card}",
                   flush=True)
             print(f"[ab] round {k} {t}: " + _record_line(res)
-                  + "; " + _wavefront_line(res) + f" | {card}", flush=True)
+                  + "; " + _wavefront_lines(res) + f" | {card}", flush=True)
             print(f"[ab] round {k} {t}: " + _mode_line(res) + f" | {card}",
                   flush=True)
     for t in trees:
         first = runs[t][0]
+        if part == "wavefront":
+            print(f"[ab] {t}: ptxas {first['ptxas']}; " + "; ".join(
+                f"{key} median {statistics.median(vals):.4f} (rounds "
+                f"{min(vals):.4f}-{max(vals):.4f})"
+                for key, vals in _wavefront_series(runs[t])) + f" | {card}",
+                flush=True)
+            continue
 
         def ops(v):
             return ", ".join(f"{o} {n:g}" for o, n in v.items()
@@ -737,12 +837,7 @@ def ab(trees, rounds: int) -> None:
         series += [(f"flagship queue launch, {spp} spp, ms",
                     [r["flagship_queue"][spp]["ms"] for r in runs[t]])
                    for spp in first["flagship_queue"]]
-        series += [("wavefront launches (sum) ms",
-                    [sum(r["wavefront_launches"]["launch_ms"])
-                     for r in runs[t]])]
-        series += [(f"wavefront launch {i} ms",
-                    [r["wavefront_launches"]["launch_ms"][i]
-                     for r in runs[t]]) for i in range(4)]
+        series += _wavefront_series(runs[t])
         series += [(f"megakernel {label} render, kernel ms",
                     [r["mode_" + label]["kernel_ms"] for r in runs[t]])
                    for label, *_ in MODE_PATHS]
@@ -778,7 +873,9 @@ def main(argv=None) -> int:
     a = sub.add_parser("ab")
     a.add_argument("trees", nargs="+")
     a.add_argument("--rounds", type=int, default=4)
+    a.add_argument("--part", choices=("all", "wavefront"), default="all")
     sub.add_parser("render")
+    sub.add_parser("wavefront")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("these measurements run on an NVIDIA GPU only")
@@ -790,7 +887,9 @@ def main(argv=None) -> int:
         record(args.n, *([int(x) for x in s.split(",")]
                          for s in (args.chunks, args.blocks)))
     elif args.cmd == "ab":
-        ab(args.trees, args.rounds)
+        ab(args.trees, args.rounds, args.part)
+    elif args.cmd == "wavefront":
+        print(json.dumps(wavefront_part()), flush=True)
     else:
         render()
     return 0

@@ -204,6 +204,41 @@ def test_wrapper_validates_inputs():
                       **dict(kw, layout=streamed))
 
 
+@pytest.mark.parametrize("bad", [dict(loop_bounces=0), dict(bounce=-1),
+                                 dict(stats=torch.zeros(8,
+                                                        dtype=torch.int32)),
+                                 dict(stats=torch.zeros(9,
+                                                        dtype=torch.int64))],
+                         ids=["no_bounce", "negative_bounce", "stats_int32",
+                              "stats_9"])
+def test_wrapper_refuses_launch_arguments(bad):
+    """A launch's bounces and counters are checked before any device is
+    chosen, so the plain version refuses them as the kernel would."""
+    scene, cam, _ = _port(_golden_scene)
+    layout = tables.resolve(scene, "wavefront")
+    tabs, _ = tables.layout_tables(scene, layout, cam.look_from, memo=False)
+    rays = wf._Rays(tables._camera_vector(cam).contiguous(),
+                    wf._slot_pixels(cam), 96 * 64, 96)
+    rid = torch.arange(6144, dtype=torch.int32)
+    kw = dict(bounce=0, loop_bounces=1, t_min=1e-3, jitter=False,
+              has_motion=False, seed=0, layout=layout)
+    with pytest.raises(ValueError, match="bounce|stats"):
+        wf._wf_bounce(tabs, rays, None, None, rid, **{**kw, **bad})
+
+
+@pytest.mark.parametrize("loop_bounces", [1, 2, 37])
+def test_tail_counter(loop_bounces):
+    """Only a launch of more than one bounce (the tail) gets the slot
+    counter that makes the kernel a ray queue: a zeroed int64 [1] on the
+    launch's device, made anew each launch."""
+    c = wf._tail_counter(loop_bounces, torch.device("cpu"))
+    if loop_bounces == 1:
+        assert c is None
+    else:
+        assert c.dtype == torch.int64 and c.shape == (1,) and int(c) == 0
+        assert c is not wf._tail_counter(loop_bounces, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("name", ["field", "box"])
 def test_streamed_launch_shared_memory(name):
     """A streamed launch's shared memory as the wrapper accounts it: the
@@ -256,3 +291,64 @@ def test_kernel_matches_plain_on_card(cuda_device):
     assert launches == [True] * 4
     step, frac = _golden_allowance(img.cpu())
     assert step <= 1 and frac < 0.005, (step, frac)
+
+
+def _tail_case(name, dev):
+    """A small scene and its table layout's keyword arguments, with more
+    live rays at 16 spp than an H100 holds lanes at once (132 SMs x 7
+    blocks x 128 = 118,272), so lanes take second rays: the Cornell box
+    (paths alive to depth 32) resident and streamed, the flagship's moving
+    spheres resident, the 3,000-sphere field culled."""
+    if name == "box":
+        return rtt.scenes.cornell_box(width=128, device=dev), {}
+    if name == "box_streamed":
+        return (rtt.scenes.cornell_box(width=128, device=dev),
+                dict(stream=128))
+    if name == "motion":
+        return rtt.scenes.random_bouncing(width=256, device=dev), {}
+    return rtt.scenes.sphere_field(n=3000, width=256, device=dev), {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["partitioned", "unpartitioned",
+                                   "spawned"])
+@pytest.mark.parametrize("name", ["box", "box_streamed", "motion",
+                                  "field_culled"])
+def test_tail_queue_matches_plain_on_card(cuda_device, name, order):
+    """The tail launch's ray queue against the plain version on every slot
+    (state, alive flag, radiance): after a bounce launch, its rays
+    partitioned dead-last as the render does, or left in ray order, or a
+    queue launch that spawns the camera rays itself; 16 spp, depth 16. Its
+    counters show lanes that took a ray after their first, and as many
+    segments as its warps' trips allow."""
+    (scene, cam), layout_kw = _tail_case(name, cuda_device)
+    layout = tables.resolve(scene, "wavefront", **layout_kw)
+    tabs, _ = tables.layout_tables(scene, layout, cam.look_from, memo=False)
+    spp, depth = 16, 16
+    n = cam.width * cam.height * spp
+    rays = wf._Rays(tables._camera_vector(cam).contiguous(),
+                    wf._slot_pixels(cam), n, cam.width)
+    r_pad = -(-n // wf.WF_BLOCK) * wf.WF_BLOCK
+    rid = torch.arange(r_pad, dtype=torch.int32, device=cuda_device)
+    kw = dict(t_min=1e-3, jitter=True, has_motion=scene.has_motion, seed=7,
+              layout=layout)
+    st = alive = None
+    first = 0
+    if order != "spawned":
+        st, alive, _ = wf._wf_bounce(tabs, rays, None, None, rid, bounce=0,
+                                     loop_bounces=1, **kw)
+        first = 1
+        if order == "partitioned":
+            perm = wf._dead_last(alive)
+            st, alive, rid = (t[..., perm].contiguous()
+                              for t in (st, alive, rid))
+    stats = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    args = (tabs, rays, st, alive, rid)
+    tail = dict(bounce=first, loop_bounces=depth - first, **kw)
+    k = wf._wf_bounce(*args, stats=stats, **tail)
+    p = wf._wf_bounce_reference(*args, **tail)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b), (name, order)
+    seg, trips, again = (int(stats[i]) for i in (0, 5, 7))
+    assert again > 0 and 0 < seg <= 32 * trips, (seg, trips, again)
